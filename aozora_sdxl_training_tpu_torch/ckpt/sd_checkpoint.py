@@ -22,7 +22,8 @@ from .sd_keys import unet_key_mapping
 _FLOAT_ST = {"F32", "F16", "BF16"}
 
 
-def _np_dtype(compute_dtype) -> np.dtype:
+def numpy_dtype_for_torch(compute_dtype) -> np.dtype:
+    """The numpy dtype a torch float dtype is saved as (bf16 via ml_dtypes)."""
     if compute_dtype == torch.bfloat16:
         return np.dtype(ml_dtypes.bfloat16)
     if compute_dtype == torch.float16:
@@ -65,7 +66,7 @@ def save_merged_checkpoint(output_path, params: dict, base_checkpoint_path,
     into the base checkpoint and save, one tensor resident at a time."""
     output_path = Path(output_path)
     base_path = Path(base_checkpoint_path)
-    out_np_dtype = _np_dtype(compute_dtype)
+    out_np_dtype = numpy_dtype_for_torch(compute_dtype)
 
     hf_to_sd = unet_key_mapping(list(params.keys()))
     sd_from_params = {sd: hf for hf, sd in hf_to_sd.items()}

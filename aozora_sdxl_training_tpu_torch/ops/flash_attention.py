@@ -1,17 +1,25 @@
 """Flash attention (forward + backward): CUDA kernels and their plain version.
 
 Counterpart of ``aozora_sdxl_training_tpu/ops/flash_attention.py``. The
-three Pallas kernels there become three hand-written CUDA kernels in
-``csrc/flash_attention.cu`` (K1 forward, K2 dQ, K3 dK/dV), bound with
-``ctypes`` and wrapped in a ``torch.autograd.Function``.
+Pallas kernels there become hand-written CUDA kernels in
+``csrc/flash_attention.cu``, one set per head dim, bound with ``ctypes`` and
+wrapped in a ``torch.autograd.Function``:
+
+* head_dim 64 (the SDXL UNet): K1 forward, K2 dQ, K3 dK/dV, for
+  ``_flash_forward`` / ``_flash_backward``;
+* head_dim 128 (the Anima DiT): K4a forward, K4b dQ and dK/dV, for
+  ``_flash_forward_folded`` / ``_flash_backward_folded``.
 
 Layout: q (B, Sq, H, D), k and v (B, Skv, H, D), as the callers hold them;
-the kernels index that layout directly, so nothing is transposed or padded.
-The row logsumexp is (B*H, Sq) fp32. No gradient flows through it.
+the kernels index that layout directly, so nothing is transposed or padded
+(the TPU's "folded" (B, S, H*D) layout is the same memory). The row
+logsumexp is (B*H, Sq) fp32. No gradient flows through it.
 
 A wrapper launches its kernel for CUDA tensors and raises on what the
-kernel does not take; it runs the plain PyTorch version only for CPU
-tensors. ``LAUNCHES`` counts kernel launches per kernel.
+kernel does not take (any other head dim among them: head_dim 512, the
+SD-VAE mid-attention case of K4a, is not ported yet); it runs the plain
+PyTorch version only for CPU tensors. ``LAUNCHES`` counts kernel launches
+per kernel.
 """
 
 from __future__ import annotations
@@ -22,8 +30,13 @@ import torch
 
 from . import cuda_build
 
-HEAD_DIM = 64
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# kernel names (and C entry points "aozora_<name>") by head dim: forward, dQ,
+# dK/dV
+KERNEL_NAMES = {
+    64: ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),                 # K1-K3
+    128: ("flash_fwd_d128", "flash_bwd_dq_d128", "flash_bwd_dkv_d128"),  # K4a/K4b
+}
+LAUNCHES = {name: 0 for names in KERNEL_NAMES.values() for name in names}
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _lib = None
 
@@ -38,30 +51,50 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = cuda_build.load("flash_attention")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.aozora_flash_fwd.argtypes = [i, p, p, p, p, p, i, i, i, i, f, p]
-        lib.aozora_flash_bwd_dq.argtypes = [i, p, p, p, p, p, p, p, p,
-                                            i, i, i, i, f, p]
-        lib.aozora_flash_bwd_dkv.argtypes = [i, p, p, p, p, p, p, p, p,
-                                             i, i, i, i, f, p]
-        for fn in (lib.aozora_flash_fwd, lib.aozora_flash_bwd_dq,
-                   lib.aozora_flash_bwd_dkv):
-            fn.restype = i
+        argtypes = ([i, p, p, p, p, p, i, i, i, i, f, p],
+                    [i, p, p, p, p, p, p, p, p, i, i, i, i, f, p],
+                    [i, p, p, p, p, p, p, p, p, i, i, i, i, f, p])
+        for names in KERNEL_NAMES.values():
+            for name, types in zip(names, argtypes):
+                fn = getattr(lib, f"aozora_{name}")
+                fn.argtypes = types
+                fn.restype = i
         lib.aozora_flash_error_string.argtypes = [i]
         lib.aozora_flash_error_string.restype = ctypes.c_char_p
-        lib.aozora_flash_head_dim.restype = i
-        if lib.aozora_flash_head_dim() != HEAD_DIM:
-            raise RuntimeError("flash_attention library head_dim mismatch")
         _lib = lib
     return _lib
 
 
-def _check_launch(lib, code: int, name: str) -> None:
+def _launch(name: str, *args) -> None:
+    lib = _library()
+    code = getattr(lib, f"aozora_{name}")(*args)
     if code != 0:
         msg = lib.aozora_flash_error_string(code).decode()
         raise RuntimeError(f"{name} launch failed: {msg} (cudaError {code})")
+    LAUNCHES[name] += 1
 
 
-def _check_cuda_inputs(q, k, v) -> None:
+def kernel_names(head_dim: int) -> tuple[str, str, str]:
+    """(forward, dQ, dK/dV) kernel names for ``head_dim``; raises for a head
+    dim that has no kernel."""
+    if head_dim in KERNEL_NAMES:
+        return KERNEL_NAMES[head_dim]
+    if head_dim == 512:
+        raise NotImplementedError(
+            "flash attention at head_dim 512 (the SD-VAE mid-attention case "
+            "of the folded TPU kernel) is not ported yet; it comes with the "
+            "caching encoders")
+    raise ValueError(f"flash attention: head_dim {head_dim}; expected one "
+                     f"of {sorted(KERNEL_NAMES)}")
+
+
+def _check_cuda_inputs(q, k, v) -> tuple[str, str, str]:
+    """Checks what the kernels take; returns the kernel names for q's head
+    dim."""
+    if q.dim() != 4:
+        raise ValueError(f"flash attention: q has shape {tuple(q.shape)}; "
+                         "expected (B, S, H, D)")
+    names = kernel_names(q.shape[-1])
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"flash attention: {name} is on {t.device}, "
@@ -69,20 +102,20 @@ def _check_cuda_inputs(q, k, v) -> None:
         if t.dtype not in _DTYPE_CODES:
             raise TypeError(f"flash attention: {name} has dtype {t.dtype}; "
                             "the kernels take bfloat16 or float32")
-        if t.dim() != 4 or t.shape[-1] != HEAD_DIM:
-            raise ValueError(f"flash attention: {name} has shape "
-                             f"{tuple(t.shape)}; expected (B, S, H, {HEAD_DIM})")
         if not t.is_contiguous():
             raise ValueError(f"flash attention: {name} must be contiguous")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash attention: q, k, v on different devices")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash attention: q, k, v dtypes differ")
-    if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+    if (k.dim() != 4 or k.shape != v.shape or k.shape[0] != q.shape[0]
+            or k.shape[2:] != q.shape[2:]):
         raise ValueError(f"flash attention: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree; "
+                         "expected (B, S, H, D) with the same B, H and D")
     if q.shape[1] == 0 or k.shape[1] == 0:
         raise ValueError("flash attention: empty sequence")
+    return names
 
 
 def _check_rows(q, lse, **tensors) -> None:
@@ -152,63 +185,56 @@ def flash_bwd_dkv_reference(q, k, v, dout, lse, delta, scale: float):
 # --------------------------------------------------------------------------
 
 def flash_fwd(q, k, v, scale: float):
-    """K1: (out, lse). Kernel for CUDA tensors, plain version on the CPU."""
+    """K1 / K4a: (out, lse). Kernel for CUDA tensors, plain version on the
+    CPU."""
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, scale)
-    _check_cuda_inputs(q, k, v)
+    name = _check_cuda_inputs(q, k, v)[0]
     b, sq, h, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
-    lib = _library()
-    code = lib.aozora_flash_fwd(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), b, h, sq, k.shape[1], float(scale),
-        _stream(q))
-    _check_launch(lib, code, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+    _launch(name, _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, sq,
+            k.shape[1], float(scale), _stream(q))
     return out, lse
 
 
 def flash_bwd_dq(q, k, v, out, lse, dout, scale: float):
-    """K2: (dq, delta). The kernel also writes delta = rowsum(dO * O)."""
+    """K2 / K4b dq: (dq, delta). The kernel also writes delta =
+    rowsum(dO * O)."""
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, out, lse, dout, scale)
-    _check_cuda_inputs(q, k, v)
+    name = _check_cuda_inputs(q, k, v)[1]
     _check_rows(q, lse, out=out, dout=dout)
     b, sq, h, _ = q.shape
-    lib = _library()
     delta = torch.empty_like(lse)
     dq = torch.empty_like(q)
-    code = lib.aozora_flash_bwd_dq(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), b, h, sq, k.shape[1], float(scale), _stream(q))
-    _check_launch(lib, code, "flash_bwd_dq")
-    LAUNCHES["flash_bwd_dq"] += 1
+    _launch(name, _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), b, h, sq, k.shape[1],
+            float(scale), _stream(q))
     return dq, delta
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, scale: float):
-    """K3: (dk, dv) from the saved lse and K2's delta."""
+    """K3 / K4b dkv: (dk, dv) from the saved lse and the dq kernel's
+    delta."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, dout, lse, delta, scale)
-    _check_cuda_inputs(q, k, v)
+    name = _check_cuda_inputs(q, k, v)[2]
     _check_rows(q, lse, delta=delta, dout=dout)
     b, sq, h, _ = q.shape
-    lib = _library()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    code = lib.aozora_flash_bwd_dkv(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, h, sq, k.shape[1], float(scale), _stream(q))
-    _check_launch(lib, code, "flash_bwd_dkv")
-    LAUNCHES["flash_bwd_dkv"] += 1
+    _launch(name, _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, h, sq, k.shape[1], float(scale),
+            _stream(q))
     return dk, dv
 
 
 def flash_bwd(q, k, v, out, lse, dout, scale: float):
-    """K2 then K3: (dq, dk, dv)."""
+    """The dq kernel then the dk/dv kernel: (dq, dk, dv)."""
     dq, delta = flash_bwd_dq(q, k, v, out, lse, dout, scale)
     dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, scale)
     return dq, dk, dv

@@ -12,6 +12,7 @@ Not ported yet, and refused with an error when the config asks for them:
 resume (and the training-state file), preview sampling, tensor-parallel
 meshes, int8 moments. There is no memory planner: remat follows
 ``AOZORA_SDXL_REMAT`` (``off`` by default, or ``full``).
+``AOZORA_PROFILE_DIR`` traces micro steps 3-8 (``train/profiling.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from ..models.sdxl.arch import SDXL_BASE, UNetConfig
 from ..models.sdxl.conversion import params_from_sd_state
 from ..opt import adamw
 from . import curves
+from .profiling import StepProfiler
 from .reporter import MetricsReporter, optimizer_block
 from .train_step import (TrainStepConfig, make_apply_step, make_micro_step,
                          split_trainable)
@@ -329,12 +331,14 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
         print("WARNING: the training-state file is not written: it is not "
               "ported to the PyTorch package yet")
 
+    profiler = StepProfiler.from_env("sdxl")
     for batch in prefetcher:
         if micro_step >= config.MAX_TRAIN_STEPS:
             break
         if not batch:
             continue
         micro_step += 1
+        profiler.before_step(micro_step)
         real_n = int(batch.get("real_n", batch["latents"].shape[0]))
         tickets = ts_sampler.sample(real_n)
         ticket0 = int(tickets[0])
@@ -365,6 +369,10 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
                 reporter.log_message(
                     f"\n--- {reason} at optimizer step {optimizer_step} ---")
                 save_checkpoint(optimizer_step)
+
+        message = profiler.after_step(micro_step)
+        if message:
+            reporter.log_message(message)
 
         # report the *previous* step so the host never waits on this one
         now = time.time()
