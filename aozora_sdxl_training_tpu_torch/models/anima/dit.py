@@ -18,7 +18,10 @@ padded to 512 tokens.
   fp32; everything else runs in ``compute_dtype``.
 * Attention dispatches through ``ops.attention``: the 4096-token
   self-attention of a 1024px image takes the flash kernels at head_dim 128
-  (K4a/K4b); the 512-token cross-attention and adapter take einsum.
+  (K4a/K4b); the 512-token cross-attention and adapter take einsum. Under
+  an ``SPRingConfig`` (sequence parallelism) the self-attention goes
+  through ``ops.ring_attention.sp_ring_attention`` at any length, and the
+  other sites take its ``base_impl`` locally.
 * ``remat`` True/"full" wraps each block in ``torch.utils.checkpoint``; the
   JAX package's "conservative" policy is not ported yet.
 """
@@ -34,6 +37,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import attention
+from ...ops.ring_attention import SPRingConfig, sp_ring_attention
 
 Params = dict[str, torch.Tensor]
 
@@ -157,8 +161,13 @@ def apply_rope_halfsplit(x, cos, sin):
 # Attention / blocks
 # --------------------------------------------------------------------------
 
+def _base_impl(attn_impl) -> str:
+    """The local attention impl: SP configs carry it as .base_impl."""
+    return attn_impl.base_impl if isinstance(attn_impl, SPRingConfig) else attn_impl
+
+
 def _dit_attention(params: Params, prefix: str, x, context, cfg: AnimaDiTConfig,
-                   rope=None, attn_impl: str = "xla"):
+                   rope=None, attn_impl="xla"):
     b, l, _ = x.shape
     heads, d = cfg.num_heads, cfg.head_dim
     ctx = x if context is None else context
@@ -171,8 +180,14 @@ def _dit_attention(params: Params, prefix: str, x, context, cfg: AnimaDiTConfig,
         cos, sin = rope
         q = apply_rope_halfsplit(q, cos, sin)
         k = apply_rope_halfsplit(k, cos, sin)
-    o = attention(q, k, v, impl=attn_impl).reshape(b, l, heads * d)
-    return _linear(params, f"{prefix}.output_proj", o)
+    if context is None and isinstance(attn_impl, SPRingConfig):
+        # sequence parallelism: the self-attention tokens shard over the sp
+        # ranks and KV hops the ring; cross-attention needs no communication
+        # (replicated context) and uses base_impl locally
+        o = sp_ring_attention(q, k, v, attn_impl)
+    else:
+        o = attention(q, k, v, impl=_base_impl(attn_impl))
+    return _linear(params, f"{prefix}.output_proj", o.reshape(b, l, heads * d))
 
 
 def _adaln_chunks(params: Params, prefix: str, emb, adaln_lora, n: int):
@@ -184,7 +199,7 @@ def _adaln_chunks(params: Params, prefix: str, emb, adaln_lora, n: int):
 
 
 def dit_block(params: Params, prefix: str, x, emb, context, rope, adaln_lora,
-              cfg: AnimaDiTConfig, attn_impl: str = "xla"):
+              cfg: AnimaDiTConfig, attn_impl="xla"):
     """x: (B, T, H, W, D); emb: (B, T, D); context: (B, Lc, Dc)."""
     b, t, h, w, d = x.shape
     res_dtype = x.dtype
@@ -324,7 +339,7 @@ def preprocess_text_embeds(params: Params, text_embeds, t5_ids, cfg: AnimaDiTCon
 # --------------------------------------------------------------------------
 
 def dit_prologue(params: Params, latents, timesteps, context, *,
-                 cfg: AnimaDiTConfig, t5_ids=None, attn_impl: str = "xla",
+                 cfg: AnimaDiTConfig, t5_ids=None, attn_impl="xla",
                  compute_dtype=torch.bfloat16):
     """Patchify + embedders + adapter: (x, emb, context, rope, lora, shape)."""
     pt, ps = cfg.patch_temporal, cfg.patch_spatial
@@ -345,7 +360,7 @@ def dit_prologue(params: Params, latents, timesteps, context, *,
                    F.silu(_linear(params, "t_embedder.1.linear_1", sin_emb)))
     emb = _rms_norm(params, "t_embedding_norm", sin_emb)
     context = preprocess_text_embeds(params, context.to(compute_dtype), t5_ids,
-                                     cfg, attn_impl)
+                                     cfg, _base_impl(attn_impl))
     return x, emb, context, rope, lora, orig
 
 
@@ -376,7 +391,7 @@ def dit_epilogue(params: Params, x, emb, lora, orig, *, cfg: AnimaDiTConfig,
 
 
 def dit_forward(params: Params, latents, timesteps, context, *,
-                cfg: AnimaDiTConfig, t5_ids=None, attn_impl: str = "xla",
+                cfg: AnimaDiTConfig, t5_ids=None, attn_impl="xla",
                 compute_dtype=torch.bfloat16, remat=True):
     """latents: (B, T, H, W, C) channel-last; timesteps: (B,) or (B, T).
     Returns (B, T, H, W, C_out) cropped back to the input size."""

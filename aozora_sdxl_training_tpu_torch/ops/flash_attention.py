@@ -13,6 +13,11 @@ wrapped in a ``torch.autograd.Function``:
   ``_flash_forward_folded``. No caller differentiates there, so the
   backward wrappers raise at head_dim 512 on any device.
 
+``flash_fwd_stats`` / ``flash_bwd_stats`` (K5) are the JAX package's
+stats-level entry points over the same kernels, for ring attention
+(``ops/ring_attention.py``): the forward returns the row logsumexp, the
+backward takes a global (out, lse) and a KV shard.
+
 Layout: q (B, Sq, H, D), k and v (B, Skv, H, D), as the callers hold them;
 the kernels index that layout directly, so nothing is transposed or padded
 (the TPU's "folded" (B, S, H*D) layout is the same memory). The row
@@ -21,7 +26,7 @@ logsumexp is (B*H, Sq) fp32. No gradient flows through it.
 A wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take (any other head dim among them); it runs the plain
 PyTorch version only for CPU tensors. ``LAUNCHES`` counts kernel launches
-per kernel.
+per kernel, ``STATS_LAUNCHES`` the K5 entry points' calls that launched.
 """
 
 from __future__ import annotations
@@ -40,13 +45,15 @@ KERNEL_NAMES = {
     512: ("flash_fwd_d512", None, None),                                # K4a
 }
 LAUNCHES = {name: 0 for names in KERNEL_NAMES.values() for name in names if name}
+STATS_LAUNCHES = {"flash_fwd_stats": 0, "flash_bwd_stats": 0}
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _lib = None
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, STATS_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -284,3 +291,64 @@ def flash_attention(q, k, v, *, scale: float | None = None):
     """Exact attention. q: (B, Sq, H, D); k, v: (B, Skv, H, D)."""
     scale = (q.shape[-1] ** -0.5) if scale is None else scale
     return FlashAttention.apply(q, k, v, scale)[0]
+
+
+# --------------------------------------------------------------------------
+# K5: stats-level entry points (ring attention)
+# --------------------------------------------------------------------------
+
+def _lse3(lse, b: int, h: int, sq: int):
+    """(B*H, Sq) -> the entry points' (B, Sq, H)."""
+    return lse.reshape(b, h, sq).permute(0, 2, 1)
+
+
+def _lse_rows(lse3):
+    """(B, Sq, H) -> the kernels' contiguous fp32 (B*H, Sq)."""
+    b, sq, h = lse3.shape
+    return lse3.permute(0, 2, 1).reshape(b * h, sq).float().contiguous()
+
+
+def flash_fwd_stats_reference(q, k, v, scale: float):
+    """Plain version of ``flash_fwd_stats``."""
+    b, sq, h, _ = q.shape
+    out, lse = flash_forward_reference(q, k, v, scale)
+    return out, _lse3(lse, b, h, sq)
+
+
+def flash_bwd_stats_reference(q, k, v, out, lse3, do, scale: float):
+    """Plain version of ``flash_bwd_stats``."""
+    lse = _lse_rows(lse3)
+    dq, delta = flash_bwd_dq_reference(q, k, v, out, lse, do, scale)
+    return (dq, *flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale))
+
+
+def flash_fwd_stats(q, k, v, *, scale: float | None = None):
+    """Forward kernel only: (out (B,Sq,H,D), lse (B,Sq,H) fp32).
+
+    No autograd: the caller (ring attention) owns the backward and needs
+    the log-sum-exp to merge KV-shard partials exactly."""
+    b, sq, h, d = q.shape
+    scale = (d ** -0.5) if scale is None else scale
+    if q.device.type == "cpu":
+        return flash_fwd_stats_reference(q, k, v, scale)
+    out, lse = flash_fwd(q, k, v, scale)
+    STATS_LAUNCHES["flash_fwd_stats"] += 1
+    return out, _lse3(lse, b, h, sq)
+
+
+def flash_bwd_stats(q, k, v, out, lse3, do, *, scale: float | None = None):
+    """Backward kernels from precomputed global statistics: (dq, dk, dv).
+
+    ``out``/``lse3`` are the GLOBAL attention output and log-sum-exp for
+    these q rows ((B,Sq,H,D) / (B,Sq,H) fp32); k/v may be a shard of the
+    keys, and the result is then that shard's exact contribution. The dQ
+    kernel takes delta = rowsum(dO * O) from the global ``out``, as the
+    JAX package's backward does."""
+    _require_backward(q.shape[-1])
+    scale = (q.shape[-1] ** -0.5) if scale is None else scale
+    out, do = out.to(q.dtype).contiguous(), do.to(q.dtype).contiguous()
+    if q.device.type == "cpu":
+        return flash_bwd_stats_reference(q, k, v, out, lse3, do, scale)
+    grads = flash_bwd(q, k, v, out, _lse_rows(lse3), do, scale)
+    STATS_LAUNCHES["flash_bwd_stats"] += 1
+    return grads

@@ -1,4 +1,5 @@
-"""Anima DiT training loop (flow matching) for one CUDA device.
+"""Anima DiT training loop (flow matching) on one CUDA device, or on the
+dp x sp ranks of a torchrun world.
 
 Counterpart of ``aozora_sdxl_training_tpu/train/anima_trainer.py::
 run_anima_training`` with the same phases and the same output as the port's
@@ -17,10 +18,22 @@ update. At GA 1 it runs micro + apply, which is the JAX package's fused
 step's arithmetic. ``ANIMA_GRADIENT_CHECKPOINTING_MODE`` "Full" (the
 default) recomputes each block in the backward, "Off" keeps everything.
 
+Under torchrun (``WORLD_SIZE`` > 1; the CLI starts the process group) the
+ranks form the JAX package's dp x sp layout (``parallel/sharding.py``):
+every rank draws the same tickets and global batches, each dp rank trains
+rows [r*B, (r+1)*B) of each global batch, and with
+``SEQUENCE_PARALLEL_SIZE`` > 1 the DiT self-attention runs as ring
+attention over the sp ranks (``ops/ring_attention.py``). Parameters are
+replicated; the gradients are reduced once per optimizer step, before the
+global-norm clip, so every rank applies the same update. The loss printed
+is the global batch's, and only global rank 0 prints and saves. Under Full
+remat the ring's P2P runs again in each block's recompute; every rank
+recomputes the same blocks in the same order, which keeps that safe.
+
 Not ported yet, and refused with an error when the config asks for them:
 resume (and the training-state file), "Conservative" checkpointing,
-preview sampling, sequence/pipeline/tensor parallelism, the line-art loss,
-video mode, a cache rebuild and int8 moments. There is no memory planner:
+preview sampling, pipeline/tensor parallelism, the line-art loss, video
+mode, a cache rebuild and int8 moments. There is no memory planner:
 masters are fp32. ``AOZORA_PROFILE_DIR`` traces micro steps 3-8
 (``train/profiling.py``).
 """
@@ -35,6 +48,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ckpt.anima_checkpoint import (load_dit_state, resolve_save_prefix,
                                      save_dit_model)
@@ -46,7 +60,9 @@ from ..data.anima_cache import (AnimaLatentDataset, check_if_anima_caching_neede
 from ..data.dataset import BatchPrefetcher, pack_sample_schedule, pad_batch_arrays
 from ..data.schedule import TimestepTicketSampler, build_image_batch_schedule
 from ..models.anima import dit as dit_mod
+from ..ops.ring_attention import SPRingConfig
 from ..opt import adamw
+from ..parallel import sharding as shard
 from . import anima_objectives, curves, objectives
 from .profiling import StepProfiler
 from .reporter import MetricsReporter, optimizer_block
@@ -97,13 +113,16 @@ def make_anima_micro_step(cfg: AnimaStepConfig):
 
     def micro_step(trainable, frozen, latents, prompt_emb, t5_ids, tickets,
                    sample_mask, loss_weights, seed, micro_step_idx,
-                   keep: float, noise=None):
+                   keep: float, noise=None, loss_scale: float = 1.0):
+        """``loss_scale`` turns a dp rank's loss into its share of the global
+        batch's (1 on one device)."""
         if keep == 0.0:
             for p in trainable.values():
                 p.grad = None
         loss, sigma = loss_fn(trainable, frozen, latents, prompt_emb, t5_ids,
                               tickets, sample_mask, loss_weights, seed,
                               micro_step_idx, noise)
+        loss = loss * loss_scale
         loss.backward()
         return loss.detach(), sigma
 
@@ -161,9 +180,8 @@ def _refuse_unported(config) -> None:
         (int(getattr(config, "ANIMA_PREVIEW_EVERY_N_STEPS", 0) or 0) > 0,
          "ANIMA_PREVIEW_EVERY_N_STEPS: preview sampling"),
         (any(int(getattr(config, key, 1) or 1) > 1 for key in (
-            "SEQUENCE_PARALLEL_SIZE", "PIPELINE_PARALLEL_SIZE",
-            "TENSOR_PARALLEL_SIZE")),
-         "SEQUENCE/PIPELINE/TENSOR_PARALLEL_SIZE > 1: multi-device meshes"),
+            "PIPELINE_PARALLEL_SIZE", "TENSOR_PARALLEL_SIZE")),
+         "PIPELINE/TENSOR_PARALLEL_SIZE > 1: pipeline and tensor parallelism"),
         (bool(getattr(config, "ANIMA_REPAIR_LINEART_LOSS_ENABLED", False)),
          "ANIMA_REPAIR_LINEART_LOSS_ENABLED: the line-art loss"),
         (int(getattr(config, "ANIMA_VIDEO_FRAMES", 1) or 1) > 1,
@@ -175,10 +193,30 @@ def _refuse_unported(config) -> None:
                 f"{what} is not ported to the PyTorch package yet")
 
 
+def _mesh_for(layout):
+    """The dp x sp process groups of ``layout``, or None on one device."""
+    ranks = shard.world_size()
+    if ranks != len(layout.devices):
+        raise RuntimeError(
+            f"WORLD_SIZE={ranks}, but the layout uses {len(layout.devices)} "
+            "rank(s) (AOZORA_DEVICES caps it): launch that many processes")
+    if not layout.use_mesh:
+        return None
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"WORLD_SIZE={ranks}: the process group is not started; run "
+            "through the CLI, which starts it, or call "
+            "parallel.sharding.init_distributed() first")
+    return shard.make_mesh(layout.devices, dp=layout.dp, tp=layout.tp, sp=layout.sp)
+
+
 def run_anima_training(config, *, device: torch.device | None = None) -> None:
-    """``device`` defaults to ``core.platform.resolve_device()``."""
+    """``device`` defaults to ``core.platform.resolve_device()``. Under
+    torchrun the CLI silences the stdout of every rank but global rank 0,
+    so the GUI reads one set of lines."""
     device = resolve_device() if device is None else torch.device(device)
     _refuse_unported(config)
+    is_main = shard.global_rank() == 0
     remat = anima_remat_mode(config)
     output_dir = Path(config.OUTPUT_DIR)
     output_dir.mkdir(parents=True, exist_ok=True)
@@ -198,7 +236,15 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
     save_prefix = resolve_save_prefix(config, detected_prefix)
     print(f"INFO: DiT key prefix: detected='{detected_prefix}' save='{save_prefix}'")
     exclude = parse_exclude_targets(getattr(config, "DIT_EXCLUDE_TARGETS", ""))
-    global_batch = int(config.BATCH_SIZE)
+
+    # ---- layout (decides the global batch the schedules use) ----
+    layout = shard.resolve_mesh_layout(config)
+    global_batch = layout.global_batch
+    mesh = _mesh_for(layout)
+    # this rank's rows of each global batch
+    rows = (slice(mesh.dp_rank * int(config.BATCH_SIZE),
+                  (mesh.dp_rank + 1) * int(config.BATCH_SIZE))
+            if mesh is not None else slice(None))
 
     # ---- schedules ----
     dataset = AnimaLatentDataset(config)
@@ -223,6 +269,14 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
             "MEMORY_EFFICIENT_ATTENTION 'xla' for the einsum path")
     print(f"INFO: Device {device}; attention {attn_impl}; gradient "
           f"checkpointing {remat or 'off'}; fp32 master weights")
+    if mesh is not None and layout.sp > 1:
+        # the training step's attn_impl becomes an SPRingConfig (dit.py
+        # dispatches on it)
+        attn_impl = SPRingConfig(group=mesh.sp_group, axis_size=layout.sp,
+                                 base_impl=attn_impl)
+        print(f"INFO: Sequence parallelism: DiT self-attention tokens shard "
+              f"over sp={layout.sp} (ring flash attention, KV hops the ring "
+              f"over torch.distributed).")
 
     # ---- weights ----
     params = dit_mod.params_from_torch_state(state, dit_cfg, dtype=torch.float32,
@@ -253,14 +307,19 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
     reporter = MetricsReporter(total_steps=config.MAX_TRAIN_STEPS)
 
     def upload(batch):
-        # H2D copies happen in the prefetch thread, overlapping device compute
-        out = pad_batch_arrays(batch, 0)
+        # H2D copies happen in the prefetch thread, overlapping device
+        # compute; a dp rank pads the global batch, then takes its rows
+        out = pad_batch_arrays(batch, global_batch if mesh is not None else 0)
         lat = out["latents"]
         if lat.ndim == 4 and lat.shape[1] == dit_cfg.in_channels \
                 and lat.shape[1] < lat.shape[-1]:
             out["latents"] = np.transpose(lat, (0, 2, 3, 1))  # NCHW cache -> NHWC
+        # this rank's loss is (its masked sum) / (the global batch's mask
+        # count): its mean over its rows times this
+        out["loss_scale"] = (max(float(np.sum(out["sample_mask"][rows])), 1.0)
+                             / max(float(np.sum(out["sample_mask"])), 1.0))
         for key in ("latents", "prompt_emb", "t5xxl_ids", "sample_mask"):
-            out[key] = torch.as_tensor(out[key], device=device)
+            out[key] = torch.as_tensor(out[key][rows], device=device)
         return out
 
     prefetcher = BatchPrefetcher(dataset, packed, transform=upload)
@@ -298,7 +357,7 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
         save_dit_model(path, {**frozen, **trainable}, prefix=save_prefix,
                        dtype=config.compute_dtype)
 
-    profiler = StepProfiler.from_env("anima")
+    profiler = StepProfiler.from_env("anima") if is_main else StepProfiler(None)
     for batch in prefetcher:
         if micro_step >= config.MAX_TRAIN_STEPS:
             break
@@ -306,16 +365,33 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
             continue
         micro_step += 1
         profiler.before_step(micro_step)
-        tickets = ts_sampler.sample(int(batch["real_n"]))
+        real_n = int(batch["real_n"])
+        tickets = np.asarray(ts_sampler.sample(real_n))
+        noise = None
+        if mesh is not None:
+            # the padded global batch's tickets and step-keyed noise, then
+            # this rank's rows of both
+            tickets = tickets[np.arange(global_batch) % real_n]
+            lat = batch["latents"]
+            noise = objectives.noise_for_step(
+                seed, micro_step, (global_batch, *lat.shape[1:]), device)[rows]
         keep = 0.0 if (micro_step - 1) % ga == 0 else 1.0
         loss_dev, sigma_dev = micro_fn(
             trainable, frozen, batch["latents"], batch["prompt_emb"],
-            batch["t5xxl_ids"], torch.as_tensor(np.asarray(tickets), device=device),
-            batch["sample_mask"], loss_weights, seed, micro_step, keep)
+            batch["t5xxl_ids"], torch.as_tensor(tickets[rows], device=device),
+            batch["sample_mask"], loss_weights, seed, micro_step, keep,
+            noise=noise, loss_scale=batch["loss_scale"])
+        if mesh is not None:
+            # the global batch's loss: the dp ranks' shares summed
+            loss_dev = loss_dev.reshape(1)
+            dist.all_reduce(loss_dev, group=mesh.dp_group)
+            loss_dev = loss_dev[0]
 
         diag = None
         if micro_step % ga == 0:
             lr = lr_curve.lr_at(micro_step)
+            if mesh is not None:
+                shard.all_reduce_grads(trainable, layout.sp)
             raw_norm, update_norm = apply_fn(trainable, opt_state, lr)
             optimizer_step += 1
             optim_dt = time.time() - last_optim_time
@@ -326,8 +402,8 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
                     "optim_step_time": optim_dt}
             scheduled = (config.SAVE_EVERY_N_STEPS > 0
                          and optimizer_step % config.SAVE_EVERY_N_STEPS == 0)
-            forced = consume_force_save_flag(flag_path)
-            if scheduled or forced:
+            forced = is_main and consume_force_save_flag(flag_path)
+            if is_main and (scheduled or forced):
                 reason = ("Emergency checkpoint requested"
                           if forced and not scheduled else "Saving checkpoint")
                 reporter.log_message(
@@ -353,5 +429,6 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
         emit(pending, step_times[-1] if step_times else 0.0)
     reporter.log_message("\nTraining complete.")
     reporter.shutdown()
-    save_model(output_dir / f"{output_model_stem(config, config.DIT_PATH)}.safetensors")
+    if is_main:
+        save_model(output_dir / f"{output_model_stem(config, config.DIT_PATH)}.safetensors")
     print("All tasks complete. Final model saved.")

@@ -192,6 +192,10 @@ def _refuse_unported(config) -> None:
     if int(getattr(config, "TENSOR_PARALLEL_SIZE", 1) or 1) > 1:
         raise NotImplementedError(
             "TENSOR_PARALLEL_SIZE > 1: meshes are not ported yet")
+    if int(os.environ.get("WORLD_SIZE", "1") or 1) > 1:
+        raise NotImplementedError(
+            "WORLD_SIZE > 1: the SDXL trainer on more than one device (data "
+            "parallelism, FSDP) is not ported yet; run one process")
 
 
 def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,

@@ -41,6 +41,29 @@ Phases, each of which exits non-zero on failure:
    finite losses, the flash launch counts (per micro step 56 K4a: 28
    forward + 28 recompute, 28 of each K4b kernel, no K1-K3) and the saved
    bf16 DiT under the detected key prefix.
+9. k5: the stats-level entry points (flash_fwd_stats, flash_bwd_stats over
+   the head_dim-128 kernels) against their plain versions at the Anima
+   ring hop shape (B=1, H=16, D=128, 2048 and 1024 tokens a shard, bf16);
+   then the ring's hop schedule for sp 2 and 4 composed on one card
+   (ops/ring_attention.ring_on_one_device: each q shard against each KV
+   shard in ring order, merged through the lse; the backward with the
+   global (out, lse)) against full attention at 4096 tokens, forward and
+   gradients, its launches counted; timed beside K4a/K4b at 4096.
+10. k6: the fused GroupNorm+SiLU kernel against its plain version at every
+   distinct resnet shape of SDXL_BASE at 1024px, bf16 and fp32, plus a
+   ragged HW, C=320 at a small HW, a width the vector loads do not divide
+   and a large mean; then the op (group_norm_silu(..., use_pallas=True),
+   forward and backward) over the 34 sites of one forward, its launches
+   counted; the 34 forwards timed as a CUDA graph beside the bound, the
+   plain version and F.silu(F.group_norm(...)) on the NCHW view.
+11. anima_sp: with two or more CUDA devices, torchrun runs the Anima CLI on
+   2 ranks with SEQUENCE_PARALLEL_SIZE 2 (ring attention over NCCL) at
+   ANIMA_BASE, 1024px, Full remat, 8 micro steps; checks rank 0's GUI
+   lines (one set), finite losses, each rank's launch counts and the saved
+   DiT. With one device it prints "anima_sp: skipped, 1 CUDA device".
+
+`python3 chip_smoke.py --only anima_sp` runs the device, build and anima_sp
+phases alone (on a machine with several cards).
 
 The second-to-last lines are the kernels JSON and the card's name and power
 limit; the last line is {"ok": true, "device": {...}}.
@@ -66,8 +89,9 @@ PACKAGE = "aozora_sdxl_training_tpu_torch"
 LOG_DIR = Path(os.environ.get("CHIP_SMOKE_LOG_DIR", REPO / "chip_smoke_out"))
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM
-SOURCES = ("flash_attention",)
+SOURCES = ("flash_attention", "groupnorm_silu")
 FA = "aozora_sdxl_training_tpu/ops/flash_attention.py"
+GN = "aozora_sdxl_training_tpu/ops/groupnorm_silu.py"
 # each kernel, the Pallas kernel it replaces (K1 _fwd_kernel, K2
 # _bwd_dq_kernel, K3 _bwd_dkv_kernel; K4a _flash_forward_folded, K4b the dq
 # and dk/dv pallas_calls of _flash_backward_folded) and its head dim
@@ -147,10 +171,10 @@ def build_phase():
         print(f"built {name}.cu in {seconds:.1f} s")
         (LOG_DIR / f"nvcc_{name}.log").write_text(output)
         for line in output.splitlines():
-            entry = re.search(r"Compiling entry function '\w*?(flash_(?:fwd|bwd)\w*?_kernel)I(\w+?)EE",
-                              line)
+            entry = re.search(r"Compiling entry function '\w*?((?:flash_(?:fwd|bwd)|gn_)\w*?"
+                              r"_kernel)(?:I(\w+?)EE)?", line)
             if entry:     # the kernel and its template arguments (mangled)
-                print(f"  ptxas: {entry.group(1)}<{entry.group(2)}>")
+                print(f"  ptxas: {entry.group(1)}<{entry.group(2) or ''}>")
             elif "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"  ptxas: {line.strip()}")
 
@@ -248,8 +272,7 @@ def kernel_phase(torch):
                 max_err[kname] = max(max_err[kname], err)
         del q, k, v, do, out, lse, ref_out, ref_lse, rows
         torch.cuda.empty_cache()
-    return max_err, {**time_kernels(torch, fa), **time_d512(torch, fa),
-                     "k6_not_ported": k6_bound()}
+    return max_err, {**time_kernels(torch, fa), **time_d512(torch, fa)}
 
 
 def time_kernels(torch, fa):
@@ -338,12 +361,9 @@ def time_d512(torch, fa):
     return {"flash_fwd_d512": rows}
 
 
-def k6_bound():
-    """K6 (the fused GroupNorm+SiLU, not ported yet) at the UNet resnet
-    shapes of one SDXL_BASE forward at 1024px, batch 1, bf16: the 34
-    norm1/norm2 sites ``unet.py::_gn_silu`` would fuse. A bound by bytes:
-    x read once and y written once per site (the Pallas kernel's two-pass
-    design reads x twice, 1.5x that)."""
+def k6_sites():
+    """The UNet resnet GroupNorm+SiLU sites of one SDXL_BASE forward at
+    1024px (the 34 norm1/norm2 sites of ``unet.py::_gn_silu``): (side, C)."""
     from aozora_sdxl_training_tpu_torch.models.sdxl.arch import SDXL_BASE, param_shapes
     sites = []
     for name, (shape, _) in param_shapes(SDXL_BASE).items():
@@ -352,18 +372,279 @@ def k6_bound():
         part, level = name.split(".")[:2]
         side = (32 if part == "mid_block" else 128 >> int(level)
                 if part == "down_blocks" else 32 << int(level))
-        sites.append((side, shape[0], 2 * 2 * side * side * shape[0]))  # bf16 in + out
-    nbytes = [b for *_, b in sites]
+        sites.append((side, shape[0]))
+    return sites
+
+
+def k6_bound(sites, elem=2):
+    """K6 at ``sites``, batch 1: a bound by bytes, x read once and y written
+    once per site (this kernel reads x twice, 1.5x that)."""
+    nbytes = [2 * elem * side * side * c for side, c in sites]
     per_site = [bound(0, b)[0] for b in nbytes]
-    largest = max(sites, key=lambda t: t[2])
-    out = {"sites": len(sites), "largest_site": f"{largest[0]}x{largest[0]}x{largest[1]}",
-           "largest_bound_ms": max(per_site), "bound_ms_per_forward": sum(per_site),
-           "bytes_per_forward": sum(nbytes)}
-    print(f"  K6 (not ported) bound at the UNet resnet shapes: {out['sites']} sites a "
-          f"forward, {out['bytes_per_forward'] / 1e6:.1f} MB moved, "
-          f"{out['bound_ms_per_forward']:.4f} ms a forward; largest "
-          f"{out['largest_site']} bf16 {out['largest_bound_ms']:.4f} ms (bytes)")
+    largest = max(zip(nbytes, sites))[1]
+    return {"sites": len(sites), "largest_site": f"{largest[0]}x{largest[0]}x{largest[1]}",
+            "largest_bound_ms": max(per_site), "bound_ms_per_forward": sum(per_site),
+            "bytes_per_forward": sum(nbytes)}
+
+
+def graph_ms(torch, fn, iters=20):
+    """Device time of ``fn``'s launches: captured once into a CUDA graph and
+    replayed ``iters`` times between CUDA events, so the host's per-call
+    cost does not show (it does in ``cuda_ms`` for kernels of a few us)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(torch, graph.replay, iters, 2)
+    del graph
+    return ms
+
+
+def device_ms_by_kernel(torch, fn, prefix: str):
+    """Device ms of one call of ``fn`` by kernel, for the kernels whose name
+    starts with ``prefix`` (torch.profiler's CUDA activity; {} where the
+    profiler sees no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        found = re.search(rf"\b({prefix}\w*)", e.key)
+        if found and e.self_device_time_total > 0:
+            out[found.group(1)] = out.get(found.group(1), 0.0) + e.self_device_time_total / 1e3
     return out
+
+
+# --------------------------------------------------------------------------
+# 9: K5, the stats entry points and the one-card ring
+# --------------------------------------------------------------------------
+
+def k5_phase(torch):
+    """Returns ({kernel: max abs err}, {kernel: timing row}, launches,
+    ring timings)."""
+    phase("k5")
+    import torch.nn.functional as F
+    from aozora_sdxl_training_tpu_torch.ops import flash_attention as fa
+    from aozora_sdxl_training_tpu_torch.ops import ring_attention as ring
+    (b, h, s_full, _), = MAIN_SHAPES[128]
+    d, bf16 = 128, torch.bfloat16
+    scale = d ** -0.5
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, do = (torch.randn(b, s_full, h, d, device="cuda", dtype=bf16, generator=g)
+                   for _ in range(4))
+    ref_out, ref_lse = fa.flash_fwd_stats_reference(q, k, v, scale)
+    ref_grads = fa.flash_bwd_stats_reference(q, k, v, ref_out, ref_lse, do, scale)
+    rel_tol = 2e-2       # bf16 kernels, fp32 accumulation; lse 1e-3 absolute
+
+    def held(label, what, got, want, tol=None):
+        got, want = got.float(), want.float()
+        check(bool(torch.isfinite(got).all()), f"{label} {what}: non-finite")
+        err = (got - want).abs().max().item()
+        tol = rel_tol * want.abs().max().item() if tol is None else tol
+        print(f"  {label:34s} {what:5s} max_abs_err {err:.3e}  tol {tol:.3e}")
+        check(err <= tol, f"{label} {what}: error {err} > tolerance {tol}")
+        return err
+
+    max_err = {"flash_fwd_stats": 0.0, "flash_bwd_stats": 0.0}
+    for n in (2, 4):
+        # rank 0's q rows against rank 1's KV shard (the first hop's pair)
+        sh = s_full // n
+        q0, do0 = q[:, :sh].contiguous(), do[:, :sh].contiguous()
+        k1, v1 = k[:, sh:2 * sh].contiguous(), v[:, sh:2 * sh].contiguous()
+        label = f"hop S={sh} B*H={b * h} D={d}"
+        out, lse = fa.flash_fwd_stats(q0, k1, v1)
+        want_out, want_lse = fa.flash_fwd_stats_reference(q0, k1, v1, scale)
+        e = held(label, "out", out, want_out)
+        held(label, "lse", lse, want_lse, 1e-3)
+        g_out, g_lse = ref_out[:, :sh].contiguous(), ref_lse[:, :sh].contiguous()
+        got = fa.flash_bwd_stats(q0, k1, v1, g_out, g_lse, do0)
+        want = fa.flash_bwd_stats_reference(q0, k1, v1, g_out, g_lse, do0, scale)
+        eb = max(held(label, name, a, w) for name, a, w in zip(("dq", "dk", "dv"), got, want))
+        if n == 2:
+            max_err = {"flash_fwd_stats": e, "flash_bwd_stats": eb}
+
+    # the ring's hop schedule on one card: K5's main path here, its launches
+    # counted from 0
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    composed = {n: ring.ring_on_one_device(q, k, v, do, n) for n in (2, 4)}
+    torch.cuda.synchronize()
+    launches = dict(fa.STATS_LAUNCHES)
+    kernels = {kname: c for kname, c in fa.LAUNCHES.items() if c}
+    pairs = sum(n * n for n in composed)
+    print(f"  one-card ring, sp 2 and 4: entry point calls {launches}, kernel "
+          f"launches {kernels}")
+    check(launches == {"flash_fwd_stats": pairs, "flash_bwd_stats": pairs}
+          and kernels == {"flash_fwd_d128": pairs, "flash_bwd_dq_d128": pairs,
+                          "flash_bwd_dkv_d128": pairs},
+          f"one-card ring launches {launches} {kernels}, expected {pairs} each")
+    for n, (out, lse, dq, dk, dv) in composed.items():
+        label = f"ring sp={n} vs full S={s_full}"
+        held(label, "out", out, ref_out)
+        held(label, "lse", lse, ref_lse, 1e-3)
+        for name, a, w in zip(("dq", "dk", "dv"), (dq, dk, dv), ref_grads):
+            held(label, name, a, w)
+    del composed, ref_grads
+    torch.cuda.empty_cache()
+
+    timings = {"flash_fwd_stats": [], "flash_bwd_stats": []}
+    for n in (2, 4):
+        sh = s_full // n
+        qs, ks, vs, dos = (t[:, :sh].contiguous() for t in (q, k, v, do))
+        out, lse = fa.flash_fwd_stats(qs, ks, vs)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (qs, ks, vs))
+        ref = F.scaled_dot_product_attention(qt, kt, vt)
+        dot = dos.transpose(1, 2)
+        sdpa_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt.detach(), kt.detach(), vt.detach()))
+        sdpa_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+            ref, (qt, kt, vt), dot, retain_graph=True))
+        (wf, wdq, wdkv), act, row = work(b, h, sh, d, 2), b * h * sh * d * 2, b * h * sh
+        rows = {
+            "flash_fwd_stats": (
+                cuda_ms(torch, lambda: fa.flash_fwd_stats(qs, ks, vs)),
+                cuda_ms(torch, lambda: fa.flash_fwd_stats_reference(qs, ks, vs, scale), 5, 1),
+                sdpa_fwd, wf[0], 4 * act + 4 * row),
+            "flash_bwd_stats": (
+                cuda_ms(torch, lambda: fa.flash_bwd_stats(qs, ks, vs, out, lse, dos)),
+                cuda_ms(torch, lambda: fa.flash_bwd_stats_reference(
+                    qs, ks, vs, out, lse, dos, scale), 5, 1),
+                sdpa_bwd, wdq[0] + wdkv[0], 8 * act + 4 * row)}
+        for kname, (ms, plain, lib, flops, nbytes) in rows.items():
+            bms, bound_by = bound(flops, nbytes)
+            timings[kname].append({
+                "shape": f"B*H={b * h} Sq=Skv={sh} D={d} bf16 (sp {n} hop)",
+                # ANIMA_BASE's 28 blocks, n hops each, Full remat: the
+                # forward runs again in the recompute
+                "calls_per_micro_step_per_rank": (2 if kname == "flash_fwd_stats" else 1)
+                * 28 * n,
+                "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": bound_by,
+                "library_ms": lib, "tflops": flops / ms / 1e9})
+            print(f"  {kname:16s} B*H={b * h} S={sh:5d} D={d}: kernel {ms:.4f} ms, bound "
+                  f"{bms:.4f} ms ({bms / ms:.1%}), plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s")
+        del qs, ks, vs, dos, out, lse, qt, kt, vt, ref
+        torch.cuda.empty_cache()
+
+    # the composed ring (forward and backward, all ranks on one card) beside
+    # K4a + K4b over the same 4096 tokens
+    def full():
+        out, lse = fa.flash_fwd(q, k, v, scale)
+        fa.flash_bwd(q, k, v, out, lse, do, scale)
+
+    ring_ms = {"k4_fwd_bwd_ms": cuda_ms(torch, full, 5, 1)}
+    for n in (2, 4):
+        ring_ms[f"ring_sp{n}_fwd_bwd_ms"] = cuda_ms(
+            torch, lambda: ring.ring_on_one_device(q, k, v, do, n), 5, 1)
+    print(f"  forward + backward over S={s_full}: K4a + K4b {ring_ms['k4_fwd_bwd_ms']:.4f} "
+          f"ms; one-card ring sp 2 {ring_ms['ring_sp2_fwd_bwd_ms']:.4f} ms, sp 4 "
+          f"{ring_ms['ring_sp4_fwd_bwd_ms']:.4f} ms")
+    del q, k, v, do, ref_out, ref_lse
+    torch.cuda.empty_cache()
+    return max_err, timings, launches, ring_ms
+
+
+# --------------------------------------------------------------------------
+# 10: K6, fused GroupNorm + SiLU
+# --------------------------------------------------------------------------
+
+def k6_phase(torch):
+    """Returns (max abs err at the main shapes in bf16, launches of the op's
+    run, timing row)."""
+    phase("k6")
+    import torch.nn.functional as F
+    from aozora_sdxl_training_tpu_torch.ops import groupnorm_silu as gn
+    bf16, f32 = torch.bfloat16, torch.float32
+    sites = k6_sites()
+    g = torch.Generator(device="cuda").manual_seed(8)
+
+    def inputs(shape, dtype, mean=0.5):
+        c = shape[-1]
+        x = (torch.randn(shape, device="cuda", generator=g) * 2 + mean).to(dtype)
+        return (x, 1 + 0.3 * torch.randn(c, device="cuda", generator=g),
+                0.2 * torch.randn(c, device="cuda", generator=g))
+
+    # tolerance: bf16 2% of the largest reference magnitude (one bf16
+    # rounding of the output), fp32 1e-4 of it (fp32 statistics summed in
+    # another order); the large mean 1e-3 (E[x^2] - mean^2 would lose it)
+    tol = {bf16: 2e-2, f32: 1e-4}
+    cases = ([(f"{side}x{side}x{c}", (1, side, side, c), 32, 0.5)
+              for side, c in sorted(set(sites))]
+             + [("ragged B=2 37x53x640", (2, 37, 53, 640), 32, 0.5),
+                ("C=320 8x8", (1, 8, 8, 320), 32, 0.5),
+                ("C=36 (no 16-byte loads in bf16)", (1, 16, 16, 36), 12, 0.5),
+                ("mean 100, 32x32x320", (1, 32, 32, 320), 32, 100.0)])
+    max_err = 0.0
+    for label, shape, groups, mean in cases:
+        for dtype in (bf16, f32):
+            x, scale, bias = inputs(shape, dtype, mean)
+            y = gn.group_norm_silu_forward(x, scale, bias, groups)
+            torch.cuda.synchronize()
+            if mean > 1:
+                xd = x.double().reshape(shape[0], -1, groups, shape[-1] // groups)
+                xd = ((xd - xd.mean(dim=(1, 3), keepdim=True))
+                      / (xd.var(dim=(1, 3), unbiased=False, keepdim=True) + 1e-5).sqrt())
+                z = xd.reshape(shape) * scale.double() + bias.double()
+                ref, rel = z * torch.sigmoid(z), (2e-2 if dtype == bf16 else 1e-3)
+            else:
+                ref, rel = gn.group_norm_silu_reference(x, scale, bias, groups), tol[dtype]
+            check(bool(torch.isfinite(y).all()), f"K6 {label}: non-finite")
+            err = (y.double() - ref.double()).abs().max().item()
+            bar = rel * ref.abs().max().item()
+            name = str(dtype).replace("torch.", "")
+            print(f"  {label:34s} {name:8s} max_abs_err {err:.3e}  tol {bar:.3e}")
+            check(err <= bar, f"K6 {label} {name}: error {err} > tolerance {bar}")
+            if dtype == bf16 and label[0].isdigit():
+                max_err = max(max_err, err)
+        torch.cuda.empty_cache()
+
+    # the op over one forward's 34 sites, forward and backward: K6's main
+    # path here, its launches counted from 0
+    xs = [inputs((1, side, side, c), bf16) for side, c in sites]
+    torch.cuda.synchronize()
+    gn.reset_launch_counts()
+    for x, scale, bias in xs:
+        xg = x.detach().requires_grad_(True)
+        y = gn.group_norm_silu(xg, scale, bias, groups=32, use_pallas=True)
+        y.float().square().mean().backward()
+        check(bool(torch.isfinite(xg.grad.float()).all()), "K6 op: non-finite gradient")
+    torch.cuda.synchronize()
+    launches = gn.LAUNCHES["group_norm_silu"]
+    print(f"  the op over {len(sites)} sites, forward and backward: {launches} launches")
+    check(launches == len(sites), f"K6 op: {launches} launches for {len(sites)} sites")
+
+    def run(fn):
+        return lambda: [fn(x, scale, bias) for x, scale, bias in xs]
+
+    kernel = run(lambda x, s, b: gn.group_norm_silu_forward(x, s, b, 32))
+    plain = run(lambda x, s, b: gn.group_norm_silu_reference(x, s, b, 32))
+    library = run(lambda x, s, b: F.silu(F.group_norm(x.permute(0, 3, 1, 2), 32, s.to(x.dtype),
+                                                      b.to(x.dtype), 1e-5)))
+    row = {**k6_bound(sites),
+           "shape": f"{len(sites)} SDXL_BASE resnet sites at 1024px, B=1, bf16",
+           "ms": graph_ms(torch, kernel), "plain_ms": graph_ms(torch, plain),
+           "library_ms": graph_ms(torch, library),
+           "ms_eager": cuda_ms(torch, kernel, 10, 2), "bound_by": "bytes"}
+    row["bound_ms"] = row["bound_ms_per_forward"]
+    row["device_ms_by_kernel"] = device_ms_by_kernel(torch, kernel, "gn_")
+    print(f"  {len(sites)} sites a forward ({row['bytes_per_forward'] / 1e6:.1f} MB in + out): "
+          f"kernel {row['ms']:.4f} ms (CUDA graph; {row['ms_eager']:.4f} ms eager), bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_ms'] / row['ms']:.1%}), plain "
+          f"{row['plain_ms']:.4f} ms, F.silu(F.group_norm) {row['library_ms']:.4f} ms; "
+          f"largest site {row['largest_site']} bound {row['largest_bound_ms']:.4f} ms")
+    print(f"  device time of one such forward by kernel (torch.profiler): "
+          f"{row['device_ms_by_kernel']}")
+    del xs
+    torch.cuda.empty_cache()
+    return max_err, launches, row
 
 
 # --------------------------------------------------------------------------
@@ -859,16 +1140,15 @@ def anima_forward_flops(cfg, tokens: int) -> int:
     return cfg.num_blocks * block + cfg.adapter_layers * adapter + edges
 
 
-def anima_phase(torch, work_dir: Path, steps: int):
-    phase("anima")
-    from aozora_sdxl_training_tpu_torch.ckpt.safetensors_io import read_header
-    from aozora_sdxl_training_tpu_torch.cli import train_anima
+def anima_env(torch, work_dir: Path, steps: int, **preset_overrides):
+    """A random ANIMA_BASE checkpoint (seed 4321), a synthetic cache of 2
+    images at 1024px and the default preset pointed at them. Returns
+    (cfg, preset path)."""
     from aozora_sdxl_training_tpu_torch.config import schema
     from aozora_sdxl_training_tpu_torch.config.runtime import RuntimeConfig
     from aozora_sdxl_training_tpu_torch.data.synthetic import (
         write_random_dit_checkpoint, write_synthetic_anima_dataset)
     from aozora_sdxl_training_tpu_torch.models.anima.dit import ANIMA_BASE, param_shapes
-    from aozora_sdxl_training_tpu_torch.train import anima_trainer
 
     cfg = ANIMA_BASE
     t0 = time.perf_counter()
@@ -890,7 +1170,7 @@ def anima_phase(torch, work_dir: Path, steps: int):
                   "anima_output_name": "smoke_anima",
                   "anima_instance_datasets": [{"path": str(work_dir / "data"),
                                                "repeats": 1}],
-                  "anima_max_train_steps": steps})
+                  "anima_max_train_steps": steps, **preset_overrides})
     preset_path = work_dir / "preset.json"
     preset_path.write_text(json.dumps(preset, indent=1))
     config = RuntimeConfig(schema.flatten_preset(preset))
@@ -906,7 +1186,26 @@ def anima_phase(torch, work_dir: Path, steps: int):
                                       source_dim=cfg.adapter_source_dim,
                                       vocab=cfg.adapter_vocab,
                                       latent_channels=cfg.in_channels, seed=6)
+    return cfg, preset_path, config
 
+
+def check_saved_dit(final: Path, cfg):
+    from aozora_sdxl_training_tpu_torch.ckpt.safetensors_io import read_header
+    from aozora_sdxl_training_tpu_torch.models.anima.dit import param_shapes
+    check(final.exists(), "no saved DiT")
+    header = read_header(final)
+    check(len(header) == len(param_shapes(cfg))
+          and all(k.startswith("pipe.dit.") for k in header),
+          f"{len(header)} DiT tensors saved, not all under pipe.dit.")
+    check(all(v["dtype"] == "BF16" for v in header.values()), "DiT tensors not BF16")
+
+
+def anima_phase(torch, work_dir: Path, steps: int):
+    phase("anima")
+    from aozora_sdxl_training_tpu_torch.cli import train_anima
+    from aozora_sdxl_training_tpu_torch.train import anima_trainer
+
+    cfg, preset_path, _ = anima_env(torch, work_dir, steps)
     raw, marks, launches, peak_gb, wall = run_trainer_cli(
         torch, train_anima.main, preset_path, work_dir, anima_trainer,
         ("make_anima_micro_step", "make_apply_step"), "chip_smoke_anima.log")
@@ -915,14 +1214,7 @@ def anima_phase(torch, work_dir: Path, steps: int):
     check_launches(launches, {"flash_fwd_d128": 2 * calls * steps,
                               "flash_bwd_dq_d128": calls * steps,
                               "flash_bwd_dkv_d128": calls * steps})
-
-    final = work_dir / "out" / "smoke_anima.safetensors"
-    check(final.exists(), "no saved DiT")
-    header = read_header(final)
-    check(len(header) == len(param_shapes(cfg))
-          and all(k.startswith("pipe.dit.") for k in header),
-          f"{len(header)} DiT tensors saved, not all under pipe.dit.")
-    check(all(v["dtype"] == "BF16" for v in header.values()), "DiT tensors not BF16")
+    check_saved_dit(work_dir / "out" / "smoke_anima.safetensors", cfg)
     tokens = (1024 // 8 // cfg.patch_spatial) ** 2
     fwd = anima_forward_flops(cfg, tokens)
     print(f"  analytic forward at {tokens} tokens: {fwd:.4e} flop; a micro step "
@@ -933,8 +1225,159 @@ def anima_phase(torch, work_dir: Path, steps: int):
 
 
 # --------------------------------------------------------------------------
+# 11: the sequence-parallel Anima CLI on 2 cards
+# --------------------------------------------------------------------------
 
-def main() -> int:
+SP = 2
+SP_TIMEOUT_S = 900
+
+
+def anima_sp_phase(torch, work_dir: Path, steps: int):
+    """torchrun runs ``anima_sp_rank`` (the Anima CLI's main with its launch
+    counts written out) on SP ranks, one card each. Returns the summary
+    (None where fewer than 2 cards are visible)."""
+    phase("anima_sp")
+    n_dev = torch.cuda.device_count()
+    if n_dev < SP:
+        print(f"anima_sp: skipped, {n_dev} CUDA device", flush=True)
+        return None
+    import signal
+    cfg, preset_path, config = anima_env(torch, work_dir, steps,
+                                         anima_sequence_parallel_size=SP)
+    check(config.SEQUENCE_PARALLEL_SIZE == SP, "the preset's SP size did not reach the config")
+    out_dir = work_dir / "ranks"
+    out_dir.mkdir()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(SP), str(REPO / "chip_smoke.py"),
+           "--anima-sp-rank", str(preset_path), str(out_dir)]
+    # torchrun --standalone serves the ranks' store on localhost (env://);
+    # NCCL's and gloo's own sockets stay on the loopback device too
+    env = {**os.environ, "PYTHONPATH": str(REPO), "NCCL_SOCKET_IFNAME": "lo",
+           "GLOO_SOCKET_IFNAME": "lo"}
+    env.pop("AOZORA_DIST_INIT", None)
+    print(f"  {' '.join(cmd[2:])}", flush=True)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=work_dir, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        raw, _ = proc.communicate(timeout=SP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        raw, _ = proc.communicate()
+        raise PhaseError(f"anima_sp: torchrun did not end in {SP_TIMEOUT_S} s:\n{raw[-4000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    wall = time.perf_counter() - t0
+    LOG_DIR.mkdir(parents=True, exist_ok=True)
+    (LOG_DIR / "chip_smoke_anima_sp.log").write_text(raw)
+    check(proc.returncode == 0, f"anima_sp: torchrun exited {proc.returncode}:\n{raw[-4000:]}")
+    check("Sequence parallelism: DiT self-attention tokens shard over sp=2" in raw,
+          "anima_sp: the trainer did not take the sequence-parallel path")
+    losses = check_progress(raw, ANIMA_PROGRESS, steps)   # one set of lines: rank 0's
+    calls = SELF_ATTN_CALLS[128]
+    want = {"flash_fwd_d128": 2 * SP * calls * steps, "flash_bwd_dq_d128": SP * calls * steps,
+            "flash_bwd_dkv_d128": SP * calls * steps}
+    want_stats = {"flash_fwd_stats": 2 * SP * calls * steps,
+                  "flash_bwd_stats": SP * calls * steps}
+    ranks = []
+    for r in range(SP):
+        path = out_dir / f"rank{r}.json"
+        check(path.exists(), f"anima_sp: rank {r} wrote no launch counts")
+        ranks.append(json.loads(path.read_text()))
+        print(f"  rank {r}: {ranks[-1]}")
+        check({k: v for k, v in ranks[-1]["launches"].items() if v} == want
+              and ranks[-1]["stats_launches"] == want_stats,
+              f"anima_sp rank {r}: launches {ranks[-1]}, expected {want} and {want_stats}")
+    check_saved_dit(work_dir / "out" / "smoke_anima.safetensors", cfg)
+    print(f"  losses {losses}; torchrun {wall:.1f} s (load, {steps} micro steps and "
+          f"save); per rank {[round(x['wall_s'], 1) for x in ranks]} s, peak "
+          f"{[round(x['max_memory_allocated_gb'], 2) for x in ranks]} GB")
+    return {"sp": SP, "steps": steps, "losses": losses, "wall_s": wall, "ranks": ranks}
+
+
+def anima_sp_rank(preset: str, out_dir: str) -> int:
+    """One rank of the anima_sp phase: the Anima CLI, then this rank's
+    launch counts, wall time and peak memory into ``out_dir``."""
+    sys.path.insert(0, str(REPO))
+    import torch
+    from aozora_sdxl_training_tpu_torch.cli import train_anima
+    from aozora_sdxl_training_tpu_torch.ops import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    train_anima.main(["--config", preset])
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps({
+        "launches": dict(fa.LAUNCHES), "stats_launches": dict(fa.STATS_LAUNCHES),
+        "wall_s": time.perf_counter() - t0,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    return 0
+
+
+# --------------------------------------------------------------------------
+
+PHASES = ("kernels", "k5", "k6", "unet", "dit", "vae", "trainer", "anima", "anima_sp")
+USAGE = ("usage: chip_smoke.py [--only PHASE[,PHASE...]]   phases: " + ", ".join(PHASES)
+         + "\n       chip_smoke.py --anima-sp-rank PRESET OUT_DIR   (one torchrun rank)")
+
+
+def kernels_json(timings, max_err, sdxl_launches, anima_launches, k5, k6):
+    """One entry per kernel; ``launches`` counts the phase named in
+    ``phase``, where the counts were set to 0 just before."""
+    kernels = []
+    for kname, (replaces, d) in KERNELS.items():
+        head = timings[kname][0]      # the largest main shape of its head dim
+        # K1-K3 and the head_dim-512 forward run in the SDXL CLI's run
+        # (training and the preview), K4a/K4b at 128 in the Anima CLI's
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"{PACKAGE}/csrc/flash_attention.cu",
+            "replaces": replaces, "phase": "anima" if d == 128 else "trainer",
+            "launches": (anima_launches if d == 128 else sdxl_launches)[kname],
+            "max_abs_err": max_err[kname], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "shapes": timings[kname]})
+    k5_err, k5_timings, k5_launches, ring_ms = k5
+    for kname, line, kernel_names in (
+            ("flash_fwd_stats", 503, "flash_fwd_d128"),
+            ("flash_bwd_stats", 523, "flash_bwd_dq_d128 + flash_bwd_dkv_d128")):
+        head = k5_timings[kname][0]   # the sp-2 hop, 2048 tokens a shard
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"{PACKAGE}/ops/flash_attention.py",
+            "kernels": f"{kernel_names} in {PACKAGE}/csrc/flash_attention.cu",
+            "replaces": f"{FA}:{line}",
+            "phase": "k5 (the ring's hop schedule for sp 2 and 4 on one card)",
+            "launches": k5_launches[kname], "max_abs_err": k5_err[kname],
+            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "shapes": k5_timings[kname], "ring_one_card": ring_ms})
+    k6_err, k6_launches, k6_row = k6
+    kernels.append({
+        "name": "group_norm_silu", "route": "cuda",
+        "source": f"{PACKAGE}/csrc/groupnorm_silu.cu", "replaces": f"{GN}:60",
+        "phase": "k6 (the op, forward and backward, over one SDXL_BASE forward's sites)",
+        "launches": k6_launches, "max_abs_err": k6_err, "ms": k6_row["ms"],
+        "plain_ms": k6_row["plain_ms"], "bound_ms": k6_row["bound_ms"],
+        "bound_by": k6_row["bound_by"], "library_ms": k6_row["library_ms"],
+        "shapes": [k6_row]})
+    return kernels
+
+
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else list(argv)
+    if args[:1] == ["--anima-sp-rank"] and len(args) == 3:
+        return anima_sp_rank(args[1], args[2])
+    only = set(PHASES)
+    if args[:1] == ["--only"] and len(args) == 2 and set(args[1].split(",")) <= only:
+        only = set(args[1].split(","))
+    elif args:
+        print(USAGE, flush=True)
+        return 2
     if not (REPO / PACKAGE / "csrc" / "flash_attention.cu").exists():
         print(f"FAIL: {PACKAGE} not found beside chip_smoke.py; run it from "
               "the root of a checkout", flush=True)
@@ -944,39 +1387,44 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    summary = {}
     try:
         name, smi = device_phase(torch)
         build_phase()
-        max_err, timings = kernel_phase(torch)
-        unet_phase(torch)
-        dit_phase(torch)
-        vae = vae_phase(torch)
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            sdxl, sdxl_launches = trainer_phase(torch, Path(tmp), TRAIN_STEPS)
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_anima_") as tmp:
-            anima, anima_launches = anima_phase(torch, Path(tmp), TRAIN_STEPS)
-        (LOG_DIR / "chip_smoke_summary.json").write_text(json.dumps(
-            {"device": name, "nvidia_smi": smi, "vae": vae, "trainer": sdxl,
-             "anima": anima, "timings": timings}, indent=1))
+        summary.update(device=name, nvidia_smi=smi)
+        if "kernels" in only:
+            max_err, timings = kernel_phase(torch)
+            summary["timings"] = timings
+        if "k5" in only:
+            k5 = k5_phase(torch)
+            summary["k5"] = k5[1:]
+        if "k6" in only:
+            k6 = k6_phase(torch)
+            summary["k6"] = k6[1:]
+        if "unet" in only:
+            unet_phase(torch)
+        if "dit" in only:
+            dit_phase(torch)
+        if "vae" in only:
+            summary["vae"] = vae_phase(torch)
+        if "trainer" in only:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                summary["trainer"], sdxl_launches = trainer_phase(torch, Path(tmp), TRAIN_STEPS)
+        if "anima" in only:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_anima_") as tmp:
+                summary["anima"], anima_launches = anima_phase(torch, Path(tmp), TRAIN_STEPS)
+        if "anima_sp" in only:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_anima_sp_") as tmp:
+                summary["anima_sp"] = anima_sp_phase(torch, Path(tmp), TRAIN_STEPS)
+        LOG_DIR.mkdir(parents=True, exist_ok=True)
+        (LOG_DIR / "chip_smoke_summary.json").write_text(json.dumps(summary, indent=1))
     except PhaseError as e:
         print(f"FAIL: {e}", flush=True)
         return 1
-    kernels = []
-    for kname, (replaces, d) in KERNELS.items():
-        head = timings[kname][0]      # the largest main shape of its head dim
-        # K1-K3 and the head_dim-512 forward run in the SDXL CLI's run
-        # (training and the preview), K4a/K4b at 128 in the Anima CLI's
-        launches = (anima_launches if d == 128 else sdxl_launches)[kname]
-        kernels.append({
-            "name": kname, "route": "cuda",
-            "source": f"{PACKAGE}/csrc/flash_attention.cu",
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max_err[kname], "ms": head["ms"],
-            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "shapes": timings[kname]})
     print(f"\ntotal {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
+    if only == set(PHASES):
+        print(json.dumps({"kernels": kernels_json(timings, max_err, sdxl_launches,
+                                                  anima_launches, k5, k6)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -348,7 +348,8 @@ def test_cli_raises_without_cuda_unless_cpu_is_asked_for(monkeypatch):
     ({"RESUME_TRAINING": True}, "resume"),
     ({"ANIMA_GRADIENT_CHECKPOINTING_MODE": "Conservative"}, "Conservative"),
     ({"ANIMA_PREVIEW_EVERY_N_STEPS": 2}, "preview"),
-    ({"SEQUENCE_PARALLEL_SIZE": 2}, "PARALLEL"),
+    # sequence parallelism is ported; combined with TP it is refused by TP
+    ({"SEQUENCE_PARALLEL_SIZE": 2, "TENSOR_PARALLEL_SIZE": 2}, "PARALLEL"),
     ({"PIPELINE_PARALLEL_SIZE": 2}, "PARALLEL"),
     ({"TENSOR_PARALLEL_SIZE": 2}, "PARALLEL"),
     ({"ANIMA_REPAIR_LINEART_LOSS_ENABLED": True}, "line-art"),

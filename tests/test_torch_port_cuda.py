@@ -1,5 +1,4 @@
-"""PyTorch port: the CUDA flash-attention kernels against their plain
-versions, on the card.
+"""PyTorch port: the CUDA kernels against their plain versions, on the card.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither JAX nor the JAX package, so on a machine with a card and
@@ -7,22 +6,34 @@ without JAX it runs apart from tests/conftest.py:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 
-All three head dims are covered: 64 (K1-K3, the SDXL UNet), 128 (K4a/K4b,
-the Anima DiT) and 512 (K4a forward, the SD-VAE mid-attention), with a
-ragged length and unequal query and key lengths.
+All three head dims of the flash kernels are covered: 64 (K1-K3, the
+SDXL UNet), 128 (K4a/K4b, the Anima DiT) and 512 (K4a forward, the SD-VAE
+mid-attention), with a ragged length and unequal query and key lengths.
+K5 (the stats-level entry points over those kernels) is held against its
+plain versions on a KV shard, and the ring's hop schedule composed on one
+card at sp 2 against full attention. K6 (the fused GroupNorm + SiLU
+forward) is held against its plain version in bf16 and fp32, at a ragged
+HW, at C=320 (groups of 10 channels), at a width the 16-byte loads do not
+divide, and at a large mean.
 
 Tolerances: the kernels multiply bf16 operands on the tensor cores with
 fp32 accumulation (fp32 inputs are rounded to bf16 when staged), so
 outputs are held at 2e-2 (bf16) or 1e-2 (fp32 inputs) of unit-scale
 values, gradients at five times that, and lse at 1e-3 for bf16 inputs
 (exact bf16 products) or 5e-2 for fp32 inputs (logits moved by up to
-2^-8 of their size by the staging).
+2^-8 of their size by the staging). K5 and the one-card ring: 2e-2 of the
+largest magnitude (bf16 kernels; the ring's merges are fp32). K6: bf16 2e-2
+of the largest magnitude (one bf16 rounding of the output), fp32 1e-4 of
+it (fp32 statistics summed in another order), and 1e-3 against a float64
+reference where the mean is 100 times the spread.
 """
 
 import pytest
 import torch
 
 from aozora_sdxl_training_tpu_torch.ops import flash_attention as port
+from aozora_sdxl_training_tpu_torch.ops import groupnorm_silu as gn
+from aozora_sdxl_training_tpu_torch.ops import ring_attention as ring
 
 
 @pytest.fixture
@@ -124,3 +135,131 @@ def test_d512_forward_matches_plain_version_on_card(cuda_device, dtype, tol,
     torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=lse_tol)
     assert port.LAUNCHES["flash_fwd_d512"] == counts["flash_fwd_d512"] + 1
+
+
+def _rel_err(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+# --------------------------------------------------------------------------
+# K5: the stats-level entry points and the one-card ring
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_stats_entry_points_match_plain_versions_on_card(cuda_device, d):
+    """flash_fwd_stats on the second of two KV shards; flash_bwd_stats on
+    it with the global (out, lse). One counted call each."""
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    q, do = (torch.randn(1, 512, 2, d, device=cuda_device, dtype=torch.bfloat16,
+                         generator=g) for _ in range(2))
+    k, v = (torch.randn(1, 1024, 2, d, device=cuda_device, dtype=torch.bfloat16,
+                        generator=g) for _ in range(2))
+    ks, vs = k[:, 512:].contiguous(), v[:, 512:].contiguous()
+    scale = d ** -0.5
+    counts = dict(port.STATS_LAUNCHES)
+    out, lse = port.flash_fwd_stats(q, ks, vs)
+    ref_out, ref_lse = port.flash_fwd_stats_reference(q, ks, vs, scale)
+    assert lse.shape == (1, 512, 2) and lse.dtype == torch.float32
+    assert _rel_err(out, ref_out) <= 2e-2
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+    g_out, g_lse = port.flash_fwd_stats_reference(q, k, v, scale)
+    got = port.flash_bwd_stats(q, ks, vs, g_out, g_lse, do)
+    want = port.flash_bwd_stats_reference(q, ks, vs, g_out, g_lse, do, scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_err(a, b) <= 2e-2, name
+    assert port.STATS_LAUNCHES == {"flash_fwd_stats": counts["flash_fwd_stats"] + 1,
+                                   "flash_bwd_stats": counts["flash_bwd_stats"] + 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_ring_on_one_card_matches_full_attention(cuda_device, n):
+    """The ring's hop schedule over n KV shards (head_dim 128, bf16)
+    against full attention: output and dq/dk/dv; n * n calls of each entry
+    point."""
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    q, k, v, do = (torch.randn(1, 1024, 2, 128, device=cuda_device,
+                               dtype=torch.bfloat16, generator=g) for _ in range(4))
+    scale = 128 ** -0.5
+    counts = dict(port.STATS_LAUNCHES)
+    out, lse, dq, dk, dv = ring.ring_on_one_device(q, k, v, do, n)
+    ref_out, ref_lse = port.flash_fwd_stats_reference(q, k, v, scale)
+    want = port.flash_bwd_stats_reference(q, k, v, ref_out, ref_lse, do, scale)
+    assert _rel_err(out, ref_out) <= 2e-2
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert _rel_err(a, b) <= 2e-2, name
+    assert port.STATS_LAUNCHES == {key: c + n * n for key, c in counts.items()}
+
+
+# --------------------------------------------------------------------------
+# K6: fused GroupNorm + SiLU
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups", [
+    ((1, 32, 32, 320), 32), ((2, 37, 53, 640), 32), ((1, 8, 8, 320), 32),
+    ((1, 16, 16, 36), 12), ((1, 64, 64, 1280), 32), ((1, 5, 3, 2560), 32)])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+def test_group_norm_silu_kernel_matches_plain_version_on_card(cuda_device, shape,
+                                                              groups, dtype, tol):
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    c = shape[-1]
+    x = (torch.randn(shape, device=cuda_device, generator=g) * 2 + 0.5).to(dtype)
+    scale = 1 + 0.3 * torch.randn(c, device=cuda_device, generator=g)
+    bias = 0.2 * torch.randn(c, device=cuda_device, generator=g)
+    counts = dict(gn.LAUNCHES)
+    y = gn.group_norm_silu_forward(x, scale, bias, groups)
+    assert y.dtype == dtype and y.shape == x.shape
+    assert _rel_err(y, gn.group_norm_silu_reference(x, scale, bias, groups)) <= tol
+    assert gn.LAUNCHES["group_norm_silu"] == counts["group_norm_silu"] + 1
+
+
+@pytest.mark.cuda
+def test_group_norm_silu_kernel_keeps_the_variance_at_a_large_mean(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randn(1, 32, 32, 320, device=cuda_device, generator=g) + 100.0
+    scale, bias = torch.ones(320, device=cuda_device), torch.zeros(320, device=cuda_device)
+    y = gn.group_norm_silu_forward(x, scale, bias, 32)
+    xd = x.double().reshape(1, 32 * 32, 32, 10)
+    xd = ((xd - xd.mean(dim=(1, 3), keepdim=True))
+          / (xd.var(dim=(1, 3), unbiased=False, keepdim=True) + 1e-5).sqrt())
+    want = torch.nn.functional.silu(xd.reshape(x.shape))
+    assert _rel_err(y, want) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+def test_group_norm_silu_op_gradients_on_card(cuda_device, dtype, tol):
+    """The op with use_pallas=True (kernel forward, plain backward) against
+    the plain composition under autograd: output and the gradients of x,
+    scale and bias."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x0 = torch.randn(2, 16, 16, 320, device=cuda_device, generator=g).to(dtype)
+    s0 = 1 + 0.3 * torch.randn(320, device=cuda_device, generator=g)
+    b0 = 0.2 * torch.randn(320, device=cuda_device, generator=g)
+    tangent = torch.randn(x0.shape, device=cuda_device, generator=g)
+    results = []
+    for use_pallas in (True, None):
+        x, s, b = (t.clone().requires_grad_(True) for t in (x0, s0, b0))
+        y = gn.group_norm_silu(x, s, b, groups=32, use_pallas=use_pallas)
+        (y.float() * tangent).sum().backward()
+        results.append((y, x.grad, s.grad, b.grad))
+    for name, a, b in zip(("y", "dx", "dscale", "dbias"), *results):
+        assert _rel_err(a, b) <= tol, name
+
+
+@pytest.mark.cuda
+def test_group_norm_silu_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    x = torch.zeros(1, 4, 4, 32, device=cuda_device)
+    s = torch.ones(32, device=cuda_device)
+    counts = dict(gn.LAUNCHES)
+    with pytest.raises(TypeError, match="dtype"):
+        gn.group_norm_silu_forward(x.half(), s, s, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        gn.group_norm_silu_forward(x.permute(0, 2, 1, 3), s, s, 8)
+    with pytest.raises(ValueError, match="scale"):
+        gn.group_norm_silu_forward(x, s.cpu(), s, 8)
+    assert gn.LAUNCHES == counts

@@ -1,0 +1,141 @@
+"""PyTorch port: the fused GroupNorm + SiLU op (K6) against the JAX package.
+
+The port's ``group_norm_silu`` on CPU tensors (its plain version: the CUDA
+kernel runs only on the card, ``tests/test_torch_port_cuda.py``) against
+JAX ``group_norm_silu(..., use_pallas=True)``, whose Pallas kernel runs in
+interpret mode on the CPU as ``tests/test_groupnorm_silu.py`` runs it, and
+``use_pallas=False`` (the XLA composition). Forward and the gradients of x,
+scale and bias (the plain ``_fused_bwd`` in both), NHWC, in fp32 and bf16,
+including the SDXL UNet's narrowest width (C=320, 32 groups of 10
+channels) at a small, ragged HW.
+
+Tolerances: fp32 2e-4 (relative and absolute) for the output, rtol 1e-3
+and atol 2e-4 for the gradients (the same math, sums in another order);
+bf16 2% of the largest magnitude (one bf16 rounding of the output and of
+x's gradient, at different places in the two frameworks).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aozora_sdxl_training_tpu.ops import groupnorm_silu as jax_gn
+from aozora_sdxl_training_tpu_torch.ops import groupnorm_silu as port_gn
+
+# (B, H, W, C), groups
+SHAPES = [((2, 8, 8, 32), 8), ((1, 5, 7, 320), 32), ((2, 4, 4, 64), 32)]
+DTYPES = {"fp32": (np.float32, torch.float32, jnp.float32),
+          "bf16": (None, torch.bfloat16, jnp.bfloat16)}
+
+
+def _inputs(shape, seed, mean=0.0):
+    rng = np.random.default_rng(seed)
+    c = shape[-1]
+    x = (mean + rng.normal(size=shape)).astype(np.float32)
+    scale = (1.0 + 0.3 * rng.normal(size=(c,))).astype(np.float32)
+    bias = (0.2 * rng.normal(size=(c,))).astype(np.float32)
+    tangent = rng.normal(size=shape).astype(np.float32)
+    return x, scale, bias, tangent
+
+
+def _close(got, want, dtype_name, grad=False, err_msg=""):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    if dtype_name == "fp32":
+        tol = dict(rtol=1e-3, atol=2e-4) if grad else dict(rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(got, want, err_msg=err_msg, **tol)
+    else:
+        err = np.abs(got - want).max()
+        assert err <= 2e-2 * np.abs(want).max(), f"{err_msg}: {err}"
+
+
+def _port(x, scale, bias, tangent, groups, dtype, use_pallas=True):
+    xt = torch.from_numpy(x).to(dtype).requires_grad_(True)
+    st = torch.from_numpy(scale).requires_grad_(True)
+    bt = torch.from_numpy(bias).requires_grad_(True)
+    out = port_gn.group_norm_silu(xt, st, bt, groups=groups, use_pallas=use_pallas)
+    (out.float() * torch.from_numpy(tangent)).sum().backward()
+    return out.detach().float().numpy(), xt.grad.float().numpy(), st.grad.numpy(), bt.grad.numpy()
+
+
+def _jax(x, scale, bias, tangent, groups, dtype, use_pallas):
+    def loss(xj, s, b):
+        out = jax_gn.group_norm_silu(xj, s, b, groups=groups, use_pallas=use_pallas)
+        return jnp.sum(out.astype(jnp.float32) * tangent), out
+
+    grads, out = jax.grad(loss, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(x).astype(dtype), jnp.asarray(scale), jnp.asarray(bias))
+    return (np.asarray(out.astype(jnp.float32)),
+            *(np.asarray(g.astype(jnp.float32)) for g in grads))
+
+
+@pytest.mark.parametrize("dtype_name", list(DTYPES))
+@pytest.mark.parametrize("shape,groups", SHAPES)
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_op_matches_jax(shape, groups, dtype_name, use_pallas):
+    """The port's op (fused forward, plain on the CPU) against JAX's fused
+    op (interpreted Pallas) and its XLA composition, forward and gradients;
+    ``use_pallas=False`` in the port is the plain composition."""
+    _, tdtype, jdtype = DTYPES[dtype_name]
+    x, scale, bias, tangent = _inputs(shape, sum(shape))
+    got = _port(x, scale, bias, tangent, groups, tdtype, use_pallas=use_pallas)
+    want = _jax(x, scale, bias, tangent, groups, jdtype, use_pallas)
+    for name, a, w in zip(("out", "dx", "dscale", "dbias"), got, want):
+        _close(a, w, dtype_name, grad=name != "out", err_msg=name)
+
+
+@pytest.mark.parametrize("shape,groups", SHAPES[:2])
+def test_fused_and_plain_paths_agree_in_the_port(shape, groups):
+    """Both routes of the port give the same output and gradients on the
+    CPU (fp32, 1e-5: the autograd and the hand-written backward sum
+    in another order), and neither counts a kernel launch there."""
+    x, scale, bias, tangent = _inputs(shape, 7)
+    before = dict(port_gn.LAUNCHES)
+    fused = _port(x, scale, bias, tangent, groups, torch.float32, use_pallas=True)
+    plain = _port(x, scale, bias, tangent, groups, torch.float32, use_pallas=None)
+    for a, b in zip(fused, plain):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+    assert port_gn.LAUNCHES == before
+
+
+def test_large_mean_matches_a_float64_reference():
+    """x with mean 300 and unit spread: the port's statistics (two-pass in
+    fp32) hold the float64 answer to 2e-3 of the output's magnitude, where
+    a single-pass E[x^2] - mean^2 in fp32 would lose the variance."""
+    x, scale, bias, _ = _inputs((1, 8, 8, 64), 3, mean=300.0)
+    got = port_gn.group_norm_silu_reference(torch.from_numpy(x), torch.from_numpy(scale),
+                                            torch.from_numpy(bias), 32).numpy()
+    xd = x.astype(np.float64).reshape(1, 64, 32, 2)
+    y = ((xd - xd.mean(axis=(1, 3), keepdims=True))
+         / np.sqrt(xd.var(axis=(1, 3), keepdims=True) + 1e-5)).reshape(x.shape)
+    y = y * scale + bias
+    want = y / (1 + np.exp(-y))
+    assert np.abs(got - want).max() <= 2e-3 * np.abs(want).max()
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take_before_any_launch():
+    """The checks that guard the CUDA launch (run here on the CPU by
+    calling them directly): rank, groups, dtype, contiguity, scale/bias."""
+    x = torch.zeros(1, 4, 4, 32)
+    s = torch.ones(32)
+    with pytest.raises(ValueError, match="expected"):
+        port_gn._check_cuda_inputs(x[0], s, s, 8)
+    with pytest.raises(ValueError, match="groups"):
+        port_gn._check_cuda_inputs(x, s, s, 5)
+    with pytest.raises(TypeError, match="dtype"):
+        port_gn._check_cuda_inputs(x.half(), s, s, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        port_gn._check_cuda_inputs(x.permute(0, 2, 1, 3), s, s, 8)
+    with pytest.raises(ValueError, match="scale"):
+        port_gn._check_cuda_inputs(x, s[:16], s, 8)
+    port_gn._check_cuda_inputs(x, s, s, 8)
+
+
+def test_rows_per_chunk_covers_any_length():
+    """A site spreads over at most 512 statistics blocks, at least one row
+    each."""
+    assert port_gn.rows_per_chunk(128 * 128) == 32
+    assert port_gn.rows_per_chunk(32 * 32) == 2
+    assert port_gn.rows_per_chunk(30) == 1
+    assert port_gn.rows_per_chunk(37 * 53) == 4

@@ -1,0 +1,185 @@
+"""Runs the PyTorch port on the ranks of a gloo world, for the CPU tests.
+
+``launch`` starts each rank as a fresh interpreter (never a fork of a
+process that has JAX loaded) with ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
+``AOZORA_PLATFORM=cpu`` and a ``file://`` store under the test's own
+directory (no fixed port, so pytest-xdist workers can run side by side),
+and kills every rank if one of them does not finish within the timeout.
+
+Run as a module, a rank runs one task of the tests:
+
+    python -m tests.test_torch_port_ranks ring inputs.npz out_prefix
+    python -m tests.test_torch_port_ranks dit  inputs.npz out_prefix
+    python -m tests.test_torch_port_ranks mesh inputs.npz out_prefix
+
+and writes ``<out_prefix>_<rank>.npz``. This module imports no JAX; its
+own tests check the launcher.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def launch(commands, work_dir: Path, *, timeout: float = 240.0, env=None):
+    """Starts ``commands`` (one argv list per process) side by side and
+    returns [(returncode, stdout, stderr)] in order. Process i gets
+    ``env[i]`` on top of the base environment. If they have not all ended
+    within ``timeout`` seconds, every one still running is killed and
+    ``subprocess.TimeoutExpired`` is raised."""
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("XLA_", "JAX_", "WORLD_SIZE", "RANK",
+                                 "LOCAL_RANK", "AOZORA_DIST_INIT"))}
+    base.update({"AOZORA_PLATFORM": "cpu", "OMP_NUM_THREADS": "1",
+                 "PYTHONPATH": str(REPO), "GLOO_SOCKET_IFNAME": "lo"})
+    procs = [subprocess.Popen(cmd, cwd=work_dir, env={**base, **(env[i] if env else {})},
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for i, cmd in enumerate(commands)]
+    deadline = time.monotonic() + timeout
+    results = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            results.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return results
+
+
+def world_env(n: int, store: Path) -> list[dict]:
+    """The environment of each of ``n`` ranks meeting at ``store``."""
+    return [{"WORLD_SIZE": str(n), "RANK": str(r), "LOCAL_RANK": str(r),
+             "AOZORA_DIST_INIT": f"file://{store}"} for r in range(n)]
+
+
+def run_world(cmd, n: int, work_dir: Path, name: str, *, timeout: float = 240.0,
+              extra_env=None):
+    """Runs ``cmd`` on each of ``n`` gloo ranks; asserts that every rank
+    exits 0 and returns their (stdout, stderr)."""
+    env = [{**e, **(extra_env or {})} for e in world_env(n, work_dir / f"{name}_store")]
+    results = launch([cmd] * n, work_dir, timeout=timeout, env=env)
+    for rank, (code, out, err) in enumerate(results):
+        assert code == 0, f"rank {rank} exited {code}:\n{out}\n{err}"
+    return [(out, err) for _, out, err in results]
+
+
+def run_task(task: str, n: int, inputs: Path, work_dir: Path,
+             timeout: float = 240.0) -> list[dict]:
+    """Runs ``task`` on ``n`` gloo ranks; returns each rank's arrays."""
+    prefix = work_dir / task
+    cmd = [sys.executable, "-m", "tests.test_torch_port_ranks", task, str(inputs),
+           str(prefix)]
+    run_world(cmd, n, work_dir, task, timeout=timeout)
+    return [dict(np.load(f"{prefix}_{r}.npz")) for r in range(n)]
+
+
+# --------------------------------------------------------------------------
+# tasks (run inside each rank)
+# --------------------------------------------------------------------------
+
+def _ring(inputs, group, n):
+    """sp_ring_attention on the global q, k, v; out and the whole q/k/v
+    gradients for the upstream gradient ``g``."""
+    import torch
+    from aozora_sdxl_training_tpu_torch.ops.ring_attention import (
+        SPRingConfig, sp_ring_attention)
+    q, k, v = (torch.from_numpy(inputs[x]).requires_grad_(True) for x in "qkv")
+    out = sp_ring_attention(q, k, v, SPRingConfig(group, n, "xla"))
+    out.backward(torch.from_numpy(inputs["g"]))
+    return {"out": out.detach().numpy(), "dq": q.grad.numpy(),
+            "dk": k.grad.numpy(), "dv": v.grad.numpy()}
+
+
+def _dit(inputs, group, n):
+    """A TINY DiT forward under SP (Full remat, so each block's recompute
+    runs the ring again) and the gradients of sum(out * tangent)."""
+    import torch
+    from dataclasses import replace
+    from aozora_sdxl_training_tpu_torch.models.anima import dit
+    from aozora_sdxl_training_tpu_torch.ops.ring_attention import SPRingConfig
+    cfg = replace(dit.TINY_ANIMA, **{k[4:]: int(inputs[k]) for k in inputs
+                                     if k.startswith("cfg.")})
+    params = dit.params_from_jax({k[2:]: inputs[k] for k in inputs
+                                  if k.startswith("p.")})
+    for p in params.values():
+        p.requires_grad_(True)
+    out = dit.dit_forward(
+        params, *(torch.from_numpy(inputs[x]) for x in ("latents", "t", "ctx")),
+        cfg=cfg, t5_ids=torch.from_numpy(inputs["ids"]),
+        attn_impl=SPRingConfig(group, n, "xla"), compute_dtype=torch.float32,
+        remat="full")
+    (out * torch.from_numpy(inputs["tangent"])).sum().backward()
+    return {"out": out.detach().numpy(),
+            **{f"g.{k}": p.grad.numpy() for k, p in params.items()}}
+
+
+def _mesh(inputs, group, n):
+    """make_mesh's dp and sp groups: this rank's indices and the sums of the
+    global ranks in each of its two groups."""
+    import torch
+    import torch.distributed as dist
+    from aozora_sdxl_training_tpu_torch.parallel import sharding
+    mesh = sharding.make_mesh(dp=int(inputs["dp"]), sp=int(inputs["sp"]))
+    sums = [torch.tensor([dist.get_rank()]) for _ in range(2)]
+    dist.all_reduce(sums[0], group=mesh.dp_group)
+    dist.all_reduce(sums[1], group=mesh.sp_group)
+    return {"dp_rank": mesh.dp_rank, "sp_rank": mesh.sp_rank,
+            "dp_sum": sums[0].item(), "sp_sum": sums[1].item()}
+
+
+def main(argv) -> int:
+    import torch.distributed as dist
+    from aozora_sdxl_training_tpu_torch.parallel import sharding
+    task, inputs, prefix = argv
+    sharding.init_distributed()
+    try:
+        n, rank = dist.get_world_size(), dist.get_rank()
+        result = {"ring": _ring, "dit": _dit, "mesh": _mesh}[task](
+            dict(np.load(inputs)), dist.group.WORLD, n)
+        np.savez(f"{prefix}_{rank}.npz", **result)
+    finally:
+        sharding.destroy_distributed()
+    return 0
+
+
+# --------------------------------------------------------------------------
+# the launcher's own tests
+# --------------------------------------------------------------------------
+
+def test_launch_kills_a_rank_that_hangs(tmp_path):
+    """A hung rank fails its test within the timeout, and no process of
+    the world outlives the call."""
+    import pytest
+    cmds = [[sys.executable, "-c", "import time; time.sleep(120)"],
+            [sys.executable, "-c", "print('done')"]]
+    t0 = time.monotonic()
+    with pytest.raises(subprocess.TimeoutExpired):
+        launch(cmds, tmp_path, timeout=3.0)
+    assert time.monotonic() - t0 < 60
+
+
+def test_each_rank_gets_its_world(tmp_path):
+    """Ranks see their own RANK, the world size and the store, and the CPU
+    platform; nothing of the caller's world or JAX flags leaks in."""
+    code = ("import os; print(os.environ['RANK'], os.environ['WORLD_SIZE'], "
+            "os.environ['AOZORA_PLATFORM'], "
+            "os.environ['AOZORA_DIST_INIT'].startswith('file://'), "
+            "any(k.startswith('XLA_') for k in os.environ))")
+    outs = run_world([sys.executable, "-c", code], 3, tmp_path, "probe", timeout=60)
+    assert [o.split() for o, _ in outs] == [[str(r), "3", "cpu", "True", "False"]
+                                            for r in range(3)]
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -269,8 +269,10 @@ def test_port_imports_no_jax():
         "for n in names + ['chip_smoke']: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m.split('.')[0] == 'aozora_sdxl_training_tpu')\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 20 else 0)\n")
+        "new = {p.__name__ + '.' + n for n in ('ops.ring_attention', "
+        "'ops.groupnorm_silu', 'parallel', 'parallel.sharding')}\n"
+        "print(len(names), bad, sorted(new - set(names)))\n"
+        "sys.exit(1 if bad or len(names) < 20 or not new <= set(names) else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
