@@ -1,23 +1,22 @@
-// Flash attention forward and backward for Hopper (sm_90a), head_dim 64 and
-// 128, and the forward at head_dim 512.
+// Flash attention forward and backward for Hopper (sm_90a) at head_dim 64,
+// and the forward at head_dim 512. (Head_dim 128 has its own wgmma kernels
+// in flash_attention_sm90.cu.)
 //
 // Three kernels, each a template on the head dim D and each replacing Pallas
 // TPU kernels of aozora_sdxl_training_tpu/ops/flash_attention.py:
 //
-//   flash_fwd_kernel<D>      <- _fwd_kernel     (D=64: _flash_forward;
-//                                                D=128: _flash_forward_folded)
-//   flash_bwd_dq_kernel<D>   <- _bwd_dq_kernel  (D=64: _flash_backward;
-//                                                D=128: _flash_backward_folded)
-//   flash_bwd_dkv_kernel<D>  <- _bwd_dkv_kernel (the same two)
+//   flash_fwd_kernel<D>      <- _fwd_kernel     (_flash_forward)
+//   flash_bwd_dq_kernel<D>   <- _bwd_dq_kernel  (_flash_backward)
+//   flash_bwd_dkv_kernel<D>  <- _bwd_dkv_kernel (_flash_backward)
 //
 // and a fourth with its own tiling for D=512 (the SD-VAE mid-attention):
 //
 //   flash_fwd_d512_kernel    <- _fwd_kernel     (_flash_forward_folded)
 //
-// The D=64 instantiations serve the SDXL UNet (K1-K3), the D=128 ones the
-// Anima DiT (K4a forward, K4b backward), the D=512 kernel the SD-VAE encoder
-// and decoder (K4a). Each has its own C entry point, so the wrappers count
-// them apart.
+// The D=64 instantiations serve the SDXL UNet (K1-K3), the D=512 kernel the
+// SD-VAE encoder and decoder (K4a). Each has its own C entry point, so the
+// wrappers count them apart. The templates take any D that is a multiple of
+// 16; only D=64 is instantiated.
 //
 // They compute what the Pallas kernels compute (exact attention with an
 // online softmax over KV tiles, fp32 statistics and accumulators, padded KV
@@ -26,28 +25,25 @@
 //
 // * They read and write the (B, S, H, D) layout of the callers directly:
 //   row s of head (b, h) starts at ((b * S + s) * H + h) * D. That is also
-//   the (B, S, H*D) "folded" layout of the TPU's D % 128 == 0 kernels, so
-//   K4a/K4b are the same bodies at D=128. No transposes and no padding
-//   around the call; the ragged edge of S is masked here.
+//   the (B, S, H*D) "folded" layout of the TPU's D % 128 == 0 kernels. No
+//   transposes and no padding around the call; the ragged edge of S is
+//   masked here.
 // * lse and delta are plain (B*H, S) fp32 rows (no 128-lane replication).
 // * Each block loops over the other sequence inside itself, since a grid
 //   dimension cannot carry an accumulator on the GPU.
 //
-// What bounds them: at the SDXL and Anima shapes (S = 1024 or 4096) all
-// three are compute-bound (4*S^2*D flop per head forward, 6 and 8 for dq and
-// dk/dv, against 2*S*D*2 bytes per operand). The design keeps every S x S
-// tile in shared memory, never in device memory, and runs the products on
-// the tensor cores (WMMA bf16 16x16x16, fp32 accumulate). This is the
-// simple version: one block of 4 warps per 64-row tile, each warp owning 16
-// rows, K/V (or Q/dO) tiles staged in shared memory with plain loads and no
-// double buffering, and the softmax done from shared memory. The score tiles
-// (S, P, dS) are 64 wide whatever D is; the operand tiles and the output
-// accumulator are D wide. At D=128 a block takes 110-121 KB of shared
-// memory, and the dK/dV kernel's two accumulators take 16 WMMA fragments
-// (128 fp32 registers) per thread: ptxas spills 56 bytes at its 255-register
-// limit. Keeping dV in shared memory instead, as the forward keeps O, ends
-// the spill (168 registers) but measured 23% slower on an H100, so the
-// fragments stay. wgmma, TMA and warp specialisation are the next steps.
+// What bounds them: at the SDXL shapes (S = 1024 or 4096) all three are
+// compute-bound (4*S^2*D flop per head forward, 6 and 8 for dq and dk/dv,
+// against 2*S*D*2 bytes per operand). The design keeps every S x S tile in
+// shared memory, never in device memory, and runs the products on the
+// tensor cores (WMMA bf16 16x16x16, fp32 accumulate). This is the simple
+// version: one block of 4 warps per 64-row tile, each warp owning 16 rows,
+// K/V (or Q/dO) tiles staged in shared memory with plain loads and no
+// double buffering, and the softmax done from shared memory. The score
+// tiles (S, P, dS) are 64 wide whatever D is; the operand tiles and the
+// output accumulator are D wide. The head_dim-128 kernels in
+// flash_attention_sm90.cu show the Hopper design (wgmma, cp.async into a
+// ring, accumulators in registers) these can take next.
 //
 // fp32 inputs are accepted: tiles are rounded to bf16 when they are staged
 // for the tensor cores, and everything else (softmax, statistics,
@@ -719,7 +715,7 @@ int bwd_dkv_entry(int dtype, const void* q, const void* k, const void* v, const 
 }  // namespace
 
 // Plain C interface, one entry point per kernel and head dim (no suffix:
-// D=64, K1-K3; _d128: D=128, K4a/K4b; _d512: D=512, K4a forward only). q, o, dout, dq are contiguous
+// D=64, K1-K3; _d512: D=512, K4a forward only). q, o, dout, dq are contiguous
 // (B, Sq, H, D); k, v, dk, dv contiguous (B, Skv, H, D); lse and delta
 // contiguous (B * H, Sq) fp32. Each returns the cudaError_t of its launch.
 extern "C" {
@@ -731,12 +727,6 @@ const char* aozora_flash_error_string(int code) {
 int aozora_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                      float* lse, int B, int H, int Sq, int Skv, float scale, void* stream) {
   return fwd_entry<64>(dtype, q, k, v, o, lse, B, H, Sq, Skv, scale, stream);
-}
-
-int aozora_flash_fwd_d128(int dtype, const void* q, const void* k, const void* v, void* o,
-                          float* lse, int B, int H, int Sq, int Skv, float scale,
-                          void* stream) {
-  return fwd_entry<128>(dtype, q, k, v, o, lse, B, H, Sq, Skv, scale, stream);
 }
 
 int aozora_flash_fwd_d512(int dtype, const void* q, const void* k, const void* v, void* o,
@@ -756,28 +746,12 @@ int aozora_flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
                           stream);
 }
 
-int aozora_flash_bwd_dq_d128(int dtype, const void* q, const void* k, const void* v,
-                             const void* o, const void* dout, const float* lse,
-                             float* delta, void* dq, int B, int H, int Sq, int Skv,
-                             float scale, void* stream) {
-  return bwd_dq_entry<128>(dtype, q, k, v, o, dout, lse, delta, dq, B, H, Sq, Skv, scale,
-                           stream);
-}
-
 int aozora_flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
                          const void* dout, const float* lse, const float* delta, void* dk,
                          void* dv, int B, int H, int Sq, int Skv, float scale,
                          void* stream) {
   return bwd_dkv_entry<64>(dtype, q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv, scale,
                            stream);
-}
-
-int aozora_flash_bwd_dkv_d128(int dtype, const void* q, const void* k, const void* v,
-                              const void* dout, const float* lse, const float* delta,
-                              void* dk, void* dv, int B, int H, int Sq, int Skv,
-                              float scale, void* stream) {
-  return bwd_dkv_entry<128>(dtype, q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv,
-                            scale, stream);
 }
 
 }  // extern "C"

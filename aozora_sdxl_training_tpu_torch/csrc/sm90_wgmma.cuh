@@ -1,0 +1,189 @@
+// Hopper (sm_90a) building blocks for the head_dim-128 flash kernels in
+// flash_attention_sm90.cu: the 128-byte-swizzled shared-memory tile that
+// wgmma reads, its matrix descriptors, the two wgmma shapes the kernels use,
+// their fences, cp.async into the swizzled layout, and a named barrier.
+//
+// A tile holds R rows of 128 bf16 (256 bytes) as two 64-column halves, each
+// R rows of 128 bytes; 16-byte chunk c of row r sits at chunk (c ^ (r % 8))
+// of its row in its half. That is the SWIZZLE_128B layout of the hardware
+// (address bits 4-6 XOR bits 7-9), so every tile starts on a 1024-byte
+// boundary. One tile serves as either operand form:
+//
+// * K-major (the 128 columns are the reduction dim K): A or B of S = Q K^T
+//   and its relatives. Rows are M or N; 8-row groups 1024 bytes apart (the
+//   stride byte offset); the leading byte offset is unused. k-step kk of 16
+//   starts (kk / 4) halves and (kk % 4) * 32 bytes in.
+// * MN-major (the rows are K, the 128 columns are N): B of the accumulating
+//   products (P V, dS K, P^T dO, dS^T Q), read transposed (imm-trans-b 1,
+//   which bf16 allows). The two 64-column halves are the two N atoms, R * 128
+//   bytes apart (the leading byte offset); 8-row K groups are 1024 bytes
+//   apart (the stride byte offset). k-step kk starts kk * 16 rows in.
+//
+// The accumulator of an m64nNk16 wgmma gives thread t of the warpgroup
+// (warp w = t / 32, g = (t % 32) / 4, c4 = t % 4) the elements
+// d[4j + 2i + c] = D[16w + g + 8i][8j + 2 c4 + c], and the A fragment of an
+// m64nNk16 product from registers has the same per-thread layout over a
+// 16-column k-step: so a score tile converts into the A operand of the next
+// product in registers (pack_a).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+template <int R>
+struct Tile {
+  static constexpr int BYTES = R * 256;
+  static constexpr int HALF = R * 128;
+  static_assert(R % 8 == 0, "whole 8-row swizzle atoms");
+  // byte offset of 16-byte chunk c (0..15) of row r
+  __device__ static __forceinline__ uint32_t chunk(int r, int c) {
+    return (c >> 3) * HALF + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+  }
+};
+
+// A shared-memory matrix descriptor with the 128-byte swizzle.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+template <int R>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
+  return make_desc(tile + (kk >> 2) * Tile<R>::HALF + (kk & 3) * 32, 16, 1024);
+}
+
+template <int R>
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
+  return make_desc(tile + kk * 2048, Tile<R>::HALF, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses of registers that an in-flight
+// wgmma reads or writes across the wait (or from reusing them before it).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define AOZORA_F8(i)                                                               \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),      \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 64 fp32) = (accumulate ? d : 0) + A (64 x 16) B (64 x 16)^T, both
+// K-major in shared memory.
+__device__ __forceinline__ void mma_64x64_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : AOZORA_F8(0), AOZORA_F8(8), AOZORA_F8(16), AOZORA_F8(24)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 128 fp32) += A (64 x 16, bf16 in registers) B (16 x 128), B
+// MN-major in shared memory.
+__device__ __forceinline__ void mma_64x128_rs(float (&d)[64], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : AOZORA_F8(0), AOZORA_F8(8), AOZORA_F8(16), AOZORA_F8(24), AOZORA_F8(32),
+        AOZORA_F8(40), AOZORA_F8(48), AOZORA_F8(56)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+#undef AOZORA_F8
+
+// A 64 x 64 fp32 score tile (accumulator layout) as the bf16 A fragments
+// of four 16-column k-steps: a[4 kk .. 4 kk + 3] is k-step kk.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ void pack_a(const float (&s)[32], uint32_t (&a)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) a[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+}
+__device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
+}
+
+// 16 bytes from device memory into shared memory, asynchronously; zeros
+// where !valid (src must still be a mapped address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Makes this thread's generic-proxy writes to shared memory (st.shared,
+// cp.async) visible to the async proxy that wgmma reads through.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Rows [row0, row0 + R) of one head of a (B, S, H, 128) bf16 tensor (row
+// stride rs elements) into a swizzled tile, by THREADS threads; rows >= S
+// are zeros.
+template <int R, int THREADS>
+__device__ __forceinline__ void load_tile_async(uint32_t tile, const bf16* head, int row0,
+                                                int S, int rs, int tid) {
+  static_assert((R * 16) % THREADS == 0, "whole chunks per thread");
+#pragma unroll
+  for (int i = 0; i < R * 16 / THREADS; ++i) {
+    const int c = tid + i * THREADS, r = c >> 4, ch = c & 15;
+    const bool ok = row0 + r < S;
+    cp_async16(tile + Tile<R>::chunk(r, ch), head + (size_t)(ok ? row0 + r : 0) * rs + ch * 8,
+               ok);
+  }
+}
+
+}  // namespace sm90

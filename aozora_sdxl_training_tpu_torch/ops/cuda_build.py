@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` becomes ``csrc/build/<name>.so`` through one
 ``nvcc`` call for Hopper (``sm_90a``) and exposes a plain C interface that
-the ops modules bind with ``ctypes``. A library is rebuilt when its source
-is newer. Nothing here runs at import time; the first launch builds.
+the ops modules bind with ``ctypes``. A library is rebuilt when its source,
+or any header under ``csrc/`` (which a source may include), is newer.
+Nothing here runs at import time; the first launch builds.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
+HEADER_SUFFIXES = (".cuh", ".h")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -44,15 +46,23 @@ def build_command(name: str) -> list[str]:
             "-o", str(out.with_name(out.name + ".tmp")), str(CSRC / f"{name}.cu")]
 
 
+def inputs(name: str) -> list[Path]:
+    """The files the library of ``name`` is built from: its source and every
+    header under ``csrc/``."""
+    headers = sorted(p for p in CSRC.rglob("*") if p.suffix in HEADER_SUFFIXES)
+    return [CSRC / f"{name}.cu", *headers]
+
+
 def needs_build(name: str) -> bool:
     lib = library_path(name)
     return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+            or lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs(name)))
 
 
-def start_build(name: str) -> subprocess.Popen | None:
-    """Starts nvcc for one source (None when the library is current)."""
-    if not needs_build(name):
+def start_build(name: str, force: bool = False) -> subprocess.Popen | None:
+    """Starts nvcc for one source (None when the library is current and
+    ``force`` is false)."""
+    if not force and not needs_build(name):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     return subprocess.Popen(build_command(name), stdout=subprocess.PIPE,
@@ -60,7 +70,8 @@ def start_build(name: str) -> subprocess.Popen | None:
 
 
 def finish_build(name: str, proc: subprocess.Popen | None) -> str:
-    """Waits for ``start_build``'s process; returns nvcc's output."""
+    """Waits for ``start_build``'s process; returns nvcc's output ("" where
+    nothing was built)."""
     if proc is None:
         return ""
     output, _ = proc.communicate()
@@ -71,10 +82,11 @@ def finish_build(name: str, proc: subprocess.Popen | None) -> str:
     return output
 
 
-def build_all(names) -> dict[str, tuple[float, str]]:
-    """Builds several sources at once, one nvcc each; {name: (s, output)}."""
+def build_all(names, force: bool = False) -> dict[str, tuple[float, str]]:
+    """Builds several sources at once, one nvcc each (only the stale ones
+    unless ``force``); {name: (s, nvcc's output or "")}."""
     t0 = time.perf_counter()
-    procs = {n: start_build(n) for n in names}
+    procs = {n: start_build(n, force) for n in names}
     results = {}
     for n, p in procs.items():
         output = finish_build(n, p)

@@ -1,17 +1,20 @@
 """Flash attention (forward + backward): CUDA kernels and their plain version.
 
 Counterpart of ``aozora_sdxl_training_tpu/ops/flash_attention.py``. The
-Pallas kernels there become hand-written CUDA kernels in
-``csrc/flash_attention.cu``, one set per head dim, bound with ``ctypes`` and
-wrapped in a ``torch.autograd.Function``:
+Pallas kernels there become hand-written CUDA kernels, one set per head
+dim, bound with ``ctypes`` and wrapped in a ``torch.autograd.Function``:
 
 * head_dim 64 (the SDXL UNet): K1 forward, K2 dQ, K3 dK/dV, for
-  ``_flash_forward`` / ``_flash_backward``;
+  ``_flash_forward`` / ``_flash_backward``, in ``csrc/flash_attention.cu``;
 * head_dim 128 (the Anima DiT): K4a forward, K4b dQ and dK/dV, for
-  ``_flash_forward_folded`` / ``_flash_backward_folded``;
+  ``_flash_forward_folded`` / ``_flash_backward_folded``, in
+  ``csrc/flash_attention_sm90.cu`` (wgmma). They multiply bf16: the
+  wrappers round fp32 q, k, v (and dout) to bf16 once per call and return
+  results in the caller's dtype;
 * head_dim 512 (the SD-VAE mid-attention): K4a forward only, for
-  ``_flash_forward_folded``. No caller differentiates there, so the
-  backward wrappers raise at head_dim 512 on any device.
+  ``_flash_forward_folded``, in ``csrc/flash_attention.cu``. No caller
+  differentiates there, so the backward wrappers raise at head_dim 512 on
+  any device.
 
 ``flash_fwd_stats`` / ``flash_bwd_stats`` (K5) are the JAX package's
 stats-level entry points over the same kernels, for ring attention
@@ -24,7 +27,8 @@ the kernels index that layout directly, so nothing is transposed or padded
 logsumexp is (B*H, Sq) fp32. No gradient flows through it.
 
 A wrapper launches its kernel for CUDA tensors and raises on what the
-kernel does not take (any other head dim among them); it runs the plain
+kernel does not take (any other head dim among them, and a tensor whose
+data does not start on a 16-byte boundary); it runs the plain
 PyTorch version only for CPU tensors. ``LAUNCHES`` counts kernel launches
 per kernel, ``STATS_LAUNCHES`` the K5 entry points' calls that launched.
 """
@@ -44,10 +48,18 @@ KERNEL_NAMES = {
     128: ("flash_fwd_d128", "flash_bwd_dq_d128", "flash_bwd_dkv_d128"),  # K4a/K4b
     512: ("flash_fwd_d512", None, None),                                # K4a
 }
+# the CUDA source (csrc/<source>.cu, one library each) that exports each
+# head dim's kernels
+SOURCES = {64: "flash_attention", 128: "flash_attention_sm90", 512: "flash_attention"}
 LAUNCHES = {name: 0 for names in KERNEL_NAMES.values() for name in names if name}
 STATS_LAUNCHES = {"flash_fwd_stats": 0, "flash_bwd_stats": 0}
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
-_lib = None
+# entry-point argument types by role: forward, dQ, dK/dV
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+             [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+             [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P])
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
@@ -56,29 +68,28 @@ def reset_launch_counts() -> None:
             counts[name] = 0
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = cuda_build.load("flash_attention")
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        argtypes = ([i, p, p, p, p, p, i, i, i, i, f, p],
-                    [i, p, p, p, p, p, p, p, p, i, i, i, i, f, p],
-                    [i, p, p, p, p, p, p, p, p, i, i, i, i, f, p])
-        for names in KERNEL_NAMES.values():
-            for name, types in zip(names, argtypes):
-                if name is None:
-                    continue
-                fn = getattr(lib, f"aozora_{name}")
-                fn.argtypes = types
-                fn.restype = i
-        lib.aozora_flash_error_string.argtypes = [i]
+def _library(source: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<source>.cu`` with the argument types of
+    its kernels' entry points and of its error-string function set."""
+    lib = _libs.get(source)
+    if lib is None:
+        lib = cuda_build.load(source)
+        for d, names in KERNEL_NAMES.items():
+            if SOURCES[d] != source:
+                continue
+            for name, types in zip(names, _ARGTYPES):
+                if name is not None:
+                    fn = getattr(lib, f"aozora_{name}")
+                    fn.argtypes = types
+                    fn.restype = _I
+        lib.aozora_flash_error_string.argtypes = [_I]
         lib.aozora_flash_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _libs[source] = lib
+    return lib
 
 
-def _launch(name: str, *args) -> None:
-    lib = _library()
+def _launch(head_dim: int, name: str, *args) -> None:
+    lib = _library(SOURCES[head_dim])
     code = getattr(lib, f"aozora_{name}")(*args)
     if code != 0:
         msg = lib.aozora_flash_error_string(code).decode()
@@ -121,6 +132,7 @@ def _check_cuda_inputs(q, k, v) -> tuple[str, str, str]:
                             "the kernels take bfloat16 or float32")
         if not t.is_contiguous():
             raise ValueError(f"flash attention: {name} must be contiguous")
+        _check_aligned(name, t)
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash attention: q, k, v on different devices")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -135,6 +147,14 @@ def _check_cuda_inputs(q, k, v) -> tuple[str, str, str]:
     return names
 
 
+def _check_aligned(name: str, t: torch.Tensor) -> None:
+    """The kernels read and write rows with 16-byte vector accesses."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"flash attention: {name} does not start on a "
+                         f"16-byte boundary (data_ptr {t.data_ptr():#x}); the "
+                         "kernels' 16-byte loads need it")
+
+
 def _check_rows(q, lse, **tensors) -> None:
     """Backward inputs: out/dout like q, lse/delta contiguous fp32 (B*H, Sq)."""
     b, sq, h, _ = q.shape
@@ -147,6 +167,17 @@ def _check_rows(q, lse, **tensors) -> None:
             raise ValueError(f"flash backward: {name} has shape "
                              f"{tuple(t.shape)}, dtype {t.dtype}, device "
                              f"{t.device}; not what the kernel takes")
+        if name not in ("lse", "delta"):
+            _check_aligned(name, t)
+
+
+def _operands(*tensors):
+    """The tensors the kernels multiply: as they are for head_dim 64 and
+    512, rounded to bf16 (once, here) for the head_dim-128 kernels, which
+    multiply bf16 whatever the caller's dtype."""
+    if tensors[0].shape[-1] != 128:
+        return tensors
+    return tuple(t.to(torch.bfloat16) for t in tensors)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -206,12 +237,13 @@ def flash_fwd(q, k, v, scale: float):
     CPU."""
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, scale)
-    name = _check_cuda_inputs(q, k, v)[0]
-    b, sq, h, _ = q.shape
+    names = _check_cuda_inputs(q, k, v)
+    b, sq, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
-    _launch(name, _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, sq,
+    qm, km, vm = _operands(q, k, v)
+    _launch(d, names[0], _DTYPE_CODES[q.dtype], qm.data_ptr(), km.data_ptr(),
+            vm.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, sq,
             k.shape[1], float(scale), _stream(q))
     return out, lse
 
@@ -222,13 +254,15 @@ def flash_bwd_dq(q, k, v, out, lse, dout, scale: float):
     _require_backward(q.shape[-1])
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, out, lse, dout, scale)
-    name = _check_cuda_inputs(q, k, v)[1]
+    names = _check_cuda_inputs(q, k, v)
     _check_rows(q, lse, out=out, dout=dout)
-    b, sq, h, _ = q.shape
+    b, sq, h, d = q.shape
     delta = torch.empty_like(lse)
     dq = torch.empty_like(q)
-    _launch(name, _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+    qm, km, vm = _operands(q, k, v)
+    # out and dout stay in the caller's dtype: delta is computed from them
+    _launch(d, names[1], _DTYPE_CODES[q.dtype], qm.data_ptr(), km.data_ptr(),
+            vm.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), b, h, sq, k.shape[1],
             float(scale), _stream(q))
     return dq, delta
@@ -240,13 +274,14 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, scale: float):
     _require_backward(q.shape[-1])
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, dout, lse, delta, scale)
-    name = _check_cuda_inputs(q, k, v)[2]
+    names = _check_cuda_inputs(q, k, v)
     _check_rows(q, lse, delta=delta, dout=dout)
-    b, sq, h, _ = q.shape
+    b, sq, h, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch(name, _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+    qm, km, vm, dom = _operands(q, k, v, dout)
+    _launch(d, names[2], _DTYPE_CODES[q.dtype], qm.data_ptr(), km.data_ptr(),
+            vm.data_ptr(), dom.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, h, sq, k.shape[1], float(scale),
             _stream(q))
     return dk, dv

@@ -8,16 +8,23 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 Phases, each of which exits non-zero on failure:
 
 1. device: CUDA present; the card's name and power limit.
-2. build: compiles every CUDA source of the port (one nvcc each, all at once).
+2. build: compiles every CUDA source of the port (one nvcc each, all at
+   once, a current library too); for the head_dim-128 wgmma kernels (csrc/flash_attention_sm90.cu)
+   prints ptxas's registers and spill bytes, the registers, dynamic shared
+   memory and blocks per SM the runtime reports, and the HGMMA instructions
+   `cuobjdump -sass` finds in each kernel (none fails the phase; without
+   cuobjdump it prints "not checked").
 3. kernels: each flash-attention kernel against its plain PyTorch version:
    K1 forward, K2 dQ, K3 dK/dV (head_dim 64) at the SDXL shapes, K4a forward
    and K4b dQ, dK/dV (head_dim 128) at the Anima shape, K4a forward at
    head_dim 512 at the SD-VAE mid-attention shape (one head, 16384 tokens,
-   bf16 and fp32), with ragged and unequal lengths and fp32; then each
-   timed with CUDA events beside its bound, its plain version and
-   scaled_dot_product_attention (a yardstick only: its forward beside the
-   forward kernels, its backward, and its forward plus backward, beside the
-   backward kernels).
+   bf16 and fp32), with ragged and unequal lengths and fp32 (at head_dim 128
+   also lengths around one tile) and, at head_dim 128, two launches that
+   must agree bitwise; then each
+   timed with CUDA events beside its bound, its plain version and the
+   device time (torch.profiler) of scaled_dot_product_attention (a
+   yardstick only: its forward beside the forward kernels, its backward,
+   and its forward plus backward, beside the backward kernels).
 4. unet: a small UNet with head_dim 64, flash path against the einsum path,
    forward and parameter gradients.
 5. dit: a small Anima DiT with head_dim 128, the same comparison.
@@ -48,7 +55,9 @@ Phases, each of which exits non-zero on failure:
    (ops/ring_attention.ring_on_one_device: each q shard against each KV
    shard in ring order, merged through the lse; the backward with the
    global (out, lse)) against full attention at 4096 tokens, forward and
-   gradients, its launches counted; timed beside K4a/K4b at 4096.
+   gradients, its launches counted; the entry points and
+   scaled_dot_product_attention at the hop shapes by device time
+   (torch.profiler), the schedule beside K4a/K4b at 4096 with CUDA events.
 10. k6: the fused GroupNorm+SiLU kernel against its plain version at every
    distinct resnet shape of SDXL_BASE at 1024px, bf16 and fp32, plus a
    ragged HW, C=320 at a small HW, a width the vector loads do not divide
@@ -89,7 +98,8 @@ PACKAGE = "aozora_sdxl_training_tpu_torch"
 LOG_DIR = Path(os.environ.get("CHIP_SMOKE_LOG_DIR", REPO / "chip_smoke_out"))
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM
-SOURCES = ("flash_attention", "groupnorm_silu")
+SM90 = "flash_attention_sm90"      # the head_dim-128 wgmma kernels
+SOURCES = ("flash_attention", SM90, "groupnorm_silu")
 FA = "aozora_sdxl_training_tpu/ops/flash_attention.py"
 GN = "aozora_sdxl_training_tpu/ops/groupnorm_silu.py"
 # each kernel, the Pallas kernel it replaces (K1 _fwd_kernel, K2
@@ -163,9 +173,11 @@ def device_phase(torch):
 
 
 def build_phase():
+    """Builds every source (a current library too, so the ptxas report is
+    this run's); returns the head_dim-128 kernels' report."""
     phase("build")
     from aozora_sdxl_training_tpu_torch.ops import cuda_build
-    results = cuda_build.build_all(SOURCES)
+    results = cuda_build.build_all(SOURCES, force=True)
     LOG_DIR.mkdir(parents=True, exist_ok=True)
     for name, (seconds, output) in results.items():
         print(f"built {name}.cu in {seconds:.1f} s")
@@ -175,8 +187,101 @@ def build_phase():
                               r"_kernel)(?:I(\w+?)EE)?", line)
             if entry:     # the kernel and its template arguments (mangled)
                 print(f"  ptxas: {entry.group(1)}<{entry.group(2) or ''}>")
-            elif "registers" in line or "spill" in line or "error" in line.lower():
+            elif ("registers" in line or "spill" in line or "error" in line.lower()
+                  or "wgmma" in line):
                 print(f"  ptxas: {line.strip()}")
+    return sm90_report(cuda_build, results[SM90][1])
+
+
+# the head_dim-128 kernels as their mangled names spell them, and the
+# template argument of each dtype
+SM90_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
+                "flash_bwd_dkv_sm90_kernel")
+SM90_DTYPES = {"13__nv_bfloat16": "bf16", "f": "fp32"}
+
+
+def sm90_kernel_of(mangled: str):
+    """(kernel, dtype) of a mangled head_dim-128 kernel name, or None."""
+    found = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_sm90_kernel)I(13__nv_bfloat16|f)E",
+                      mangled)
+    return (found.group(1), SM90_DTYPES[found.group(2)]) if found else None
+
+
+def ptxas_usage(log: str) -> dict:
+    """{(kernel, dtype): {"registers", "spill_stores", "spill_loads"}} from
+    nvcc's -Xptxas -v output."""
+    usage, current = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            current = sm90_kernel_of(entry.group(1))
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if spill:
+            usage.setdefault(current, {}).update(spill_stores=int(spill.group(1)),
+                                                 spill_loads=int(spill.group(2)))
+        if regs:
+            usage.setdefault(current, {})["registers"] = int(regs.group(1))
+    return usage
+
+
+def hgmma_counts(sass: str) -> dict:
+    """{(kernel, dtype): HGMMA instructions} from ``cuobjdump -sass``."""
+    counts, current = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            current = sm90_kernel_of(fn.group(1))
+            if current:
+                counts[current] = 0
+        elif current and "HGMMA" in line:
+            counts[current] += 1
+    return counts
+
+
+def sm90_report(cuda_build, log: str) -> dict:
+    """ptxas's registers and spills, the runtime's registers, shared memory
+    and blocks per SM, and the HGMMA count of each head_dim-128 kernel;
+    fails if ptxas did not report one or if cuobjdump finds no HGMMA in
+    one."""
+    import ctypes
+    import shutil
+    usage = ptxas_usage(log)
+    lib = ctypes.CDLL(str(cuda_build.library_path(SM90)))
+    lib.aozora_flash_sm90_attributes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    cuobjdump = Path(cuda_build.nvcc_path()).with_name("cuobjdump")
+    cuobjdump = str(cuobjdump) if cuobjdump.exists() else shutil.which("cuobjdump")
+    hgmma = None
+    if cuobjdump is not None:
+        proc = subprocess.run([cuobjdump, "-sass", str(cuda_build.library_path(SM90))],
+                              capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0, f"cuobjdump -sass failed: {proc.stderr[-2000:]}")
+        hgmma = hgmma_counts(proc.stdout)
+    report = {}
+    for i, kernel in enumerate(SM90_KERNELS):
+        for code, dtype in enumerate(("bf16", "fp32")):
+            key = (kernel, dtype)
+            check(key in usage and "registers" in usage[key],
+                  f"ptxas reported nothing for {kernel}<{dtype}>")
+            attrs = (ctypes.c_int * 5)()
+            err = lib.aozora_flash_sm90_attributes(i, code, ctypes.addressof(attrs))
+            check(err == 0, f"cudaFuncGetAttributes({kernel}<{dtype}>) failed: {err}")
+            regs, local, smem, threads, blocks = list(attrs)
+            row = {**usage[key], "runtime_registers": regs, "local_bytes": local,
+                   "dynamic_smem_bytes": smem, "threads": threads, "blocks_per_sm": blocks,
+                   "hgmma": None if hgmma is None else hgmma.get(key, 0)}
+            report[f"{kernel}<{dtype}>"] = row
+            print(f"  {kernel}<{dtype}>: ptxas {row['registers']} registers, spill "
+                  f"{row['spill_stores']} B stores / {row['spill_loads']} B loads; runtime "
+                  f"{regs} registers, {local} B local, {smem} B dynamic shared memory, "
+                  f"{threads} threads, {blocks} block(s)/SM; HGMMA "
+                  f"{'not checked (no cuobjdump)' if hgmma is None else row['hgmma']}")
+            if hgmma is not None:
+                check(row["hgmma"] > 0, f"{kernel}<{dtype}>: no HGMMA instruction in its SASS")
+    return report
 
 
 # --------------------------------------------------------------------------
@@ -195,6 +300,24 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters=10):
+    """Device time of one call of ``fn``: the summed duration of the CUDA
+    kernels (and copies) that ``iters`` calls launch, over ``iters``
+    (torch.profiler). The host's per-call cost does not show, as it does in
+    ``cuda_ms`` when a call's launches take longer to issue than to run."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(total > 0, "torch.profiler saw no device time")
+    return total / 1e3 / iters
 
 
 def bound(flops, nbytes):
@@ -226,7 +349,13 @@ def kernel_phase(torch):
              ("S=4096 B*H=16 D=128", 1, 16, 4096, 4096, 128, bf16),
              ("ragged S=3952 B*H=16 D=128", 1, 16, 3952, 3952, 128, bf16),
              ("Sq=1000 Skv=333 B=2 H=3 D=128", 2, 3, 1000, 333, 128, bf16),
+             ("Sq=333 Skv=1000 B=2 H=3 D=128", 2, 3, 333, 1000, 128, bf16),
+             ("S=63 B=2 H=3 D=128", 2, 3, 63, 63, 128, bf16),
+             ("S=64 B=2 H=3 D=128", 2, 3, 64, 64, 128, bf16),
+             ("S=65 B=2 H=3 D=128", 2, 3, 65, 65, 128, bf16),
+             ("S=129 B=2 H=3 D=128", 2, 3, 129, 129, 128, bf16),
              ("fp32 S=1000 B=2 H=2 D=128", 2, 2, 1000, 1000, 128, f32),
+             ("fp32 Sq=333 Skv=1000 B=2 H=3 D=128", 2, 3, 333, 1000, 128, f32),
              ("S=16384 B*H=1 D=512 fp32", 1, 1, VAE_TOKENS, VAE_TOKENS, 512, f32),
              ("S=16384 B*H=1 D=512 bf16", 1, 1, VAE_TOKENS, VAE_TOKENS, 512, bf16),
              ("ragged S=16000 B*H=1 D=512", 1, 1, 16000, 16000, 512, bf16),
@@ -268,11 +397,30 @@ def kernel_phase(torch):
             tol = atol if atol is not None else rel_tol * want.abs().max().item()
             print(f"  {label:30s} {what:5s} max_abs_err {err:.3e}  tol {tol:.3e}")
             check(err <= tol, f"{label} {what}: error {err} > tolerance {tol}")
-            if what != "lse" and label.startswith("S="):
+            if what != "lse" and label.startswith(("S=4096", "S=1024", "S=16384")):
                 max_err[kname] = max(max_err[kname], err)
         del q, k, v, do, out, lse, ref_out, ref_lse, rows
         torch.cuda.empty_cache()
+    check_deterministic(torch, fa)
     return max_err, {**time_kernels(torch, fa), **time_d512(torch, fa)}
+
+
+def check_deterministic(torch, fa):
+    """No atomics in the head_dim-128 kernels: two launches at the Anima
+    shape give bitwise-equal out, lse, dq, dk and dv."""
+    (b, h, s, _), = MAIN_SHAPES[128]
+    g = torch.Generator(device="cuda").manual_seed(10)
+    q, k, v, do = (torch.randn(b, s, h, 128, device="cuda", dtype=torch.bfloat16,
+                               generator=g) for _ in range(4))
+    runs = []
+    for _ in range(2):
+        out, lse = fa.flash_fwd(q, k, v, 128 ** -0.5)
+        runs.append((out, lse, *fa.flash_bwd(q, k, v, out, lse, do, 128 ** -0.5)))
+    torch.cuda.synchronize()
+    same = [name for name, a, c in zip(("out", "lse", "dq", "dk", "dv"), *runs)
+            if torch.equal(a, c)]
+    print(f"  B*H={b * h} S={s} D=128 twice: bitwise equal {same}")
+    check(len(same) == 5, "head_dim-128 kernels differ from run to run")
 
 
 def time_kernels(torch, fa):
@@ -291,11 +439,11 @@ def time_kernels(torch, fa):
                           for t in (q, k, v))
             ref = F.scaled_dot_product_attention(qt, kt, vt)
             dot = do.transpose(1, 2)
-            sdpa_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            sdpa_fwd = device_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt.detach(), kt.detach(), vt.detach()))
-            sdpa_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+            sdpa_bwd = device_ms(torch, lambda: torch.autograd.grad(
                 ref, (qt, kt, vt), dot, retain_graph=True))
-            sdpa_fwd_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+            sdpa_fwd_bwd = device_ms(torch, lambda: torch.autograd.grad(
                 F.scaled_dot_product_attention(qt, kt, vt), (qt, kt, vt), dot))
             shape = {
                 kf: (cuda_ms(torch, lambda: fa.flash_fwd(q, k, v, scale)),
@@ -503,18 +651,18 @@ def k5_phase(torch):
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (qs, ks, vs))
         ref = F.scaled_dot_product_attention(qt, kt, vt)
         dot = dos.transpose(1, 2)
-        sdpa_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        sdpa_fwd = device_ms(torch, lambda: F.scaled_dot_product_attention(
             qt.detach(), kt.detach(), vt.detach()))
-        sdpa_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+        sdpa_bwd = device_ms(torch, lambda: torch.autograd.grad(
             ref, (qt, kt, vt), dot, retain_graph=True))
         (wf, wdq, wdkv), act, row = work(b, h, sh, d, 2), b * h * sh * d * 2, b * h * sh
         rows = {
             "flash_fwd_stats": (
-                cuda_ms(torch, lambda: fa.flash_fwd_stats(qs, ks, vs)),
+                device_ms(torch, lambda: fa.flash_fwd_stats(qs, ks, vs)),
                 cuda_ms(torch, lambda: fa.flash_fwd_stats_reference(qs, ks, vs, scale), 5, 1),
                 sdpa_fwd, wf[0], 4 * act + 4 * row),
             "flash_bwd_stats": (
-                cuda_ms(torch, lambda: fa.flash_bwd_stats(qs, ks, vs, out, lse, dos)),
+                device_ms(torch, lambda: fa.flash_bwd_stats(qs, ks, vs, out, lse, dos)),
                 cuda_ms(torch, lambda: fa.flash_bwd_stats_reference(
                     qs, ks, vs, out, lse, dos, scale), 5, 1),
                 sdpa_bwd, wdq[0] + wdkv[0], 8 * act + 4 * row)}
@@ -1324,9 +1472,10 @@ USAGE = ("usage: chip_smoke.py [--only PHASE[,PHASE...]]   phases: " + ", ".join
          + "\n       chip_smoke.py --anima-sp-rank PRESET OUT_DIR   (one torchrun rank)")
 
 
-def kernels_json(timings, max_err, sdxl_launches, anima_launches, k5, k6):
+def kernels_json(timings, max_err, sdxl_launches, anima_launches, k5, k6, sm90):
     """One entry per kernel; ``launches`` counts the phase named in
     ``phase``, where the counts were set to 0 just before."""
+    from aozora_sdxl_training_tpu_torch.ops import flash_attention as fa
     kernels = []
     for kname, (replaces, d) in KERNELS.items():
         head = timings[kname][0]      # the largest main shape of its head dim
@@ -1334,13 +1483,15 @@ def kernels_json(timings, max_err, sdxl_launches, anima_launches, k5, k6):
         # (training and the preview), K4a/K4b at 128 in the Anima CLI's
         kernels.append({
             "name": kname, "route": "cuda",
-            "source": f"{PACKAGE}/csrc/flash_attention.cu",
+            "source": f"{PACKAGE}/csrc/{fa.SOURCES[d]}.cu",
             "replaces": replaces, "phase": "anima" if d == 128 else "trainer",
             "launches": (anima_launches if d == 128 else sdxl_launches)[kname],
             "max_abs_err": max_err[kname], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "shapes": timings[kname]})
+            "shapes": timings[kname],
+            **({"build": {k: v for k, v in sm90.items() if k.startswith(
+                SM90_KERNELS[fa.KERNEL_NAMES[128].index(kname)])}} if d == 128 else {})})
     k5_err, k5_timings, k5_launches, ring_ms = k5
     for kname, line, kernel_names in (
             ("flash_fwd_stats", 503, "flash_fwd_d128"),
@@ -1349,7 +1500,7 @@ def kernels_json(timings, max_err, sdxl_launches, anima_launches, k5, k6):
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"{PACKAGE}/ops/flash_attention.py",
-            "kernels": f"{kernel_names} in {PACKAGE}/csrc/flash_attention.cu",
+            "kernels": f"{kernel_names} in {PACKAGE}/csrc/{SM90}.cu",
             "replaces": f"{FA}:{line}",
             "phase": "k5 (the ring's hop schedule for sp 2 and 4 on one card)",
             "launches": k5_launches[kname], "max_abs_err": k5_err[kname],
@@ -1390,8 +1541,8 @@ def main(argv=None) -> int:
     summary = {}
     try:
         name, smi = device_phase(torch)
-        build_phase()
-        summary.update(device=name, nvidia_smi=smi)
+        sm90 = build_phase()
+        summary.update(device=name, nvidia_smi=smi, sm90_build=sm90)
         if "kernels" in only:
             max_err, timings = kernel_phase(torch)
             summary["timings"] = timings
@@ -1424,7 +1575,7 @@ def main(argv=None) -> int:
     print(f"\ntotal {time.perf_counter() - t_start:.1f} s")
     if only == set(PHASES):
         print(json.dumps({"kernels": kernels_json(timings, max_err, sdxl_launches,
-                                                  anima_launches, k5, k6)}))
+                                                  anima_launches, k5, k6, sm90)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,11 @@ without JAX it runs apart from tests/conftest.py:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 
 All three head dims of the flash kernels are covered: 64 (K1-K3, the
-SDXL UNet), 128 (K4a/K4b, the Anima DiT) and 512 (K4a forward, the SD-VAE
-mid-attention), with a ragged length and unequal query and key lengths.
+SDXL UNet), 128 (K4a/K4b, the Anima DiT, the wgmma kernels of
+csrc/flash_attention_sm90.cu) and 512 (K4a forward, the SD-VAE
+mid-attention), with ragged lengths and unequal query and key lengths; at
+head_dim 128 also lengths below, at and one past a tile, two launches that
+must agree bitwise, and an input the 16-byte loads cannot take.
 K5 (the stats-level entry points over those kernels) is held against its
 plain versions on a KV shard, and the ring's hop schedule composed on one
 card at sp 2 against full attention. K6 (the fused GroupNorm + SiLU
@@ -46,7 +49,10 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,sq,skv", [(64, 300, 300), (128, 300, 300),
-                                      (128, 333, 1000)])
+                                      (128, 333, 1000), (128, 1000, 333),
+                                      (128, 1, 1), (128, 63, 63), (128, 64, 64),
+                                      (128, 65, 65), (128, 129, 129),
+                                      (128, 3952, 3952)])
 @pytest.mark.parametrize("dtype,tol,lse_tol", [(torch.bfloat16, 2e-2, 1e-3),
                                                (torch.float32, 1e-2, 5e-2)])
 def test_kernels_match_plain_version_on_card(cuda_device, dtype, tol, lse_tol,
@@ -70,6 +76,44 @@ def test_kernels_match_plain_version_on_card(cuda_device, dtype, tol, lse_tol,
                                    atol=5 * tol, msg=name)
     for name in port.KERNEL_NAMES[d]:
         assert port.LAUNCHES[name] == counts[name] + 1, name
+
+
+@pytest.mark.cuda
+def test_d128_kernels_are_deterministic_on_card(cuda_device):
+    """No atomics: two launches of each head_dim-128 kernel give bitwise
+    equal out, lse, dq, dk and dv."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v, do = (torch.randn(2, 1000, 3, 128, device=cuda_device,
+                               dtype=torch.bfloat16, generator=g) for _ in range(4))
+    scale = 128 ** -0.5
+    runs = []
+    for _ in range(2):
+        out, lse = port.flash_fwd(q, k, v, scale)
+        runs.append((out, lse, *port.flash_bwd(q, k, v, out, lse, do, scale)))
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_d128_wrappers_raise_on_an_unaligned_input(cuda_device):
+    """A contiguous view one element into its storage does not start on a
+    16-byte boundary: every head_dim-128 wrapper raises before a launch."""
+    n = 64 * 2 * 128
+    base = torch.zeros(n + 1, device=cuda_device, dtype=torch.bfloat16)
+    bad = base[1:].view(1, 64, 2, 128)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    ok = torch.zeros(1, 64, 2, 128, device=cuda_device, dtype=torch.bfloat16)
+    lse = torch.zeros(2, 64, device=cuda_device)
+    counts = dict(port.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        port.flash_fwd(bad, ok, ok, 1.0)
+    with pytest.raises(ValueError, match="16-byte"):
+        port.flash_fwd(ok, ok, bad, 1.0)
+    with pytest.raises(ValueError, match="16-byte"):
+        port.flash_bwd_dq(ok, ok, ok, ok, lse, bad, 1.0)
+    with pytest.raises(ValueError, match="16-byte"):
+        port.flash_bwd_dkv(ok, bad, ok, ok, lse, lse, 1.0)
+    assert port.LAUNCHES == counts
 
 
 @pytest.mark.cuda
@@ -147,21 +191,23 @@ def _rel_err(got, want):
 # --------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
-def test_stats_entry_points_match_plain_versions_on_card(cuda_device, d):
+@pytest.mark.parametrize("d,sq,skv", [(64, 512, 1024), (128, 512, 1024),
+                                      (128, 333, 1000), (128, 1000, 334),
+                                      (128, 65, 130)])
+def test_stats_entry_points_match_plain_versions_on_card(cuda_device, d, sq, skv):
     """flash_fwd_stats on the second of two KV shards; flash_bwd_stats on
     it with the global (out, lse). One counted call each."""
-    g = torch.Generator(device=cuda_device).manual_seed(d)
-    q, do = (torch.randn(1, 512, 2, d, device=cuda_device, dtype=torch.bfloat16,
+    g = torch.Generator(device=cuda_device).manual_seed(d + sq + skv)
+    q, do = (torch.randn(1, sq, 2, d, device=cuda_device, dtype=torch.bfloat16,
                          generator=g) for _ in range(2))
-    k, v = (torch.randn(1, 1024, 2, d, device=cuda_device, dtype=torch.bfloat16,
+    k, v = (torch.randn(1, skv, 2, d, device=cuda_device, dtype=torch.bfloat16,
                         generator=g) for _ in range(2))
-    ks, vs = k[:, 512:].contiguous(), v[:, 512:].contiguous()
+    ks, vs = k[:, skv // 2:].contiguous(), v[:, skv // 2:].contiguous()
     scale = d ** -0.5
     counts = dict(port.STATS_LAUNCHES)
     out, lse = port.flash_fwd_stats(q, ks, vs)
     ref_out, ref_lse = port.flash_fwd_stats_reference(q, ks, vs, scale)
-    assert lse.shape == (1, 512, 2) and lse.dtype == torch.float32
+    assert lse.shape == (1, sq, 2) and lse.dtype == torch.float32
     assert _rel_err(out, ref_out) <= 2e-2
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
     g_out, g_lse = port.flash_fwd_stats_reference(q, k, v, scale)

@@ -7,8 +7,15 @@ Forward tolerance 2e-4 and gradient tolerance 5e-4 are the JAX package's
 own bars for its kernel against its XLA reference.
 
 The CUDA kernels themselves are checked against the plain version on the
-card by ``chip_smoke.py`` and by tests/test_torch_port_cuda.py.
+card by ``chip_smoke.py`` and by tests/test_torch_port_cuda.py. What runs
+without a card is checked here too: which library each kernel is bound
+from, the nvcc command of the head_dim-128 source, the rebuild rule, and
+the wrappers' rounding and alignment checks.
 """
+
+import os
+import types
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +26,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from aozora_sdxl_training_tpu.ops.flash_attention import (
     flash_attention as jax_flash, flash_fwd_stats)
+from aozora_sdxl_training_tpu_torch.ops import cuda_build
 from aozora_sdxl_training_tpu_torch.ops import flash_attention as port
 from aozora_sdxl_training_tpu_torch.ops.attention import attention
 
@@ -92,3 +100,141 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
     q = torch.zeros(1, 8, 1, 32, device="meta")
     with pytest.raises(ValueError):
         port.flash_fwd(q, q, q, 1.0)
+
+
+def test_each_kernel_is_bound_from_the_library_of_its_source(monkeypatch):
+    """The head_dim-128 entry points come from csrc/flash_attention_sm90.cu
+    (and only its library is loaded for them, with their argument types);
+    head_dim 64 and 512 from csrc/flash_attention.cu. A launch goes to the
+    library of its head dim."""
+    assert port.SOURCES == {64: "flash_attention", 128: "flash_attention_sm90",
+                            512: "flash_attention"}
+    assert set(port.SOURCES) == set(port.KERNEL_NAMES)
+    loaded, called = [], []
+
+    def entry(source, name):
+        def fn(*args):
+            called.append((source, name, args))
+            return 0
+        return fn
+
+    def fake_load(source):
+        loaded.append(source)
+        names = [n for d, ns in port.KERNEL_NAMES.items() if port.SOURCES[d] == source
+                 for n in ns if n]
+        return types.SimpleNamespace(
+            aozora_flash_error_string=types.SimpleNamespace(),
+            **{f"aozora_{n}": entry(source, n) for n in names})
+
+    monkeypatch.setattr(port, "_libs", {})
+    monkeypatch.setattr(port, "LAUNCHES", dict.fromkeys(port.LAUNCHES, 0))
+    monkeypatch.setattr(cuda_build, "load", fake_load)
+    lib = port._library("flash_attention_sm90")
+    assert loaded == ["flash_attention_sm90"]
+    for name, types_ in zip(port.KERNEL_NAMES[128], port._ARGTYPES):
+        assert getattr(lib, f"aozora_{name}").argtypes == types_
+    assert not hasattr(lib, "aozora_flash_fwd")
+    assert port._library("flash_attention_sm90") is lib and len(loaded) == 1
+    port._launch(128, "flash_bwd_dkv_d128", 7)
+    port._launch(512, "flash_fwd_d512", 8)
+    assert called == [("flash_attention_sm90", "flash_bwd_dkv_d128", (7,)),
+                      ("flash_attention", "flash_fwd_d512", (8,))]
+    assert loaded == ["flash_attention_sm90", "flash_attention"]
+    assert port.LAUNCHES["flash_bwd_dkv_d128"] == 1 and port.LAUNCHES["flash_fwd_d512"] == 1
+
+
+def test_build_command_of_the_sm90_source(monkeypatch, tmp_path):
+    """One nvcc call for sm_90a with the ptxas report; the source includes
+    the wgmma header that lives beside it. No driver library is linked (the
+    kernels load with cp.async, not TMA descriptors)."""
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text("")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    cmd = cuda_build.build_command("flash_attention_sm90")
+    assert cmd[0] == str(nvcc)
+    assert cmd[-1] == str(cuda_build.CSRC / "flash_attention_sm90.cu")
+    assert "arch=compute_90a,code=sm_90a" in cmd and ["-Xptxas", "-v"] == cmd[
+        cmd.index("-Xptxas"):cmd.index("-Xptxas") + 2]
+    assert cmd[cmd.index("-o") + 1].endswith("flash_attention_sm90.so.tmp")
+    assert "-lcuda" not in cmd
+    source = (cuda_build.CSRC / "flash_attention_sm90.cu").read_text()
+    assert '#include "sm90_wgmma.cuh"' in source
+    assert cuda_build.CSRC / "sm90_wgmma.cuh" in cuda_build.inputs("flash_attention_sm90")
+
+
+def test_a_library_is_rebuilt_when_its_source_or_any_header_is_newer(monkeypatch,
+                                                                     tmp_path):
+    csrc, build = tmp_path / "csrc", tmp_path / "csrc" / "build"
+    (csrc / "sub").mkdir(parents=True)
+    build.mkdir()
+    monkeypatch.setattr(cuda_build, "CSRC", csrc)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", build)
+    cu, cuh, h, lib = (csrc / "k.cu", csrc / "k.cuh", csrc / "sub" / "x.h", build / "k.so")
+    for path in (cu, cuh, h, csrc / "notes.txt"):
+        path.write_text("")
+    assert cuda_build.needs_build("k")            # no library yet
+    lib.write_text("")
+    for path in (cu, cuh, h, csrc / "notes.txt"):
+        os.utime(path, (100, 100))
+    os.utime(lib, (200, 200))
+    assert not cuda_build.needs_build("k")
+    assert cuda_build.inputs("k") == [cu, cuh, h]
+    for newer in (cu, cuh, h):
+        os.utime(newer, (300, 300))
+        assert cuda_build.needs_build("k"), newer.name
+        os.utime(newer, (100, 100))
+    os.utime(csrc / "notes.txt", (300, 300))       # not an input
+    assert not cuda_build.needs_build("k")
+
+
+def test_d128_operands_are_rounded_to_bf16_once():
+    """The head_dim-128 kernels multiply bf16: fp32 operands are rounded
+    before the launch, bf16 ones pass as they are (no copy); the head_dim
+    64 and 512 kernels take fp32 as it is."""
+    x32 = torch.randn(1, 4, 1, 128)
+    x16 = x32.to(torch.bfloat16)
+    r, r2 = port._operands(x32, x32)
+    assert r.dtype == torch.bfloat16 and torch.equal(r, x16) and torch.equal(r2, x16)
+    (r,) = port._operands(x16)
+    assert r is x16
+    for d in (64, 512):
+        x = torch.randn(1, 4, 1, d)
+        (r,) = port._operands(x)
+        assert r is x
+
+
+def test_unaligned_tensor_is_refused():
+    base = torch.zeros(4 * 128 + 8, dtype=torch.bfloat16)
+    bad = base[1:4 * 128 + 1].view(1, 4, 1, 128)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        port._check_aligned("q", bad)
+    port._check_aligned("q", base[8:].view(1, 4, 1, 128))    # 16 bytes in
+
+
+def test_a_forced_build_rebuilds_a_current_library(monkeypatch, tmp_path):
+    """build_all starts nvcc only for stale libraries unless forced (as
+    chip_smoke.py's build phase does, so the ptxas report it prints is that
+    run's); finish_build moves the new library into place and returns
+    nvcc's output."""
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    started = []
+
+    def fake_popen(cmd, **kwargs):
+        out = Path(cmd[cmd.index("-o") + 1])
+        started.append(out.name)
+        out.write_text("new")
+        return types.SimpleNamespace(returncode=0,
+                                     communicate=lambda: ("ptxas info: Used 9 registers", None))
+
+    monkeypatch.setattr(cuda_build.subprocess, "Popen", fake_popen)
+    monkeypatch.setattr(cuda_build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(cuda_build, "needs_build", lambda name: False)
+    assert cuda_build.build_all(["k"])["k"][1] == "" and started == []
+    result = cuda_build.build_all(["k"], force=True)
+    assert started == ["k.so.tmp"] and result["k"][1] == "ptxas info: Used 9 registers"
+    assert cuda_build.library_path("k").read_text() == "new"
+    failed = types.SimpleNamespace(returncode=1, communicate=lambda: ("error", None))
+    with pytest.raises(RuntimeError, match="nvcc failed for k.cu"):
+        cuda_build.finish_build("k", failed)
