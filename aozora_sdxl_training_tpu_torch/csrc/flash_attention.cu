@@ -1,53 +1,36 @@
-// Flash attention forward and backward for Hopper (sm_90a) at head_dim 64,
-// and the forward at head_dim 512. (Head_dim 128 has its own wgmma kernels
-// in flash_attention_sm90.cu.)
+// Flash attention forward on the tensor cores' WMMA tiles: head_dim 64
+// (K1, the SDXL UNet) and head_dim 512 (K4a, the SD-VAE mid-attention).
+// The head_dim-64 backward (K2/K3) and everything at head_dim 128 live in
+// flash_attention_sm90.cu (wgmma); fp32 inputs at every head dim go to the
+// fp32 kernels of flash_attention_fp32.cu. These two take bf16 only.
 //
-// Three kernels, each a template on the head dim D and each replacing Pallas
-// TPU kernels of aozora_sdxl_training_tpu/ops/flash_attention.py:
+// Each replaces a Pallas TPU kernel of
+// aozora_sdxl_training_tpu/ops/flash_attention.py:
 //
-//   flash_fwd_kernel<D>      <- _fwd_kernel     (_flash_forward)
-//   flash_bwd_dq_kernel<D>   <- _bwd_dq_kernel  (_flash_backward)
-//   flash_bwd_dkv_kernel<D>  <- _bwd_dkv_kernel (_flash_backward)
+//   flash_fwd_kernel<64>     <- _fwd_kernel (_flash_forward)
+//   flash_fwd_d512_kernel    <- _fwd_kernel (_flash_forward_folded)
 //
-// and a fourth with its own tiling for D=512 (the SD-VAE mid-attention):
-//
-//   flash_fwd_d512_kernel    <- _fwd_kernel     (_flash_forward_folded)
-//
-// The D=64 instantiations serve the SDXL UNet (K1-K3), the D=512 kernel the
-// SD-VAE encoder and decoder (K4a). Each has its own C entry point, so the
-// wrappers count them apart. The templates take any D that is a multiple of
-// 16; only D=64 is instantiated.
-//
-// They compute what the Pallas kernels compute (exact attention with an
-// online softmax over KV tiles, fp32 statistics and accumulators, padded KV
-// columns masked to -1e30, l clamped at 1e-30, the backward recomputing P
-// from the saved row logsumexp) but are laid out for the GPU:
+// and computes what it computes (exact attention with an online softmax
+// over KV tiles, fp32 statistics and accumulation, keys >= Skv masked to
+// -1e30, l clamped at 1e-30) but laid out for the GPU:
 //
 // * They read and write the (B, S, H, D) layout of the callers directly:
 //   row s of head (b, h) starts at ((b * S + s) * H + h) * D. That is also
 //   the (B, S, H*D) "folded" layout of the TPU's D % 128 == 0 kernels. No
 //   transposes and no padding around the call; the ragged edge of S is
 //   masked here.
-// * lse and delta are plain (B*H, S) fp32 rows (no 128-lane replication).
-// * Each block loops over the other sequence inside itself, since a grid
-//   dimension cannot carry an accumulator on the GPU.
+// * lse is a plain (B*H, S) fp32 row (no 128-lane replication).
+// * Each block loops over the keys inside itself, since a grid dimension
+//   cannot carry an accumulator on the GPU.
 //
-// What bounds them: at the SDXL shapes (S = 1024 or 4096) all three are
-// compute-bound (4*S^2*D flop per head forward, 6 and 8 for dq and dk/dv,
-// against 2*S*D*2 bytes per operand). The design keeps every S x S tile in
-// shared memory, never in device memory, and runs the products on the
-// tensor cores (WMMA bf16 16x16x16, fp32 accumulate). This is the simple
-// version: one block of 4 warps per 64-row tile, each warp owning 16 rows,
-// K/V (or Q/dO) tiles staged in shared memory with plain loads and no
-// double buffering, and the softmax done from shared memory. The score
-// tiles (S, P, dS) are 64 wide whatever D is; the operand tiles and the
-// output accumulator are D wide. The head_dim-128 kernels in
-// flash_attention_sm90.cu show the Hopper design (wgmma, cp.async into a
-// ring, accumulators in registers) these can take next.
-//
-// fp32 inputs are accepted: tiles are rounded to bf16 when they are staged
-// for the tensor cores, and everything else (softmax, statistics,
-// accumulation, outputs) stays fp32.
+// What bounds the head_dim-64 forward: at the SDXL shapes (S = 1024 or
+// 4096) 4*S^2*D flop per head against 4*S*D*2 bytes, so the tensor cores.
+// This is the simple version: one block of 4 warps per 64-row tile, each
+// warp owning 16 rows, WMMA bf16 16x16x16 with fp32 accumulation, K and V
+// tiles staged in shared memory with plain loads and no double buffering,
+// the score tile and the output accumulator round-tripping through shared
+// memory. flash_attention_sm90.cu shows the Hopper design (wgmma, cp.async
+// into a ring, accumulators in registers) it takes next.
 //
 // Built by aozora_sdxl_training_tpu_torch/ops/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
@@ -66,8 +49,8 @@ namespace {
 constexpr int TILE = 64;           // rows of a tile, in either sequence
 constexpr int NWARPS = 4;          // each warp owns 16 rows of the tile
 constexpr int NTHREADS = NWARPS * 32;
-constexpr int LDP = TILE + 8;      // leading dim of bf16 score tiles (P, dS)
-constexpr int LDS = TILE + 4;      // leading dim of fp32 score tiles (S, dP)
+constexpr int LDP = TILE + 8;      // leading dim of the bf16 score tile (P)
+constexpr int LDS = TILE + 4;      // leading dim of the fp32 score tile (S)
 constexpr int P_TILE = TILE * LDP; // elements of one bf16 score tile
 constexpr int S_TILE = TILE * LDS; // elements of one fp32 score tile
 constexpr float NEG_INF = -1e30f;
@@ -78,20 +61,13 @@ constexpr unsigned FULL = 0xffffffffu;
 // output columns.
 template <int D>
 struct Geometry {
-  static constexpr int LDH = D + 8;       // leading dim of bf16 operand tiles (Q, K, V, dO)
-  static constexpr int LDO = D + 4;       // leading dim of fp32 D-wide tiles (O, staging)
+  static constexpr int LDH = D + 8;       // leading dim of bf16 operand tiles (Q, K, V)
+  static constexpr int LDO = D + 4;       // leading dim of the fp32 O tile
   static constexpr int H_TILE = TILE * LDH;
   static constexpr int O_TILE = TILE * LDO;
-  // the fp32 region that holds S and dP also stages the D-wide outputs
-  static constexpr int F_REGION = (2 * S_TILE > O_TILE) ? 2 * S_TILE : O_TILE;
   static constexpr size_t FWD_SMEM =
       (3 * H_TILE + P_TILE) * sizeof(__nv_bfloat16) + (S_TILE + O_TILE) * sizeof(float);
-  static constexpr size_t DQ_SMEM =
-      (4 * H_TILE + P_TILE) * sizeof(__nv_bfloat16) + F_REGION * sizeof(float);
-  static constexpr size_t DKV_SMEM =
-      (4 * H_TILE + 2 * P_TILE) * sizeof(__nv_bfloat16) + (F_REGION + 2 * TILE) * sizeof(float);
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  static_assert(O_TILE <= F_REGION, "staging must fit the fp32 region");
 };
 
 typedef __nv_bfloat16 bf16;
@@ -100,45 +76,23 @@ typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBR
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBCol;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Eight consecutive elements from device memory into 16 bytes of shared memory.
-__device__ __forceinline__ void stage8(const bf16* src, bf16* dst) {
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-}
-__device__ __forceinline__ void stage8(const float* src, bf16* dst) {
-  const float4 a = reinterpret_cast<const float4*>(src)[0];
-  const float4 b = reinterpret_cast<const float4*>(src)[1];
-  __nv_bfloat162 r[4] = {__floats2bfloat162_rn(a.x, a.y), __floats2bfloat162_rn(a.z, a.w),
-                         __floats2bfloat162_rn(b.x, b.y), __floats2bfloat162_rn(b.z, b.w)};
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(r);
-}
-
 // Rows [row0, row0 + ROWS) of one head into a bf16 D-wide tile (ld LD),
-// loaded by THREADS threads; rows >= S are zeros.
-template <int ROWS, int D, int LD, int THREADS, typename T>
-__device__ void load_rows(bf16* dst, const T* head, int row0, int S, int row_stride) {
+// loaded by THREADS threads with 16-byte copies; rows >= S are zeros.
+template <int ROWS, int D, int LD, int THREADS>
+__device__ void load_rows(bf16* dst, const bf16* head, int row0, int S, int row_stride) {
   for (int c = threadIdx.x; c < ROWS * (D / 8); c += THREADS) {
     const int r = c / (D / 8), col = (c % (D / 8)) * 8;
-    bf16* d = dst + r * LD + col;
-    if (row0 + r < S) {
-      stage8(head + (size_t)(row0 + r) * row_stride + col, d);
-    } else {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-    }
+    uint4* d = reinterpret_cast<uint4*>(dst + r * LD + col);
+    *d = (row0 + r < S)
+             ? *reinterpret_cast<const uint4*>(head + (size_t)(row0 + r) * row_stride + col)
+             : make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
-// Rows [row0, row0 + TILE) of one head into a bf16 tile of the D=64/128
+// Rows [row0, row0 + TILE) of one head into a bf16 tile of the D=64
 // geometry.
-template <int D, typename T>
-__device__ void load_tile(bf16* dst, const T* head, int row0, int S, int row_stride) {
+template <int D>
+__device__ void load_tile(bf16* dst, const bf16* head, int row0, int S, int row_stride) {
   load_rows<TILE, D, Geometry<D>::LDH, NTHREADS>(dst, head, row0, S, row_stride);
 }
 
@@ -160,23 +114,6 @@ __device__ __forceinline__ void warp_scores(const bf16* a, const bf16* b, float*
       wmma::mma_sync(acc, fa, fb, acc);
     }
     wmma::store_matrix_sync(c + n * 16, acc, LDS, wmma::mem_row_major);
-  }
-}
-
-// acc[n] += A(16 x 64, ld LDP) * B(64 x D, ld LDH)[:, 16n : 16n + 16].
-template <int D>
-__device__ __forceinline__ void warp_gemm_acc(const bf16* a, const bf16* b, FragC* acc) {
-  constexpr int LDH = Geometry<D>::LDH;
-#pragma unroll
-  for (int kk = 0; kk < TILE / 16; ++kk) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk * 16, LDP);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragBRow fb;
-      wmma::load_matrix_sync(fb, b + kk * 16 * LDH + n * 16, LDH);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
   }
 }
 
@@ -202,35 +139,14 @@ __device__ __forceinline__ void warp_gemm_acc_smem(const bf16* a, const bf16* b,
   }
 }
 
-// Writes a warp's 16 x D fp32 accumulators as rows of a (B, S, H, D) output
-// through its 16 rows of the fp32 staging tile (ld LDO). Lane `lane` writes
-// D / 2 columns of row lane / 2.
-template <int D, typename T>
-__device__ void warp_store_rows(FragC* acc, float* stage, T* head, int row0, int S,
-                                int row_stride, int lane) {
-  constexpr int LDO = Geometry<D>::LDO;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::store_matrix_sync(stage + n * 16, acc[n], LDO, wmma::mem_row_major);
-  }
-  __syncwarp();
-  const int r = lane / 2, c0 = (lane % 2) * (D / 2);
-  if (row0 + r < S) {
-    T* dst = head + (size_t)(row0 + r) * row_stride + c0;
-#pragma unroll 16
-    for (int i = 0; i < D / 2; ++i) dst[i] = from_float<T>(stage[r * LDO + c0 + i]);
-  }
-  __syncwarp();
-}
-
 // ---------------------------------------------------------------------------
-// K1 / K4a: forward. Grid (ceil(Sq / 64), B * H); one block per 64 query rows.
+// K1: forward. Grid (ceil(Sq / 64), B * H); one block per 64 query rows.
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int H, int Sq, int Skv,
-                 float scale) {
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                 int H, int Sq, int Skv, float scale) {
   using G = Geometry<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -243,9 +159,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * TILE;
   const int rs = H * D;
-  const T* qh = q + (size_t)b * Sq * rs + h * D;
-  const T* kh = k + (size_t)b * Skv * rs + h * D;
-  const T* vh = v + (size_t)b * Skv * rs + h * D;
+  const bf16* qh = q + (size_t)b * Sq * rs + h * D;
+  const bf16* kh = k + (size_t)b * Skv * rs + h * D;
+  const bf16* vh = v + (size_t)b * Skv * rs + h * D;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wr = warp * 16;               // the warp's first row in the tile
   const int r = wr + lane / 2;            // this lane's row
@@ -301,166 +217,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const float safe_l = fmaxf(l, 1e-30f);
   if (q0 + r < Sq) {
     const float inv = 1.f / safe_l;
-    T* orow = o + (size_t)b * Sq * rs + (size_t)(q0 + r) * rs + h * D + co;
+    bf16* orow = o + (size_t)b * Sq * rs + (size_t)(q0 + r) * rs + h * D + co;
 #pragma unroll 16
-    for (int i = 0; i < D / 2; ++i) orow[i] = from_float<T>(sO[r * G::LDO + co + i] * inv);
+    for (int i = 0; i < D / 2; ++i) orow[i] = __float2bfloat16(sO[r * G::LDO + co + i] * inv);
     if ((lane % 2) == 0) lse[(size_t)bh * Sq + q0 + r] = m + logf(safe_l);
   }
-}
-
-// ---------------------------------------------------------------------------
-// K2 / K4b dq: dQ, with delta = rowsum(dO * O) computed on the way and
-// written out for the dK/dV kernel. Grid (ceil(Sq / 64), B * H); the KV loop
-// is inside the block.
-// ---------------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ o, const T* __restrict__ dout,
-                    const float* __restrict__ lse, float* __restrict__ delta,
-                    T* __restrict__ dq, int H, int Sq, int Skv, float scale) {
-  using G = Geometry<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sDO = sQ + G::H_TILE;
-  bf16* sK = sDO + G::H_TILE;
-  bf16* sV = sK + G::H_TILE;
-  bf16* sDS = sV + G::H_TILE;
-  float* sS = reinterpret_cast<float*>(sDS + P_TILE);
-  float* sDP = sS + S_TILE;
-
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * TILE;
-  const int rs = H * D;
-  const size_t qoff = (size_t)b * Sq * rs + h * D;
-  const T* kh = k + (size_t)b * Skv * rs + h * D;
-  const T* vh = v + (size_t)b * Skv * rs + h * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp * 16;
-  const int r = wr + lane / 2;
-  const int cs = (lane % 2) * (TILE / 2);
-  const int co = (lane % 2) * (D / 2);
-
-  load_tile<D>(sQ, q + qoff, q0, Sq, rs);
-  load_tile<D>(sDO, dout + qoff, q0, Sq, rs);
-
-  float dl = 0.f, lse_r = 0.f;
-  if (q0 + r < Sq) {
-    const T* orow = o + qoff + (size_t)(q0 + r) * rs + co;
-    const T* dorow = dout + qoff + (size_t)(q0 + r) * rs + co;
-#pragma unroll 16
-    for (int i = 0; i < D / 2; ++i) dl += to_float(orow[i]) * to_float(dorow[i]);
-  }
-  dl += __shfl_xor_sync(FULL, dl, 1);
-  if (q0 + r < Sq) {
-    lse_r = lse[(size_t)bh * Sq + q0 + r];
-    if ((lane % 2) == 0) delta[(size_t)bh * Sq + q0 + r] = dl;
-  }
-
-  FragC acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-
-  for (int k0 = 0; k0 < Skv; k0 += TILE) {
-    __syncthreads();
-    load_tile<D>(sK, kh, k0, Skv, rs);
-    load_tile<D>(sV, vh, k0, Skv, rs);
-    __syncthreads();
-
-    warp_scores<D>(sQ + wr * G::LDH, sK, sS + wr * LDS);    // S = Q K^T
-    warp_scores<D>(sDO + wr * G::LDH, sV, sDP + wr * LDS);  // dP = dO V^T
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < TILE / 2; ++i) {
-      const int j = r * LDS + cs + i;
-      const float p = (k0 + cs + i < Skv) ? __expf(sS[j] * scale - lse_r) : 0.f;
-      sDS[r * LDP + cs + i] = __float2bfloat16(p * (sDP[j] - dl) * scale);
-    }
-    __syncwarp();
-    warp_gemm_acc<D>(sDS + wr * LDP, sK, acc);                // dQ += dS K
-  }
-
-  __syncthreads();   // the staging rows span other warps' score rows
-  warp_store_rows<D>(acc, sS + wr * G::LDO, dq + qoff, q0 + wr, Sq, rs, lane);
-}
-
-// ---------------------------------------------------------------------------
-// K3 / K4b dkv: dK and dV. Grid (ceil(Skv / 64), B * H); the Q loop is
-// inside the block. Works on transposed tiles (rows = keys, columns =
-// queries) so that P^T and dS^T are the A operands of the two accumulating
-// products.
-// ---------------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     int H, int Sq, int Skv, float scale) {
-  using G = Geometry<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + G::H_TILE;
-  bf16* sQ = sV + G::H_TILE;
-  bf16* sDO = sQ + G::H_TILE;
-  bf16* sP = sDO + G::H_TILE;
-  bf16* sDS = sP + P_TILE;
-  float* sS = reinterpret_cast<float*>(sDS + P_TILE);
-  float* sDP = sS + S_TILE;
-  float* sL = sS + G::F_REGION;
-  float* sD = sL + TILE;
-
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int kv0 = blockIdx.x * TILE;
-  const int rs = H * D;
-  const size_t kvoff = (size_t)b * Skv * rs + h * D;
-  const T* qh = q + (size_t)b * Sq * rs + h * D;
-  const T* doh = dout + (size_t)b * Sq * rs + h * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp * 16;
-  const int r = wr + lane / 2;                // this lane's key row
-  const int cs = (lane % 2) * (TILE / 2);     // this lane's 32 query columns
-  const bool key_valid = kv0 + r < Skv;
-
-  load_tile<D>(sK, k + kvoff, kv0, Skv, rs);
-  load_tile<D>(sV, v + kvoff, kv0, Skv, rs);
-
-  FragC acc_dk[D / 16], acc_dv[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fill_fragment(acc_dk[n], 0.f);
-    wmma::fill_fragment(acc_dv[n], 0.f);
-  }
-
-  for (int q0 = 0; q0 < Sq; q0 += TILE) {
-    __syncthreads();
-    load_tile<D>(sQ, qh, q0, Sq, rs);
-    load_tile<D>(sDO, doh, q0, Sq, rs);
-    if (threadIdx.x < TILE) {
-      const bool ok = q0 + threadIdx.x < Sq;
-      sL[threadIdx.x] = ok ? lse[(size_t)bh * Sq + q0 + threadIdx.x] : 0.f;
-      sD[threadIdx.x] = ok ? delta[(size_t)bh * Sq + q0 + threadIdx.x] : 0.f;
-    }
-    __syncthreads();
-
-    warp_scores<D>(sK + wr * G::LDH, sQ, sS + wr * LDS);    // S^T = K Q^T
-    warp_scores<D>(sV + wr * G::LDH, sDO, sDP + wr * LDS);  // dP^T = V dO^T
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < TILE / 2; ++i) {
-      const int qi = cs + i;
-      const int j = r * LDS + qi;
-      const float p = (key_valid && q0 + qi < Sq) ? __expf(sS[j] * scale - sL[qi]) : 0.f;
-      sP[r * LDP + qi] = __float2bfloat16(p);
-      sDS[r * LDP + qi] = __float2bfloat16(p * (sDP[j] - sD[qi]) * scale);
-    }
-    __syncwarp();
-    warp_gemm_acc<D>(sP + wr * LDP, sDO, acc_dv);             // dV += P^T dO
-    warp_gemm_acc<D>(sDS + wr * LDP, sQ, acc_dk);             // dK += dS^T Q
-  }
-
-  __syncthreads();   // the staging rows span other warps' score rows
-  warp_store_rows<D>(acc_dk, sS + wr * G::LDO, dk + kvoff, kv0 + wr, Skv, rs, lane);
-  warp_store_rows<D>(acc_dv, sS + wr * G::LDO, dv + kvoff, kv0 + wr, Skv, rs, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -468,7 +229,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 // 128 x 128 = 16384 tokens at 1024px): forward only, as no caller
 // differentiates there.
 //
-// The D=64/128 body above does not fit at D=512: its 64-row fp32 O tile
+// The head_dim-64 body above does not fit at D=512: its 64-row fp32 O tile
 // alone is 128 KB, and with a 64 x 512 bf16 Q tile and K and V tiles of
 // 64 KB each a block would need ~330 KB of the 227 KB it may have. This
 // body keeps the same algorithm and changes the tiling:
@@ -484,7 +245,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 // 175 KB of shared memory: one block per SM, 8 warps. With B * H = 1 the
 // grid is Sq / 32 = 512 blocks, about 3.9 waves on 132 SMs. Bound by
 // operations (4 * Sq * Skv * 512 flop against 8 * S * 512 bytes of
-// operands); fp32 inputs are staged as bf16 like the kernels above.
+// operands).
 // ---------------------------------------------------------------------------
 struct D512 {
   static constexpr int D = 512;
@@ -504,10 +265,9 @@ struct D512 {
 static_assert(D512::SMEM <= 232448, "shared memory of one block");
 static_assert(D512::BQ * D512::BK / 256 == D512::WARPS, "one 16 x 16 score tile per warp");
 
-template <typename T>
 __global__ void __launch_bounds__(D512::THREADS)
-flash_fwd_d512_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+flash_fwd_d512_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                       int H, int Sq, int Skv, float scale) {
   using G = D512;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -520,9 +280,9 @@ flash_fwd_d512_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * G::BQ;
   const int rs = H * G::D;
-  const T* qh = q + (size_t)b * Sq * rs + h * G::D;
-  const T* kh = k + (size_t)b * Skv * rs + h * G::D;
-  const T* vh = v + (size_t)b * Skv * rs + h * G::D;
+  const bf16* qh = q + (size_t)b * Sq * rs + h * G::D;
+  const bf16* kh = k + (size_t)b * Skv * rs + h * G::D;
+  const bf16* vh = v + (size_t)b * Skv * rs + h * G::D;
   const int warp = threadIdx.x / 32;
   // S = Q K^T: this warp's score tile (rows sr..sr+16, keys sc..sc+16)
   const int sr = (warp / 4) * 16, sc = (warp % 4) * 16;
@@ -618,7 +378,7 @@ flash_fwd_d512_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = i / G::D, col = i % G::D;
     if (q0 + row < Sq)
       o[(size_t)b * Sq * rs + (size_t)(q0 + row) * rs + h * G::D + col] =
-          from_float<T>(sO[row * G::LDO + col] * sS[row]);
+          __float2bfloat16(sO[row * G::LDO + col] * sS[row]);
   }
 }
 
@@ -627,131 +387,48 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int D>
+template <int D>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
         int Sq, int Skv, float scale, cudaStream_t stream) {
   const size_t smem = Geometry<D>::FWD_SMEM;
-  cudaError_t e = allow_smem(flash_fwd_kernel<T, D>, smem);
+  cudaError_t e = allow_smem(flash_fwd_kernel<D>, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((Sq + TILE - 1) / TILE, B * H);
-  flash_fwd_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, H, Sq, Skv, scale);
+  flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, H, Sq, Skv, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
-           const float* lse, float* delta, void* dq, int B, int H, int Sq, int Skv,
-           float scale, cudaStream_t stream) {
-  const size_t smem = Geometry<D>::DQ_SMEM;
-  cudaError_t e = allow_smem(flash_bwd_dq_kernel<T, D>, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((Sq + TILE - 1) / TILE, B * H);
-  flash_bwd_dq_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout, lse, delta,
-      (T*)dq, H, Sq, Skv, scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int D>
-int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-            const float* delta, void* dk, void* dv, int B, int H, int Sq, int Skv,
-            float scale, cudaStream_t stream) {
-  const size_t smem = Geometry<D>::DKV_SMEM;
-  cudaError_t e = allow_smem(flash_bwd_dkv_kernel<T, D>, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((Skv + TILE - 1) / TILE, B * H);
-  flash_bwd_dkv_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, (T*)dv, H,
-      Sq, Skv, scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
 int fwd_d512(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
              int Sq, int Skv, float scale, cudaStream_t stream) {
-  cudaError_t e = allow_smem(flash_fwd_d512_kernel<T>, D512::SMEM);
+  cudaError_t e = allow_smem(flash_fwd_d512_kernel, D512::SMEM);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((Sq + D512::BQ - 1) / D512::BQ, B * H);
-  flash_fwd_d512_kernel<T><<<grid, D512::THREADS, D512::SMEM, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, H, Sq, Skv, scale);
+  flash_fwd_d512_kernel<<<grid, D512::THREADS, D512::SMEM, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, H, Sq, Skv, scale);
   return (int)cudaGetLastError();
-}
-
-// dtype: 0 = bfloat16, 1 = float32.
-template <int D>
-int fwd_entry(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
-              int B, int H, int Sq, int Skv, float scale, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return fwd<bf16, D>(q, k, v, o, lse, B, H, Sq, Skv, scale, s);
-  if (dtype == 1) return fwd<float, D>(q, k, v, o, lse, B, H, Sq, Skv, scale, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-template <int D>
-int bwd_dq_entry(int dtype, const void* q, const void* k, const void* v, const void* o,
-                 const void* dout, const float* lse, float* delta, void* dq, int B, int H,
-                 int Sq, int Skv, float scale, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return bwd_dq<bf16, D>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Skv, scale, s);
-  if (dtype == 1)
-    return bwd_dq<float, D>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Skv, scale, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-template <int D>
-int bwd_dkv_entry(int dtype, const void* q, const void* k, const void* v, const void* dout,
-                  const float* lse, const float* delta, void* dk, void* dv, int B, int H,
-                  int Sq, int Skv, float scale, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return bwd_dkv<bf16, D>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv, scale, s);
-  if (dtype == 1)
-    return bwd_dkv<float, D>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv, scale, s);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Plain C interface, one entry point per kernel and head dim (no suffix:
-// D=64, K1-K3; _d512: D=512, K4a forward only). q, o, dout, dq are contiguous
-// (B, Sq, H, D); k, v, dk, dv contiguous (B, Skv, H, D); lse and delta
-// contiguous (B * H, Sq) fp32. Each returns the cudaError_t of its launch.
+// Plain C interface, one entry point per kernel (no suffix: D=64, K1;
+// _d512: D=512, K4a). q and o are contiguous bf16 (B, Sq, H, D); k and v
+// contiguous bf16 (B, Skv, H, D); lse contiguous (B * H, Sq) fp32. Each
+// returns the cudaError_t of its launch.
 extern "C" {
 
 const char* aozora_flash_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-int aozora_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
-                     float* lse, int B, int H, int Sq, int Skv, float scale, void* stream) {
-  return fwd_entry<64>(dtype, q, k, v, o, lse, B, H, Sq, Skv, scale, stream);
+int aozora_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                     int H, int Sq, int Skv, float scale, void* stream) {
+  return fwd<64>(q, k, v, o, lse, B, H, Sq, Skv, scale, (cudaStream_t)stream);
 }
 
-int aozora_flash_fwd_d512(int dtype, const void* q, const void* k, const void* v, void* o,
-                          float* lse, int B, int H, int Sq, int Skv, float scale,
-                          void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return fwd_d512<bf16>(q, k, v, o, lse, B, H, Sq, Skv, scale, s);
-  if (dtype == 1) return fwd_d512<float>(q, k, v, o, lse, B, H, Sq, Skv, scale, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-int aozora_flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
-                        const void* o, const void* dout, const float* lse, float* delta,
-                        void* dq, int B, int H, int Sq, int Skv, float scale,
-                        void* stream) {
-  return bwd_dq_entry<64>(dtype, q, k, v, o, dout, lse, delta, dq, B, H, Sq, Skv, scale,
-                          stream);
-}
-
-int aozora_flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
-                         const void* dout, const float* lse, const float* delta, void* dk,
-                         void* dv, int B, int H, int Sq, int Skv, float scale,
-                         void* stream) {
-  return bwd_dkv_entry<64>(dtype, q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv, scale,
-                           stream);
+int aozora_flash_fwd_d512(const void* q, const void* k, const void* v, void* o, float* lse,
+                          int B, int H, int Sq, int Skv, float scale, void* stream) {
+  return fwd_d512(q, k, v, o, lse, B, H, Sq, Skv, scale, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,12 +1,15 @@
-// Flash attention at head_dim 128 for Hopper (sm_90a): the forward (K4a)
-// and the backward's dQ and dK/dV kernels (K4b), built on wgmma.
+// Flash attention for Hopper (sm_90a), built on wgmma: the backward's dQ
+// and dK/dV kernels at head_dim 64 (K2/K3, the SDXL UNet) and 128 (K4b,
+// the Anima DiT), and the forward at head_dim 128 (K4a).
 //
 // They replace the Pallas TPU kernels of
-// aozora_sdxl_training_tpu/ops/flash_attention.py at head_dim 128:
+// aozora_sdxl_training_tpu/ops/flash_attention.py:
 //
-//   flash_fwd_sm90_kernel      <- _flash_forward_folded (body _fwd_kernel)
-//   flash_bwd_dq_sm90_kernel   <- _flash_backward_folded, dq pallas_call
-//   flash_bwd_dkv_sm90_kernel  <- _flash_backward_folded, dk/dv pallas_call
+//   flash_bwd_dq_sm90_kernel<64>    <- _flash_backward, dq pallas_call (_bwd_dq_kernel)
+//   flash_bwd_dkv_sm90_kernel<64>   <- _flash_backward, dk/dv pallas_call (_bwd_dkv_kernel)
+//   flash_fwd_sm90_kernel<128>      <- _flash_forward_folded (body _fwd_kernel)
+//   flash_bwd_dq_sm90_kernel<128>   <- _flash_backward_folded, dq pallas_call
+//   flash_bwd_dkv_sm90_kernel<128>  <- _flash_backward_folded, dk/dv pallas_call
 //
 // and compute what those compute: exact attention with an online softmax
 // over KV tiles, fp32 statistics and accumulators, keys >= Skv masked to
@@ -18,27 +21,26 @@
 // a block of the dK/dV kernel, so the results are bitwise the same from run
 // to run.
 //
-// Layout (the callers'): q, o, dout, dq are (B, Sq, H, 128); k, v, dk, dv
-// are (B, Skv, H, 128), all contiguous, row stride H * 128; lse and delta
-// are contiguous fp32 (B * H, Sq). q, k, v (and dout for the dK/dV kernel)
-// are bf16: the wrapper rounds fp32 inputs once before the launch, which is
-// what the tensor cores would multiply anyway. o and dout of the dQ kernel
-// and the outputs are in the caller's dtype (T), and delta is computed from
-// o and dout in T.
+// Layout (the callers'): q, o, dout, dq are (B, Sq, H, D); k, v, dk, dv
+// are (B, Skv, H, D), all contiguous bf16, row stride H * D; lse and delta
+// are contiguous fp32 (B * H, Sq). fp32 inputs never come here: they go to
+// the fp32 kernels of flash_attention_fp32.cu.
 //
-// What bounds them: at the Anima shape (B * H = 16, S = 4096) 4, 6 and 8 *
-// S^2 * 128 flop per head against 2 * S * 128 bytes per operand, so the
-// tensor cores. The design, per block of two consumer warpgroups (256
-// threads), each owning a 64-row tile of the block's stationary rows:
+// What bounds them: at the SDXL shapes (B * H = 10, S = 4096 and
+// B * H = 20, S = 1024, D = 64) and the Anima shape (B * H = 16, S = 4096,
+// D = 128) 4, 6 and 8 * S^2 * D flop per head against 2 * S * D bytes per
+// operand, so the tensor cores. The design, per block of WG consumer
+// warpgroups (two at head_dim 128, one at 64), each owning a 64-row tile of
+// the block's stationary rows:
 //
 // * Every product is a wgmma on a 64-row tile in bf16 with fp32
 //   accumulation: S = Q K^T and O += P V (forward); S, dP = dO V^T and
 //   dQ += dS K (dQ); S^T = K Q^T, dP^T = V dO^T, dV += P^T dO and
 //   dK += dS^T Q (dK/dV). The score products read both operands from
-//   shared memory (K-major); the accumulating products read P, dS, P^T,
-//   dS^T from registers, converted from the score accumulator in place
-//   (sm90_wgmma.cuh), and B from shared memory MN-major. No score tile
-//   goes to shared memory.
+//   shared memory (K-major, D / 16 k-steps); the accumulating products
+//   (m64nDk16) read P, dS, P^T, dS^T from registers, converted from the
+//   score accumulator in place (sm90_wgmma.cuh), and B from shared memory
+//   MN-major. No score tile goes to shared memory.
 // * Accumulators stay in registers: O with the online softmax's m and l
 //   and its rescale (the row max and sum reduce over the 4 lanes of a
 //   row; l is kept per lane and reduced once at the end), dQ, dK and dV.
@@ -47,26 +49,39 @@
 //   layout: the copy of tile j + 1 is issued before the products on tile
 //   j and overlaps them. The stationary tiles (Q; Q and dO; K and V) are
 //   loaded once.
-// * Epilogue: each warpgroup stages its 64 x 128 result in the shared
-//   memory of its own stationary tile and writes it with 16-byte stores.
+// * Epilogue: each warpgroup stages its 64 x D result in the shared memory
+//   of its own stationary tile and writes it with 16-byte stores.
 //
 // Register operands of a wgmma are pinned (fence_regs) before each
 // wgmma.fence and after each wait, and no accumulator is rewritten while
 // its group is in flight: otherwise ptxas serialises the wgmmas.
 //
-// Occupancy: 128 stationary rows per block, so the Anima shape has
-// 16 * 4096 / 128 = 512 blocks for 132 SMs, one block (8 warps) per SM:
-// the registers (ptxas for sm_90a: about 160 forward, 165 dQ, 235 dK/dV a
-// thread, no spill; chip_smoke.py prints them) allow no second block.
-// Shared memory with the 1 KB alignment slack: forward 99,328 bytes (Q x
-// 2, K and V x 2 stages), dQ 133,120 (Q, dO x 2, K and V x 2 stages, lse
-// and delta), dK/dV 133,120 (K, V x 2, Q and dO x 2 stages, lse and
-// delta). The dK/dV kernel holds dK and dV (128 fp32 registers a thread)
-// and keeps P as bf16 (the A fragment of dV += P^T dO), from which it also
-// forms dS, so that its scores fit beside them. Tried on the H100 and not
-// kept, being no faster beyond the run-to-run spread: rings of 3 and 4
-// stages, issuing the next tile's scores beside the accumulating product
-// (forward and dQ), and Q as register A fragments for S = Q K^T.
+// Occupancy. At head_dim 128, 128 stationary rows per block (two
+// warpgroups), so the Anima shape has 16 * 4096 / 128 = 512 blocks for 132
+// SMs, one block (8 warps) a SM: the registers (ptxas for sm_90a: about 155
+// forward, 162 dQ, 232 dK/dV a thread, no spill; chip_smoke.py prints them)
+// allow no second block. At head_dim 64 the accumulators are half as large
+// (dQ 32 fp32 registers a thread, dK and dV 64) and the score products
+// have 4 k-steps, so the softmax's share of the work per tensor-core flop
+// is twice D = 128's. There a block is one warpgroup of 64 stationary rows
+// (about 128 registers a thread for dQ, 165 for dK/dV, no spill): 4 dQ or
+// 3 dK/dV blocks a SM run at once, so the SDXL shapes' 640 and 320 blocks
+// fill the card in 1.2 and 0.6 waves of dQ and 1.6 and 0.8 of dK/dV, and
+// the warpgroups of a SM do not wait on each other's tiles. Measured on
+// the H100 and not kept at head_dim 64: two warpgroups a block (dQ 13%,
+// dK/dV 34% slower at B * H = 10, S = 4096), launch bounds that ask for
+// 128 registers a thread (dK/dV spills and is 13-81% slower), and 128-key
+// tiles in the dQ kernel (201 registers, 2 blocks a SM; 5% slower at
+// S = 4096, 11% at 1024). Shared memory with the 1 KB alignment slack, at
+// D = 128 / 64: forward 99,328 bytes (Q x 2, K and V x 2 stages; D = 128
+// only), dQ 133,120 / 50,688 (Q, dO x WG, K and V x 2 stages, lse and
+// delta), dK/dV 133,120 / 51,200 (K, V x WG, Q and dO x 2 stages, lse and
+// delta). The dK/dV kernel holds dK and dV and keeps P as bf16 (the A
+// fragment of dV += P^T dO), from which it also forms dS, so that its
+// scores fit beside them. Tried at D = 128 on the H100 and not kept, being
+// no faster beyond the run-to-run spread: rings of 3 and 4 stages, issuing
+// the next tile's scores beside the accumulating product (forward and
+// dQ), and Q as register A fragments for S = Q K^T.
 //
 // Built by aozora_sdxl_training_tpu_torch/ops/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
@@ -83,25 +98,31 @@ namespace {
 
 using sm90::bf16;
 
-constexpr int D = 128;             // head dim
 constexpr int BM = 64;             // rows of a warpgroup's tile (wgmma M)
 constexpr int BN = 64;             // rows of a streamed tile
-constexpr int WG = 2;              // consumer warpgroups of a block
-constexpr int THREADS = WG * 128;
-constexpr int ROWS = WG * BM;      // stationary rows of a block
-constexpr int TILE = sm90::Tile<64>::BYTES;   // 16 KB
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
 
-// shared memory, with 1 KB of slack for the alignment: the stationary tiles
-// and two stages of each streamed tile (plus lse and delta rows)
-constexpr size_t FWD_SMEM = 1024 + (WG + 4) * TILE;
-constexpr size_t DQ_SMEM = 1024 + (2 * WG + 4) * TILE + 2 * ROWS * sizeof(float);
-constexpr size_t DKV_SMEM = 1024 + (2 * WG + 4) * TILE + 2 * 2 * BN * sizeof(float);
-static_assert(FWD_SMEM <= 232448 && DQ_SMEM <= 232448 && DKV_SMEM <= 232448,
-              "shared memory of one block");
+// Consumer warpgroups of a block at head dim D.
+constexpr int warpgroups(int d) { return d == 64 ? 1 : 2; }
+
+// Threads, stationary rows, tile bytes and shared memory at head dim D
+// with WG consumer warpgroups, with 1 KB of slack for the alignment: the
+// stationary tiles and two stages of each streamed tile (plus lse and
+// delta rows)
+template <int D, int WG>
+struct Geo {
+  static constexpr int THREADS = WG * 128;
+  static constexpr int ROWS = WG * BM;
+  static constexpr int TILE = sm90::Tile<64, D>::BYTES;   // 8 KB at D = 64, 16 KB at 128
+  static constexpr size_t FWD_SMEM = 1024 + (WG + 4) * TILE;
+  static constexpr size_t DQ_SMEM = 1024 + (2 * WG + 4) * TILE + 2 * ROWS * sizeof(float);
+  static constexpr size_t DKV_SMEM = 1024 + (2 * WG + 4) * TILE + 2 * 2 * BN * sizeof(float);
+  static_assert(FWD_SMEM <= 232448 && DQ_SMEM <= 232448 && DKV_SMEM <= 232448,
+                "shared memory of one block");
+};
 
 // The dynamic shared memory rounded up to a 1024-byte boundary (the
 // swizzle atom); the generic pointer and the shared-window address.
@@ -125,72 +146,54 @@ __device__ __forceinline__ void load8f(const bf16* p, float (&f)[8]) {
     f[2 * i + 1] = x.y;
   }
 }
-__device__ __forceinline__ void load8f(const float* p, float (&f)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
 
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-// Writes a warpgroup's 64 x 128 fp32 accumulator, row i-half scaled by
-// mul[i], as rows [row0, row0 + 64) of one head of a (B, S, H, 128) output
-// in T: through `stage` (16 KB of shared memory this warpgroup alone uses,
-// rows of 256 bytes with 16-byte chunks swizzled by row), then 16-byte
-// stores, in one pass for bf16 and two column halves for fp32. t: thread
-// in the warpgroup; bar: its named barrier.
-template <typename T>
-__device__ __forceinline__ void store_rows(const float (&acc)[64], const float (&mul)[2],
-                                           unsigned char* stage, T* head, int row0, int S,
+// Writes a warpgroup's 64 x D fp32 accumulator, row i-half scaled by
+// mul[i], as rows [row0, row0 + 64) of one head of a (B, S, H, D) bf16
+// output: through `stage` (64 * D * 2 bytes of shared memory this
+// warpgroup alone uses, rows of D * 2 bytes with 16-byte chunks swizzled by
+// row), then 16-byte stores. t: thread in the warpgroup; bar: its named
+// barrier.
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2], const float (&mul)[2],
+                                           unsigned char* stage, bf16* head, int row0, int S,
                                            int rs, int t, int bar) {
-  constexpr int COLS = 256 / sizeof(T);           // columns of a pass: 128 bf16, 64 fp32
-  constexpr int PASSES = D / COLS;
+  constexpr int ROW_BYTES = D * 2, CH = D / 8;
   const int w = t / 32, g = (t % 32) / 4, c4 = t % 4;
 #pragma unroll
-  for (int pass = 0; pass < PASSES; ++pass) {
+  for (int j = 0; j < D / 8; ++j) {
 #pragma unroll
-    for (int jj = 0; jj < COLS / 8; ++jj) {
-      const int j = pass * (COLS / 8) + jj;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int row = 16 * w + g + 8 * i;
-        const int byte = (8 * jj + 2 * c4) * (int)sizeof(T);
-        T* p = reinterpret_cast<T*>(stage + row * 256 + ((((byte >> 4) ^ (row & 7))) << 4) +
-                                    (byte & 15));
-        store2(p, acc[4 * j + 2 * i] * mul[i], acc[4 * j + 2 * i + 1] * mul[i]);
-      }
+    for (int i = 0; i < 2; ++i) {
+      const int row = 16 * w + g + 8 * i;
+      const int byte = (8 * j + 2 * c4) * 2;
+      bf16* p = reinterpret_cast<bf16*>(stage + row * ROW_BYTES +
+                                        (((byte >> 4) ^ (row & 7)) << 4) + (byte & 15));
+      *reinterpret_cast<__nv_bfloat162*>(p) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * i] * mul[i], acc[4 * j + 2 * i + 1] * mul[i]);
     }
-    sm90::named_barrier(bar, 128);
-#pragma unroll
-    for (int it = 0; it < 64 * 16 / 128; ++it) {
-      const int c = t + it * 128, row = c >> 4, ch = c & 15;
-      const uint4 val =
-          *reinterpret_cast<const uint4*>(stage + row * 256 + ((ch ^ (row & 7)) << 4));
-      if (row0 + row < S) {
-        unsigned char* dst = reinterpret_cast<unsigned char*>(
-            head + (size_t)(row0 + row) * rs + pass * COLS);
-        *reinterpret_cast<uint4*>(dst + ch * 16) = val;
-      }
-    }
-    sm90::named_barrier(bar, 128);
   }
+  sm90::named_barrier(bar, 128);
+#pragma unroll
+  for (int it = 0; it < 64 * CH / 128; ++it) {
+    const unsigned c = t + it * 128;
+    const int row = c / CH, ch = c % CH;
+    const uint4 val =
+        *reinterpret_cast<const uint4*>(stage + row * ROW_BYTES + ((ch ^ (row & 7)) << 4));
+    if (row0 + row < S)
+      *reinterpret_cast<uint4*>(head + (size_t)(row0 + row) * rs + ch * 8) = val;
+  }
+  sm90::named_barrier(bar, 128);
 }
 
 // ---------------------------------------------------------------------------
-// K4a: forward. Grid (ceil(Sq / 128), B * H); warpgroup w owns query rows
-// [q0 + 64 w, q0 + 64 w + 64).
+// K4a: forward (instantiated at D = 128). Grid (ceil(Sq / 128), B * H);
+// warpgroup w owns query rows [q0 + 64 w, q0 + 64 w + 64).
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 1)
+template <int D, int WG>
+__global__ void __launch_bounds__(WG * 128, 1)
 flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                      const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                       int H, int Sq, int Skv, float scale) {
+  constexpr int THREADS = WG * 128, ROWS = WG * BM, TILE = Geo<D, WG>::TILE;
   extern __shared__ unsigned char smem_raw[];
   const Smem sm(smem_raw);
   const int tid = threadIdx.x, wg = tid / 128, t = tid % 128;
@@ -207,15 +210,15 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 #pragma unroll
   for (int x = 0; x < WG; ++x)
-    sm90::load_tile_async<BM, THREADS>(sm.addr + x * TILE, q + (size_t)b * Sq * rs + h * D,
-                                       q0 + x * BM, Sq, rs, tid);
-  sm90::load_tile_async<BN, THREADS>(sK, kh, 0, Skv, rs, tid);
-  sm90::load_tile_async<BN, THREADS>(sV, vh, 0, Skv, rs, tid);
+    sm90::load_tile_async<BM, D, THREADS>(sm.addr + x * TILE, q + (size_t)b * Sq * rs + h * D,
+                                          q0 + x * BM, Sq, rs, tid);
+  sm90::load_tile_async<BN, D, THREADS>(sK, kh, 0, Skv, rs, tid);
+  sm90::load_tile_async<BN, D, THREADS>(sV, vh, 0, Skv, rs, tid);
   sm90::cp_async_commit();
 
-  float acc[64];
+  float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // m in log2 units
   const float sl2 = scale * LOG2E;
   const int nk = (Skv + BN - 1) / BN;
@@ -226,8 +229,10 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     sm90::fence_async_smem();
     __syncthreads();                  // tile j landed; tile j - 1 is consumed
     if (j + 1 < nk) {
-      sm90::load_tile_async<BN, THREADS>(sK + (st ^ 1) * TILE, kh, (j + 1) * BN, Skv, rs, tid);
-      sm90::load_tile_async<BN, THREADS>(sV + (st ^ 1) * TILE, vh, (j + 1) * BN, Skv, rs, tid);
+      sm90::load_tile_async<BN, D, THREADS>(sK + (st ^ 1) * TILE, kh, (j + 1) * BN, Skv, rs,
+                                            tid);
+      sm90::load_tile_async<BN, D, THREADS>(sV + (st ^ 1) * TILE, vh, (j + 1) * BN, Skv, rs,
+                                            tid);
     }
     sm90::cp_async_commit();
 
@@ -237,8 +242,8 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      sm90::mma_64x64_ss(s, sm90::kmajor_desc<BM>(sQ, kk),
-                         sm90::kmajor_desc<BN>(sK + st * TILE, kk), kk > 0);
+      sm90::mma_ss(s, sm90::kmajor_desc<BM>(sQ, kk), sm90::kmajor_desc<BN>(sK + st * TILE, kk),
+                   kk > 0);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(s);
@@ -268,7 +273,7 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       l[i] += p[x];
     }
 #pragma unroll
-    for (int x = 0; x < 64; ++x) acc[x] *= alpha[(x / 2) % 2];
+    for (int x = 0; x < D / 2; ++x) acc[x] *= alpha[(x / 2) % 2];
     uint32_t pa[16];
     sm90::pack_a(p, pa);
 
@@ -278,8 +283,8 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
-      sm90::mma_64x128_rs(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-                          sm90::mnmajor_desc<BN>(sV + st * TILE, kk));
+      sm90::mma_rs(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                   sm90::mnmajor_desc<BN>(sV + st * TILE, kk));
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(acc);
@@ -296,21 +301,22 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = q0 + wg * BM + 16 * w + g + 8 * i;
     if (c4 == 0 && row < Sq) lse[(size_t)bh * Sq + row] = m[i] * LN2 + logf(safe_l);
   }
-  store_rows<T>(acc, inv, sm.ptr + wg * TILE, o + (size_t)b * Sq * rs + h * D, q0 + wg * BM,
+  store_rows<D>(acc, inv, sm.ptr + wg * TILE, o + (size_t)b * Sq * rs + h * D, q0 + wg * BM,
                 Sq, rs, t, 1 + wg);
 }
 
 // ---------------------------------------------------------------------------
-// K4b dQ: dQ, and delta = rowsum(dO * O) for the dK/dV kernel. Grid
-// (ceil(Sq / 128), B * H); the key loop is inside the block.
+// K2 / K4b dQ: dQ, and delta = rowsum(dO * O) for the dK/dV kernel. Grid
+// (ceil(Sq / (64 WG)), B * H); the key loop is inside the block.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 1)
+template <int D, int WG>
+__global__ void __launch_bounds__(WG * 128, 1)
 flash_bwd_dq_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const T* __restrict__ o,
-                         const T* __restrict__ dout, const float* __restrict__ lse,
-                         float* __restrict__ delta, T* __restrict__ dq, int H, int Sq, int Skv,
-                         float scale) {
+                         const bf16* __restrict__ v, const bf16* __restrict__ o,
+                         const bf16* __restrict__ dout, const float* __restrict__ lse,
+                         float* __restrict__ delta, bf16* __restrict__ dq, int H, int Sq,
+                         int Skv, float scale) {
+  constexpr int THREADS = WG * 128, ROWS = WG * BM, TILE = Geo<D, WG>::TILE;
   extern __shared__ unsigned char smem_raw[];
   const Smem sm(smem_raw);
   const int tid = threadIdx.x, wg = tid / 128, t = tid % 128;
@@ -321,31 +327,32 @@ flash_bwd_dq_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t qoff = (size_t)b * Sq * rs + h * D;
   const bf16* kh = k + (size_t)b * Skv * rs + h * D;
   const bf16* vh = v + (size_t)b * Skv * rs + h * D;
-  // tiles: Q x 2 warpgroups, dO x 2, K x 2 stages, V x 2 stages; then lse
-  // and delta of the block's rows
+  // tiles: Q x WG warpgroups, dO x WG, K x 2 stages, V x 2 stages (of BN
+  // keys); then lse and delta of the block's rows
   const uint32_t sQ = sm.addr + wg * TILE;
   const uint32_t sDO = sm.addr + (WG + wg) * TILE;
   const uint32_t sK = sm.addr + 2 * WG * TILE;
   const uint32_t sV = sK + 2 * TILE;
-  float* sLse = reinterpret_cast<float*>(sm.ptr + (2 * WG + 4) * TILE);
+  float* sLse = reinterpret_cast<float*>(sm.ptr + 2 * WG * TILE + 4 * TILE);
   float* sDelta = sLse + ROWS;
 
 #pragma unroll
   for (int x = 0; x < WG; ++x)
-    sm90::load_tile_async<BM, THREADS>(sm.addr + x * TILE, q + qoff, q0 + x * BM, Sq, rs, tid);
-  sm90::load_tile_async<BN, THREADS>(sK, kh, 0, Skv, rs, tid);
-  sm90::load_tile_async<BN, THREADS>(sV, vh, 0, Skv, rs, tid);
+    sm90::load_tile_async<BM, D, THREADS>(sm.addr + x * TILE, q + qoff, q0 + x * BM, Sq, rs,
+                                          tid);
+  sm90::load_tile_async<BN, D, THREADS>(sK, kh, 0, Skv, rs, tid);
+  sm90::load_tile_async<BN, D, THREADS>(sV, vh, 0, Skv, rs, tid);
   sm90::cp_async_commit();
 
-  // dO into its tiles as bf16, and delta from dO and O in T: two threads a
-  // row, 64 columns each
+  // dO into its tiles, and delta from dO and O: two threads a row, D / 2
+  // columns each
   {
     const int r = tid / 2, half = tid % 2, row = q0 + r;
     unsigned char* tile = sm.ptr + (WG + r / BM) * TILE;
     float dl = 0.f;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int ch = half * 8 + c;
+    for (int c = 0; c < D / 16; ++c) {
+      const int ch = half * (D / 16) + c;
       float fo[8], fd[8];
       if (row < Sq) {
         load8f(dout + qoff + (size_t)row * rs + ch * 8, fd);
@@ -359,7 +366,7 @@ flash_bwd_dq_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       packed.y = sm90::pack_bf16(fd[2], fd[3]);
       packed.z = sm90::pack_bf16(fd[4], fd[5]);
       packed.w = sm90::pack_bf16(fd[6], fd[7]);
-      *reinterpret_cast<uint4*>(tile + sm90::Tile<BM>::chunk(r % BM, ch)) = packed;
+      *reinterpret_cast<uint4*>(tile + sm90::Tile<BM, D>::chunk(r % BM, ch)) = packed;
 #pragma unroll
       for (int e = 0; e < 8; ++e) dl += fd[e] * fo[e];
     }
@@ -379,9 +386,9 @@ flash_bwd_dq_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     dl[i] = sDelta[r];
   }
 
-  float acc[64];
+  float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   const float sl2 = scale * LOG2E;
   const int nk = (Skv + BN - 1) / BN;
 
@@ -391,39 +398,41 @@ flash_bwd_dq_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     sm90::fence_async_smem();
     __syncthreads();                  // tile j landed; tile j - 1 is consumed
     if (j + 1 < nk) {
-      sm90::load_tile_async<BN, THREADS>(sK + (st ^ 1) * TILE, kh, (j + 1) * BN, Skv, rs, tid);
-      sm90::load_tile_async<BN, THREADS>(sV + (st ^ 1) * TILE, vh, (j + 1) * BN, Skv, rs, tid);
+      sm90::load_tile_async<BN, D, THREADS>(sK + (st ^ 1) * TILE, kh, (j + 1) * BN, Skv, rs,
+                                            tid);
+      sm90::load_tile_async<BN, D, THREADS>(sV + (st ^ 1) * TILE, vh, (j + 1) * BN, Skv, rs,
+                                            tid);
     }
     sm90::cp_async_commit();
 
     // S = Q K^T, then dP = dO V^T
-    float s[32], dp[32];
+    float s[BN / 2], dp[BN / 2];
     sm90::fence_regs(acc);
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      sm90::mma_64x64_ss(s, sm90::kmajor_desc<BM>(sQ, kk),
-                         sm90::kmajor_desc<BN>(sK + st * TILE, kk), kk > 0);
+      sm90::mma_ss(s, sm90::kmajor_desc<BM>(sQ, kk), sm90::kmajor_desc<BN>(sK + st * TILE, kk),
+                   kk > 0);
     sm90::wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      sm90::mma_64x64_ss(dp, sm90::kmajor_desc<BM>(sDO, kk),
-                         sm90::kmajor_desc<BN>(sV + st * TILE, kk), kk > 0);
+      sm90::mma_ss(dp, sm90::kmajor_desc<BM>(sDO, kk), sm90::kmajor_desc<BN>(sV + st * TILE, kk),
+                   kk > 0);
     sm90::wgmma_commit();
     sm90::wgmma_wait<1>();            // S is done; dP may still run
     sm90::fence_regs(s);
-    float p[32];
+    float p[BN / 2];
 #pragma unroll
-    for (int x = 0; x < 32; ++x) {
+    for (int x = 0; x < BN / 2; ++x) {
       const int i = (x / 2) % 2;      // element x: row half (x / 2) % 2, column block x / 4
       p[x] = (j * BN + 8 * (x / 4) + 2 * c4 + x % 2 < Skv) ? exp2f(s[x] * sl2 - lse2[i]) : 0.f;
     }
     sm90::wgmma_wait<0>();
     sm90::fence_regs(dp);
     // dS = P (dP - delta) scale, as the A fragments of dQ += dS K
-    uint32_t da[16];
+    uint32_t da[BN / 4];
 #pragma unroll
-    for (int x = 0; x < 16; ++x) {
+    for (int x = 0; x < BN / 4; ++x) {
       const int i = x % 2;            // elements 2x, 2x + 1: row half x % 2
       da[x] = sm90::pack_bf16(p[2 * x] * (dp[2 * x] - dl[i]) * scale,
                               p[2 * x + 1] * (dp[2 * x + 1] - dl[i]) * scale);
@@ -432,8 +441,8 @@ flash_bwd_dq_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
-      sm90::mma_64x128_rs(acc, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
-                          sm90::mnmajor_desc<BN>(sK + st * TILE, kk));
+      sm90::mma_rs(acc, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
+                   sm90::mnmajor_desc<BN>(sK + st * TILE, kk));
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(acc);
@@ -441,22 +450,23 @@ flash_bwd_dq_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   const float one[2] = {1.f, 1.f};
-  store_rows<T>(acc, one, sm.ptr + wg * TILE, dq + qoff, q0 + wg * BM, Sq, rs, t, 1 + wg);
+  store_rows<D>(acc, one, sm.ptr + wg * TILE, dq + qoff, q0 + wg * BM, Sq, rs, t, 1 + wg);
 }
 
 // ---------------------------------------------------------------------------
-// K4b dK/dV: dK and dV from the saved lse and the dQ kernel's delta. Grid
-// (ceil(Skv / 128), B * H); warpgroup w owns key rows [kv0 + 64 w, +64);
-// the query loop is inside the block. Works on transposed scores (rows =
-// keys, columns = queries), so P^T and dS^T are the A operands.
+// K3 / K4b dK/dV: dK and dV from the saved lse and the dQ kernel's delta.
+// Grid (ceil(Skv / (64 WG)), B * H); warpgroup w owns key rows [kv0 + 64 w,
+// +64); the query loop is inside the block. Works on transposed scores
+// (rows = keys, columns = queries), so P^T and dS^T are the A operands.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 1)
+template <int D, int WG>
+__global__ void __launch_bounds__(WG * 128, 1)
 flash_bwd_dkv_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          T* __restrict__ dk, T* __restrict__ dv, int H, int Sq, int Skv,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Sq, int Skv,
                           float scale) {
+  constexpr int THREADS = WG * 128, ROWS = WG * BM, TILE = Geo<D, WG>::TILE;
   extern __shared__ unsigned char smem_raw[];
   const Smem sm(smem_raw);
   const int tid = threadIdx.x, wg = tid / 128, t = tid % 128;
@@ -469,7 +479,7 @@ flash_bwd_dkv_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const bf16* doh = dout + (size_t)b * Sq * rs + h * D;
   const float* lse_h = lse + (size_t)bh * Sq;
   const float* delta_h = delta + (size_t)bh * Sq;
-  // tiles: K x 2 warpgroups, V x 2, Q x 2 stages, dO x 2 stages; then lse
+  // tiles: K x WG warpgroups, V x WG, Q x 2 stages, dO x 2 stages; then lse
   // and delta of each stage
   const uint32_t sK = sm.addr + wg * TILE;
   const uint32_t sV = sm.addr + (WG + wg) * TILE;
@@ -480,8 +490,8 @@ flash_bwd_dkv_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
   // query tile [row0, row0 + 64): Q, dO, lse and delta into a stage
   auto load_q_tile = [&](int stage, int row0) {
-    sm90::load_tile_async<BN, THREADS>(sQ + stage * TILE, qh, row0, Sq, rs, tid);
-    sm90::load_tile_async<BN, THREADS>(sDO + stage * TILE, doh, row0, Sq, rs, tid);
+    sm90::load_tile_async<BN, D, THREADS>(sQ + stage * TILE, qh, row0, Sq, rs, tid);
+    sm90::load_tile_async<BN, D, THREADS>(sDO + stage * TILE, doh, row0, Sq, rs, tid);
     if (tid < 2 * BN) {
       const int r = tid % BN, row = row0 + r;
       const bool ok = row < Sq;
@@ -492,17 +502,17 @@ flash_bwd_dkv_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
 #pragma unroll
   for (int x = 0; x < WG; ++x) {
-    sm90::load_tile_async<BM, THREADS>(sm.addr + x * TILE, k + kvoff, kv0 + x * BM, Skv, rs,
-                                       tid);
-    sm90::load_tile_async<BM, THREADS>(sm.addr + (WG + x) * TILE, v + kvoff, kv0 + x * BM,
-                                       Skv, rs, tid);
+    sm90::load_tile_async<BM, D, THREADS>(sm.addr + x * TILE, k + kvoff, kv0 + x * BM, Skv, rs,
+                                          tid);
+    sm90::load_tile_async<BM, D, THREADS>(sm.addr + (WG + x) * TILE, v + kvoff, kv0 + x * BM,
+                                          Skv, rs, tid);
   }
   load_q_tile(0, 0);
   sm90::cp_async_commit();
 
-  float acc_dk[64], acc_dv[64];
+  float acc_dk[D / 2], acc_dv[D / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
   const float sl2 = scale * LOG2E;
   const int nq = (Sq + BN - 1) / BN;
 
@@ -521,13 +531,13 @@ flash_bwd_dkv_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      sm90::mma_64x64_ss(s, sm90::kmajor_desc<BM>(sK, kk),
-                         sm90::kmajor_desc<BN>(sQ + st * TILE, kk), kk > 0);
+      sm90::mma_ss(s, sm90::kmajor_desc<BM>(sK, kk), sm90::kmajor_desc<BN>(sQ + st * TILE, kk),
+                   kk > 0);
     sm90::wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      sm90::mma_64x64_ss(dp, sm90::kmajor_desc<BM>(sV, kk),
-                         sm90::kmajor_desc<BN>(sDO + st * TILE, kk), kk > 0);
+      sm90::mma_ss(dp, sm90::kmajor_desc<BM>(sV, kk), sm90::kmajor_desc<BN>(sDO + st * TILE, kk),
+                   kk > 0);
     sm90::wgmma_commit();
     sm90::wgmma_wait<1>();
     sm90::fence_regs(s);
@@ -566,12 +576,12 @@ flash_bwd_dkv_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
-      sm90::mma_64x128_rs(acc_dv, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-                          sm90::mnmajor_desc<BN>(sDO + st * TILE, kk));
+      sm90::mma_rs(acc_dv, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                   sm90::mnmajor_desc<BN>(sDO + st * TILE, kk));
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
-      sm90::mma_64x128_rs(acc_dk, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
-                          sm90::mnmajor_desc<BN>(sQ + st * TILE, kk));
+      sm90::mma_rs(acc_dk, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
+                   sm90::mnmajor_desc<BN>(sQ + st * TILE, kk));
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(acc_dv);
@@ -581,9 +591,9 @@ flash_bwd_dkv_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   }
 
   const float one[2] = {1.f, 1.f};
-  store_rows<T>(acc_dk, one, sm.ptr + wg * TILE, dk + kvoff, kv0 + wg * BM, Skv, rs, t,
+  store_rows<D>(acc_dk, one, sm.ptr + wg * TILE, dk + kvoff, kv0 + wg * BM, Skv, rs, t,
                 1 + wg);
-  store_rows<T>(acc_dv, one, sm.ptr + (WG + wg) * TILE, dv + kvoff, kv0 + wg * BM, Skv, rs,
+  store_rows<D>(acc_dv, one, sm.ptr + (WG + wg) * TILE, dv + kvoff, kv0 + wg * BM, Skv, rs,
                 t, 1 + wg);
 }
 
@@ -594,40 +604,51 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-template <typename T>
+template <int D, int WG = warpgroups(D)>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Sq,
         int Skv, float scale, cudaStream_t stream) {
-  cudaError_t e = allow_smem(flash_fwd_sm90_kernel<T>, FWD_SMEM);
+  if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o)))
+    return (int)cudaErrorInvalidValue;
+  using G = Geo<D, WG>;
+  cudaError_t e = allow_smem(flash_fwd_sm90_kernel<D, WG>, G::FWD_SMEM);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Sq + ROWS - 1) / ROWS, B * H);
-  flash_fwd_sm90_kernel<T><<<grid, THREADS, FWD_SMEM, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (T*)o, lse, H, Sq, Skv, scale);
+  dim3 grid((Sq + G::ROWS - 1) / G::ROWS, B * H);
+  flash_fwd_sm90_kernel<D, WG><<<grid, G::THREADS, G::FWD_SMEM, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, H, Sq, Skv, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <int D, int WG = warpgroups(D)>
 int bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
            const float* lse, float* delta, void* dq, int B, int H, int Sq, int Skv,
            float scale, cudaStream_t stream) {
-  cudaError_t e = allow_smem(flash_bwd_dq_sm90_kernel<T>, DQ_SMEM);
+  if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o) && aligned16(dout) &&
+        aligned16(dq)))
+    return (int)cudaErrorInvalidValue;
+  using G = Geo<D, WG>;
+  cudaError_t e = allow_smem(flash_bwd_dq_sm90_kernel<D, WG>, G::DQ_SMEM);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Sq + ROWS - 1) / ROWS, B * H);
-  flash_bwd_dq_sm90_kernel<T><<<grid, THREADS, DQ_SMEM, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const T*)o, (const T*)dout, lse, delta,
-      (T*)dq, H, Sq, Skv, scale);
+  dim3 grid((Sq + G::ROWS - 1) / G::ROWS, B * H);
+  flash_bwd_dq_sm90_kernel<D, WG><<<grid, G::THREADS, G::DQ_SMEM, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o, (const bf16*)dout, lse,
+      delta, (bf16*)dq, H, Sq, Skv, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <int D, int WG = warpgroups(D)>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
             const float* delta, void* dk, void* dv, int B, int H, int Sq, int Skv, float scale,
             cudaStream_t stream) {
-  cudaError_t e = allow_smem(flash_bwd_dkv_sm90_kernel<T>, DKV_SMEM);
+  if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) && aligned16(dk) &&
+        aligned16(dv)))
+    return (int)cudaErrorInvalidValue;
+  using G = Geo<D, WG>;
+  cudaError_t e = allow_smem(flash_bwd_dkv_sm90_kernel<D, WG>, G::DKV_SMEM);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Skv + ROWS - 1) / ROWS, B * H);
-  flash_bwd_dkv_sm90_kernel<T><<<grid, THREADS, DKV_SMEM, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta, (T*)dk,
-      (T*)dv, H, Sq, Skv, scale);
+  dim3 grid((Skv + G::ROWS - 1) / G::ROWS, B * H);
+  flash_bwd_dkv_sm90_kernel<D, WG><<<grid, G::THREADS, G::DKV_SMEM, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta, (bf16*)dk,
+      (bf16*)dv, H, Sq, Skv, scale);
   return (int)cudaGetLastError();
 }
 
@@ -635,27 +656,40 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
 // local (spill) bytes a thread, dynamic shared memory bytes, threads a
 // block, blocks a SM}.
 template <typename K>
-int attributes(K kernel, size_t smem, int* out) {
+int attributes(K kernel, int threads, size_t smem, int* out) {
   cudaFuncAttributes a;
   cudaError_t e = allow_smem(kernel, smem);
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, kernel);
   int blocks = 0;
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
   if (e != cudaSuccess) return (int)e;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
   out[2] = (int)smem;
-  out[3] = THREADS;
+  out[3] = threads;
   out[4] = blocks;
   return 0;
 }
 
+template <int D, int WG = warpgroups(D)>
+int attributes_of(int kernel, int* out) {
+  using G = Geo<D, WG>;
+  if (kernel == 1)
+    return attributes(flash_bwd_dq_sm90_kernel<D, WG>, G::THREADS, G::DQ_SMEM, out);
+  if (kernel == 2)
+    return attributes(flash_bwd_dkv_sm90_kernel<D, WG>, G::THREADS, G::DKV_SMEM, out);
+  if constexpr (D == 128) {   // the forward exists at head_dim 128 only
+    if (kernel == 0)
+      return attributes(flash_fwd_sm90_kernel<D, WG>, G::THREADS, G::FWD_SMEM, out);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// Plain C interface. dtype: 0 = bfloat16, 1 = float32, the caller's dtype:
-// that of o, dq, dk, dv, and of o and dout in the dQ kernel. q, k, v, and
-// dout of the dK/dV kernel, are bf16 whatever dtype says. Each returns the
+// Plain C interface, one entry point per kernel and head dim (no suffix:
+// head_dim 64, K2/K3; _d128: head_dim 128, K4a/K4b). Each returns the
 // cudaError_t of its launch; cudaErrorInvalidValue for a pointer the
 // 16-byte loads cannot take.
 extern "C" {
@@ -664,59 +698,44 @@ const char* aozora_flash_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-int aozora_flash_fwd_d128(int dtype, const void* q, const void* k, const void* v, void* o,
-                          float* lse, int B, int H, int Sq, int Skv, float scale,
-                          void* stream) {
-  if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return fwd<bf16>(q, k, v, o, lse, B, H, Sq, Skv, scale, s);
-  if (dtype == 1) return fwd<float>(q, k, v, o, lse, B, H, Sq, Skv, scale, s);
-  return (int)cudaErrorInvalidValue;
+int aozora_flash_fwd_d128(const void* q, const void* k, const void* v, void* o, float* lse,
+                          int B, int H, int Sq, int Skv, float scale, void* stream) {
+  return fwd<128>(q, k, v, o, lse, B, H, Sq, Skv, scale, (cudaStream_t)stream);
 }
 
-int aozora_flash_bwd_dq_d128(int dtype, const void* q, const void* k, const void* v,
-                             const void* o, const void* dout, const float* lse, float* delta,
-                             void* dq, int B, int H, int Sq, int Skv, float scale,
-                             void* stream) {
-  if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o) && aligned16(dout) &&
-        aligned16(dq)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return bwd_dq<bf16>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Skv, scale, s);
-  if (dtype == 1)
-    return bwd_dq<float>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Skv, scale, s);
-  return (int)cudaErrorInvalidValue;
+int aozora_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                        const void* dout, const float* lse, float* delta, void* dq, int B,
+                        int H, int Sq, int Skv, float scale, void* stream) {
+  return bwd_dq<64>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Skv, scale,
+                    (cudaStream_t)stream);
 }
 
-int aozora_flash_bwd_dkv_d128(int dtype, const void* q, const void* k, const void* v,
-                              const void* dout, const float* lse, const float* delta,
-                              void* dk, void* dv, int B, int H, int Sq, int Skv, float scale,
-                              void* stream) {
-  if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) && aligned16(dk) &&
-        aligned16(dv)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return bwd_dkv<bf16>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv, scale, s);
-  if (dtype == 1)
-    return bwd_dkv<float>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv, scale, s);
-  return (int)cudaErrorInvalidValue;
+int aozora_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                         const float* lse, const float* delta, void* dk, void* dv, int B,
+                         int H, int Sq, int Skv, float scale, void* stream) {
+  return bwd_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv, scale,
+                     (cudaStream_t)stream);
 }
 
-// kernel: 0 forward, 1 dQ, 2 dK/dV; dtype as above; out: 5 ints (see
-// attributes()).
-int aozora_flash_sm90_attributes(int kernel, int dtype, int* out) {
-  if (dtype == 0) {
-    if (kernel == 0) return attributes(flash_fwd_sm90_kernel<bf16>, FWD_SMEM, out);
-    if (kernel == 1) return attributes(flash_bwd_dq_sm90_kernel<bf16>, DQ_SMEM, out);
-    if (kernel == 2) return attributes(flash_bwd_dkv_sm90_kernel<bf16>, DKV_SMEM, out);
-  } else if (dtype == 1) {
-    if (kernel == 0) return attributes(flash_fwd_sm90_kernel<float>, FWD_SMEM, out);
-    if (kernel == 1) return attributes(flash_bwd_dq_sm90_kernel<float>, DQ_SMEM, out);
-    if (kernel == 2) return attributes(flash_bwd_dkv_sm90_kernel<float>, DKV_SMEM, out);
-  }
+int aozora_flash_bwd_dq_d128(const void* q, const void* k, const void* v, const void* o,
+                             const void* dout, const float* lse, float* delta, void* dq, int B,
+                             int H, int Sq, int Skv, float scale, void* stream) {
+  return bwd_dq<128>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Skv, scale,
+                     (cudaStream_t)stream);
+}
+
+int aozora_flash_bwd_dkv_d128(const void* q, const void* k, const void* v, const void* dout,
+                              const float* lse, const float* delta, void* dk, void* dv, int B,
+                              int H, int Sq, int Skv, float scale, void* stream) {
+  return bwd_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv, scale,
+                      (cudaStream_t)stream);
+}
+
+// kernel: 0 forward (head_dim 128 only), 1 dQ, 2 dK/dV; head_dim 64 or
+// 128; out: 5 ints (see attributes()).
+int aozora_flash_sm90_attributes(int kernel, int head_dim, int* out) {
+  if (head_dim == 64) return attributes_of<64>(kernel, out);
+  if (head_dim == 128) return attributes_of<128>(kernel, out);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,23 +1,29 @@
-// Hopper (sm_90a) building blocks for the head_dim-128 flash kernels in
-// flash_attention_sm90.cu: the 128-byte-swizzled shared-memory tile that
-// wgmma reads, its matrix descriptors, the two wgmma shapes the kernels use,
-// their fences, cp.async into the swizzled layout, and a named barrier.
+// Hopper (sm_90a) building blocks for the flash kernels in
+// flash_attention_sm90.cu (head_dim 64 and 128): the 128-byte-swizzled
+// shared-memory tile that wgmma reads, its matrix descriptors, the wgmma
+// shapes the kernels use, their fences, cp.async into the swizzled layout,
+// and a named barrier. The fp32 kernels of flash_attention_fp32.cu use its
+// cp.async helpers.
 //
-// A tile holds R rows of 128 bf16 (256 bytes) as two 64-column halves, each
-// R rows of 128 bytes; 16-byte chunk c of row r sits at chunk (c ^ (r % 8))
-// of its row in its half. That is the SWIZZLE_128B layout of the hardware
-// (address bits 4-6 XOR bits 7-9), so every tile starts on a 1024-byte
-// boundary. One tile serves as either operand form:
+// A tile holds R rows of D bf16 (D = 64 or 128) as D / 64 column halves,
+// each R rows of 128 bytes; 16-byte chunk c of row r sits at chunk
+// (c ^ (r % 8)) of its row in its half. That is the SWIZZLE_128B layout of
+// the hardware (address bits 4-6 XOR bits 7-9), so every tile starts on a
+// 1024-byte boundary. At D = 64 a row is exactly one 128-byte swizzle atom
+// and the one half is the whole tile. One tile serves as either operand
+// form:
 //
-// * K-major (the 128 columns are the reduction dim K): A or B of S = Q K^T
+// * K-major (the D columns are the reduction dim K): A or B of S = Q K^T
 //   and its relatives. Rows are M or N; 8-row groups 1024 bytes apart (the
 //   stride byte offset); the leading byte offset is unused. k-step kk of 16
-//   starts (kk / 4) halves and (kk % 4) * 32 bytes in.
-// * MN-major (the rows are K, the 128 columns are N): B of the accumulating
+//   starts (kk / 4) halves and (kk % 4) * 32 bytes in (D / 16 k-steps).
+// * MN-major (the rows are K, the D columns are N): B of the accumulating
 //   products (P V, dS K, P^T dO, dS^T Q), read transposed (imm-trans-b 1,
-//   which bf16 allows). The two 64-column halves are the two N atoms, R * 128
-//   bytes apart (the leading byte offset); 8-row K groups are 1024 bytes
-//   apart (the stride byte offset). k-step kk starts kk * 16 rows in.
+//   which bf16 allows). Each 64-column half is one N atom, R * 128 bytes
+//   after the one before (the leading byte offset: two atoms at D = 128,
+//   one at D = 64, where the offset is never used); 8-row K groups are
+//   1024 bytes apart (the stride byte offset). k-step kk starts kk * 16
+//   rows in.
 //
 // The accumulator of an m64nNk16 wgmma gives thread t of the warpgroup
 // (warp w = t / 32, g = (t % 32) / 4, c4 = t % 4) the elements
@@ -39,12 +45,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int R>
+template <int R, int D>
 struct Tile {
-  static constexpr int BYTES = R * 256;
+  static constexpr int BYTES = R * D * 2;
   static constexpr int HALF = R * 128;
+  static constexpr int CHUNKS = D / 8;     // 16-byte chunks of a row
   static_assert(R % 8 == 0, "whole 8-row swizzle atoms");
-  // byte offset of 16-byte chunk c (0..15) of row r
+  static_assert(D == 64 || D == 128, "one or two 64-column halves");
+  // byte offset of 16-byte chunk c (0 .. CHUNKS - 1) of row r
   __device__ static __forceinline__ uint32_t chunk(int r, int c) {
     return (c >> 3) * HALF + r * 128 + (((c & 7) ^ (r & 7)) << 4);
   }
@@ -56,14 +64,16 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint3
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
+// The descriptors of a tile of R rows (at either D: a half is R * 128
+// bytes whatever D is).
 template <int R>
 __device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
-  return make_desc(tile + (kk >> 2) * Tile<R>::HALF + (kk & 3) * 32, 16, 1024);
+  return make_desc(tile + (kk >> 2) * (R * 128) + (kk & 3) * 32, 16, 1024);
 }
 
 template <int R>
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
-  return make_desc(tile + kk * 2048, Tile<R>::HALF, 1024);
+  return make_desc(tile + kk * 2048, R * 128, 1024);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -95,9 +105,8 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
 // d (64 x 64 fp32) = (accumulate ? d : 0) + A (64 x 16) B (64 x 16)^T, both
-// K-major in shared memory.
-__device__ __forceinline__ void mma_64x64_ss(float (&d)[32], uint64_t a, uint64_t b,
-                                             int accumulate) {
+// K-major in shared memory: the score products of 64-row streamed tiles.
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -108,10 +117,24 @@ __device__ __forceinline__ void mma_64x64_ss(float (&d)[32], uint64_t a, uint64_
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 64 fp32) += A (64 x 16, bf16 in registers) B (16 x 64), B
+// MN-major in shared memory: the accumulating products at head_dim 64.
+__device__ __forceinline__ void mma_rs(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : AOZORA_F8(0), AOZORA_F8(8), AOZORA_F8(16), AOZORA_F8(24)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
 // d (64 x 128 fp32) += A (64 x 16, bf16 in registers) B (16 x 128), B
-// MN-major in shared memory.
-__device__ __forceinline__ void mma_64x128_rs(float (&d)[64], uint32_t a0, uint32_t a1,
-                                              uint32_t a2, uint32_t a3, uint64_t b) {
+// MN-major in shared memory: the accumulating products at head_dim 128.
+__device__ __forceinline__ void mma_rs(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -127,15 +150,17 @@ __device__ __forceinline__ void mma_64x128_rs(float (&d)[64], uint32_t a0, uint3
 
 #undef AOZORA_F8
 
-// A 64 x 64 fp32 score tile (accumulator layout) as the bf16 A fragments
-// of four 16-column k-steps: a[4 kk .. 4 kk + 3] is k-step kk.
+// A 64 x N fp32 score tile (accumulator layout, N / 2 floats a thread) as
+// the bf16 A fragments of N / 16 16-column k-steps: a[4 kk .. 4 kk + 3] is
+// k-step kk.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
-__device__ __forceinline__ void pack_a(const float (&s)[32], uint32_t (&a)[16]) {
+template <int N>
+__device__ __forceinline__ void pack_a(const float (&s)[N], uint32_t (&a)[N / 2]) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) a[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+  for (int i = 0; i < N / 2; ++i) a[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
 }
 __device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
@@ -170,19 +195,21 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// Rows [row0, row0 + R) of one head of a (B, S, H, 128) bf16 tensor (row
+// Rows [row0, row0 + R) of one head of a (B, S, H, D) bf16 tensor (row
 // stride rs elements) into a swizzled tile, by THREADS threads; rows >= S
 // are zeros.
-template <int R, int THREADS>
+template <int R, int D, int THREADS>
 __device__ __forceinline__ void load_tile_async(uint32_t tile, const bf16* head, int row0,
                                                 int S, int rs, int tid) {
-  static_assert((R * 16) % THREADS == 0, "whole chunks per thread");
+  constexpr int CH = Tile<R, D>::CHUNKS;
+  static_assert((R * CH) % THREADS == 0, "whole chunks per thread");
 #pragma unroll
-  for (int i = 0; i < R * 16 / THREADS; ++i) {
-    const int c = tid + i * THREADS, r = c >> 4, ch = c & 15;
+  for (int i = 0; i < R * CH / THREADS; ++i) {
+    const unsigned c = tid + i * THREADS;
+    const int r = c / CH, ch = c % CH;
     const bool ok = row0 + r < S;
-    cp_async16(tile + Tile<R>::chunk(r, ch), head + (size_t)(ok ? row0 + r : 0) * rs + ch * 8,
-               ok);
+    cp_async16(tile + Tile<R, D>::chunk(r, ch),
+               head + (size_t)(ok ? row0 + r : 0) * rs + ch * 8, ok);
   }
 }
 

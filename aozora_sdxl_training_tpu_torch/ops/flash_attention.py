@@ -1,20 +1,27 @@
 """Flash attention (forward + backward): CUDA kernels and their plain version.
 
 Counterpart of ``aozora_sdxl_training_tpu/ops/flash_attention.py``. The
-Pallas kernels there become hand-written CUDA kernels, one set per head
-dim, bound with ``ctypes`` and wrapped in a ``torch.autograd.Function``:
+Pallas kernels there become hand-written CUDA kernels, bound with
+``ctypes`` and wrapped in a ``torch.autograd.Function``. Which kernel a
+call launches depends on the head dim, the dtype and the role (forward,
+dQ, dK/dV), as ``route`` decides:
 
-* head_dim 64 (the SDXL UNet): K1 forward, K2 dQ, K3 dK/dV, for
-  ``_flash_forward`` / ``_flash_backward``, in ``csrc/flash_attention.cu``;
-* head_dim 128 (the Anima DiT): K4a forward, K4b dQ and dK/dV, for
-  ``_flash_forward_folded`` / ``_flash_backward_folded``, in
-  ``csrc/flash_attention_sm90.cu`` (wgmma). They multiply bf16: the
-  wrappers round fp32 q, k, v (and dout) to bf16 once per call and return
-  results in the caller's dtype;
-* head_dim 512 (the SD-VAE mid-attention): K4a forward only, for
-  ``_flash_forward_folded``, in ``csrc/flash_attention.cu``. No caller
-  differentiates there, so the backward wrappers raise at head_dim 512 on
-  any device.
+* bf16, on the tensor cores:
+  - head_dim 64 (the SDXL UNet): K1 forward in ``csrc/flash_attention.cu``
+    (WMMA), K2 dQ and K3 dK/dV in ``csrc/flash_attention_sm90.cu``
+    (wgmma), for ``_flash_forward`` / ``_flash_backward``;
+  - head_dim 128 (the Anima DiT): K4a forward, K4b dQ and dK/dV in
+    ``csrc/flash_attention_sm90.cu``, for ``_flash_forward_folded`` /
+    ``_flash_backward_folded``;
+  - head_dim 512 (the SD-VAE mid-attention): K4a forward in
+    ``csrc/flash_attention.cu``;
+* fp32, on the CUDA cores with fp32 FMAs (``csrc/flash_attention_fp32.cu``;
+  the Pallas bodies multiply in the operands' own dtype, so no fp32
+  operand is rounded to bf16): all three roles at head_dim 64 and 128, the
+  forward at 512 (the preview's fp32 VAE decoder).
+
+No caller differentiates at head_dim 512, so the backward wrappers raise
+there on any device.
 
 ``flash_fwd_stats`` / ``flash_bwd_stats`` (K5) are the JAX package's
 stats-level entry points over the same kernels, for ring attention
@@ -27,8 +34,8 @@ the kernels index that layout directly, so nothing is transposed or padded
 logsumexp is (B*H, Sq) fp32. No gradient flows through it.
 
 A wrapper launches its kernel for CUDA tensors and raises on what the
-kernel does not take (any other head dim among them, and a tensor whose
-data does not start on a 16-byte boundary); it runs the plain
+kernels do not take (any other head dim or dtype among them, and a tensor
+whose data does not start on a 16-byte boundary); it runs the plain
 PyTorch version only for CPU tensors. ``LAUNCHES`` counts kernel launches
 per kernel, ``STATS_LAUNCHES`` the K5 entry points' calls that launched.
 """
@@ -41,24 +48,34 @@ import torch
 
 from . import cuda_build
 
-# kernel names (and C entry points "aozora_<name>") by head dim: forward, dQ,
-# dK/dV (None: no kernel)
-KERNEL_NAMES = {
-    64: ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),                 # K1-K3
-    128: ("flash_fwd_d128", "flash_bwd_dq_d128", "flash_bwd_dkv_d128"),  # K4a/K4b
-    512: ("flash_fwd_d512", None, None),                                # K4a
+ROLES = ("forward", "dq", "dkv")
+_WMMA, _SM90, _FP32 = "flash_attention", "flash_attention_sm90", "flash_attention_fp32"
+# (kernel name, CUDA source) by (head dim, dtype), one per role (None: no
+# kernel). The kernel's C entry point is "aozora_<name>" in the library
+# built from csrc/<source>.cu.
+ROUTES = {
+    (64, torch.bfloat16): (("flash_fwd", _WMMA), ("flash_bwd_dq", _SM90),
+                           ("flash_bwd_dkv", _SM90)),                               # K1-K3
+    (128, torch.bfloat16): (("flash_fwd_d128", _SM90), ("flash_bwd_dq_d128", _SM90),
+                            ("flash_bwd_dkv_d128", _SM90)),                         # K4a/K4b
+    (512, torch.bfloat16): (("flash_fwd_d512", _WMMA), None, None),                 # K4a
+    (64, torch.float32): (("flash_fwd_f32_d64", _FP32), ("flash_bwd_dq_f32_d64", _FP32),
+                          ("flash_bwd_dkv_f32_d64", _FP32)),
+    (128, torch.float32): (("flash_fwd_f32_d128", _FP32), ("flash_bwd_dq_f32_d128", _FP32),
+                           ("flash_bwd_dkv_f32_d128", _FP32)),
+    (512, torch.float32): (("flash_fwd_f32_d512", _FP32), None, None),
 }
-# the CUDA source (csrc/<source>.cu, one library each) that exports each
-# head dim's kernels
-SOURCES = {64: "flash_attention", 128: "flash_attention_sm90", 512: "flash_attention"}
-LAUNCHES = {name: 0 for names in KERNEL_NAMES.values() for name in names if name}
+HEAD_DIMS = (64, 128, 512)
+SOURCES = dict(kernel for kernels in ROUTES.values() for kernel in kernels if kernel)
+_ROLE_OF = {kernel[0]: i for kernels in ROUTES.values()
+            for i, kernel in enumerate(kernels) if kernel}
+LAUNCHES = dict.fromkeys(SOURCES, 0)
 STATS_LAUNCHES = {"flash_fwd_stats": 0, "flash_bwd_stats": 0}
-_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 # entry-point argument types by role: forward, dQ, dK/dV
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-             [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-             [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P])
+_ARGTYPES = ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P])
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -68,28 +85,43 @@ def reset_launch_counts() -> None:
             counts[name] = 0
 
 
+def route(head_dim: int, dtype: torch.dtype, role: str) -> tuple[str, str]:
+    """(kernel name, CUDA source) that a wrapper launches for ``role``
+    ("forward", "dq" or "dkv") on CUDA tensors of ``head_dim`` and
+    ``dtype``. Raises ValueError for a head dim with no kernels, TypeError
+    for a dtype other than bfloat16 and float32, and NotImplementedError for
+    the backward at head_dim 512."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"flash attention: head_dim {head_dim}; expected one "
+                         f"of {list(HEAD_DIMS)}")
+    if (head_dim, dtype) not in ROUTES:
+        raise TypeError(f"flash attention: dtype {dtype}; the kernels take "
+                        "bfloat16 or float32")
+    kernel = ROUTES[head_dim, dtype][ROLES.index(role)]
+    if kernel is None:
+        _require_backward(head_dim)
+    return kernel
+
+
 def _library(source: str) -> ctypes.CDLL:
     """The built library of ``csrc/<source>.cu`` with the argument types of
     its kernels' entry points and of its error-string function set."""
     lib = _libs.get(source)
     if lib is None:
         lib = cuda_build.load(source)
-        for d, names in KERNEL_NAMES.items():
-            if SOURCES[d] != source:
-                continue
-            for name, types in zip(names, _ARGTYPES):
-                if name is not None:
-                    fn = getattr(lib, f"aozora_{name}")
-                    fn.argtypes = types
-                    fn.restype = _I
+        for name, src in SOURCES.items():
+            if src == source:
+                fn = getattr(lib, f"aozora_{name}")
+                fn.argtypes = _ARGTYPES[_ROLE_OF[name]]
+                fn.restype = _I
         lib.aozora_flash_error_string.argtypes = [_I]
         lib.aozora_flash_error_string.restype = ctypes.c_char_p
         _libs[source] = lib
     return lib
 
 
-def _launch(head_dim: int, name: str, *args) -> None:
-    lib = _library(SOURCES[head_dim])
+def _launch(name: str, *args) -> None:
+    lib = _library(SOURCES[name])
     code = getattr(lib, f"aozora_{name}")(*args)
     if code != 0:
         msg = lib.aozora_flash_error_string(code).decode()
@@ -97,37 +129,28 @@ def _launch(head_dim: int, name: str, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def kernel_names(head_dim: int) -> tuple[str, str | None, str | None]:
-    """(forward, dQ, dK/dV) kernel names for ``head_dim`` (None where that
-    head dim has no such kernel); raises for a head dim with no kernel."""
-    if head_dim in KERNEL_NAMES:
-        return KERNEL_NAMES[head_dim]
-    raise ValueError(f"flash attention: head_dim {head_dim}; expected one "
-                     f"of {sorted(KERNEL_NAMES)}")
-
-
 def _require_backward(head_dim: int) -> None:
     """The backward exists only where the JAX package differentiates: it
-    raises at head_dim 512 on any device, before any launch."""
-    if KERNEL_NAMES.get(head_dim, ("", "", ""))[1] is None:
+    raises at a head dim whose routes have no backward (512) on any device,
+    before any launch."""
+    if head_dim in HEAD_DIMS and ROUTES[head_dim, torch.bfloat16][1] is None:
         raise NotImplementedError(
             f"flash attention backward at head_dim {head_dim}: no caller "
             "differentiates there (the SD-VAE mid-attention runs forward "
             "only), so it has no kernel")
 
 
-def _check_cuda_inputs(q, k, v) -> tuple[str, str, str]:
-    """Checks what the kernels take; returns the kernel names for q's head
-    dim."""
+def _check_cuda_inputs(q, k, v, role: str) -> str:
+    """Checks what the kernels take; returns the kernel ``route`` picks for
+    ``role``."""
     if q.dim() != 4:
         raise ValueError(f"flash attention: q has shape {tuple(q.shape)}; "
                          "expected (B, S, H, D)")
-    names = kernel_names(q.shape[-1])
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"flash attention: {name} is on {t.device}, "
                              "expected the CUDA device of q")
-        if t.dtype not in _DTYPE_CODES:
+        if t.dtype not in (torch.bfloat16, torch.float32):
             raise TypeError(f"flash attention: {name} has dtype {t.dtype}; "
                             "the kernels take bfloat16 or float32")
         if not t.is_contiguous():
@@ -144,7 +167,7 @@ def _check_cuda_inputs(q, k, v) -> tuple[str, str, str]:
                          "expected (B, S, H, D) with the same B, H and D")
     if q.shape[1] == 0 or k.shape[1] == 0:
         raise ValueError("flash attention: empty sequence")
-    return names
+    return route(q.shape[-1], q.dtype, role)[0]
 
 
 def _check_aligned(name: str, t: torch.Tensor) -> None:
@@ -169,15 +192,6 @@ def _check_rows(q, lse, **tensors) -> None:
                              f"{t.device}; not what the kernel takes")
         if name not in ("lse", "delta"):
             _check_aligned(name, t)
-
-
-def _operands(*tensors):
-    """The tensors the kernels multiply: as they are for head_dim 64 and
-    512, rounded to bf16 (once, here) for the head_dim-128 kernels, which
-    multiply bf16 whatever the caller's dtype."""
-    if tensors[0].shape[-1] != 128:
-        return tensors
-    return tuple(t.to(torch.bfloat16) for t in tensors)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -237,14 +251,12 @@ def flash_fwd(q, k, v, scale: float):
     CPU."""
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, scale)
-    names = _check_cuda_inputs(q, k, v)
-    b, sq, h, d = q.shape
+    name = _check_cuda_inputs(q, k, v, "forward")
+    b, sq, h, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
-    qm, km, vm = _operands(q, k, v)
-    _launch(d, names[0], _DTYPE_CODES[q.dtype], qm.data_ptr(), km.data_ptr(),
-            vm.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, sq,
-            k.shape[1], float(scale), _stream(q))
+    _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, h, sq, k.shape[1], float(scale), _stream(q))
     return out, lse
 
 
@@ -254,17 +266,14 @@ def flash_bwd_dq(q, k, v, out, lse, dout, scale: float):
     _require_backward(q.shape[-1])
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, out, lse, dout, scale)
-    names = _check_cuda_inputs(q, k, v)
+    name = _check_cuda_inputs(q, k, v, "dq")
     _check_rows(q, lse, out=out, dout=dout)
-    b, sq, h, d = q.shape
+    b, sq, h, _ = q.shape
     delta = torch.empty_like(lse)
     dq = torch.empty_like(q)
-    qm, km, vm = _operands(q, k, v)
-    # out and dout stay in the caller's dtype: delta is computed from them
-    _launch(d, names[1], _DTYPE_CODES[q.dtype], qm.data_ptr(), km.data_ptr(),
-            vm.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), b, h, sq, k.shape[1],
-            float(scale), _stream(q))
+    _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h,
+            sq, k.shape[1], float(scale), _stream(q))
     return dq, delta
 
 
@@ -274,16 +283,14 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, scale: float):
     _require_backward(q.shape[-1])
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, dout, lse, delta, scale)
-    names = _check_cuda_inputs(q, k, v)
+    name = _check_cuda_inputs(q, k, v, "dkv")
     _check_rows(q, lse, delta=delta, dout=dout)
-    b, sq, h, d = q.shape
+    b, sq, h, _ = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    qm, km, vm, dom = _operands(q, k, v, dout)
-    _launch(d, names[2], _DTYPE_CODES[q.dtype], qm.data_ptr(), km.data_ptr(),
-            vm.data_ptr(), dom.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, h, sq, k.shape[1], float(scale),
-            _stream(q))
+    _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq,
+            k.shape[1], float(scale), _stream(q))
     return dk, dv
 
 

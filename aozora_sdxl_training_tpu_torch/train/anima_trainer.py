@@ -68,7 +68,8 @@ from .profiling import StepProfiler
 from .reporter import MetricsReporter, optimizer_block
 from .train_step import make_apply_step, split_trainable
 from .trainer import (attention_impl, consume_force_save_flag, force_save_flag_path,
-                      make_optimizer_config, print_optimizer_summary)
+                      make_optimizer_config, print_optimizer_summary,
+                      refuse_unported_master_dtype)
 
 
 @dataclass(frozen=True)
@@ -191,6 +192,7 @@ def _refuse_unported(config) -> None:
         if asked:
             raise NotImplementedError(
                 f"{what} is not ported to the PyTorch package yet")
+    refuse_unported_master_dtype(config)
 
 
 def _mesh_for(layout):

@@ -184,7 +184,19 @@ def attention_impl(config, device: torch.device) -> str:
     return "flash"
 
 
+def refuse_unported_master_dtype(config) -> None:
+    """MASTER_DTYPE: the port keeps fp32 master weights, which is what "auto"
+    gives first in the JAX planner (``memory_policy._state_candidates``) and
+    what "float32" pins; any other value (bf16 masters) raises."""
+    master = str(getattr(config, "MASTER_DTYPE", "auto") or "auto")
+    if master not in ("auto", "float32"):
+        raise NotImplementedError(
+            f"MASTER_DTYPE={master!r}: bf16 master weights are not ported to "
+            "the PyTorch package yet; use 'auto' or 'float32' (fp32 masters)")
+
+
 def _refuse_unported(config) -> None:
+    refuse_unported_master_dtype(config)
     if config.RESUME_TRAINING:
         raise NotImplementedError(
             "RESUME_TRAINING: resume and the training-state file are not "

@@ -9,29 +9,35 @@ Phases, each of which exits non-zero on failure:
 
 1. device: CUDA present; the card's name and power limit.
 2. build: compiles every CUDA source of the port (one nvcc each, all at
-   once, a current library too); for the head_dim-128 wgmma kernels (csrc/flash_attention_sm90.cu)
-   prints ptxas's registers and spill bytes, the registers, dynamic shared
-   memory and blocks per SM the runtime reports, and the HGMMA instructions
-   `cuobjdump -sass` finds in each kernel (none fails the phase; without
-   cuobjdump it prints "not checked").
+   once, a current library too); for the wgmma kernels
+   (csrc/flash_attention_sm90.cu: the backward at head_dim 64 and 128, the
+   forward at 128) prints ptxas's registers and spill bytes, the
+   registers, dynamic shared memory and blocks per SM the runtime reports,
+   and the HGMMA instructions `cuobjdump -sass` finds in each kernel (none
+   fails the phase; without cuobjdump it prints "not checked").
 3. kernels: each flash-attention kernel against its plain PyTorch version:
    K1 forward, K2 dQ, K3 dK/dV (head_dim 64) at the SDXL shapes, K4a forward
    and K4b dQ, dK/dV (head_dim 128) at the Anima shape, K4a forward at
-   head_dim 512 at the SD-VAE mid-attention shape (one head, 16384 tokens,
-   bf16 and fp32), with ragged and unequal lengths and fp32 (at head_dim 128
-   also lengths around one tile) and, at head_dim 128, two launches that
-   must agree bitwise; then each
-   timed with CUDA events beside its bound, its plain version and the
-   device time (torch.profiler) of scaled_dot_product_attention (a
+   head_dim 512 at the SD-VAE mid-attention shape (one head, 16384 tokens),
+   with ragged and unequal lengths and lengths around one tile; the fp32
+   kernels (csrc/flash_attention_fp32.cu: all three at head_dim 64 and 128,
+   the forward at 512) on fp32 inputs, held at 1e-4 of the largest
+   reference magnitude; at head_dim 64 and 128, two launches that must
+   agree bitwise; then each timed beside its bound, its plain version and
+   the device time (torch.profiler) of scaled_dot_product_attention (a
    yardstick only: its forward beside the forward kernels, its backward,
-   and its forward plus backward, beside the backward kernels).
-4. unet: a small UNet with head_dim 64, flash path against the einsum path,
-   forward and parameter gradients.
+   and its forward plus backward, beside the backward kernels), the bf16
+   kernels at the main shapes by device time (torch.profiler) and CUDA
+   events, the fp32 ones at the unet and dit phases' shapes and the
+   SD-VAE's.
+4. unet: a small UNet with head_dim 64 in fp32, flash path (the fp32
+   kernels) against the einsum path, forward and parameter gradients, the
+   launches counted.
 5. dit: a small Anima DiT with head_dim 128, the same comparison.
 6. vae: a random full-size SD-VAE at 1024px: the encoder (bf16, the route
-   of tools_dev/cache_probe.py attn=flash) and the decoder (fp32, the
-   preview's) on the flash path against the einsum path, one head_dim-512
-   launch each.
+   of tools_dev/cache_probe.py attn=flash; flash_fwd_d512) and the decoder
+   (fp32, the preview's; flash_fwd_f32_d512) on the flash path against the
+   einsum path, one head_dim-512 launch each.
 7. trainer: the SDXL user's first run at SDXL_BASE width, 1024px, batch 1:
    a random SD checkpoint (UNet, CLIP-L, bigG, SD-VAE) and 2 captioned
    images; the port's cache_datasets CLI builds the cache (no flash launch;
@@ -39,9 +45,9 @@ Phases, each of which exits non-zero on failure:
    steps (2 optimizer steps at GA 4) with a preview every 2 optimizer steps
    of 4 DDIM steps; checks the GUI grammar, finite losses, the flash launch
    counts (70 of each of K1-K3 per micro step, 70 K1 per DDIM step, one
-   head_dim-512 launch for the preview's decoder, 140 forward launches per
-   micro step under full remat), the 1024x1024 preview PNG and the merged
-   checkpoint.
+   fp32 head_dim-512 launch for the preview's decoder, 140 forward launches
+   per micro step under full remat), the 1024x1024 preview PNG and the
+   merged checkpoint.
 8. anima: the port's Anima training CLI at ANIMA_BASE width and depth,
    1024px, batch 1, GA 4, Full gradient checkpointing, 8 micro steps, on a
    random DiT checkpoint and a synthetic cache; checks the GUI grammar,
@@ -97,22 +103,34 @@ PACKAGE = "aozora_sdxl_training_tpu_torch"
 # the trainer's full output and a JSON summary go here
 LOG_DIR = Path(os.environ.get("CHIP_SMOKE_LOG_DIR", REPO / "chip_smoke_out"))
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak, H100 SXM
+H100_FP32_FLOPS = 67e12       # fp32 outside the tensor cores, H100 SXM
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM
-SM90 = "flash_attention_sm90"      # the head_dim-128 wgmma kernels
-SOURCES = ("flash_attention", SM90, "groupnorm_silu")
+SM90 = "flash_attention_sm90"      # the wgmma kernels (head_dim 64 backward, 128)
+SOURCES = ("flash_attention", SM90, "flash_attention_fp32", "groupnorm_silu")
 FA = "aozora_sdxl_training_tpu/ops/flash_attention.py"
 GN = "aozora_sdxl_training_tpu/ops/groupnorm_silu.py"
 # each kernel, the Pallas kernel it replaces (K1 _fwd_kernel, K2
 # _bwd_dq_kernel, K3 _bwd_dkv_kernel; K4a _flash_forward_folded, K4b the dq
-# and dk/dv pallas_calls of _flash_backward_folded) and its head dim
+# and dk/dv pallas_calls of _flash_backward_folded), its head dim and the
+# phase whose run counts its launches: the SDXL trainer (K1-K3 in training,
+# the fp32 head_dim-512 forward in the preview's decoder), the Anima trainer
+# (head_dim 128), the unet and dit phases (the fp32 kernels at 64 and 128,
+# which no trainer runs: both trainers compute in bf16)
 KERNELS = {
-    "flash_fwd": (f"{FA}:65", 64),
-    "flash_bwd_dq": (f"{FA}:153", 64),
-    "flash_bwd_dkv": (f"{FA}:186", 64),
-    "flash_fwd_d128": (f"{FA}:302", 128),
-    "flash_bwd_dq_d128": (f"{FA}:355", 128),
-    "flash_bwd_dkv_d128": (f"{FA}:378", 128),
-    "flash_fwd_d512": (f"{FA}:302", 512),
+    "flash_fwd": (f"{FA}:65", 64, "trainer"),
+    "flash_bwd_dq": (f"{FA}:153", 64, "trainer"),
+    "flash_bwd_dkv": (f"{FA}:186", 64, "trainer"),
+    "flash_fwd_d128": (f"{FA}:302", 128, "anima"),
+    "flash_bwd_dq_d128": (f"{FA}:355", 128, "anima"),
+    "flash_bwd_dkv_d128": (f"{FA}:378", 128, "anima"),
+    "flash_fwd_d512": (f"{FA}:302", 512, "vae"),
+    "flash_fwd_f32_d64": (f"{FA}:65", 64, "unet"),
+    "flash_bwd_dq_f32_d64": (f"{FA}:153", 64, "unet"),
+    "flash_bwd_dkv_f32_d64": (f"{FA}:186", 64, "unet"),
+    "flash_fwd_f32_d128": (f"{FA}:302", 128, "dit"),
+    "flash_bwd_dq_f32_d128": (f"{FA}:355", 128, "dit"),
+    "flash_bwd_dkv_f32_d128": (f"{FA}:378", 128, "dit"),
+    "flash_fwd_f32_d512": (f"{FA}:302", 512, "trainer"),
 }
 TRAIN_STEPS = 8               # two optimizer steps at the presets' GA 4
 GA = 4
@@ -123,6 +141,9 @@ SDXL_FWD_FLOPS_1024 = 6.779495251968e12
 # SDXL at head_dim 64, the Anima DiT (28 blocks, 16 heads) at 128
 MAIN_SHAPES = {64: ((1, 10, 4096, 10), (1, 20, 1024, 60)),
                128: ((1, 16, 4096, 28),)}
+# the fp32 kernels' shapes in the unet and dit phases: batch 2, 2 heads,
+# 1024 tokens (the UNet's 32 x 32 level, the DiT's 32 x 32 patches)
+FP32_SHAPES = {64: (2, 2, 1024), 128: (2, 2, 1024)}
 SELF_ATTN_CALLS = {d: sum(c for *_, c in shapes) for d, shapes in MAIN_SHAPES.items()}
 # the SD-VAE mid-attention at 1024px: one head of 512 over 128 x 128 tokens,
 # fp32 in the preview decoder, bf16 in the encoder's flash route
@@ -174,7 +195,7 @@ def device_phase(torch):
 
 def build_phase():
     """Builds every source (a current library too, so the ptxas report is
-    this run's); returns the head_dim-128 kernels' report."""
+    this run's); returns the wgmma kernels' report."""
     phase("build")
     from aozora_sdxl_training_tpu_torch.ops import cuda_build
     results = cuda_build.build_all(SOURCES, force=True)
@@ -184,8 +205,8 @@ def build_phase():
         (LOG_DIR / f"nvcc_{name}.log").write_text(output)
         for line in output.splitlines():
             entry = re.search(r"Compiling entry function '\w*?((?:flash_(?:fwd|bwd)|gn_)\w*?"
-                              r"_kernel)(?:I(\w+?)EE)?", line)
-            if entry:     # the kernel and its template arguments (mangled)
+                              r"_kernel)(?:ILi(\d+)E)?", line)
+            if entry:     # the kernel and its head dim (mangled)
                 print(f"  ptxas: {entry.group(1)}<{entry.group(2) or ''}>")
             elif ("registers" in line or "spill" in line or "error" in line.lower()
                   or "wgmma" in line):
@@ -193,23 +214,27 @@ def build_phase():
     return sm90_report(cuda_build, results[SM90][1])
 
 
-# the head_dim-128 kernels as their mangled names spell them, and the
-# template argument of each dtype
-SM90_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
-                "flash_bwd_dkv_sm90_kernel")
-SM90_DTYPES = {"13__nv_bfloat16": "bf16", "f": "fp32"}
+# the wgmma kernels as their mangled names spell them, with the head dims
+# each is instantiated at, and the flash kernel name of each (kernel, head
+# dim)
+SM90_KERNELS = {"flash_fwd_sm90_kernel": (128,), "flash_bwd_dq_sm90_kernel": (64, 128),
+                "flash_bwd_dkv_sm90_kernel": (64, 128)}
+SM90_OF = {"flash_bwd_dq": ("flash_bwd_dq_sm90_kernel", 64),
+           "flash_bwd_dkv": ("flash_bwd_dkv_sm90_kernel", 64),
+           "flash_fwd_d128": ("flash_fwd_sm90_kernel", 128),
+           "flash_bwd_dq_d128": ("flash_bwd_dq_sm90_kernel", 128),
+           "flash_bwd_dkv_d128": ("flash_bwd_dkv_sm90_kernel", 128)}
 
 
 def sm90_kernel_of(mangled: str):
-    """(kernel, dtype) of a mangled head_dim-128 kernel name, or None."""
-    found = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_sm90_kernel)I(13__nv_bfloat16|f)E",
-                      mangled)
-    return (found.group(1), SM90_DTYPES[found.group(2)]) if found else None
+    """(kernel, head dim) of a mangled wgmma kernel name, or None."""
+    found = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_sm90_kernel)ILi(\d+)E", mangled)
+    return (found.group(1), int(found.group(2))) if found else None
 
 
 def ptxas_usage(log: str) -> dict:
-    """{(kernel, dtype): {"registers", "spill_stores", "spill_loads"}} from
-    nvcc's -Xptxas -v output."""
+    """{(kernel, head dim): {"registers", "spill_stores", "spill_loads"}}
+    from nvcc's -Xptxas -v output."""
     usage, current = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
@@ -229,7 +254,7 @@ def ptxas_usage(log: str) -> dict:
 
 
 def hgmma_counts(sass: str) -> dict:
-    """{(kernel, dtype): HGMMA instructions} from ``cuobjdump -sass``."""
+    """{(kernel, head dim): HGMMA instructions} from ``cuobjdump -sass``."""
     counts, current = {}, None
     for line in sass.splitlines():
         fn = re.search(r"Function : (\S+)", line)
@@ -244,9 +269,9 @@ def hgmma_counts(sass: str) -> dict:
 
 def sm90_report(cuda_build, log: str) -> dict:
     """ptxas's registers and spills, the runtime's registers, shared memory
-    and blocks per SM, and the HGMMA count of each head_dim-128 kernel;
-    fails if ptxas did not report one or if cuobjdump finds no HGMMA in
-    one."""
+    and blocks per SM, and the HGMMA count of each wgmma kernel at each of
+    its head dims; fails if ptxas did not report one, if one spills or if
+    cuobjdump finds no HGMMA in one."""
     import ctypes
     import shutil
     usage = ptxas_usage(log)
@@ -261,26 +286,28 @@ def sm90_report(cuda_build, log: str) -> dict:
         check(proc.returncode == 0, f"cuobjdump -sass failed: {proc.stderr[-2000:]}")
         hgmma = hgmma_counts(proc.stdout)
     report = {}
-    for i, kernel in enumerate(SM90_KERNELS):
-        for code, dtype in enumerate(("bf16", "fp32")):
-            key = (kernel, dtype)
+    for i, (kernel, dims) in enumerate(SM90_KERNELS.items()):
+        for d in dims:
+            key = (kernel, d)
             check(key in usage and "registers" in usage[key],
-                  f"ptxas reported nothing for {kernel}<{dtype}>")
+                  f"ptxas reported nothing for {kernel}<{d}>")
             attrs = (ctypes.c_int * 5)()
-            err = lib.aozora_flash_sm90_attributes(i, code, ctypes.addressof(attrs))
-            check(err == 0, f"cudaFuncGetAttributes({kernel}<{dtype}>) failed: {err}")
+            err = lib.aozora_flash_sm90_attributes(i, d, ctypes.addressof(attrs))
+            check(err == 0, f"cudaFuncGetAttributes({kernel}<{d}>) failed: {err}")
             regs, local, smem, threads, blocks = list(attrs)
             row = {**usage[key], "runtime_registers": regs, "local_bytes": local,
                    "dynamic_smem_bytes": smem, "threads": threads, "blocks_per_sm": blocks,
                    "hgmma": None if hgmma is None else hgmma.get(key, 0)}
-            report[f"{kernel}<{dtype}>"] = row
-            print(f"  {kernel}<{dtype}>: ptxas {row['registers']} registers, spill "
+            report[f"{kernel}<{d}>"] = row
+            print(f"  {kernel}<{d}>: ptxas {row['registers']} registers, spill "
                   f"{row['spill_stores']} B stores / {row['spill_loads']} B loads; runtime "
                   f"{regs} registers, {local} B local, {smem} B dynamic shared memory, "
                   f"{threads} threads, {blocks} block(s)/SM; HGMMA "
                   f"{'not checked (no cuobjdump)' if hgmma is None else row['hgmma']}")
+            check(row["spill_stores"] == 0 and row["spill_loads"] == 0 and local == 0,
+                  f"{kernel}<{d}> spills")
             if hgmma is not None:
-                check(row["hgmma"] > 0, f"{kernel}<{dtype}>: no HGMMA instruction in its SASS")
+                check(row["hgmma"] > 0, f"{kernel}<{d}>: no HGMMA instruction in its SASS")
     return report
 
 
@@ -306,23 +333,35 @@ def device_ms(torch, fn, iters=10):
     """Device time of one call of ``fn``: the summed duration of the CUDA
     kernels (and copies) that ``iters`` calls launch, over ``iters``
     (torch.profiler). The host's per-call cost does not show, as it does in
-    ``cuda_ms`` when a call's launches take longer to issue than to run."""
+    ``cuda_ms`` when a call's launches take longer to issue than to run. A
+    trace now and then loses some of its device records, or all of them: a
+    trace in which a kernel's records are not a whole multiple of
+    ``iters`` is taken again, up to 3 times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(total > 0, "torch.profiler saw no device time")
-    return total / 1e3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
+        if events and all(e.count % iters == 0 for e in events):
+            return sum(e.self_device_time_total for e in events) / iters / 1e3
+    raise PhaseError(f"torch.profiler lost device records in 3 traces of {iters} calls")
 
 
-def bound(flops, nbytes):
-    """(least ms the card could take, "operations" or "bytes")."""
-    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+def kernel_names(fa, d, dtype):
+    """The forward, dQ and dK/dV kernels' names at head dim ``d`` and
+    ``dtype`` (None: no kernel)."""
+    return tuple(kernel and kernel[0] for kernel in fa.ROUTES[d, dtype])
+
+
+def bound(flops, nbytes, peak=H100_BF16_FLOPS):
+    """(least ms the card could take, "operations" or "bytes"), the
+    operations at ``peak`` flop/s."""
+    t_ops, t_bytes = flops / peak, nbytes / H100_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -345,7 +384,11 @@ def kernel_phase(torch):
              ("S=1024 B*H=20 D=64", 1, 20, 1024, 1024, 64, bf16),
              ("ragged S=3952 B*H=10 D=64", 1, 10, 3952, 3952, 64, bf16),
              ("Sq=1000 Skv=333 B=2 H=3 D=64", 2, 3, 1000, 333, 64, bf16),
-             ("fp32 S=1000 B=2 H=2 D=64", 2, 2, 1000, 1000, 64, f32),
+             ("Sq=333 Skv=1000 B=2 H=3 D=64", 2, 3, 333, 1000, 64, bf16),
+             ("S=63 B=2 H=3 D=64", 2, 3, 63, 63, 64, bf16),
+             ("S=64 B=2 H=3 D=64", 2, 3, 64, 64, 64, bf16),
+             ("S=65 B=2 H=3 D=64", 2, 3, 65, 65, 64, bf16),
+             ("S=129 B=2 H=3 D=64", 2, 3, 129, 129, 64, bf16),
              ("S=4096 B*H=16 D=128", 1, 16, 4096, 4096, 128, bf16),
              ("ragged S=3952 B*H=16 D=128", 1, 16, 3952, 3952, 128, bf16),
              ("Sq=1000 Skv=333 B=2 H=3 D=128", 2, 3, 1000, 333, 128, bf16),
@@ -354,27 +397,31 @@ def kernel_phase(torch):
              ("S=64 B=2 H=3 D=128", 2, 3, 64, 64, 128, bf16),
              ("S=65 B=2 H=3 D=128", 2, 3, 65, 65, 128, bf16),
              ("S=129 B=2 H=3 D=128", 2, 3, 129, 129, 128, bf16),
-             ("fp32 S=1000 B=2 H=2 D=128", 2, 2, 1000, 1000, 128, f32),
-             ("fp32 Sq=333 Skv=1000 B=2 H=3 D=128", 2, 3, 333, 1000, 128, f32),
-             ("S=16384 B*H=1 D=512 fp32", 1, 1, VAE_TOKENS, VAE_TOKENS, 512, f32),
              ("S=16384 B*H=1 D=512 bf16", 1, 1, VAE_TOKENS, VAE_TOKENS, 512, bf16),
              ("ragged S=16000 B*H=1 D=512", 1, 1, 16000, 16000, 512, bf16),
-             ("Sq=1000 Skv=3000 B=2 H=2 D=512", 2, 2, 1000, 3000, 512, f32)]
-    # tolerance: 2% of the largest reference magnitude for tensor outputs
-    # (bf16 operands of the tensor-core products, fp32 accumulation); lse in
-    # absolute terms (exact bf16 products for bf16 inputs; fp32 inputs are
-    # rounded to bf16 when staged, which moves logits by up to ~2^-8 |s|)
-    rel_tol = 2e-2
-    lse_tol = {bf16: 1e-3, f32: 5e-2}
+             ("fp32 S=1024 B=2 H=2 D=64", 2, 2, 1024, 1024, 64, f32),
+             ("fp32 Sq=333 Skv=1000 B=2 H=3 D=64", 2, 3, 333, 1000, 64, f32),
+             ("fp32 S=65 B=2 H=3 D=64", 2, 3, 65, 65, 64, f32),
+             ("fp32 S=1024 B=2 H=2 D=128", 2, 2, 1024, 1024, 128, f32),
+             ("fp32 Sq=1000 Skv=333 B=2 H=3 D=128", 2, 3, 1000, 333, 128, f32),
+             ("fp32 S=16384 B*H=1 D=512", 1, 1, VAE_TOKENS, VAE_TOKENS, 512, f32),
+             ("fp32 Sq=1000 Skv=3000 B=2 H=2 D=512", 2, 2, 1000, 3000, 512, f32)]
+    # tolerance of tensor outputs, as a share of the largest reference
+    # magnitude: bf16 2e-2 (bf16 operands of the tensor-core products, fp32
+    # accumulation, bf16 outputs), fp32 1e-4 (fp32 products summed in
+    # another order); lse in absolute terms, bf16 1e-3, fp32 1e-4
+    rel_tol = {bf16: 2e-2, f32: 1e-4}
+    lse_tol = {bf16: 1e-3, f32: 1e-4}
+    main = ("S=4096", "S=1024", "S=16384", "fp32 S=1024", "fp32 S=16384")
     g = torch.Generator(device="cuda").manual_seed(0)
-    max_err = {k: 0.0 for k in KERNELS}
+    max_err = dict.fromkeys(KERNELS, 0.0)
     for label, b, h, sq, skv, d, dtype in cases:
         q, do = (torch.randn(b, sq, h, d, device="cuda", dtype=dtype, generator=g)
                  for _ in range(2))
         k, v = (torch.randn(b, skv, h, d, device="cuda", dtype=dtype, generator=g)
                 for _ in range(2))
         scale = d ** -0.5
-        kf, kdq, kdkv = fa.KERNEL_NAMES[d]
+        kf, kdq, kdkv = kernel_names(fa, d, dtype)
         out, lse = fa.flash_fwd(q, k, v, scale)
         torch.cuda.synchronize()
         ref_out, ref_lse = fa.flash_forward_reference(q, k, v, scale)
@@ -394,99 +441,176 @@ def kernel_phase(torch):
             got, want = got.float(), want.float()
             check(bool(torch.isfinite(got).all()), f"{label} {what}: non-finite")
             err = (got - want).abs().max().item()
-            tol = atol if atol is not None else rel_tol * want.abs().max().item()
-            print(f"  {label:30s} {what:5s} max_abs_err {err:.3e}  tol {tol:.3e}")
+            tol = atol if atol is not None else rel_tol[dtype] * want.abs().max().item()
+            print(f"  {label:36s} {what:5s} max_abs_err {err:.3e}  tol {tol:.3e}")
             check(err <= tol, f"{label} {what}: error {err} > tolerance {tol}")
-            if what != "lse" and label.startswith(("S=4096", "S=1024", "S=16384")):
+            if what != "lse" and label.startswith(main):
                 max_err[kname] = max(max_err[kname], err)
         del q, k, v, do, out, lse, ref_out, ref_lse, rows
         torch.cuda.empty_cache()
     check_deterministic(torch, fa)
-    return max_err, {**time_kernels(torch, fa), **time_d512(torch, fa)}
+    check_unaligned(torch, fa)
+    return max_err, {**time_kernels(torch, fa), **time_fp32(torch, fa),
+                     **time_d512(torch, fa)}
 
 
 def check_deterministic(torch, fa):
-    """No atomics in the head_dim-128 kernels: two launches at the Anima
-    shape give bitwise-equal out, lse, dq, dk and dv."""
-    (b, h, s, _), = MAIN_SHAPES[128]
+    """No atomics in the bf16 kernels at head_dim 64 and 128, nor in the
+    fp32 ones: two launches at each head dim's largest main shape (fp32 at
+    the unet and dit phases' shapes) give bitwise-equal out, lse, dq, dk and
+    dv."""
+    shapes = [(MAIN_SHAPES[d][0][:3], d, torch.bfloat16) for d in (64, 128)]
+    shapes += [(FP32_SHAPES[d], d, torch.float32) for d in (64, 128)]
     g = torch.Generator(device="cuda").manual_seed(10)
-    q, k, v, do = (torch.randn(b, s, h, 128, device="cuda", dtype=torch.bfloat16,
-                               generator=g) for _ in range(4))
-    runs = []
-    for _ in range(2):
-        out, lse = fa.flash_fwd(q, k, v, 128 ** -0.5)
-        runs.append((out, lse, *fa.flash_bwd(q, k, v, out, lse, do, 128 ** -0.5)))
-    torch.cuda.synchronize()
-    same = [name for name, a, c in zip(("out", "lse", "dq", "dk", "dv"), *runs)
-            if torch.equal(a, c)]
-    print(f"  B*H={b * h} S={s} D=128 twice: bitwise equal {same}")
-    check(len(same) == 5, "head_dim-128 kernels differ from run to run")
+    for (b, h, s), d, dtype in shapes:
+        q, k, v, do = (torch.randn(b, s, h, d, device="cuda", dtype=dtype, generator=g)
+                       for _ in range(4))
+        runs = []
+        for _ in range(2):
+            out, lse = fa.flash_fwd(q, k, v, d ** -0.5)
+            runs.append((out, lse, *fa.flash_bwd(q, k, v, out, lse, do, d ** -0.5)))
+        torch.cuda.synchronize()
+        same = [name for name, a, c in zip(("out", "lse", "dq", "dk", "dv"), *runs)
+                if torch.equal(a, c)]
+        print(f"  B*H={b * h} S={s} D={d} {str(dtype)[6:]} twice: bitwise equal {same}")
+        check(len(same) == 5, f"head_dim-{d} {dtype} kernels differ from run to run")
+
+
+def check_unaligned(torch, fa):
+    """A contiguous view one element into its storage does not start on a
+    16-byte boundary: the wrappers raise before any launch, at every head
+    dim and dtype."""
+    for d, dtype in fa.ROUTES:
+        base = torch.zeros(64 * 2 * d + 1, device="cuda", dtype=dtype)
+        bad = base[1:].view(1, 64, 2, d)
+        counts = dict(fa.LAUNCHES)
+        try:
+            fa.flash_fwd(bad, bad, bad, 1.0)
+        except ValueError as e:
+            check("16-byte" in str(e), f"D={d} {dtype}: {e}")
+        else:
+            raise PhaseError(f"D={d} {dtype}: an unaligned input was launched")
+        check(fa.LAUNCHES == counts, f"D={d} {dtype}: launches on an unaligned input")
+    print(f"  unaligned inputs refused before any launch at {sorted(set(d for d, _ in fa.ROUTES))}")
 
 
 def time_kernels(torch, fa):
+    """The bf16 kernels at the main shapes: device time (torch.profiler;
+    ``ms``) and CUDA events over 20 launches (``events_ms``, which read the
+    host's issue time where a launch takes longer to issue than to run)
+    beside the bound, the plain version and scaled_dot_product_attention's
+    device time."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(1)
     timings = {}
     for d, shapes in MAIN_SHAPES.items():
-        kf, kdq, kdkv = fa.KERNEL_NAMES[d]
+        kf, kdq, kdkv = kernel_names(fa, d, torch.bfloat16)
         for b, h, s, calls in shapes:
             q, k, v, do = (torch.randn(b, s, h, d, device="cuda", dtype=torch.bfloat16,
                                        generator=g) for _ in range(4))
             scale = d ** -0.5
             out, lse = fa.flash_fwd(q, k, v, scale)
             _, delta = fa.flash_bwd_dq(q, k, v, out, lse, do, scale)
-            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
-                          for t in (q, k, v))
-            ref = F.scaled_dot_product_attention(qt, kt, vt)
-            dot = do.transpose(1, 2)
-            sdpa_fwd = device_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt.detach(), kt.detach(), vt.detach()))
-            sdpa_bwd = device_ms(torch, lambda: torch.autograd.grad(
-                ref, (qt, kt, vt), dot, retain_graph=True))
-            sdpa_fwd_bwd = device_ms(torch, lambda: torch.autograd.grad(
-                F.scaled_dot_product_attention(qt, kt, vt), (qt, kt, vt), dot))
-            shape = {
-                kf: (cuda_ms(torch, lambda: fa.flash_fwd(q, k, v, scale)),
-                     cuda_ms(torch, lambda: fa.flash_forward_reference(q, k, v, scale), 5, 1),
-                     sdpa_fwd),
-                kdq: (cuda_ms(torch, lambda: fa.flash_bwd_dq(q, k, v, out, lse, do, scale)),
-                      cuda_ms(torch, lambda: fa.flash_bwd_dq_reference(
-                          q, k, v, out, lse, do, scale), 5, 1),
-                      sdpa_bwd),
-                kdkv: (cuda_ms(torch, lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale)),
-                       cuda_ms(torch, lambda: fa.flash_bwd_dkv_reference(
-                           q, k, v, do, lse, delta, scale), 5, 1),
-                       sdpa_bwd),
+            lib, lib_fwd_bwd = sdpa_ms(torch, F, q, k, v, do)
+            calls_of = {
+                kf: (lambda: fa.flash_fwd(q, k, v, scale),
+                     lambda: fa.flash_forward_reference(q, k, v, scale), lib[0]),
+                kdq: (lambda: fa.flash_bwd_dq(q, k, v, out, lse, do, scale),
+                      lambda: fa.flash_bwd_dq_reference(q, k, v, out, lse, do, scale), lib[1]),
+                kdkv: (lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale),
+                       lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale),
+                       lib[1]),
             }
-            for (kname, (ms, plain, lib)), w in zip(shape.items(), work(b, h, s, d, 2)):
-                bms, bound_by = bound(*w)
-                timings.setdefault(kname, []).append({
-                    "shape": f"B*H={b * h} S={s} D={d} bf16",
-                    "calls_per_micro_step": calls,
-                    "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": bound_by,
-                    "library_ms": lib, "library_fwd_bwd_ms": sdpa_fwd_bwd,
-                    "tflops": w[0] / ms / 1e9})
-                print(f"  {kname:18s} B*H={b * h:3d} S={s:5d} D={d}: kernel {ms:.4f} ms, "
-                      f"bound {bms:.4f} ms ({bms / ms:.1%}), plain {plain:.4f} ms, "
-                      f"sdpa {lib:.4f} ms{' (dq,dk,dv together)' if kname != kf else ''}"
-                      f"{f' (fwd+bwd {sdpa_fwd_bwd:.4f} ms)' if kname != kf else ''}, "
-                      f"{w[0] / ms / 1e9:.1f} TFLOP/s")
-            del q, k, v, do, out, lse, delta, qt, kt, vt, ref
+            for (kname, (kernel, plain, lib_ms)), w in zip(calls_of.items(),
+                                                            work(b, h, s, d, 2)):
+                row = timing_row(torch, kernel, plain, lib_ms, w, H100_BF16_FLOPS)
+                row.update(shape=f"B*H={b * h} S={s} D={d} bf16", calls_per_micro_step=calls,
+                           library_fwd_bwd_ms=lib_fwd_bwd)
+                timings.setdefault(kname, []).append(row)
+                print_row(kname, row, "" if kname == kf else
+                          f" (dq,dk,dv together; fwd+bwd {lib_fwd_bwd:.4f} ms)")
+            del q, k, v, do, out, lse, delta
             torch.cuda.empty_cache()
     return timings
 
 
+def sdpa_ms(torch, F, q, k, v, do):
+    """Device ms of scaled_dot_product_attention on (B, S, H, D) inputs:
+    ((forward, backward), forward + backward); a yardstick the port never
+    calls."""
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    ref = F.scaled_dot_product_attention(qt, kt, vt)
+    dot = do.transpose(1, 2)
+    fwd = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt.detach(), kt.detach(), vt.detach()))
+    bwd = device_ms(torch, lambda: torch.autograd.grad(ref, (qt, kt, vt), dot,
+                                                       retain_graph=True))
+    fwd_bwd = device_ms(torch, lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qt, kt, vt), (qt, kt, vt), dot))
+    return (fwd, bwd), fwd_bwd
+
+
+def timing_row(torch, kernel, plain, lib_ms, w, peak):
+    """Device ms and CUDA-event ms of ``kernel``, the plain version's ms,
+    the bound at ``peak`` flop/s for the (flops, bytes) ``w``."""
+    ms = device_ms(torch, kernel)
+    bms, bound_by = bound(*w, peak)
+    return {"ms": ms, "events_ms": cuda_ms(torch, kernel),
+            "plain_ms": cuda_ms(torch, plain, 5, 1), "bound_ms": bms, "bound_by": bound_by,
+            "library_ms": lib_ms, "tflops": w[0] / ms / 1e9}
+
+
+def print_row(kname, row, lib_note=""):
+    print(f"  {kname:22s} {row['shape']}: kernel {row['ms']:.4f} ms device "
+          f"({row['events_ms']:.4f} ms events), bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_ms'] / row['ms']:.1%}), plain {row['plain_ms']:.4f} ms, sdpa "
+          f"{row['library_ms']:.4f} ms{lib_note}, {row['tflops']:.1f} TFLOP/s")
+
+
+def time_fp32(torch, fa):
+    """The fp32 kernels at head_dim 64 and 128 at the unet and dit phases'
+    shapes, as ``time_kernels`` times the bf16 ones; the bound at the fp32
+    CUDA-core peak."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(11)
+    timings = {}
+    for d, (b, h, s) in FP32_SHAPES.items():
+        q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=g) for _ in range(4))
+        scale = d ** -0.5
+        out, lse = fa.flash_fwd(q, k, v, scale)
+        _, delta = fa.flash_bwd_dq(q, k, v, out, lse, do, scale)
+        lib, _ = sdpa_ms(torch, F, q, k, v, do)
+        kf, kdq, kdkv = kernel_names(fa, d, torch.float32)
+        calls_of = {
+            kf: (lambda: fa.flash_fwd(q, k, v, scale),
+                 lambda: fa.flash_forward_reference(q, k, v, scale), lib[0]),
+            kdq: (lambda: fa.flash_bwd_dq(q, k, v, out, lse, do, scale),
+                  lambda: fa.flash_bwd_dq_reference(q, k, v, out, lse, do, scale), lib[1]),
+            kdkv: (lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale),
+                   lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale), lib[1]),
+        }
+        for (kname, (kernel, plain, lib_ms)), w in zip(calls_of.items(), work(b, h, s, d, 4)):
+            row = timing_row(torch, kernel, plain, lib_ms, w, H100_FP32_FLOPS)
+            row["shape"] = f"B={b} H={h} S={s} D={d} fp32"
+            timings[kname] = [row]
+            print_row(kname, row, "" if kname == kf else " (dq,dk,dv together)")
+        del q, k, v, do, out, lse, delta
+        torch.cuda.empty_cache()
+    return timings
+
+
 def time_d512(torch, fa):
-    """The head_dim-512 forward at the SD-VAE mid-attention shape, fp32 (the
-    preview decoder's, listed first) and bf16 (the encoder's flash route):
-    kernel, plain version and scaled_dot_product_attention (a yardstick the
-    port never calls). Bound: 4 * S^2 * 512 flop at the bf16 tensor-core
-    peak (fp32 inputs are staged as bf16), against q, k, v read and out and
-    lse written once."""
+    """The head_dim-512 forward at the SD-VAE mid-attention shape: the fp32
+    kernel (the preview decoder's, at the fp32 CUDA-core peak) and the bf16
+    one (the encoder's flash route, at the bf16 tensor-core peak): kernel,
+    plain version and scaled_dot_product_attention (a yardstick the port
+    never calls), by CUDA events over 10 launches. Bound: 4 * S^2 * 512
+    flop against q, k, v read and out and lse written once."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(2)
-    rows = []
-    for dtype, elem in ((torch.float32, 4), (torch.bfloat16, 2)):
+    timings = {}
+    for dtype, elem, peak in ((torch.float32, 4, H100_FP32_FLOPS),
+                              (torch.bfloat16, 2, H100_BF16_FLOPS)):
         q, k, v = (torch.randn(1, VAE_TOKENS, 1, 512, device="cuda", dtype=dtype,
                                generator=g) for _ in range(3))
         scale = 512 ** -0.5
@@ -495,18 +619,20 @@ def time_d512(torch, fa):
         plain = cuda_ms(torch, lambda: fa.flash_forward_reference(q, k, v, scale), 3, 1)
         lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), 10, 2)
         flops = 4 * VAE_TOKENS * VAE_TOKENS * 512
-        bms, bound_by = bound(flops, 4 * VAE_TOKENS * 512 * elem + 4 * VAE_TOKENS)
+        bms, bound_by = bound(flops, 4 * VAE_TOKENS * 512 * elem + 4 * VAE_TOKENS, peak)
         name = str(dtype).replace("torch.", "")
-        rows.append({"shape": f"B*H=1 S={VAE_TOKENS} D=512 {name}",
-                     "calls_per_preview": 1, "ms": ms, "plain_ms": plain,
-                     "bound_ms": bms, "bound_by": bound_by, "library_ms": lib,
-                     "tflops": flops / ms / 1e9})
-        print(f"  flash_fwd_d512     B*H=1 S={VAE_TOKENS} D=512 {name}: kernel "
+        kname = fa.route(512, dtype, "forward")[0]
+        timings[kname] = [{"shape": f"B*H=1 S={VAE_TOKENS} D=512 {name}",
+                           "calls_per_preview": 1 if dtype == torch.float32 else 0,
+                           "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                           "bound_by": bound_by, "library_ms": lib,
+                           "tflops": flops / ms / 1e9}]
+        print(f"  {kname:22s} B*H=1 S={VAE_TOKENS} D=512 {name}: kernel "
               f"{ms:.4f} ms, bound {bms:.4f} ms ({bms / ms:.1%}), plain {plain:.4f} ms, "
               f"sdpa {lib:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s")
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
-    return {"flash_fwd_d512": rows}
+    return timings
 
 
 def k6_sites():
@@ -800,9 +926,11 @@ def k6_phase(torch):
 # --------------------------------------------------------------------------
 
 def unet_phase(torch):
+    """Returns the flash run's launches (the fp32 kernels at head_dim 64)."""
     phase("unet")
     from aozora_sdxl_training_tpu_torch.models.sdxl.arch import UNetConfig
     from aozora_sdxl_training_tpu_torch.models.sdxl.unet import init_params, unet_forward
+    from aozora_sdxl_training_tpu_torch.ops import flash_attention as fa
     cfg = UNetConfig(block_out_channels=(64, 128, 128), transformer_layers=(0, 1, 1),
                      num_heads=(1, 2, 2), mid_transformer_layers=1,
                      cross_attention_dim=64, norm_num_groups=8,
@@ -819,12 +947,16 @@ def unet_phase(torch):
                             dtype=torch.float32)
     os.environ["AOZORA_FLASH_MIN_KV"] = "256"     # the 16x16 level too
     try:
-        results = {}
+        results, counts = {}, {}
         for impl in ("xla", "flash"):
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
             out = unet_forward(params, sample, t, ctx, pooled, time_ids, cfg=cfg,
                                attn_impl=impl, compute_dtype=torch.float32)
             grads = torch.autograd.grad((out ** 2).mean(), list(params.values()))
+            torch.cuda.synchronize()
             results[impl] = (out.detach(), grads)
+            counts[impl] = {k: v for k, v in fa.LAUNCHES.items() if v}
     finally:
         del os.environ["AOZORA_FLASH_MIN_KV"]
     ref_out, ref_g = results["xla"]
@@ -832,9 +964,16 @@ def unet_phase(torch):
     err = (got_out - ref_out).abs().max().item() / ref_out.abs().max().item()
     gerr = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-12)).item()
                for a, b in zip(got_g, ref_g))
+    # each of the 11 self-attention sites (head_dim 64, fp32; 4 down, 1 mid,
+    # 6 up) once forward and once backward
+    want = {"flash_fwd_f32_d64": 11, "flash_bwd_dq_f32_d64": 11,
+            "flash_bwd_dkv_f32_d64": 11}
     print(f"  fp32 UNet, flash vs einsum: out rel err {err:.3e} (tol 2e-2), "
-          f"max param-grad rel err {gerr:.3e} (tol 5e-2)")
+          f"max param-grad rel err {gerr:.3e} (tol 5e-2); launches {counts['flash']}")
+    check(counts["xla"] == {} and counts["flash"] == want,
+          f"small UNet launches {counts}, expected {want} on the flash path")
     check(err <= 2e-2 and gerr <= 5e-2, "small UNet: flash path disagrees")
+    return counts["flash"]
 
 
 # --------------------------------------------------------------------------
@@ -842,6 +981,7 @@ def unet_phase(torch):
 # --------------------------------------------------------------------------
 
 def dit_phase(torch):
+    """Returns the flash run's launches (the fp32 kernels at head_dim 128)."""
     phase("dit")
     from dataclasses import replace
     from aozora_sdxl_training_tpu_torch.models.anima.dit import (
@@ -874,13 +1014,15 @@ def dit_phase(torch):
     err = (got_out - ref_out).abs().max().item() / ref_out.abs().max().item()
     gerr = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-12)).item()
                for a, b in zip(got_g, ref_g))
-    want = {"flash_fwd_d128": 4, "flash_bwd_dq_d128": 2, "flash_bwd_dkv_d128": 2}
+    want = {"flash_fwd_f32_d128": 4, "flash_bwd_dq_f32_d128": 2,
+            "flash_bwd_dkv_f32_d128": 2}
     print(f"  fp32 DiT (head_dim 128, 1024 tokens), flash vs einsum: out rel err "
           f"{err:.3e} (tol 2e-2), max param-grad rel err {gerr:.3e} (tol 5e-2); "
           f"launches {counts['flash']}")
     check(counts["xla"] == {} and counts["flash"] == want,
           f"small DiT launches {counts}, expected {want} on the flash path")
     check(err <= 2e-2 and gerr <= 5e-2, "small DiT: flash path disagrees")
+    return counts["flash"]
 
 
 # --------------------------------------------------------------------------
@@ -890,10 +1032,11 @@ def dit_phase(torch):
 def vae_phase(torch):
     """Encoder in bf16 (the route of tools_dev/cache_probe.py attn=flash)
     and decoder in fp32 (the preview's) on a random SD-VAE at 1024px: the
-    flash path against the einsum path, one head_dim-512 launch each.
-    Tolerance: 5e-2 (encoder, bf16 throughout) and 2e-2 (decoder, fp32 but
-    for the kernel's bf16 staging) of the einsum output's largest
-    magnitude."""
+    flash path against the einsum path, one head_dim-512 launch each
+    (flash_fwd_d512 in bf16, flash_fwd_f32_d512 in fp32). Tolerance: 5e-2
+    (encoder, bf16 throughout) and 1e-3 (decoder, fp32 throughout) of the
+    einsum output's largest magnitude. Returns (summary, the encoder's
+    launches)."""
     phase("vae")
     from aozora_sdxl_training_tpu_torch.data.synthetic import random_vae_sd
     from aozora_sdxl_training_tpu_torch.models.sdxl import vae as vae_mod
@@ -903,11 +1046,13 @@ def vae_phase(torch):
     pixels = torch.rand(1, 1024, 1024, 3, device="cuda", generator=g) * 2 - 1
     latents = torch.randn(1, 128, 128, 4, device="cuda", generator=g) / 0.13025
     runs = {"encoder": (lambda impl: vae_mod.encoder_forward(
-                params, pixels, compute_dtype=torch.bfloat16, attn_impl=impl), 5e-2),
+                params, pixels, compute_dtype=torch.bfloat16, attn_impl=impl), 5e-2,
+                "flash_fwd_d512"),
             "decoder": (lambda impl: vae_mod.decoder_forward(
-                params, latents, compute_dtype=torch.float32, attn_impl=impl), 2e-2)}
+                params, latents, compute_dtype=torch.float32, attn_impl=impl), 1e-3,
+                "flash_fwd_f32_d512")}
     summary = {}
-    for part, (fn, tol) in runs.items():
+    for part, (fn, tol, kname) in runs.items():
         out = {}
         for impl in ("xla", "flash"):
             with torch.inference_mode():
@@ -925,11 +1070,12 @@ def vae_phase(torch):
         print(f"  {part} {tuple(got.shape)}: flash vs einsum rel err {err:.3e} (tol "
               f"{tol:g}); {t_got:.4f} s flash, {t_ref:.4f} s einsum; launches "
               f"{n_got} (einsum path: {n_ref})")
-        check(n_ref == {} and n_got == {"flash_fwd_d512": 1},
-              f"VAE {part}: launches {n_got}, expected one head_dim-512 launch")
+        check(n_ref == {} and n_got == {kname: 1},
+              f"VAE {part}: launches {n_got}, expected one {kname} launch")
         check(err <= tol, f"VAE {part}: flash path disagrees ({err} > {tol})")
-        summary[part] = {"rel_err": err, "flash_s": t_got, "einsum_s": t_ref}
-    return summary
+        summary[part] = {"rel_err": err, "flash_s": t_got, "einsum_s": t_ref,
+                         "launches": n_got}
+    return summary, summary["encoder"]["launches"]
 
 
 # --------------------------------------------------------------------------
@@ -1237,7 +1383,7 @@ def trainer_phase(torch, work_dir: Path, steps: int):
         "flash_fwd": calls * (2 if remat else 1) * steps + calls * PREVIEW_STEPS * n_previews,
         "flash_bwd_dq": calls * steps,
         "flash_bwd_dkv": calls * steps,
-        "flash_fwd_d512": n_previews})
+        "flash_fwd_f32_d512": n_previews})
     png = work_dir / "out" / "previews" / f"step_{PREVIEW_EVERY}.png"
     check(png.exists(), f"no preview {png.name}")
     with Image.open(png) as im:
@@ -1472,26 +1618,26 @@ USAGE = ("usage: chip_smoke.py [--only PHASE[,PHASE...]]   phases: " + ", ".join
          + "\n       chip_smoke.py --anima-sp-rank PRESET OUT_DIR   (one torchrun rank)")
 
 
-def kernels_json(timings, max_err, sdxl_launches, anima_launches, k5, k6, sm90):
+def kernels_json(timings, max_err, launches, k5, k6, sm90):
     """One entry per kernel; ``launches`` counts the phase named in
-    ``phase``, where the counts were set to 0 just before."""
+    ``phase`` ({phase: launches}), where the counts were set to 0 just
+    before."""
     from aozora_sdxl_training_tpu_torch.ops import flash_attention as fa
     kernels = []
-    for kname, (replaces, d) in KERNELS.items():
+    for kname, (replaces, d, ph) in KERNELS.items():
         head = timings[kname][0]      # the largest main shape of its head dim
-        # K1-K3 and the head_dim-512 forward run in the SDXL CLI's run
-        # (training and the preview), K4a/K4b at 128 in the Anima CLI's
+        build = {}
+        if kname in SM90_OF:
+            build["build"] = sm90["{}<{}>".format(*SM90_OF[kname])]
         kernels.append({
             "name": kname, "route": "cuda",
-            "source": f"{PACKAGE}/csrc/{fa.SOURCES[d]}.cu",
-            "replaces": replaces, "phase": "anima" if d == 128 else "trainer",
-            "launches": (anima_launches if d == 128 else sdxl_launches)[kname],
+            "source": f"{PACKAGE}/csrc/{fa.SOURCES[kname]}.cu",
+            "replaces": replaces, "head_dim": d, "phase": ph,
+            "launches": launches[ph].get(kname, 0),
             "max_abs_err": max_err[kname], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "shapes": timings[kname],
-            **({"build": {k: v for k, v in sm90.items() if k.startswith(
-                SM90_KERNELS[fa.KERNEL_NAMES[128].index(kname)])}} if d == 128 else {})})
+            "shapes": timings[kname], **build})
     k5_err, k5_timings, k5_launches, ring_ms = k5
     for kname, line, kernel_names in (
             ("flash_fwd_stats", 503, "flash_fwd_d128"),
@@ -1552,18 +1698,21 @@ def main(argv=None) -> int:
         if "k6" in only:
             k6 = k6_phase(torch)
             summary["k6"] = k6[1:]
+        launches = {}
         if "unet" in only:
-            unet_phase(torch)
+            launches["unet"] = unet_phase(torch)
         if "dit" in only:
-            dit_phase(torch)
+            launches["dit"] = dit_phase(torch)
         if "vae" in only:
-            summary["vae"] = vae_phase(torch)
+            summary["vae"], launches["vae"] = vae_phase(torch)
         if "trainer" in only:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-                summary["trainer"], sdxl_launches = trainer_phase(torch, Path(tmp), TRAIN_STEPS)
+                summary["trainer"], launches["trainer"] = trainer_phase(torch, Path(tmp),
+                                                                        TRAIN_STEPS)
         if "anima" in only:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_anima_") as tmp:
-                summary["anima"], anima_launches = anima_phase(torch, Path(tmp), TRAIN_STEPS)
+                summary["anima"], launches["anima"] = anima_phase(torch, Path(tmp),
+                                                                  TRAIN_STEPS)
         if "anima_sp" in only:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_anima_sp_") as tmp:
                 summary["anima_sp"] = anima_sp_phase(torch, Path(tmp), TRAIN_STEPS)
@@ -1574,8 +1723,7 @@ def main(argv=None) -> int:
         return 1
     print(f"\ntotal {time.perf_counter() - t_start:.1f} s")
     if only == set(PHASES):
-        print(json.dumps({"kernels": kernels_json(timings, max_err, sdxl_launches,
-                                                  anima_launches, k5, k6, sm90)}))
+        print(json.dumps({"kernels": kernels_json(timings, max_err, launches, k5, k6, sm90)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

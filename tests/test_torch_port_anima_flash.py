@@ -78,16 +78,21 @@ def test_stats_wrappers_match_the_autograd_path():
 
 
 def test_head_dim_dispatch():
-    """64 and 128 have all three kernels; 512 (the SD-VAE mid-attention) a
-    forward kernel and no backward; any other head dim none."""
-    assert port.kernel_names(128) == ("flash_fwd_d128", "flash_bwd_dq_d128",
-                                      "flash_bwd_dkv_d128")
-    assert port.kernel_names(64) == ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-    assert port.kernel_names(512) == ("flash_fwd_d512", None, None)
-    assert set(port.LAUNCHES) == {n for names in port.KERNEL_NAMES.values()
-                                  for n in names if n}
+    """64 and 128 have all three kernels in bf16 and fp32; 512 (the SD-VAE
+    mid-attention) a forward kernel in each and no backward; any other head
+    dim none."""
+    def names(d, dtype):
+        return tuple(kernel and kernel[0] for kernel in port.ROUTES[d, dtype])
+
+    assert names(128, torch.bfloat16) == ("flash_fwd_d128", "flash_bwd_dq_d128",
+                                          "flash_bwd_dkv_d128")
+    assert names(64, torch.bfloat16) == ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    assert names(512, torch.bfloat16) == ("flash_fwd_d512", None, None)
+    assert names(512, torch.float32) == ("flash_fwd_f32_d512", None, None)
+    assert set(port.LAUNCHES) == {kernel[0] for kernels in port.ROUTES.values()
+                                  for kernel in kernels if kernel}
     with pytest.raises(ValueError, match="head_dim 96"):
-        port.kernel_names(96)
+        port.route(96, torch.bfloat16, "forward")
 
 
 @pytest.mark.parametrize("d,fwd_error,bwd_error", [

@@ -366,6 +366,28 @@ def test_unported_options_are_refused(tmp_path, overrides, match):
     assert not (tmp_path / "out" / "anima_run.safetensors").exists()
 
 
+@pytest.mark.parametrize("master", ["bfloat16", "bf16"])
+def test_master_dtype_other_than_fp32_is_refused_before_loading(tmp_path, master):
+    """bf16 master weights are not ported: the trainer raises, naming the key
+    and the value, before it reads the cache or the DiT."""
+    config = RuntimeConfig(_flat(tmp_path, "out", MASTER_DTYPE=master),
+                           validate_resume_paths=False)
+    with mock.patch.object(port_trainer, "check_if_anima_caching_needed",
+                           side_effect=AssertionError("cache checked")), \
+            mock.patch.object(port_trainer, "load_dit_state",
+                              side_effect=AssertionError("weights loaded")):
+        with pytest.raises(NotImplementedError, match=f"MASTER_DTYPE='{master}'.*bf16"):
+            port_trainer.run_anima_training(config, device="cpu")
+
+
+@pytest.mark.parametrize("master", ["auto", "float32"])
+def test_fp32_master_dtypes_pass_the_check(tmp_path, master):
+    config = RuntimeConfig(_flat(tmp_path, "out", MASTER_DTYPE=master),
+                           validate_resume_paths=False)
+    assert config.MASTER_DTYPE == master
+    port_trainer._refuse_unported(config)
+
+
 def test_profiler_traces_micro_steps_3_to_8(tmp_path, monkeypatch):
     """AOZORA_PROFILE_DIR: the trace starts before micro step 3, ends after
     micro step 8, and writes the trace, the kernel table and the summary

@@ -9,8 +9,9 @@ own bars for its kernel against its XLA reference.
 The CUDA kernels themselves are checked against the plain version on the
 card by ``chip_smoke.py`` and by tests/test_torch_port_cuda.py. What runs
 without a card is checked here too: which library each kernel is bound
-from, the nvcc command of the head_dim-128 source, the rebuild rule, and
-the wrappers' rounding and alignment checks.
+from, the nvcc command of the wgmma source, the rebuild rule, and the
+wrappers' alignment check (tests/test_torch_port_flash_routes.py holds the
+routing by head dim, dtype and role).
 """
 
 import os
@@ -103,13 +104,15 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
 
 
 def test_each_kernel_is_bound_from_the_library_of_its_source(monkeypatch):
-    """The head_dim-128 entry points come from csrc/flash_attention_sm90.cu
-    (and only its library is loaded for them, with their argument types);
-    head_dim 64 and 512 from csrc/flash_attention.cu. A launch goes to the
-    library of its head dim."""
-    assert port.SOURCES == {64: "flash_attention", 128: "flash_attention_sm90",
-                            512: "flash_attention"}
-    assert set(port.SOURCES) == set(port.KERNEL_NAMES)
+    """The wgmma entry points (head_dim 64 backward, all of head_dim 128) come
+    from csrc/flash_attention_sm90.cu (and only its library is loaded for
+    them, with their argument types); the head_dim-64 and -512 forwards from
+    csrc/flash_attention.cu; the fp32 ones from csrc/flash_attention_fp32.cu.
+    A launch goes to the library of its kernel."""
+    assert set(port.SOURCES.values()) == {"flash_attention", "flash_attention_sm90",
+                                          "flash_attention_fp32"}
+    assert set(port.SOURCES) == {kernel[0] for kernels in port.ROUTES.values()
+                                 for kernel in kernels if kernel}
     loaded, called = [], []
 
     def entry(source, name):
@@ -120,8 +123,7 @@ def test_each_kernel_is_bound_from_the_library_of_its_source(monkeypatch):
 
     def fake_load(source):
         loaded.append(source)
-        names = [n for d, ns in port.KERNEL_NAMES.items() if port.SOURCES[d] == source
-                 for n in ns if n]
+        names = [n for n, src in port.SOURCES.items() if src == source]
         return types.SimpleNamespace(
             aozora_flash_error_string=types.SimpleNamespace(),
             **{f"aozora_{n}": entry(source, n) for n in names})
@@ -131,16 +133,21 @@ def test_each_kernel_is_bound_from_the_library_of_its_source(monkeypatch):
     monkeypatch.setattr(cuda_build, "load", fake_load)
     lib = port._library("flash_attention_sm90")
     assert loaded == ["flash_attention_sm90"]
-    for name, types_ in zip(port.KERNEL_NAMES[128], port._ARGTYPES):
-        assert getattr(lib, f"aozora_{name}").argtypes == types_
+    for names in ([name for name, _ in port.ROUTES[128, torch.bfloat16]],
+                  ("flash_fwd_d128", "flash_bwd_dq", "flash_bwd_dkv")):
+        for name, types_ in zip(names, port._ARGTYPES):
+            assert getattr(lib, f"aozora_{name}").argtypes == types_
     assert not hasattr(lib, "aozora_flash_fwd")
     assert port._library("flash_attention_sm90") is lib and len(loaded) == 1
-    port._launch(128, "flash_bwd_dkv_d128", 7)
-    port._launch(512, "flash_fwd_d512", 8)
+    port._launch("flash_bwd_dkv_d128", 7)
+    port._launch("flash_fwd_d512", 8)
+    port._launch("flash_fwd_f32_d512", 9)
     assert called == [("flash_attention_sm90", "flash_bwd_dkv_d128", (7,)),
-                      ("flash_attention", "flash_fwd_d512", (8,))]
-    assert loaded == ["flash_attention_sm90", "flash_attention"]
-    assert port.LAUNCHES["flash_bwd_dkv_d128"] == 1 and port.LAUNCHES["flash_fwd_d512"] == 1
+                      ("flash_attention", "flash_fwd_d512", (8,)),
+                      ("flash_attention_fp32", "flash_fwd_f32_d512", (9,))]
+    assert loaded == ["flash_attention_sm90", "flash_attention", "flash_attention_fp32"]
+    assert {k: v for k, v in port.LAUNCHES.items() if v} == {
+        "flash_bwd_dkv_d128": 1, "flash_fwd_d512": 1, "flash_fwd_f32_d512": 1}
 
 
 def test_build_command_of_the_sm90_source(monkeypatch, tmp_path):
@@ -186,22 +193,6 @@ def test_a_library_is_rebuilt_when_its_source_or_any_header_is_newer(monkeypatch
         os.utime(newer, (100, 100))
     os.utime(csrc / "notes.txt", (300, 300))       # not an input
     assert not cuda_build.needs_build("k")
-
-
-def test_d128_operands_are_rounded_to_bf16_once():
-    """The head_dim-128 kernels multiply bf16: fp32 operands are rounded
-    before the launch, bf16 ones pass as they are (no copy); the head_dim
-    64 and 512 kernels take fp32 as it is."""
-    x32 = torch.randn(1, 4, 1, 128)
-    x16 = x32.to(torch.bfloat16)
-    r, r2 = port._operands(x32, x32)
-    assert r.dtype == torch.bfloat16 and torch.equal(r, x16) and torch.equal(r2, x16)
-    (r,) = port._operands(x16)
-    assert r is x16
-    for d in (64, 512):
-        x = torch.randn(1, 4, 1, d)
-        (r,) = port._operands(x)
-        assert r is x
 
 
 def test_unaligned_tensor_is_refused():

@@ -1,0 +1,67 @@
+"""PyTorch port: which flash kernel a wrapper launches, checked without a card.
+
+``ops/flash_attention.route`` decides from the head dim, the dtype and the
+role (forward, dQ, dK/dV) which kernel a wrapper launches on CUDA tensors,
+and which CUDA source's library exports it. bf16 goes to the tensor-core
+kernels (``csrc/flash_attention.cu``: the head_dim-64 and -512 forwards;
+``csrc/flash_attention_sm90.cu``: the head_dim-64 backward and everything
+at 128), fp32 to the fp32 CUDA-core kernels (``csrc/flash_attention_fp32.cu``),
+so that no fp32 operand is rounded to bf16. The backward at head_dim 512
+has no kernel in either dtype. Each entry point is checked to be defined in
+its source, and each source to define no other.
+"""
+
+import re
+
+import pytest
+import torch
+
+from aozora_sdxl_training_tpu_torch.ops import cuda_build
+from aozora_sdxl_training_tpu_torch.ops import flash_attention as port
+
+BF16, F32 = torch.bfloat16, torch.float32
+WMMA, SM90, FP32 = "flash_attention", "flash_attention_sm90", "flash_attention_fp32"
+ROUTE_TABLE = {
+    (64, BF16): (("flash_fwd", WMMA), ("flash_bwd_dq", SM90), ("flash_bwd_dkv", SM90)),
+    (128, BF16): (("flash_fwd_d128", SM90), ("flash_bwd_dq_d128", SM90),
+                  ("flash_bwd_dkv_d128", SM90)),
+    (512, BF16): (("flash_fwd_d512", WMMA), None, None),
+    (64, F32): (("flash_fwd_f32_d64", FP32), ("flash_bwd_dq_f32_d64", FP32),
+                ("flash_bwd_dkv_f32_d64", FP32)),
+    (128, F32): (("flash_fwd_f32_d128", FP32), ("flash_bwd_dq_f32_d128", FP32),
+                 ("flash_bwd_dkv_f32_d128", FP32)),
+    (512, F32): (("flash_fwd_f32_d512", FP32), None, None),
+}
+
+
+@pytest.mark.parametrize("role", ["forward", "dq", "dkv"])
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("head_dim", [64, 128, 512])
+def test_route_by_head_dim_dtype_and_role(head_dim, dtype, role):
+    want = ROUTE_TABLE[head_dim, dtype][("forward", "dq", "dkv").index(role)]
+    if want is None:
+        with pytest.raises(NotImplementedError, match="head_dim 512"):
+            port.route(head_dim, dtype, role)
+    else:
+        assert port.route(head_dim, dtype, role) == want
+        assert want[0] in port.LAUNCHES
+
+
+def test_other_head_dims_and_dtypes_have_no_kernel():
+    with pytest.raises(ValueError, match="head_dim 96"):
+        port.route(96, BF16, "forward")
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        port.route(64, torch.float16, "forward")
+    assert set(port.LAUNCHES) == {name for row in ROUTE_TABLE.values()
+                                  for entry in row if entry for name in entry[:1]}
+
+
+def test_every_entry_point_is_defined_in_its_source():
+    """Each kernel's C entry point ``aozora_<name>`` is defined in the
+    source ``route`` names, and each source defines no other kernel entry
+    point (the sm90 one also exports its attribute query)."""
+    for source in (WMMA, SM90, FP32):
+        text = (cuda_build.CSRC / f"{source}.cu").read_text()
+        defined = set(re.findall(r"^int aozora_(\w+)\(", text, re.M)) - {"flash_sm90_attributes"}
+        assert defined == {n for n, src in port.SOURCES.items() if src == source}, source
+        assert "aozora_flash_error_string" in text

@@ -43,6 +43,7 @@ from aozora_sdxl_training_tpu_torch.data.tokenization import HashTokenizer
 from aozora_sdxl_training_tpu_torch.models.sdxl.conversion import (
     params_from_jax, sd_state_from_params)
 import aozora_sdxl_training_tpu_torch.train.reporter as port_reporter
+from aozora_sdxl_training_tpu_torch.train import trainer as port_trainer
 from aozora_sdxl_training_tpu_torch.train import objectives as port_obj
 
 from tests.test_torch_port_unet import numpy_params
@@ -257,6 +258,28 @@ def test_cli_raises_without_cuda_unless_cpu_is_asked_for(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="AOZORA_PLATFORM=cpu"):
         port_cli.main(["--config", "missing.json"])
+
+
+@pytest.mark.parametrize("master", ["bfloat16", "bf16"])
+def test_master_dtype_other_than_fp32_is_refused_before_loading(tmp_path, master):
+    """bf16 master weights are not ported: the trainer raises, naming the key
+    and the value, before it reads the cache or the checkpoint."""
+    config = RuntimeConfig({**_flat(tmp_path, "out"), "MASTER_DTYPE": master},
+                           validate_resume_paths=False)
+    with mock.patch.object(port_trainer, "check_if_caching_needed",
+                           side_effect=AssertionError("cache checked")), \
+            mock.patch.object(port_trainer, "load_sd_tensors",
+                              side_effect=AssertionError("weights loaded")):
+        with pytest.raises(NotImplementedError, match=f"MASTER_DTYPE='{master}'.*bf16"):
+            port_trainer.run_sdxl_training(config, device="cpu")
+
+
+@pytest.mark.parametrize("master", ["auto", "float32"])
+def test_fp32_master_dtypes_pass_the_check(tmp_path, master):
+    config = RuntimeConfig({**_flat(tmp_path, "out"), "MASTER_DTYPE": master},
+                           validate_resume_paths=False)
+    assert config.MASTER_DTYPE == master
+    port_trainer.refuse_unported_master_dtype(config)
 
 
 def test_port_imports_no_jax():
