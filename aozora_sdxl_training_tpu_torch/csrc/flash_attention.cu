@@ -1,36 +1,29 @@
-// Flash attention forward on the tensor cores' WMMA tiles: head_dim 64
-// (K1, the SDXL UNet) and head_dim 512 (K4a, the SD-VAE mid-attention).
-// The head_dim-64 backward (K2/K3) and everything at head_dim 128 live in
-// flash_attention_sm90.cu (wgmma); fp32 inputs at every head dim go to the
-// fp32 kernels of flash_attention_fp32.cu. These two take bf16 only.
+// The bf16 flash-attention forward at head_dim 512 (K4a on the SD-VAE
+// mid-attention: one head of 512 over 128 x 128 = 16384 tokens at 1024px),
+// on the tensor cores' WMMA tiles. Every other bf16 kernel (K1-K3 at
+// head_dim 64, K4a/K4b at 128) lives in flash_attention_sm90.cu (wgmma);
+// fp32 inputs go to flash_attention_fp32.cu. This one takes bf16 only.
 //
-// Each replaces a Pallas TPU kernel of
+// It replaces the Pallas TPU kernel of
 // aozora_sdxl_training_tpu/ops/flash_attention.py:
 //
-//   flash_fwd_kernel<64>     <- _fwd_kernel (_flash_forward)
-//   flash_fwd_d512_kernel    <- _fwd_kernel (_flash_forward_folded)
+//   flash_fwd_d512_kernel    <- _flash_forward_folded (body _fwd_kernel)
 //
 // and computes what it computes (exact attention with an online softmax
 // over KV tiles, fp32 statistics and accumulation, keys >= Skv masked to
-// -1e30, l clamped at 1e-30) but laid out for the GPU:
+// -1e30, l clamped at 1e-30) but laid out for the GPU: it reads and writes
+// the callers' (B, S, H, D) layout directly (row s of head (b, h) starts at
+// ((b * S + s) * H + h) * D, the TPU's "folded" (B, S, H*D) layout), lse is
+// a plain (B*H, S) fp32 row, and each block loops over the keys inside
+// itself, since a grid dimension cannot carry an accumulator on the GPU.
 //
-// * They read and write the (B, S, H, D) layout of the callers directly:
-//   row s of head (b, h) starts at ((b * S + s) * H + h) * D. That is also
-//   the (B, S, H*D) "folded" layout of the TPU's D % 128 == 0 kernels. No
-//   transposes and no padding around the call; the ragged edge of S is
-//   masked here.
-// * lse is a plain (B*H, S) fp32 row (no 128-lane replication).
-// * Each block loops over the keys inside itself, since a grid dimension
-//   cannot carry an accumulator on the GPU.
-//
-// What bounds the head_dim-64 forward: at the SDXL shapes (S = 1024 or
-// 4096) 4*S^2*D flop per head against 4*S*D*2 bytes, so the tensor cores.
-// This is the simple version: one block of 4 warps per 64-row tile, each
-// warp owning 16 rows, WMMA bf16 16x16x16 with fp32 accumulation, K and V
-// tiles staged in shared memory with plain loads and no double buffering,
-// the score tile and the output accumulator round-tripping through shared
-// memory. flash_attention_sm90.cu shows the Hopper design (wgmma, cp.async
-// into a ring, accumulators in registers) it takes next.
+// What bounds it: 4 * Sq * Skv * 512 flop against 8 * S * 512 bytes of
+// operands, so the tensor cores (0.556 ms at S = 16384). It is the simple
+// version, at 5% of that: 32-query WMMA tiles with the O accumulator in
+// shared memory and one K/V buffer loaded by plain copies (see the kernel).
+// It runs on no trainer path (the encoder's flash route only; the cache
+// encoder and the preview's decoder compute in fp32), so its wgmma redesign
+// waits in ROADMAP.md.
 //
 // Built by aozora_sdxl_training_tpu_torch/ops/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
@@ -46,29 +39,8 @@ using namespace nvcuda;
 
 namespace {
 
-constexpr int TILE = 64;           // rows of a tile, in either sequence
-constexpr int NWARPS = 4;          // each warp owns 16 rows of the tile
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int LDP = TILE + 8;      // leading dim of the bf16 score tile (P)
-constexpr int LDS = TILE + 4;      // leading dim of the fp32 score tile (S)
-constexpr int P_TILE = TILE * LDP; // elements of one bf16 score tile
-constexpr int S_TILE = TILE * LDS; // elements of one fp32 score tile
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
-
-// Tile geometry for head dim D. A lane owns row lane / 2 of its warp's 16
-// rows, and half of that row's columns: TILE / 2 score columns and D / 2
-// output columns.
-template <int D>
-struct Geometry {
-  static constexpr int LDH = D + 8;       // leading dim of bf16 operand tiles (Q, K, V)
-  static constexpr int LDO = D + 4;       // leading dim of the fp32 O tile
-  static constexpr int H_TILE = TILE * LDH;
-  static constexpr int O_TILE = TILE * LDO;
-  static constexpr size_t FWD_SMEM =
-      (3 * H_TILE + P_TILE) * sizeof(__nv_bfloat16) + (S_TILE + O_TILE) * sizeof(float);
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-};
 
 typedef __nv_bfloat16 bf16;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
@@ -89,150 +61,12 @@ __device__ void load_rows(bf16* dst, const bf16* head, int row0, int S, int row_
   }
 }
 
-// Rows [row0, row0 + TILE) of one head into a bf16 tile of the D=64
-// geometry.
-template <int D>
-__device__ void load_tile(bf16* dst, const bf16* head, int row0, int S, int row_stride) {
-  load_rows<TILE, D, Geometry<D>::LDH, NTHREADS>(dst, head, row0, S, row_stride);
-}
-
-// C(16 x 64, fp32, shared, ld LDS) = A(16 x D) * B(64 x D)^T for one warp:
-// the scores of the warp's 16 rows against a 64-row tile.
-template <int D>
-__device__ __forceinline__ void warp_scores(const bf16* a, const bf16* b, float* c) {
-  constexpr int LDH = Geometry<D>::LDH;
-#pragma unroll
-  for (int n = 0; n < TILE / 16; ++n) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragA fa;
-      FragBCol fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, LDH);
-      wmma::load_matrix_sync(fb, b + n * 16 * LDH + kk * 16, LDH);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(c + n * 16, acc, LDS, wmma::mem_row_major);
-  }
-}
-
-// C(16 x D, fp32, shared, ld LDO) += A(16 x 64, ld LDP) * B(64 x D, ld LDH):
-// an accumulator kept in shared memory (the forward's O, which the online
-// softmax rescales per row), round-tripping through fragments.
-template <int D>
-__device__ __forceinline__ void warp_gemm_acc_smem(const bf16* a, const bf16* b, float* c) {
-  using G = Geometry<D>;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    FragC acc;
-    wmma::load_matrix_sync(acc, c + n * 16, G::LDO, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < TILE / 16; ++kk) {
-      FragA fa;
-      FragBRow fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, LDP);
-      wmma::load_matrix_sync(fb, b + kk * 16 * G::LDH + n * 16, G::LDH);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(c + n * 16, acc, G::LDO, wmma::mem_row_major);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K1: forward. Grid (ceil(Sq / 64), B * H); one block per 64 query rows.
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                 int H, int Sq, int Skv, float scale) {
-  using G = Geometry<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + G::H_TILE;
-  bf16* sV = sK + G::H_TILE;
-  bf16* sP = sV + G::H_TILE;
-  float* sS = reinterpret_cast<float*>(sP + P_TILE);
-  float* sO = sS + S_TILE;
-
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * TILE;
-  const int rs = H * D;
-  const bf16* qh = q + (size_t)b * Sq * rs + h * D;
-  const bf16* kh = k + (size_t)b * Skv * rs + h * D;
-  const bf16* vh = v + (size_t)b * Skv * rs + h * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp * 16;               // the warp's first row in the tile
-  const int r = wr + lane / 2;            // this lane's row
-  const int cs = (lane % 2) * (TILE / 2); // this lane's 32 score columns
-  const int co = (lane % 2) * (D / 2);    // this lane's D / 2 output columns
-
-  load_tile<D>(sQ, qh, q0, Sq, rs);
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) sO[r * G::LDO + co + i] = 0.f;
-  float m = NEG_INF, l = 0.f;
-
-  for (int k0 = 0; k0 < Skv; k0 += TILE) {
-    __syncthreads();                      // the previous K/V tile is consumed
-    load_tile<D>(sK, kh, k0, Skv, rs);
-    load_tile<D>(sV, vh, k0, Skv, rs);
-    __syncthreads();
-
-    warp_scores<D>(sQ + wr * G::LDH, sK, sS + wr * LDS);   // S = Q K^T
-    __syncwarp();
-
-    float s[TILE / 2];
-    float mx = NEG_INF;
-#pragma unroll
-    for (int i = 0; i < TILE / 2; ++i) {
-      float x = sS[r * LDS + cs + i] * scale;
-      if (k0 + cs + i >= Skv) x = NEG_INF;
-      s[i] = x;
-      mx = fmaxf(mx, x);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = __expf(m - m_new);
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < TILE / 2; ++i) {
-      const float p = __expf(s[i] - m_new);
-      sum += p;
-      sP[r * LDP + cs + i] = __float2bfloat16(p);
-    }
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) sO[r * G::LDO + co + i] *= alpha;
-    sum += __shfl_xor_sync(FULL, sum, 1);
-    l = l * alpha + sum;
-    m = m_new;
-    __syncwarp();
-
-    // O += P V, the accumulator in shared memory so that the per-row
-    // rescale above can reach it
-    warp_gemm_acc_smem<D>(sP + wr * LDP, sV, sO + wr * G::LDO);
-    __syncwarp();
-  }
-
-  const float safe_l = fmaxf(l, 1e-30f);
-  if (q0 + r < Sq) {
-    const float inv = 1.f / safe_l;
-    bf16* orow = o + (size_t)b * Sq * rs + (size_t)(q0 + r) * rs + h * D + co;
-#pragma unroll 16
-    for (int i = 0; i < D / 2; ++i) orow[i] = __float2bfloat16(sO[r * G::LDO + co + i] * inv);
-    if ((lane % 2) == 0) lse[(size_t)bh * Sq + q0 + r] = m + logf(safe_l);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K4a at head_dim 512 (the SD-VAE mid-attention: one head of 512 over
-// 128 x 128 = 16384 tokens at 1024px): forward only, as no caller
-// differentiates there.
+// K4a at head_dim 512: forward only, as no caller differentiates there.
 //
-// The head_dim-64 body above does not fit at D=512: its 64-row fp32 O tile
-// alone is 128 KB, and with a 64 x 512 bf16 Q tile and K and V tiles of
-// 64 KB each a block would need ~330 KB of the 227 KB it may have. This
-// body keeps the same algorithm and changes the tiling:
+// A 64-row block does not fit at D=512: its fp32 O tile alone is 128 KB,
+// and with a 64 x 512 bf16 Q tile and K and V tiles of 64 KB each a block
+// would need ~330 KB of the 227 KB it may have. So:
 //
 // * 32 query rows per block (Q 33 KB bf16, O 66 KB fp32 in shared memory,
 //   where the per-row online-softmax rescale can reach it);
@@ -387,18 +221,6 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int D>
-int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-        int Sq, int Skv, float scale, cudaStream_t stream) {
-  const size_t smem = Geometry<D>::FWD_SMEM;
-  cudaError_t e = allow_smem(flash_fwd_kernel<D>, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((Sq + TILE - 1) / TILE, B * H);
-  flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, H, Sq, Skv, scale);
-  return (int)cudaGetLastError();
-}
-
 int fwd_d512(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
              int Sq, int Skv, float scale, cudaStream_t stream) {
   cudaError_t e = allow_smem(flash_fwd_d512_kernel, D512::SMEM);
@@ -411,19 +233,13 @@ int fwd_d512(const void* q, const void* k, const void* v, void* o, float* lse, i
 
 }  // namespace
 
-// Plain C interface, one entry point per kernel (no suffix: D=64, K1;
-// _d512: D=512, K4a). q and o are contiguous bf16 (B, Sq, H, D); k and v
-// contiguous bf16 (B, Skv, H, D); lse contiguous (B * H, Sq) fp32. Each
-// returns the cudaError_t of its launch.
+// Plain C interface: q and o are contiguous bf16 (B, Sq, H, 512); k and v
+// contiguous bf16 (B, Skv, H, 512); lse contiguous (B * H, Sq) fp32.
+// Returns the cudaError_t of the launch.
 extern "C" {
 
 const char* aozora_flash_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
-}
-
-int aozora_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                     int H, int Sq, int Skv, float scale, void* stream) {
-  return fwd<64>(q, k, v, o, lse, B, H, Sq, Skv, scale, (cudaStream_t)stream);
 }
 
 int aozora_flash_fwd_d512(const void* q, const void* k, const void* v, void* o, float* lse,

@@ -1,47 +1,86 @@
-// Flash attention for fp32 inputs, on the CUDA cores: every product is a
-// chain of fp32 FMAs, so no operand is rounded to bf16 (the tensor-core
-// kernels of flash_attention.cu and flash_attention_sm90.cu take bf16 only).
-//
-// Three kernels, each a template on the head dim D and each computing what
-// a Pallas TPU kernel of aozora_sdxl_training_tpu/ops/flash_attention.py
+// Flash attention for fp32 inputs, to fp32 accuracy: no operand is
+// rounded to bf16 (the bf16 kernels of flash_attention.cu and
+// flash_attention_sm90.cu take bf16 only). Each kernel computes what a
+// Pallas TPU kernel of aozora_sdxl_training_tpu/ops/flash_attention.py
 // computes when its operands are fp32 (the Pallas bodies multiply in the
 // operands' own dtype):
 //
-//   flash_fwd_f32_kernel<D>      <- _fwd_kernel      D = 64, 128, 512
-//   flash_bwd_dq_f32_kernel<D>   <- _bwd_dq_kernel   D = 64, 128
-//   flash_bwd_dkv_f32_kernel<D>  <- _bwd_dkv_kernel  D = 64, 128
+//   flash_fwd_f32_kernel<D>       <- _fwd_kernel (_flash_forward)   D = 64, 128
+//   flash_bwd_dq_f32_kernel<D>    <- _bwd_dq_kernel                 D = 64, 128
+//   flash_bwd_dkv_f32_kernel<D>   <- _bwd_dkv_kernel                D = 64, 128
+//   flash_fwd_f32_d512_kernel     <- _fwd_kernel (_flash_forward_folded) at D = 512
 //
-// Only those head dims are instantiated: the SD-VAE decoder's mid-attention
-// (D = 512, the preview) runs forward only, and no caller differentiates
-// there. Exact attention with an online softmax over key tiles, fp32
-// statistics, keys >= Skv masked to -1e30, l clamped at 1e-30, the
-// backward recomputing P from the saved row logsumexp, delta = rowsum(dO *
-// O) written by the dQ kernel and read by the dK/dV kernel. No atomics: the
-// sums over the other sequence run inside a block, and the row reductions
-// over lanes in a fixed order, so results are bitwise the same from run to
-// run.
+// The last is the SD-VAE decoder's mid-attention in the preview (one head
+// of 512 over 16384 tokens at 1024px), forward only: no caller
+// differentiates there. All: exact attention with an online softmax over
+// key tiles, fp32 statistics, keys >= Skv masked to -1e30, l clamped at
+// 1e-30, the backward recomputing P from the saved row logsumexp, delta =
+// rowsum(dO * O) written by the dQ kernel and read by the dK/dV kernel. No
+// atomics: the sums over the other sequence run inside a block, and the row
+// reductions over lanes in a fixed order, so results are bitwise the same
+// from run to run.
 //
 // Layout (the callers'): q, o, dout, dq contiguous fp32 (B, Sq, H, D); k,
 // v, dk, dv contiguous fp32 (B, Skv, H, D); lse and delta contiguous fp32
 // (B * H, Sq).
 //
-// What bounds them: the fp32 FMA rate (4, 6 and 8 * Sq * Skv * D flop per
-// head against 4 * S * D bytes per operand). The design is the simple one:
-// a block of 256 threads owns BQ rows of the stationary sequence and loops
-// over tiles of BK rows of the other, all tiles in shared memory (rows
-// padded by 4 floats, so that the 16-byte loads of 8 neighbouring rows
-// fall in 8 different bank groups). Thread t = 16 rb + cb computes a
-// register tile: rows rb + 16 i of the BQ x BK score products (columns
-// cb + 16 j), reading 4 columns of D at a time, and the same rows of the
-// BQ x D output products (4-column groups cb + 16 j). The score tile (P,
-// dS, P^T, dS^T) goes through shared memory between the two products, and
-// the online softmax reads it there, 256 / BQ of a block's threads to a
-// row. The tiles come in by cp.async, all of a tile's copies in flight at
-// once; the second operand of a tile's score products (V, dO) is waited
-// for only after the first product. No tensor cores. Tiles: BQ = BK = 64 at
-// D = 64 and 128; BQ = 64, BK = 16 at D = 512, where the Q tile alone takes
-// 132 KB of the 227 KB a block may have (32-row blocks with 32-key tiles,
-// 2 x 2 register tiles, measured 26.15 ms at S = 16384 on the H100).
+// The head_dim-64 and -128 kernels, on the CUDA cores: bound by the fp32
+// FMA rate (4, 6 and 8 * Sq * Skv * D flop per head against 4 * S * D
+// bytes per operand); no caller of the trainers reaches them (both compute
+// in bf16), so they are the simple design: a block of 256 threads owns 64
+// rows of the stationary sequence and loops over 64-row tiles of the other,
+// all tiles in shared memory (rows padded by 4 floats, so that the 16-byte
+// loads of 8 neighbouring rows fall in 8 different bank groups). Thread
+// t = 16 rb + cb computes a register tile: rows rb + 16 i of the score
+// products (columns cb + 16 j), reading 4 columns of D at a time, and the
+// same rows of the output products (4-column groups cb + 16 j). The score
+// tile (P, dS, P^T, dS^T) goes through shared memory between the two
+// products, and the online softmax reads it there, 4 threads to a row. The
+// tiles come in by cp.async; the second operand of a tile's score products
+// (V, dO) is waited for only after the first product.
+//
+// The head_dim-512 forward, on the tensor cores in 3xTF32. Its 4 * S^2 *
+// 512 flop (5.5e11 at S = 16384) take 8.2 ms at the fp32 FMA peak (67
+// TFLOP/s), where the CUDA-core kernel of the design above took 23.6 ms on
+// the H100; as three TF32 products (495 TFLOP/s) they take 3.3 ms. Each
+// fp32 operand x is split into hi = x rounded to TF32 and lo = x - hi,
+// and a product is lo hi + hi lo + hi hi on mma.sync m16n8k8 TF32 with fp32
+// accumulation: hi hi alone keeps about 11 bits (~5e-4 of the output), the
+// two cross terms bring it to ~2^-21 (the lo lo term left out), the level
+// of fp32 summation order. The softmax statistics stay fp32. What bounds it
+// on the card is the work around the tensor cores, not their rate: it runs
+// at about a quarter of the 3.3 ms, and the form of the split alone moves
+// its time by a quarter (see tf32_rna), as every element of a fragment is
+// split in registers each time a warp loads it. The design does about
+// that:
+// * a block owns 64 query rows (the Q tile, 132 KB of the 227 KB, stays
+//   in shared memory; in registers its fragments would take 256 per
+//   thread) and its 8 warps split the work 4 row groups x 2 halves of D:
+//   the O accumulator (64 x 512 fp32) is 128 registers a thread, and the
+//   score products run over each warp's half of D, the two partial 16 x 16
+//   score tiles summed through shared memory, so that a Q fragment is
+//   loaded and split once per 2 n-tiles and both halves' warps have the
+//   whole row for the softmax;
+// * 16-key tiles, K and V taking turns in two slots (the copy of V_j runs
+//   under S_j, that of K_{j + 1} under P V_j), by cp.async;
+// * every fragment comes by wide loads: the reduction index of the score
+//   products is permuted (the same way in Q and K) and O's columns are
+//   permuted within 32-column groups, so that one 16-byte load covers two
+//   k-steps of a Q or K fragment and one 8-byte load the V fragments of two
+//   n-tiles; row strides keep the loads free of bank conflicts;
+// * the tensor cores' adder truncates, so no running sum lives in an mma
+//   accumulator: each 16-key tile's P V and each pair of k-steps' scores
+//   go into fresh fragments that are added into O and S in fp32 (kept
+//   across all 1024 tiles of S = 16384, O drifted 1.3e-4 of its largest
+//   magnitude from the fp32 result; now ~2e-6 from float64);
+// * O is written straight from the registers: after the permutation a
+//   lane holds 8 neighbouring columns of each of its rows. The kernel takes
+//   255 registers a thread without a spill; the epilogue reads the block
+//   index anew so that no offset stays live through the key loop.
+// Weighed and not taken: wgmma, whose TF32 form reads shared-memory
+// operands K-major only (V would be transposed on the way in) and B only
+// from shared memory (K and V split there: twice the bytes), with Q's split
+// pieces (2 x 128 KB) not fitting beside the rest.
 //
 // Built by aozora_sdxl_training_tpu_torch/ops/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
@@ -62,7 +101,7 @@ constexpr unsigned FULL = 0xffffffffu;
 template <int D>
 struct Cfg {
   static constexpr int BQ = 64;                   // stationary rows of a block
-  static constexpr int BK = D == 512 ? 16 : 64;   // rows of a streamed tile
+  static constexpr int BK = 64;                   // rows of a streamed tile
   static constexpr int TM = BQ / 16;              // rows of a thread's register tile
   static constexpr int TN = BK / 16;              // score columns of a thread
   static constexpr int C4 = D / 64;               // 4-column output groups of a thread
@@ -77,14 +116,13 @@ struct Cfg {
   static constexpr size_t DKV_SMEM =
       (2 * QTILE + 2 * KTILE + 2 * STILE + 2 * BK) * sizeof(float);
   static_assert(16 * TM == BQ && 16 * TN == BK && 64 * C4 == D, "register tiles");
-  static_assert(FWD_SMEM <= 232448 && (D == 512 || DKV_SMEM <= 232448),
-                "shared memory of one block");
+  static_assert(DKV_SMEM <= 232448, "shared memory of one block");
 };
 
 // Rows [row0, row0 + R) of one head of a (B, S, H, D) fp32 tensor (row
-// stride rs floats) into a tile of row stride D + 4, by cp.async (the
-// caller commits and waits); rows >= S are zeros.
-template <int R, int D>
+// stride rs floats) into a tile of row stride LD, by cp.async (the caller
+// commits and waits); rows >= S are zeros.
+template <int R, int D, int LD = D + 4>
 __device__ __forceinline__ void load_tile_async(float* dst, const float* head, int row0, int S,
                                                 int rs) {
   constexpr int C = D / 4;                  // 16-byte chunks of a row
@@ -94,7 +132,7 @@ __device__ __forceinline__ void load_tile_async(float* dst, const float* head, i
     const unsigned c = threadIdx.x + i * THREADS;
     const int r = c / C, col = (c % C) * 4;
     const bool ok = row0 + r < S;
-    sm90::cp_async16(sm90::smem_u32(dst + r * (D + 4) + col),
+    sm90::cp_async16(sm90::smem_u32(dst + r * LD + col),
                      head + (size_t)(ok ? row0 + r : 0) * rs + col, ok);
   }
 }
@@ -459,6 +497,266 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   store_tile(acc_dv, one, dv + kvoff, kv0, Skv, rs, rb, cb);
 }
 
+// ---------------------------------------------------------------------------
+// The forward at head_dim 512 on the tensor cores, to fp32 accuracy: both
+// products in 3xTF32 (see the header). Grid (ceil(Sq / 64), B * H); 8
+// warps, warp w owning rows [16 (w % 4), +16) of the block's 64 and half
+// w / 4 of D: its 256 columns of the score products' reduction and its 256
+// columns of O. Key tiles of 16 rows; K and V take turns in two slots, so
+// each tile's copy overlaps the other product.
+// ---------------------------------------------------------------------------
+namespace d512 {
+constexpr int D = 512, BQ = 64, BK = 16;
+// Row strides in floats. Q and K: 16 mod 32, so that the 16-byte fragment
+// loads of a quarter warp (rows g, g + 1 at 4 c) fall in 8 bank groups; V:
+// 8 mod 32 (rows c, columns 4 g); the score exchange: rows g, keys c.
+constexpr int LDQ = D + 16, LDV = D + 8, LDX = BK + 4;
+constexpr int Q_FLOATS = BQ * LDQ, K_FLOATS = BK * LDQ, V_FLOATS = BK * LDV;
+constexpr int X_FLOATS = 2 * BQ * LDX;   // [half of D][row][key]
+constexpr size_t SMEM = (size_t)(Q_FLOATS + K_FLOATS + V_FLOATS + X_FLOATS) * sizeof(float);
+static_assert(SMEM <= 232448, "shared memory of one block");
+}  // namespace d512
+
+// The TF32 split x = hi + lo. hi is x rounded to TF32, to nearest with ties
+// away as cvt.rna.tf32.f32 (for every finite x): add half a TF32 ulp to the
+// magnitude and clear the low 13 bits, an fp32 bit pattern the tensor cores
+// read exactly. lo = x - hi is exact in fp32 and goes in as it is: the
+// tensor cores take the top 19 bits of a TF32 operand's register and drop
+// the low 13, so lo enters the product truncated to TF32, within 2^-21 of
+// x. The PTX ISA leaves the layout of .tf32 data in a .b32 register to the
+// implementation, so this truncation is the hardware's behaviour, not a
+// documented rule. CUTLASS's 3xTF32 warp MMA relies on it the same way:
+// FastF32 in cutlass/gemm/warp/mma_tensor_op_fast_f32.h converts its small
+// part with NumericConverter<tfloat32_t, float, round_half_ulp_truncate>
+// (or round_half_ulp_trunc_dntz) of cutlass/numeric_conversion.h, which add
+// half a TF32 ulp and leave the low 13 bits for the tensor cores to drop;
+// tests/test_torch_port_cuda.py::test_f32_d512_forward_matches_float64_on_card
+// holds the kernel to 1e-5 of float64 on the card. Timed on the H100 and not
+// kept: hi and lo both by cvt.rna.tf32.f32 (29% slower), lo rounded by the
+// integer form (8% slower, no more accurate).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d (16 x 8) += a (16 x 8, row) b (8 x 8, col), TF32 operands, fp32
+// accumulation. Per lane (g = lane / 4, c = lane % 4): a = {A[g][c],
+// A[g + 8][c], A[g][c + 4], A[g + 8][c + 4]}, b = {B[c][g], B[c + 4][g]},
+// d = {D[g][2c], D[g][2c + 1], D[g + 8][2c], D[g + 8][2c + 1]}.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b to fp32 accuracy from the split operands: lo hi + hi lo + hi hi
+// (lo lo, about 2^-22 of the product, is left out), the small terms first.
+// The tensor cores truncate where they add into d, so a caller keeps d to a
+// few products and adds it into its running sums in fp32 (see below).
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_f32_d512_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          float* __restrict__ lse, int H, int Sq, int Skv, float scale) {
+  using namespace d512;
+  constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sK = sQ + Q_FLOATS;
+  float* sV = sK + K_FLOATS;
+  float* sX = sV + V_FLOATS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int r0 = 16 * (warp % 4), dh = warp / 4, d0 = 256 * dh;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * BQ;
+  const int rs = H * D;
+  const float* kh = k + (size_t)b * Skv * rs + h * D;
+  const float* vh = v + (size_t)b * Skv * rs + h * D;
+
+  load_tile_async<BQ, D, LDQ>(sQ, q + (size_t)b * Sq * rs + h * D, q0, Sq, rs);
+  load_tile_async<BK, D, LDQ>(sK, kh, 0, Skv, rs);
+  sm90::cp_async_commit();
+
+  // O: columns d0 + 32 j + [0, 32) in n-tiles t = 0..3, logical column n of
+  // n-tile t at d0 + 32 j + 4 n + t, so that a lane's elements of a row are
+  // 8 neighbouring columns and a V fragment load covers 4 n-tiles
+  float acc[8][4][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][t][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // rows g, g + 8; m in log2 units
+  const float sl2 = scale * LOG2E;
+  const float* qa = sQ + (r0 + g) * LDQ + d0 + 4 * c;   // row g; row g + 8 at 8 LDQ
+  const float* kb = sK + g * LDQ + d0 + 4 * c;          // key g; key g + 8 at 8 LDQ
+  const float* vb = sV + c * LDV + d0 + 4 * g;          // key c, column group g
+  float* xw = sX + (dh * BQ + r0) * LDX;              // this warp's partial scores
+  const float* x0 = sX + r0 * LDX;                      // the two halves' partials
+  const float* x1 = x0 + BQ * LDX;
+  const int nk = (Skv + BK - 1) / BK;
+
+  for (int j = 0; j < nk; ++j) {
+    sm90::cp_async_wait<0>();         // K_j (and Q) landed
+    __syncthreads();                  // ... for every thread; V_{j-1} is consumed
+    load_tile_async<BK, D, LDV>(sV, vh, j * BK, Skv, rs);
+    sm90::cp_async_commit();
+
+    // partial S over this warp's half of D: 16 rows x 16 keys (n-tiles u =
+    // keys 8 u + [0, 8)). Each 16-byte load covers two k-steps: logical k
+    // = c and c + 4 of k-step e are columns 4 c + 2 e and 4 c + 2 e + 1 of
+    // the 16, in Q and K alike. The two k-steps' products go into a fresh
+    // fragment, added into s in fp32: summed in the tensor cores' truncating
+    // adder over all 64 k-steps, s would drift by some 1e-5 of itself.
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll 1
+    for (int p = 0; p < 16; ++p) {
+      const float4 qg = *reinterpret_cast<const float4*>(qa + 16 * p);
+      const float4 qg8 = *reinterpret_cast<const float4*>(qa + 8 * LDQ + 16 * p);
+      uint32_t ah[2][4], al[2][4];
+      split_tf32(qg.x, ah[0][0], al[0][0]);
+      split_tf32(qg8.x, ah[0][1], al[0][1]);
+      split_tf32(qg.y, ah[0][2], al[0][2]);
+      split_tf32(qg8.y, ah[0][3], al[0][3]);
+      split_tf32(qg.z, ah[1][0], al[1][0]);
+      split_tf32(qg8.z, ah[1][1], al[1][1]);
+      split_tf32(qg.w, ah[1][2], al[1][2]);
+      split_tf32(qg8.w, ah[1][3], al[1][3]);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float4 kv = *reinterpret_cast<const float4*>(kb + 8 * u * LDQ + 16 * p);
+        float t[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_3xtf32(t, ah[0], al[0], kv.x, kv.y);
+        mma_3xtf32(t, ah[1], al[1], kv.z, kv.w);
+#pragma unroll
+        for (int x = 0; x < 4; ++x) s[u][x] += t[x];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      xw[g * LDX + 8 * u + 2 * c] = s[u][0];
+      xw[g * LDX + 8 * u + 2 * c + 1] = s[u][1];
+      xw[(g + 8) * LDX + 8 * u + 2 * c] = s[u][2];
+      xw[(g + 8) * LDX + 8 * u + 2 * c + 1] = s[u][3];
+    }
+    __syncthreads();                  // partials whole; K_j is consumed
+    if (j + 1 < nk) load_tile_async<BK, D, LDQ>(sK, kh, (j + 1) * BK, Skv, rs);
+    sm90::cp_async_commit();
+
+    // S = the two halves' sum, as the A fragments of O += P V (k-step e:
+    // keys 8 e + c and 8 e + c + 4; element i: row g + 8 (i % 2), key
+    // 8 e + c + 4 (i / 2)), then the online softmax in log2 units. Both
+    // warps of a row group compute the same m and l.
+    float p[2][4], mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = g + 8 * (i % 2), key = 8 * e + c + 4 * (i / 2);
+        const float sv = x0[row * LDX + key] + x1[row * LDX + key];
+        p[e][i] = (j * BK + key < Skv) ? sv * sl2 : NEG_INF;
+        mx[i % 2] = fmaxf(mx[i % 2], p[e][i]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+      alpha[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+    uint32_t ph[2][4], pl[2][4];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float x = exp2f(p[e][i] - m[i % 2]);
+        l[i % 2] += x;
+        split_tf32(x, ph[e][i], pl[e][i]);
+      }
+    sm90::cp_async_wait<1>();         // V_j landed (K_{j+1} may still be in flight)
+    __syncthreads();
+    // O = alpha O + P V over this warp's 256 columns, two n-tiles at a
+    // time: per k-step two 8-byte loads (keys 8 e + c, 8 e + c + 4; columns
+    // 32 jj + 4 g + 2 hh, + 1) give their B fragments; the tile's products
+    // go into fresh fragments, added into O in fp32 (over the key tiles the
+    // tensor cores' truncating adder would bias O by some 1e-4)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float pv[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float* vp = vb + 8 * e * LDV + 32 * jj + 2 * hh;
+          const float2 v0 = *reinterpret_cast<const float2*>(vp);
+          const float2 v1 = *reinterpret_cast<const float2*>(vp + 4 * LDV);
+          mma_3xtf32(pv[0], ph[e], pl[e], v0.x, v1.x);
+          mma_3xtf32(pv[1], ph[e], pl[e], v0.y, v1.y);
+        }
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            acc[jj][2 * hh + t][x] = fmaf(acc[jj][2 * hh + t][x], alpha[x / 2], pv[t][x]);
+      }
+  }
+
+  // the epilogue's offsets come from the block index read anew: kept from
+  // the start, one of them would be spilled past the key loop, where the
+  // accumulators hold 128 registers a thread
+  unsigned bx, by;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(bx));
+  asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(by));
+  const int row0 = bx * BQ + r0 + g;
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(FULL, l[r], 1);
+    l[r] += __shfl_xor_sync(FULL, l[r], 2);
+    const float safe_l = fmaxf(l[r], 1e-30f);
+    inv[r] = 1.f / safe_l;
+    const int row = row0 + 8 * r;
+    if (dh == 0 && c == 0 && row < Sq) lse[(size_t)by * Sq + row] = m[r] * LN2 + logf(safe_l);
+  }
+  // a lane's row g holds columns d0 + 32 jj + 8 c + [0, 8): n-tile t's
+  // elements 0 and 1 are columns 8 c + t and 8 c + 4 + t
+  float* oh = o + ((size_t)(by / H) * Sq * H + by % H) * D + d0 + 8 * c;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= Sq) continue;
+    float* orow = oh + (size_t)row * rs;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float (&a)[4][4] = acc[jj];
+      *reinterpret_cast<float4*>(orow + 32 * jj) =
+          make_float4(a[0][2 * r] * inv[r], a[1][2 * r] * inv[r], a[2][2 * r] * inv[r],
+                      a[3][2 * r] * inv[r]);
+      *reinterpret_cast<float4*>(orow + 32 * jj + 4) =
+          make_float4(a[0][2 * r + 1] * inv[r], a[1][2 * r + 1] * inv[r],
+                      a[2][2 * r + 1] * inv[r], a[3][2 * r + 1] * inv[r]);
+    }
+  }
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -475,6 +773,18 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
   if (e != cudaSuccess) return (int)e;
   dim3 grid((Sq + Cfg<D>::BQ - 1) / Cfg<D>::BQ, B * H);
   flash_fwd_f32_kernel<D><<<grid, THREADS, Cfg<D>::FWD_SMEM, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, H, Sq, Skv, scale);
+  return (int)cudaGetLastError();
+}
+
+int fwd_d512(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+             int Sq, int Skv, float scale, void* stream) {
+  if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(flash_fwd_f32_d512_kernel, d512::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((Sq + d512::BQ - 1) / d512::BQ, B * H);
+  flash_fwd_f32_d512_kernel<<<grid, THREADS, d512::SMEM, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, H, Sq, Skv, scale);
   return (int)cudaGetLastError();
 }
@@ -537,7 +847,7 @@ int aozora_flash_fwd_f32_d128(const void* q, const void* k, const void* v, void*
 int aozora_flash_fwd_f32_d512(const void* q, const void* k, const void* v, void* o,
                               float* lse, int B, int H, int Sq, int Skv, float scale,
                              void* stream) {
-  return fwd<512>(q, k, v, o, lse, B, H, Sq, Skv, scale, stream);
+  return fwd_d512(q, k, v, o, lse, B, H, Sq, Skv, scale, stream);
 }
 
 int aozora_flash_bwd_dq_f32_d64(const void* q, const void* k, const void* v, const void* o,

@@ -1,10 +1,12 @@
-// Flash attention for Hopper (sm_90a), built on wgmma: the backward's dQ
-// and dK/dV kernels at head_dim 64 (K2/K3, the SDXL UNet) and 128 (K4b,
-// the Anima DiT), and the forward at head_dim 128 (K4a).
+// Flash attention for Hopper (sm_90a), built on wgmma: every bf16 kernel
+// but the head_dim-512 forward. At head_dim 64 (the SDXL UNet) the forward
+// K1 and the backward's dQ and dK/dV kernels K2/K3; at 128 (the Anima DiT)
+// the forward K4a and the backward K4b.
 //
 // They replace the Pallas TPU kernels of
 // aozora_sdxl_training_tpu/ops/flash_attention.py:
 //
+//   flash_fwd_sm90_kernel<64>       <- _flash_forward (body _fwd_kernel)
 //   flash_bwd_dq_sm90_kernel<64>    <- _flash_backward, dq pallas_call (_bwd_dq_kernel)
 //   flash_bwd_dkv_sm90_kernel<64>   <- _flash_backward, dk/dv pallas_call (_bwd_dkv_kernel)
 //   flash_fwd_sm90_kernel<128>      <- _flash_forward_folded (body _fwd_kernel)
@@ -61,27 +63,31 @@
 // SMs, one block (8 warps) a SM: the registers (ptxas for sm_90a: about 155
 // forward, 162 dQ, 232 dK/dV a thread, no spill; chip_smoke.py prints them)
 // allow no second block. At head_dim 64 the accumulators are half as large
-// (dQ 32 fp32 registers a thread, dK and dV 64) and the score products
-// have 4 k-steps, so the softmax's share of the work per tensor-core flop
-// is twice D = 128's. There a block is one warpgroup of 64 stationary rows
-// (about 128 registers a thread for dQ, 165 for dK/dV, no spill): 4 dQ or
-// 3 dK/dV blocks a SM run at once, so the SDXL shapes' 640 and 320 blocks
-// fill the card in 1.2 and 0.6 waves of dQ and 1.6 and 0.8 of dK/dV, and
-// the warpgroups of a SM do not wait on each other's tiles. Measured on
-// the H100 and not kept at head_dim 64: two warpgroups a block (dQ 13%,
-// dK/dV 34% slower at B * H = 10, S = 4096), launch bounds that ask for
-// 128 registers a thread (dK/dV spills and is 13-81% slower), and 128-key
-// tiles in the dQ kernel (201 registers, 2 blocks a SM; 5% slower at
-// S = 4096, 11% at 1024). Shared memory with the 1 KB alignment slack, at
-// D = 128 / 64: forward 99,328 bytes (Q x 2, K and V x 2 stages; D = 128
-// only), dQ 133,120 / 50,688 (Q, dO x WG, K and V x 2 stages, lse and
+// (O and dQ 32 fp32 registers a thread, dK and dV 64) and the score
+// products have 4 k-steps, so the softmax's share of the work per
+// tensor-core flop is twice D = 128's. There a block is one warpgroup of 64
+// stationary rows, so that several blocks share a SM and do not wait on
+// each other's tiles: about 117 registers a thread for the forward, 128
+// for dQ and 165 for dK/dV (4, 4 and 3 blocks a SM): the SDXL shapes' 640
+// and 320 blocks fill the card in 1.2 and 0.6 waves of the forward and dQ,
+// 1.6 and 0.8 of dK/dV.
+// Measured on the H100 and not kept at head_dim 64: the forward as WMMA
+// tiles with the scores and O in shared memory (0.695 ms at B * H = 10,
+// S = 4096, 4.6x this design), two warpgroups a block (dQ 13%, dK/dV 34%,
+// the forward 14% slower at B * H = 10, S = 4096, the forward 21% at
+// B * H = 20, S = 1024), launch bounds
+// that ask for 128 registers a thread (dK/dV spills and is 13-81% slower),
+// and 128-key tiles in the dQ kernel (201 registers, 2 blocks a SM; 5%
+// slower at S = 4096, 11% at 1024). Shared memory with the 1 KB alignment
+// slack, at D = 128 / 64: forward 99,328 / 41,984 bytes (Q x WG, K and V x
+// 2 stages), dQ 133,120 / 50,688 (Q, dO x WG, K and V x 2 stages, lse and
 // delta), dK/dV 133,120 / 51,200 (K, V x WG, Q and dO x 2 stages, lse and
 // delta). The dK/dV kernel holds dK and dV and keeps P as bf16 (the A
 // fragment of dV += P^T dO), from which it also forms dS, so that its
 // scores fit beside them. Tried at D = 128 on the H100 and not kept, being
 // no faster beyond the run-to-run spread: rings of 3 and 4 stages, issuing
-// the next tile's scores beside the accumulating product (forward and
-// dQ), and Q as register A fragments for S = Q K^T.
+// the next tile's scores beside the accumulating product (forward and dQ),
+// and Q as register A fragments for S = Q K^T.
 //
 // Built by aozora_sdxl_training_tpu_torch/ops/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
@@ -105,7 +111,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
 
-// Consumer warpgroups of a block at head dim D.
+// Consumer warpgroups of a block at head dim D
 constexpr int warpgroups(int d) { return d == 64 ? 1 : 2; }
 
 // Threads, stationary rows, tile bytes and shared memory at head dim D
@@ -185,8 +191,8 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2], const floa
 }
 
 // ---------------------------------------------------------------------------
-// K4a: forward (instantiated at D = 128). Grid (ceil(Sq / 128), B * H);
-// warpgroup w owns query rows [q0 + 64 w, q0 + 64 w + 64).
+// K1 / K4a: forward. Grid (ceil(Sq / (64 WG)), B * H); warpgroup w owns
+// query rows [q0 + 64 w, q0 + 64 w + 64).
 // ---------------------------------------------------------------------------
 template <int D, int WG>
 __global__ void __launch_bounds__(WG * 128, 1)
@@ -203,7 +209,7 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int rs = H * D;
   const bf16* kh = k + (size_t)b * Skv * rs + h * D;
   const bf16* vh = v + (size_t)b * Skv * rs + h * D;
-  // tiles: Q of warpgroup 0 and 1, then K stage 0 and 1, then V stage 0 and 1
+  // tiles: Q of each warpgroup, then K stage 0 and 1, then V stage 0 and 1
   const uint32_t sQ = sm.addr + wg * TILE;
   const uint32_t sK = sm.addr + WG * TILE;
   const uint32_t sV = sK + 2 * TILE;
@@ -672,30 +678,34 @@ int attributes(K kernel, int threads, size_t smem, int* out) {
   return 0;
 }
 
-template <int D, int WG = warpgroups(D)>
+template <int D>
 int attributes_of(int kernel, int* out) {
-  using G = Geo<D, WG>;
+  using G = Geo<D, warpgroups(D)>;
+  if (kernel == 0)
+    return attributes(flash_fwd_sm90_kernel<D, warpgroups(D)>, G::THREADS, G::FWD_SMEM, out);
   if (kernel == 1)
-    return attributes(flash_bwd_dq_sm90_kernel<D, WG>, G::THREADS, G::DQ_SMEM, out);
+    return attributes(flash_bwd_dq_sm90_kernel<D, warpgroups(D)>, G::THREADS, G::DQ_SMEM, out);
   if (kernel == 2)
-    return attributes(flash_bwd_dkv_sm90_kernel<D, WG>, G::THREADS, G::DKV_SMEM, out);
-  if constexpr (D == 128) {   // the forward exists at head_dim 128 only
-    if (kernel == 0)
-      return attributes(flash_fwd_sm90_kernel<D, WG>, G::THREADS, G::FWD_SMEM, out);
-  }
+    return attributes(flash_bwd_dkv_sm90_kernel<D, warpgroups(D)>, G::THREADS, G::DKV_SMEM,
+                      out);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Plain C interface, one entry point per kernel and head dim (no suffix:
-// head_dim 64, K2/K3; _d128: head_dim 128, K4a/K4b). Each returns the
+// head_dim 64, K1-K3; _d128: head_dim 128, K4a/K4b). Each returns the
 // cudaError_t of its launch; cudaErrorInvalidValue for a pointer the
 // 16-byte loads cannot take.
 extern "C" {
 
 const char* aozora_flash_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
+}
+
+int aozora_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                     int H, int Sq, int Skv, float scale, void* stream) {
+  return fwd<64>(q, k, v, o, lse, B, H, Sq, Skv, scale, (cudaStream_t)stream);
 }
 
 int aozora_flash_fwd_d128(const void* q, const void* k, const void* v, void* o, float* lse,
@@ -731,8 +741,8 @@ int aozora_flash_bwd_dkv_d128(const void* q, const void* k, const void* v, const
                       (cudaStream_t)stream);
 }
 
-// kernel: 0 forward (head_dim 128 only), 1 dQ, 2 dK/dV; head_dim 64 or
-// 128; out: 5 ints (see attributes()).
+// kernel: 0 forward, 1 dQ, 2 dK/dV; head_dim 64 or 128; out: 5 ints (see
+// attributes()).
 int aozora_flash_sm90_attributes(int kernel, int head_dim, int* out) {
   if (head_dim == 64) return attributes_of<64>(kernel, out);
   if (head_dim == 128) return attributes_of<128>(kernel, out);

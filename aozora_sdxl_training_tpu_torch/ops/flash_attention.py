@@ -4,21 +4,32 @@ Counterpart of ``aozora_sdxl_training_tpu/ops/flash_attention.py``. The
 Pallas kernels there become hand-written CUDA kernels, bound with
 ``ctypes`` and wrapped in a ``torch.autograd.Function``. Which kernel a
 call launches depends on the head dim, the dtype and the role (forward,
-dQ, dK/dV), as ``route`` decides:
+dQ, dK/dV), as ``route`` decides::
 
-* bf16, on the tensor cores:
-  - head_dim 64 (the SDXL UNet): K1 forward in ``csrc/flash_attention.cu``
-    (WMMA), K2 dQ and K3 dK/dV in ``csrc/flash_attention_sm90.cu``
-    (wgmma), for ``_flash_forward`` / ``_flash_backward``;
-  - head_dim 128 (the Anima DiT): K4a forward, K4b dQ and dK/dV in
-    ``csrc/flash_attention_sm90.cu``, for ``_flash_forward_folded`` /
-    ``_flash_backward_folded``;
-  - head_dim 512 (the SD-VAE mid-attention): K4a forward in
-    ``csrc/flash_attention.cu``;
-* fp32, on the CUDA cores with fp32 FMAs (``csrc/flash_attention_fp32.cu``;
-  the Pallas bodies multiply in the operands' own dtype, so no fp32
-  operand is rounded to bf16): all three roles at head_dim 64 and 128, the
-  forward at 512 (the preview's fp32 VAE decoder).
+  route name            CUDA kernel (csrc/)                  replaces (Pallas)
+  bf16, flash_attention_sm90.cu: wgmma, fp32 accumulators in registers
+    flash_fwd           flash_fwd_sm90_kernel<64, 1>         K1  _flash_forward (_fwd_kernel)
+    flash_bwd_dq        flash_bwd_dq_sm90_kernel<64, 1>      K2  _flash_backward, dq call
+    flash_bwd_dkv       flash_bwd_dkv_sm90_kernel<64, 1>     K3  _flash_backward, dk/dv call
+    flash_fwd_d128      flash_fwd_sm90_kernel<128, 2>        K4a _flash_forward_folded
+    flash_bwd_dq_d128   flash_bwd_dq_sm90_kernel<128, 2>     K4b _flash_backward_folded, dq
+    flash_bwd_dkv_d128  flash_bwd_dkv_sm90_kernel<128, 2>    K4b _flash_backward_folded, dk/dv
+  bf16, flash_attention.cu: WMMA, O in shared memory
+    flash_fwd_d512      flash_fwd_d512_kernel                K4a at head_dim 512
+  fp32, flash_attention_fp32.cu (no operand rounded to bf16)
+    flash_*_f32_d64     flash_{fwd,bwd_dq,bwd_dkv}_f32_kernel<64>    K1-K3 on fp32 inputs
+    flash_*_f32_d128    flash_{fwd,bwd_dq,bwd_dkv}_f32_kernel<128>   K4a/K4b on fp32 inputs
+    flash_fwd_f32_d512  flash_fwd_f32_d512_kernel            K4a at 512 on fp32 inputs
+
+Head_dim 64 is the SDXL UNet's (K1-K3 run on every SDXL micro step and
+DDIM step), 128 the Anima DiT's, 512 the SD-VAE mid-attention's (bf16 in
+the encoder's flash route, fp32 in the preview's decoder). The fp32
+kernels at 64 and 128 multiply with fp32 FMAs on the CUDA cores (no
+trainer reaches them: both compute in bf16); the one at 512 runs on the
+tensor cores in 3xTF32 (each operand split into two TF32 parts, three
+TF32 products with fp32 accumulation), to fp32 accuracy. Each source's
+header says what bounds its kernels, what their design does about it and
+what was tried and not kept; ``PERF.md`` §6 has their times.
 
 No caller differentiates at head_dim 512, so the backward wrappers raise
 there on any device.
@@ -54,7 +65,7 @@ _WMMA, _SM90, _FP32 = "flash_attention", "flash_attention_sm90", "flash_attentio
 # kernel). The kernel's C entry point is "aozora_<name>" in the library
 # built from csrc/<source>.cu.
 ROUTES = {
-    (64, torch.bfloat16): (("flash_fwd", _WMMA), ("flash_bwd_dq", _SM90),
+    (64, torch.bfloat16): (("flash_fwd", _SM90), ("flash_bwd_dq", _SM90),
                            ("flash_bwd_dkv", _SM90)),                               # K1-K3
     (128, torch.bfloat16): (("flash_fwd_d128", _SM90), ("flash_bwd_dq_d128", _SM90),
                             ("flash_bwd_dkv_d128", _SM90)),                         # K4a/K4b

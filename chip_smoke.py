@@ -10,11 +10,13 @@ Phases, each of which exits non-zero on failure:
 1. device: CUDA present; the card's name and power limit.
 2. build: compiles every CUDA source of the port (one nvcc each, all at
    once, a current library too); for the wgmma kernels
-   (csrc/flash_attention_sm90.cu: the backward at head_dim 64 and 128, the
-   forward at 128) prints ptxas's registers and spill bytes, the
-   registers, dynamic shared memory and blocks per SM the runtime reports,
-   and the HGMMA instructions `cuobjdump -sass` finds in each kernel (none
-   fails the phase; without cuobjdump it prints "not checked").
+   (csrc/flash_attention_sm90.cu: forward and backward at head_dim 64 and
+   128) prints ptxas's registers and spill bytes, the registers, dynamic
+   shared memory and blocks per SM the runtime reports, and the HGMMA
+   instructions `cuobjdump -sass` finds in each kernel, and for the fp32
+   head_dim-512 forward (csrc/flash_attention_fp32.cu, 3xTF32) its
+   registers, spills and TF32 HMMA instructions (a spill, or no HGMMA or
+   HMMA, fails the phase; without cuobjdump it prints "not checked").
 3. kernels: each flash-attention kernel against its plain PyTorch version:
    K1 forward, K2 dQ, K3 dK/dV (head_dim 64) at the SDXL shapes, K4a forward
    and K4b dQ, dK/dV (head_dim 128) at the Anima shape, K4a forward at
@@ -22,7 +24,8 @@ Phases, each of which exits non-zero on failure:
    with ragged and unequal lengths and lengths around one tile; the fp32
    kernels (csrc/flash_attention_fp32.cu: all three at head_dim 64 and 128,
    the forward at 512) on fp32 inputs, held at 1e-4 of the largest
-   reference magnitude; at head_dim 64 and 128, two launches that must
+   reference magnitude (the head_dim-512 forward also against a float64
+   reference, at 1e-5 of it); at head_dim 64 and 128, two launches that must
    agree bitwise; then each timed beside its bound, its plain version and
    the device time (torch.profiler) of scaled_dot_product_attention (a
    yardstick only: its forward beside the forward kernels, its backward,
@@ -104,33 +107,37 @@ PACKAGE = "aozora_sdxl_training_tpu_torch"
 LOG_DIR = Path(os.environ.get("CHIP_SMOKE_LOG_DIR", REPO / "chip_smoke_out"))
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak, H100 SXM
 H100_FP32_FLOPS = 67e12       # fp32 outside the tensor cores, H100 SXM
+H100_TF32_FLOPS = 495e12      # dense TF32 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM
-SM90 = "flash_attention_sm90"      # the wgmma kernels (head_dim 64 backward, 128)
-SOURCES = ("flash_attention", SM90, "flash_attention_fp32", "groupnorm_silu")
+SM90 = "flash_attention_sm90"      # the wgmma kernels (head_dim 64 and 128)
+FP32 = "flash_attention_fp32"      # the fp32 kernels; at head_dim 512 in 3xTF32
+TF32_KERNEL = "flash_fwd_f32_d512_kernel"
+SOURCES = ("flash_attention", SM90, FP32, "groupnorm_silu")
 FA = "aozora_sdxl_training_tpu/ops/flash_attention.py"
 GN = "aozora_sdxl_training_tpu/ops/groupnorm_silu.py"
-# each kernel, the Pallas kernel it replaces (K1 _fwd_kernel, K2
-# _bwd_dq_kernel, K3 _bwd_dkv_kernel; K4a _flash_forward_folded, K4b the dq
-# and dk/dv pallas_calls of _flash_backward_folded), its head dim and the
-# phase whose run counts its launches: the SDXL trainer (K1-K3 in training,
-# the fp32 head_dim-512 forward in the preview's decoder), the Anima trainer
-# (head_dim 128), the unet and dit phases (the fp32 kernels at 64 and 128,
-# which no trainer runs: both trainers compute in bf16)
+# each kernel (by its route name), the Pallas kernel it replaces (K1
+# _fwd_kernel, K2 _bwd_dq_kernel, K3 _bwd_dkv_kernel; K4a
+# _flash_forward_folded, K4b the dq and dk/dv pallas_calls of
+# _flash_backward_folded), its head dim, the phase whose run counts its
+# launches (the SDXL trainer: K1-K3 in training, the fp32 head_dim-512
+# forward in the preview's decoder; the Anima trainer: head_dim 128; the
+# unet and dit phases: the fp32 kernels at 64 and 128, which no trainer
+# runs, both trainers computing in bf16) and the CUDA kernel it launches
 KERNELS = {
-    "flash_fwd": (f"{FA}:65", 64, "trainer"),
-    "flash_bwd_dq": (f"{FA}:153", 64, "trainer"),
-    "flash_bwd_dkv": (f"{FA}:186", 64, "trainer"),
-    "flash_fwd_d128": (f"{FA}:302", 128, "anima"),
-    "flash_bwd_dq_d128": (f"{FA}:355", 128, "anima"),
-    "flash_bwd_dkv_d128": (f"{FA}:378", 128, "anima"),
-    "flash_fwd_d512": (f"{FA}:302", 512, "vae"),
-    "flash_fwd_f32_d64": (f"{FA}:65", 64, "unet"),
-    "flash_bwd_dq_f32_d64": (f"{FA}:153", 64, "unet"),
-    "flash_bwd_dkv_f32_d64": (f"{FA}:186", 64, "unet"),
-    "flash_fwd_f32_d128": (f"{FA}:302", 128, "dit"),
-    "flash_bwd_dq_f32_d128": (f"{FA}:355", 128, "dit"),
-    "flash_bwd_dkv_f32_d128": (f"{FA}:378", 128, "dit"),
-    "flash_fwd_f32_d512": (f"{FA}:302", 512, "trainer"),
+    "flash_fwd": (f"{FA}:65", 64, "trainer", "flash_fwd_sm90_kernel<64, 1>"),
+    "flash_bwd_dq": (f"{FA}:153", 64, "trainer", "flash_bwd_dq_sm90_kernel<64, 1>"),
+    "flash_bwd_dkv": (f"{FA}:186", 64, "trainer", "flash_bwd_dkv_sm90_kernel<64, 1>"),
+    "flash_fwd_d128": (f"{FA}:302", 128, "anima", "flash_fwd_sm90_kernel<128, 2>"),
+    "flash_bwd_dq_d128": (f"{FA}:355", 128, "anima", "flash_bwd_dq_sm90_kernel<128, 2>"),
+    "flash_bwd_dkv_d128": (f"{FA}:378", 128, "anima", "flash_bwd_dkv_sm90_kernel<128, 2>"),
+    "flash_fwd_d512": (f"{FA}:302", 512, "vae", "flash_fwd_d512_kernel (WMMA)"),
+    "flash_fwd_f32_d64": (f"{FA}:65", 64, "unet", "flash_fwd_f32_kernel<64>"),
+    "flash_bwd_dq_f32_d64": (f"{FA}:153", 64, "unet", "flash_bwd_dq_f32_kernel<64>"),
+    "flash_bwd_dkv_f32_d64": (f"{FA}:186", 64, "unet", "flash_bwd_dkv_f32_kernel<64>"),
+    "flash_fwd_f32_d128": (f"{FA}:302", 128, "dit", "flash_fwd_f32_kernel<128>"),
+    "flash_bwd_dq_f32_d128": (f"{FA}:355", 128, "dit", "flash_bwd_dq_f32_kernel<128>"),
+    "flash_bwd_dkv_f32_d128": (f"{FA}:378", 128, "dit", "flash_bwd_dkv_f32_kernel<128>"),
+    "flash_fwd_f32_d512": (f"{FA}:302", 512, "trainer", "flash_fwd_f32_d512_kernel (3xTF32)"),
 }
 TRAIN_STEPS = 8               # two optimizer steps at the presets' GA 4
 GA = 4
@@ -195,7 +202,8 @@ def device_phase(torch):
 
 def build_phase():
     """Builds every source (a current library too, so the ptxas report is
-    this run's); returns the wgmma kernels' report."""
+    this run's); returns the wgmma kernels' and the 3xTF32 kernel's
+    report."""
     phase("build")
     from aozora_sdxl_training_tpu_torch.ops import cuda_build
     results = cuda_build.build_all(SOURCES, force=True)
@@ -211,25 +219,31 @@ def build_phase():
             elif ("registers" in line or "spill" in line or "error" in line.lower()
                   or "wgmma" in line):
                 print(f"  ptxas: {line.strip()}")
-    return sm90_report(cuda_build, results[SM90][1])
+    report = sm90_report(cuda_build, results[SM90][1])
+    report[TF32_KERNEL] = tf32_report(cuda_build, results[FP32][1])
+    return report
 
 
 # the wgmma kernels as their mangled names spell them, with the head dims
 # each is instantiated at, and the flash kernel name of each (kernel, head
 # dim)
-SM90_KERNELS = {"flash_fwd_sm90_kernel": (128,), "flash_bwd_dq_sm90_kernel": (64, 128),
+SM90_KERNELS = {"flash_fwd_sm90_kernel": (64, 128), "flash_bwd_dq_sm90_kernel": (64, 128),
                 "flash_bwd_dkv_sm90_kernel": (64, 128)}
-SM90_OF = {"flash_bwd_dq": ("flash_bwd_dq_sm90_kernel", 64),
+SM90_OF = {"flash_fwd": ("flash_fwd_sm90_kernel", 64),
+           "flash_bwd_dq": ("flash_bwd_dq_sm90_kernel", 64),
            "flash_bwd_dkv": ("flash_bwd_dkv_sm90_kernel", 64),
            "flash_fwd_d128": ("flash_fwd_sm90_kernel", 128),
            "flash_bwd_dq_d128": ("flash_bwd_dq_sm90_kernel", 128),
            "flash_bwd_dkv_d128": ("flash_bwd_dkv_sm90_kernel", 128)}
 
 
-def sm90_kernel_of(mangled: str):
-    """(kernel, head dim) of a mangled wgmma kernel name, or None."""
+def kernel_of(mangled: str):
+    """(kernel, head dim) of a mangled wgmma kernel name or of the 3xTF32
+    kernel, or None."""
     found = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_sm90_kernel)ILi(\d+)E", mangled)
-    return (found.group(1), int(found.group(2))) if found else None
+    if found:
+        return found.group(1), int(found.group(2))
+    return (TF32_KERNEL, 512) if TF32_KERNEL in mangled else None
 
 
 def ptxas_usage(log: str) -> dict:
@@ -239,7 +253,7 @@ def ptxas_usage(log: str) -> dict:
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            current = sm90_kernel_of(entry.group(1))
+            current = kernel_of(entry.group(1))
             continue
         if current is None:
             continue
@@ -253,18 +267,34 @@ def ptxas_usage(log: str) -> dict:
     return usage
 
 
-def hgmma_counts(sass: str) -> dict:
-    """{(kernel, head dim): HGMMA instructions} from ``cuobjdump -sass``."""
+def mma_counts(sass: str) -> dict:
+    """{(kernel, head dim): {"hgmma": n, "hmma_tf32": n}} from ``cuobjdump
+    -sass``: the wgmma instructions and the TF32 mma.sync ones."""
     counts, current = {}, None
     for line in sass.splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
-            current = sm90_kernel_of(fn.group(1))
+            current = kernel_of(fn.group(1))
             if current:
-                counts[current] = 0
+                counts[current] = {"hgmma": 0, "hmma_tf32": 0}
         elif current and "HGMMA" in line:
-            counts[current] += 1
+            counts[current]["hgmma"] += 1
+        elif current and "HMMA" in line and "TF32" in line:
+            counts[current]["hmma_tf32"] += 1
     return counts
+
+
+def sass_counts(cuda_build, source: str):
+    """``mma_counts`` of a built library, or None without cuobjdump."""
+    import shutil
+    cuobjdump = Path(cuda_build.nvcc_path()).with_name("cuobjdump")
+    cuobjdump = str(cuobjdump) if cuobjdump.exists() else shutil.which("cuobjdump")
+    if cuobjdump is None:
+        return None
+    proc = subprocess.run([cuobjdump, "-sass", str(cuda_build.library_path(source))],
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"cuobjdump -sass failed: {proc.stderr[-2000:]}")
+    return mma_counts(proc.stdout)
 
 
 def sm90_report(cuda_build, log: str) -> dict:
@@ -273,18 +303,10 @@ def sm90_report(cuda_build, log: str) -> dict:
     its head dims; fails if ptxas did not report one, if one spills or if
     cuobjdump finds no HGMMA in one."""
     import ctypes
-    import shutil
     usage = ptxas_usage(log)
     lib = ctypes.CDLL(str(cuda_build.library_path(SM90)))
     lib.aozora_flash_sm90_attributes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    cuobjdump = Path(cuda_build.nvcc_path()).with_name("cuobjdump")
-    cuobjdump = str(cuobjdump) if cuobjdump.exists() else shutil.which("cuobjdump")
-    hgmma = None
-    if cuobjdump is not None:
-        proc = subprocess.run([cuobjdump, "-sass", str(cuda_build.library_path(SM90))],
-                              capture_output=True, text=True, timeout=300)
-        check(proc.returncode == 0, f"cuobjdump -sass failed: {proc.stderr[-2000:]}")
-        hgmma = hgmma_counts(proc.stdout)
+    sass = sass_counts(cuda_build, SM90)
     report = {}
     for i, (kernel, dims) in enumerate(SM90_KERNELS.items()):
         for d in dims:
@@ -297,18 +319,37 @@ def sm90_report(cuda_build, log: str) -> dict:
             regs, local, smem, threads, blocks = list(attrs)
             row = {**usage[key], "runtime_registers": regs, "local_bytes": local,
                    "dynamic_smem_bytes": smem, "threads": threads, "blocks_per_sm": blocks,
-                   "hgmma": None if hgmma is None else hgmma.get(key, 0)}
+                   "hgmma": None if sass is None else sass.get(key, {}).get("hgmma", 0)}
             report[f"{kernel}<{d}>"] = row
             print(f"  {kernel}<{d}>: ptxas {row['registers']} registers, spill "
                   f"{row['spill_stores']} B stores / {row['spill_loads']} B loads; runtime "
                   f"{regs} registers, {local} B local, {smem} B dynamic shared memory, "
                   f"{threads} threads, {blocks} block(s)/SM; HGMMA "
-                  f"{'not checked (no cuobjdump)' if hgmma is None else row['hgmma']}")
+                  f"{'not checked (no cuobjdump)' if sass is None else row['hgmma']}")
             check(row["spill_stores"] == 0 and row["spill_loads"] == 0 and local == 0,
                   f"{kernel}<{d}> spills")
-            if hgmma is not None:
+            if sass is not None:
                 check(row["hgmma"] > 0, f"{kernel}<{d}>: no HGMMA instruction in its SASS")
     return report
+
+
+def tf32_report(cuda_build, log: str) -> dict:
+    """ptxas's registers and spills of the 3xTF32 head_dim-512 forward and
+    the TF32 HMMA instructions in its SASS; fails on a spill or on no
+    HMMA."""
+    key = (TF32_KERNEL, 512)
+    usage = ptxas_usage(log)
+    check(key in usage and "registers" in usage[key], f"ptxas reported nothing for {TF32_KERNEL}")
+    sass = sass_counts(cuda_build, FP32)
+    row = {**usage[key], "hmma_tf32": None if sass is None else sass.get(key, {}).get(
+        "hmma_tf32", 0)}
+    print(f"  {TF32_KERNEL}: ptxas {row['registers']} registers, spill {row['spill_stores']} "
+          f"B stores / {row['spill_loads']} B loads; TF32 HMMA "
+          f"{'not checked (no cuobjdump)' if sass is None else row['hmma_tf32']}")
+    check(row["spill_stores"] == 0 and row["spill_loads"] == 0, f"{TF32_KERNEL} spills")
+    if sass is not None:
+        check(row["hmma_tf32"] > 0, f"{TF32_KERNEL}: no TF32 HMMA instruction in its SASS")
+    return row
 
 
 # --------------------------------------------------------------------------
@@ -405,7 +446,9 @@ def kernel_phase(torch):
              ("fp32 S=1024 B=2 H=2 D=128", 2, 2, 1024, 1024, 128, f32),
              ("fp32 Sq=1000 Skv=333 B=2 H=3 D=128", 2, 3, 1000, 333, 128, f32),
              ("fp32 S=16384 B*H=1 D=512", 1, 1, VAE_TOKENS, VAE_TOKENS, 512, f32),
-             ("fp32 Sq=1000 Skv=3000 B=2 H=2 D=512", 2, 2, 1000, 3000, 512, f32)]
+             ("fp32 Sq=1000 Skv=3000 B=2 H=2 D=512", 2, 2, 1000, 3000, 512, f32),
+             ("fp32 Sq=65 Skv=1000 B=1 H=3 D=512", 1, 3, 65, 1000, 512, f32),
+             ("fp32 Sq=40 Skv=40 B=2 H=1 D=512", 2, 1, 40, 40, 512, f32)]
     # tolerance of tensor outputs, as a share of the largest reference
     # magnitude: bf16 2e-2 (bf16 operands of the tensor-core products, fp32
     # accumulation, bf16 outputs), fp32 1e-4 (fp32 products summed in
@@ -446,12 +489,29 @@ def kernel_phase(torch):
             check(err <= tol, f"{label} {what}: error {err} > tolerance {tol}")
             if what != "lse" and label.startswith(main):
                 max_err[kname] = max(max_err[kname], err)
+        if d == 512 and dtype == f32:
+            check_against_float64(torch, label, q, k, v, scale, out)
         del q, k, v, do, out, lse, ref_out, ref_lse, rows
         torch.cuda.empty_cache()
     check_deterministic(torch, fa)
     check_unaligned(torch, fa)
     return max_err, {**time_kernels(torch, fa), **time_fp32(torch, fa),
                      **time_d512(torch, fa)}
+
+
+def check_against_float64(torch, label, q, k, v, scale, out, bar=1e-5):
+    """The 3xTF32 head_dim-512 forward's output against attention in
+    float64, held at ``bar`` of the largest magnitude (the fp32 plain
+    version is held at 1e-4 above; 3xTF32 keeps ~2^-22 of each product)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * scale
+    want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v.double())
+    del s
+    err = (out.double() - want).abs().max().item()
+    tol = bar * want.abs().max().item()
+    print(f"  {label:36s} out   max_abs_err {err:.3e} against float64 ({err / tol * bar:.2e} "
+          f"of the largest magnitude)  tol {tol:.3e}")
+    check(err <= tol, f"{label}: error {err} against float64 > {tol}")
+    return err
 
 
 def check_deterministic(torch, fa):
@@ -601,16 +661,19 @@ def time_fp32(torch, fa):
 
 def time_d512(torch, fa):
     """The head_dim-512 forward at the SD-VAE mid-attention shape: the fp32
-    kernel (the preview decoder's, at the fp32 CUDA-core peak) and the bf16
-    one (the encoder's flash route, at the bf16 tensor-core peak): kernel,
-    plain version and scaled_dot_product_attention (a yardstick the port
-    never calls), by CUDA events over 10 launches. Bound: 4 * S^2 * 512
-    flop against q, k, v read and out and lse written once."""
+    kernel (the preview decoder's) and the bf16 one (the encoder's flash
+    route): kernel, plain version and scaled_dot_product_attention (a
+    yardstick the port never calls), by CUDA events over 10 launches.
+    Bound: 4 * S^2 * 512 flop against q, k, v read and out and lse written
+    once; the bf16 kernel's flop at the bf16 tensor-core peak, the fp32
+    kernel's as the three TF32 products it runs them as at the TF32 peak
+    (``bound_ms``) and, beside it, as fp32 FMAs at the CUDA cores' peak
+    (``bound_fp32_fma_ms``)."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(2)
     timings = {}
-    for dtype, elem, peak in ((torch.float32, 4, H100_FP32_FLOPS),
-                              (torch.bfloat16, 2, H100_BF16_FLOPS)):
+    for dtype, elem, products, peak in ((torch.float32, 4, 3, H100_TF32_FLOPS),
+                                        (torch.bfloat16, 2, 1, H100_BF16_FLOPS)):
         q, k, v = (torch.randn(1, VAE_TOKENS, 1, 512, device="cuda", dtype=dtype,
                                generator=g) for _ in range(3))
         scale = 512 ** -0.5
@@ -619,16 +682,22 @@ def time_d512(torch, fa):
         plain = cuda_ms(torch, lambda: fa.flash_forward_reference(q, k, v, scale), 3, 1)
         lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), 10, 2)
         flops = 4 * VAE_TOKENS * VAE_TOKENS * 512
-        bms, bound_by = bound(flops, 4 * VAE_TOKENS * 512 * elem + 4 * VAE_TOKENS, peak)
+        nbytes = 4 * VAE_TOKENS * 512 * elem + 4 * VAE_TOKENS
+        bms, bound_by = bound(products * flops, nbytes, peak)
         name = str(dtype).replace("torch.", "")
         kname = fa.route(512, dtype, "forward")[0]
-        timings[kname] = [{"shape": f"B*H=1 S={VAE_TOKENS} D=512 {name}",
-                           "calls_per_preview": 1 if dtype == torch.float32 else 0,
-                           "ms": ms, "plain_ms": plain, "bound_ms": bms,
-                           "bound_by": bound_by, "library_ms": lib,
-                           "tflops": flops / ms / 1e9}]
+        row = {"shape": f"B*H=1 S={VAE_TOKENS} D=512 {name}",
+               "calls_per_preview": 1 if dtype == torch.float32 else 0,
+               "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": bound_by,
+               "library_ms": lib, "tflops": flops / ms / 1e9}
+        note = ""
+        if dtype == torch.float32:
+            row["bound_fp32_fma_ms"] = bound(flops, nbytes, H100_FP32_FLOPS)[0]
+            note = (f" (3 TF32 products; as fp32 FMAs {row['bound_fp32_fma_ms']:.4f} ms, "
+                    f"{row['bound_fp32_fma_ms'] / ms:.1%})")
+        timings[kname] = [row]
         print(f"  {kname:22s} B*H=1 S={VAE_TOKENS} D=512 {name}: kernel "
-              f"{ms:.4f} ms, bound {bms:.4f} ms ({bms / ms:.1%}), plain {plain:.4f} ms, "
+              f"{ms:.4f} ms, bound {bms:.4f} ms ({bms / ms:.1%}){note}, plain {plain:.4f} ms, "
               f"sdpa {lib:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s")
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
@@ -1034,7 +1103,7 @@ def vae_phase(torch):
     and decoder in fp32 (the preview's) on a random SD-VAE at 1024px: the
     flash path against the einsum path, one head_dim-512 launch each
     (flash_fwd_d512 in bf16, flash_fwd_f32_d512 in fp32). Tolerance: 5e-2
-    (encoder, bf16 throughout) and 1e-3 (decoder, fp32 throughout) of the
+    (encoder, bf16 throughout) and 1e-5 (decoder, fp32 throughout) of the
     einsum output's largest magnitude. Returns (summary, the encoder's
     launches)."""
     phase("vae")
@@ -1049,7 +1118,7 @@ def vae_phase(torch):
                 params, pixels, compute_dtype=torch.bfloat16, attn_impl=impl), 5e-2,
                 "flash_fwd_d512"),
             "decoder": (lambda impl: vae_mod.decoder_forward(
-                params, latents, compute_dtype=torch.float32, attn_impl=impl), 1e-3,
+                params, latents, compute_dtype=torch.float32, attn_impl=impl), 1e-5,
                 "flash_fwd_f32_d512")}
     summary = {}
     for part, (fn, tol, kname) in runs.items():
@@ -1624,14 +1693,16 @@ def kernels_json(timings, max_err, launches, k5, k6, sm90):
     before."""
     from aozora_sdxl_training_tpu_torch.ops import flash_attention as fa
     kernels = []
-    for kname, (replaces, d, ph) in KERNELS.items():
+    for kname, (replaces, d, ph, cuda_kernel) in KERNELS.items():
         head = timings[kname][0]      # the largest main shape of its head dim
         build = {}
         if kname in SM90_OF:
             build["build"] = sm90["{}<{}>".format(*SM90_OF[kname])]
+        elif cuda_kernel.startswith(TF32_KERNEL):
+            build["build"] = sm90[TF32_KERNEL]
         kernels.append({
             "name": kname, "route": "cuda",
-            "source": f"{PACKAGE}/csrc/{fa.SOURCES[kname]}.cu",
+            "source": f"{PACKAGE}/csrc/{fa.SOURCES[kname]}.cu", "kernel": cuda_kernel,
             "replaces": replaces, "head_dim": d, "phase": ph,
             "launches": launches[ph].get(kname, 0),
             "max_abs_err": max_err[kname], "ms": head["ms"],

@@ -7,12 +7,13 @@ without JAX it runs apart from tests/conftest.py:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 
 All three head dims of the flash kernels are covered: 64 (K1-K3, the
-SDXL UNet; K2/K3 are wgmma kernels of csrc/flash_attention_sm90.cu), 128
-(K4a/K4b, the Anima DiT, the same file) and 512 (K4a forward, the SD-VAE
+SDXL UNet; wgmma kernels of csrc/flash_attention_sm90.cu), 128 (K4a/K4b,
+the Anima DiT, the same file) and 512 (K4a forward, the SD-VAE
 mid-attention), in bf16 and, through the fp32 kernels of
-csrc/flash_attention_fp32.cu, in fp32; with ragged lengths, unequal query
-and key lengths, lengths below, at and one past a tile, two launches that
-must agree bitwise, and an input the 16-byte loads cannot take.
+csrc/flash_attention_fp32.cu (3xTF32 on the tensor cores at 512), in fp32;
+with ragged lengths, unequal query and key lengths, lengths below, at and
+one past a tile, two launches that must agree bitwise, and an input the
+16-byte loads cannot take.
 K5 (the stats-level entry points over those kernels) is held against its
 plain versions on a KV shard, and the ring's hop schedule composed on one
 card at sp 2 against full attention. K6 (the fused GroupNorm + SiLU
@@ -26,7 +27,9 @@ values, gradients at five times that, and lse at 1e-3 (exact bf16
 products). The fp32 kernels multiply fp32 with fp32 FMAs, so outputs and
 gradients are held at 1e-4 of the plain fp32 version's largest magnitude
 (the sums run in another order; with one key, where dq and dk are zero
-but for rounding, at 1e-4 of the unit-scale inputs) and lse at 1e-4. K5
+but for rounding, at 1e-4 of the unit-scale inputs) and lse at 1e-4; the
+3xTF32 head_dim-512 forward also against a float64 version at 1e-5 of its
+largest magnitude (its products keep ~2^-22 of each term). K5
 and the one-card ring: 2e-2 of the largest magnitude (bf16 kernels; the
 ring's merges are fp32). K6: bf16 2e-2
 of the largest magnitude (one bf16 rounding of the output), fp32 1e-4 of
@@ -179,7 +182,8 @@ def test_wrappers_raise_at_head_dim_512(cuda_device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,sq,skv", [(1, 1, 2048, 2048), (1, 1, 1000, 1000),
-                                        (2, 2, 333, 1000), (1, 1, 1000, 333)])
+                                        (2, 2, 333, 1000), (1, 1, 1000, 333),
+                                        (2, 2, 40, 1000), (1, 1, 65, 65), (1, 3, 65, 1000)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_d512_forward_matches_plain_version_on_card(cuda_device, dtype, b, h, sq, skv):
     """flash_fwd_d512 (K4a at head_dim 512, bf16) and flash_fwd_f32_d512
@@ -201,6 +205,21 @@ def test_d512_forward_matches_plain_version_on_card(cuda_device, dtype, b, h, sq
         assert _rel_err(out, ref_out) <= 1e-4
         torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
     assert port.LAUNCHES[kname] == counts[kname] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,sq,skv", [(1, 1, 4096, 4096), (2, 2, 333, 1000)])
+def test_f32_d512_forward_matches_float64_on_card(cuda_device, b, h, sq, skv):
+    """flash_fwd_f32_d512 (3xTF32) against attention in float64: within
+    1e-5 of the largest magnitude, as fp32 products would be."""
+    g = torch.Generator(device=cuda_device).manual_seed(sq + 7)
+    q = torch.randn(b, sq, h, 512, device=cuda_device, generator=g)
+    k, v = (torch.randn(b, skv, h, 512, device=cuda_device, generator=g) for _ in range(2))
+    scale = 512 ** -0.5
+    out, _ = port.flash_fwd(q, k, v, scale)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * scale
+    want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v.double())
+    assert _rel_err(out.double(), want) <= 1e-5
 
 
 def _rel_err(got, want):

@@ -11,7 +11,10 @@ card by ``chip_smoke.py`` and by tests/test_torch_port_cuda.py. What runs
 without a card is checked here too: which library each kernel is bound
 from, the nvcc command of the wgmma source, the rebuild rule, and the
 wrappers' alignment check (tests/test_torch_port_flash_routes.py holds the
-routing by head dim, dtype and role).
+routing by head dim, dtype and role). The arithmetic of the fp32 head_dim-512
+kernel (3xTF32: each operand split into two TF32 parts, three TF32
+products) is emulated here and held against the JAX kernel in fp32 at a
+bar that one TF32 product does not meet.
 """
 
 import os
@@ -26,7 +29,8 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from aozora_sdxl_training_tpu.ops.flash_attention import (
-    flash_attention as jax_flash, flash_fwd_stats)
+    _flash_forward_folded, _pick_blocks, _round_up, flash_attention as jax_flash,
+    flash_fwd_stats)
 from aozora_sdxl_training_tpu_torch.ops import cuda_build
 from aozora_sdxl_training_tpu_torch.ops import flash_attention as port
 from aozora_sdxl_training_tpu_torch.ops.attention import attention
@@ -104,9 +108,9 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
 
 
 def test_each_kernel_is_bound_from_the_library_of_its_source(monkeypatch):
-    """The wgmma entry points (head_dim 64 backward, all of head_dim 128) come
-    from csrc/flash_attention_sm90.cu (and only its library is loaded for
-    them, with their argument types); the head_dim-64 and -512 forwards from
+    """The wgmma entry points (all of head_dim 64 and 128) come from
+    csrc/flash_attention_sm90.cu (and only its library is loaded for them,
+    with their argument types); the bf16 head_dim-512 forward from
     csrc/flash_attention.cu; the fp32 ones from csrc/flash_attention_fp32.cu.
     A launch goes to the library of its kernel."""
     assert set(port.SOURCES.values()) == {"flash_attention", "flash_attention_sm90",
@@ -134,10 +138,10 @@ def test_each_kernel_is_bound_from_the_library_of_its_source(monkeypatch):
     lib = port._library("flash_attention_sm90")
     assert loaded == ["flash_attention_sm90"]
     for names in ([name for name, _ in port.ROUTES[128, torch.bfloat16]],
-                  ("flash_fwd_d128", "flash_bwd_dq", "flash_bwd_dkv")):
+                  ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
         for name, types_ in zip(names, port._ARGTYPES):
             assert getattr(lib, f"aozora_{name}").argtypes == types_
-    assert not hasattr(lib, "aozora_flash_fwd")
+    assert not hasattr(lib, "aozora_flash_fwd_d512")
     assert port._library("flash_attention_sm90") is lib and len(loaded) == 1
     port._launch("flash_bwd_dkv_d128", 7)
     port._launch("flash_fwd_d512", 8)
@@ -229,3 +233,78 @@ def test_a_forced_build_rebuilds_a_current_library(monkeypatch, tmp_path):
     failed = types.SimpleNamespace(returncode=1, communicate=lambda: ("error", None))
     with pytest.raises(RuntimeError, match="nvcc failed for k.cu"):
         cuda_build.finish_build("k", failed)
+
+
+# --------------------------------------------------------------------------
+# The fp32 head_dim-512 forward's 3xTF32 arithmetic, emulated
+# --------------------------------------------------------------------------
+
+def _tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 rounds it: to nearest, ties
+    away from zero, at the 13th mantissa bit, the low 13 bits cleared (the
+    integer form of flash_attention_fp32.cu)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    """x as the tensor cores read a TF32 operand: its low 13 bits dropped."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a, b, products):
+    """a @ b from TF32 operands with fp32 sums: hi hi alone (products=1), or
+    lo hi + hi lo + hi hi (3), hi = tf32(x) and lo = x - hi as the tensor
+    cores read it, as the kernel splits them."""
+    ah, bh = _tf32(a), _tf32(b)
+    if products == 1:
+        return ah @ bh
+    al, bl = _tf32_truncated(a - ah), _tf32_truncated(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _tf32_attention(q, k, v, scale, products, block_k=16):
+    """The kernel's loop on (S, D) fp32 rows: per 16-key tile the scores in
+    TF32 products, the online softmax in fp32, O += P V in TF32 products."""
+    m = torch.full((q.shape[0],), -1e30)
+    l = torch.zeros(q.shape[0])
+    o = torch.zeros_like(q)
+    for j0 in range(0, k.shape[0], block_k):
+        s = _tf32_matmul(q, k[j0:j0 + block_k].T, products) * scale
+        m_new = torch.maximum(m, s.max(1).values)
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[:, None])
+        l = l * alpha + p.sum(1)
+        o = o * alpha[:, None] + _tf32_matmul(p, v[j0:j0 + block_k], products)
+        m = m_new
+    return o / l[:, None], m + torch.log(l)
+
+
+def test_split_tf32_arithmetic_matches_jax_kernel_at_head_dim_512():
+    """3xTF32 attention at head_dim 512 (one head, 192 tokens) against the
+    JAX package's _flash_forward_folded in fp32 (interpret mode): within
+    1e-5 of the largest output magnitude (lse 1e-5 absolute), where one
+    TF32 product alone misses that bar (about 5e-4 here) and 3xTF32 lands
+    near fp32's own summation error (about 1e-6)."""
+    s, d = 192, 512
+    q, k, v = _inputs(512, s, s, h=1, d=d)
+    scale = d ** -0.5
+    block_q, block_k = _pick_blocks(s, s)
+    pad = _round_up(s, block_q)
+
+    def fold(x):
+        return jnp.pad(jnp.asarray(x).reshape(1, s, d), ((0, 0), (0, pad - s), (0, 0)))
+
+    with pltpu.force_tpu_interpret_mode():
+        out, lse = _flash_forward_folded(fold(q), fold(k), fold(v), h=1, scale=scale,
+                                         kv_valid=s, block_q=block_q, block_k=block_k)
+    ref, ref_lse = np.asarray(out)[0, :s], np.asarray(lse)[0, :s, 0]
+    bar = 1e-5 * np.abs(ref).max()
+    errs = {}
+    for products in (1, 3):
+        got, got_lse = _tf32_attention(*(torch.from_numpy(x[0, :, 0]) for x in (q, k, v)),
+                                       scale, products)
+        errs[products] = (np.abs(got.numpy() - ref).max(),
+                          np.abs(got_lse.numpy() - ref_lse).max())
+    assert errs[3][0] <= bar and errs[3][1] <= 1e-5, errs
+    assert errs[1][0] > 10 * bar, errs

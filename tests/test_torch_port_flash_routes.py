@@ -3,12 +3,13 @@
 ``ops/flash_attention.route`` decides from the head dim, the dtype and the
 role (forward, dQ, dK/dV) which kernel a wrapper launches on CUDA tensors,
 and which CUDA source's library exports it. bf16 goes to the tensor-core
-kernels (``csrc/flash_attention.cu``: the head_dim-64 and -512 forwards;
-``csrc/flash_attention_sm90.cu``: the head_dim-64 backward and everything
-at 128), fp32 to the fp32 CUDA-core kernels (``csrc/flash_attention_fp32.cu``),
-so that no fp32 operand is rounded to bf16. The backward at head_dim 512
-has no kernel in either dtype. Each entry point is checked to be defined in
-its source, and each source to define no other.
+kernels (``csrc/flash_attention_sm90.cu``: every role at head_dim 64 and
+128, on wgmma; ``csrc/flash_attention.cu``: the head_dim-512 forward),
+fp32 to the fp32 kernels (``csrc/flash_attention_fp32.cu``: fp32 FMAs at
+64 and 128, 3xTF32 at 512), so that no fp32 operand is rounded to bf16. The
+backward at head_dim 512 has no kernel in either dtype. Each entry point is
+checked to be defined in its source, and each source to define no other;
+the WMMA head_dim-64 forward that the wgmma one replaced is gone.
 """
 
 import re
@@ -22,7 +23,7 @@ from aozora_sdxl_training_tpu_torch.ops import flash_attention as port
 BF16, F32 = torch.bfloat16, torch.float32
 WMMA, SM90, FP32 = "flash_attention", "flash_attention_sm90", "flash_attention_fp32"
 ROUTE_TABLE = {
-    (64, BF16): (("flash_fwd", WMMA), ("flash_bwd_dq", SM90), ("flash_bwd_dkv", SM90)),
+    (64, BF16): (("flash_fwd", SM90), ("flash_bwd_dq", SM90), ("flash_bwd_dkv", SM90)),
     (128, BF16): (("flash_fwd_d128", SM90), ("flash_bwd_dq_d128", SM90),
                   ("flash_bwd_dkv_d128", SM90)),
     (512, BF16): (("flash_fwd_d512", WMMA), None, None),
@@ -65,3 +66,15 @@ def test_every_entry_point_is_defined_in_its_source():
         defined = set(re.findall(r"^int aozora_(\w+)\(", text, re.M)) - {"flash_sm90_attributes"}
         assert defined == {n for n, src in port.SOURCES.items() if src == source}, source
         assert "aozora_flash_error_string" in text
+
+
+def test_the_head_dim_64_forward_is_the_wgmma_kernel():
+    """K1 is flash_fwd_sm90_kernel at head_dim 64: the WMMA
+    flash_fwd_kernel<64> and its geometry are gone from flash_attention.cu,
+    which keeps the bf16 head_dim-512 forward alone, and the sm90 source
+    exports the head_dim-64 forward beside the backward."""
+    wmma = (cuda_build.CSRC / f"{WMMA}.cu").read_text()
+    sm90 = (cuda_build.CSRC / f"{SM90}.cu").read_text()
+    assert "flash_fwd_kernel" not in wmma and "Geometry" not in wmma
+    assert re.findall(r"^(flash_\w+_kernel)\(", wmma, re.M) == ["flash_fwd_d512_kernel"]
+    assert re.search(r"^int aozora_flash_fwd\([^)]*\)\s*\{\s*return fwd<64>", sm90, re.M)
