@@ -1,14 +1,16 @@
 // Flash attention for fp32 inputs, to fp32 accuracy: no operand is
-// rounded to bf16 (the bf16 kernels of flash_attention.cu and
-// flash_attention_sm90.cu take bf16 only). Each kernel computes what a
-// Pallas TPU kernel of aozora_sdxl_training_tpu/ops/flash_attention.py
-// computes when its operands are fp32 (the Pallas bodies multiply in the
-// operands' own dtype):
+// rounded to bf16 (the bf16 kernels of flash_attention_sm90.cu take bf16
+// only). Each kernel computes what a Pallas TPU kernel of
+// aozora_sdxl_training_tpu/ops/flash_attention.py computes when its
+// operands are fp32 (the Pallas bodies multiply in the operands' own
+// dtype):
 //
-//   flash_fwd_f32_kernel<D>       <- _fwd_kernel (_flash_forward)   D = 64, 128
-//   flash_bwd_dq_f32_kernel<D>    <- _bwd_dq_kernel                 D = 64, 128
-//   flash_bwd_dkv_f32_kernel<D>   <- _bwd_dkv_kernel                D = 64, 128
-//   flash_fwd_f32_d512_kernel     <- _fwd_kernel (_flash_forward_folded) at D = 512
+//   flash_fwd_f32_kernel<D>         <- _fwd_kernel (_flash_forward)   D = 64, 128
+//   flash_bwd_dq_f32_kernel<64>     <- _bwd_dq_kernel (_flash_backward)
+//   flash_bwd_dkv_f32_kernel<64>    <- _bwd_dkv_kernel (_flash_backward)
+//   flash_bwd_dq_f32_d128_kernel    <- _flash_backward_folded, dq pallas_call
+//   flash_bwd_dkv_f32_d128_kernel   <- _flash_backward_folded, dk/dv pallas_call
+//   flash_fwd_f32_d512_kernel       <- _fwd_kernel (_flash_forward_folded) at D = 512
 //
 // The last is the SD-VAE decoder's mid-attention in the preview (one head
 // of 512 over 16384 tokens at 1024px), forward only: no caller
@@ -24,11 +26,12 @@
 // v, dk, dv contiguous fp32 (B, Skv, H, D); lse and delta contiguous fp32
 // (B * H, Sq).
 //
-// The head_dim-64 and -128 kernels, on the CUDA cores: bound by the fp32
-// FMA rate (4, 6 and 8 * Sq * Skv * D flop per head against 4 * S * D
-// bytes per operand); no caller of the trainers reaches them (both compute
-// in bf16), so they are the simple design: a block of 256 threads owns 64
-// rows of the stationary sequence and loops over 64-row tiles of the other,
+// The forwards at head_dim 64 and 128 and the backward at 64, on the CUDA
+// cores: bound by the fp32 FMA rate (4, 6 and 8 * Sq * Skv * D flop per
+// head against 4 * S * D bytes per operand); no caller of the trainers
+// reaches them (both compute in bf16), so they are the simple design: a
+// block of 256 threads owns 64 rows of the stationary sequence and loops
+// over 64-row tiles of the other,
 // all tiles in shared memory (rows padded by 4 floats, so that the 16-byte
 // loads of 8 neighbouring rows fall in 8 different bank groups). Thread
 // t = 16 rb + cb computes a register tile: rows rb + 16 i of the score
@@ -39,7 +42,8 @@
 // tiles come in by cp.async; the second operand of a tile's score products
 // (V, dO) is waited for only after the first product.
 //
-// The head_dim-512 forward, on the tensor cores in 3xTF32. Its 4 * S^2 *
+// The backward at head_dim 128 and the forward at 512, on the tensor cores
+// in 3xTF32 (the backward's design is at its kernels). The forward's 4 * S^2 *
 // 512 flop (5.5e11 at S = 16384) take 8.2 ms at the fp32 FMA peak (67
 // TFLOP/s), where the CUDA-core kernel of the design above took 23.6 ms on
 // the H100; as three TF32 products (495 TFLOP/s) they take 3.3 ms. Each
@@ -559,13 +563,18 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
 // The tensor cores truncate where they add into d, so a caller keeps d to a
 // few products and adds it into its running sums in fp32 (see below).
 __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
                                            const uint32_t (&al)[4], float b0, float b1) {
   uint32_t bh0, bl0, bh1, bl1;
   split_tf32(b0, bh0, bl0);
   split_tf32(b1, bh1, bl1);
-  mma_tf32(d, al, bh0, bh1);
-  mma_tf32(d, ah, bl0, bl1);
-  mma_tf32(d, ah, bh0, bh1);
+  mma_3xtf32(d, ah, al, bh0, bh1, bl0, bl1);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -757,6 +766,430 @@ flash_fwd_f32_d512_kernel(const float* __restrict__ q, const float* __restrict__
   }
 }
 
+// ---------------------------------------------------------------------------
+// The backward at head_dim 128 on the tensor cores, to fp32 accuracy: every
+// product in 3xTF32 as above. A block of 4 warps owns 32 rows of the
+// stationary sequence (queries in the dQ kernel, keys in the dK/dV kernel)
+// and loops over 32-row tiles of the other; warp w takes the stationary
+// rows a0 = 16 (w % 2) .. + 16 and the streamed rows b0 = 16 (w / 2) .. + 16
+// of each tile. Its score products (16 x 16, reduced over all of D) stay in
+// registers: the accumulator of an n-tile is the A fragment of a k-step of
+// the accumulating product once that product's reduction index (the
+// streamed rows) is permuted to match (logical k = c and c + 4 of k-step e
+// are rows 8 e + 2 c and 8 e + 2 c + 1), so no score tile goes through
+// shared memory. Each warp accumulates its 16 streamed rows' share of the
+// 16 x 128 output (dQ; dK and dV) and the two warps of a row group add
+// theirs once, in the epilogue, in a fixed order. Every tile's accumulating
+// products go into fresh fragments added into the fp32 sums, and each
+// k-step's scores likewise (the tensor cores' adder truncates).
+//
+// Tiles are rows of 128 floats whose 16-byte chunks are permuted by row
+// (swz): the score products read a row's chunks 4 p + c (rows g of a
+// quarter warp), the accumulating products chunk 8 jj + g of rows 2 c and
+// 2 c + 1, and both fall in 8 different bank groups. 32-row blocks give
+// B * H = 4, S = 1024 128 blocks; 96.5 KB of shared memory (the stationary
+// tiles, two cp.async stages of the streamed ones, the lse and delta rows)
+// lets 2 blocks share a SM (registers allow no third: dQ 214, dK/dV 255 a
+// thread, where dK/dV applies P to dV before it forms dP, and reads its
+// fragments at per-lane offsets, to fit). What bounds it on the H100 is the
+// work around the tensor cores: about 30% of the 3xTF32 bound at B * H =
+// 16, S = 4096, with 8 warps a SM and the stationary operand split again
+// for every tile. Also measured on the H100 (PERF.md), and slower: each
+// stage's streamed tiles split into hi and lo once in shared memory (160.5
+// KB, 1 block a SM; 1.2-1.7x slower), hi by truncation in place of rounding
+// (and 3x further from float64); a fully unrolled score loop spills dK/dV.
+// ---------------------------------------------------------------------------
+namespace b128 {
+constexpr int D = 128, BR = 32, THREADS = 128;
+constexpr int CH = D / 4;                        // 16-byte chunks of a row
+constexpr int TILE = BR * D;                     // floats of a 32-row tile
+// the stationary tiles, 2 stages of the 2 streamed tiles, then lse and
+// delta: of the block's rows (dQ), of each stage (dK/dV)
+constexpr size_t SMEM = (size_t)(6 * TILE + 4 * BR) * sizeof(float);
+static_assert(SMEM <= 232448, "shared memory of one block");
+}  // namespace b128
+
+// float offset of 16-byte chunk ch of row r
+__device__ __forceinline__ int swz(int r, int ch) {
+  return (r * b128::CH + (ch ^ ((r & 6) ^ ((r & 1) << 2)))) * 4;
+}
+
+// Rows [row0, row0 + 32) of one head (row stride rs floats) into a tile, by
+// cp.async (the caller commits and waits); rows >= S are zeros.
+__device__ __forceinline__ void load_rows32(float* tile, const float* head, int row0, int S,
+                                            int rs) {
+#pragma unroll
+  for (int i = 0; i < b128::BR * b128::CH / b128::THREADS; ++i) {
+    const unsigned c = threadIdx.x + i * b128::THREADS;
+    const int r = c / b128::CH, ch = c % b128::CH;
+    const bool ok = row0 + r < S;
+    sm90::cp_async16(sm90::smem_u32(tile + swz(r, ch)),
+                     head + (size_t)(ok ? row0 + r : 0) * rs + ch * 4, ok);
+  }
+}
+
+// 4 neighbouring floats of a streamed tile at float offset off, split
+struct Split4 {
+  uint32_t h[4], l[4];
+};
+__device__ __forceinline__ Split4 load_split4(const float* tile, int off) {
+  Split4 r;
+  const float4 f = *reinterpret_cast<const float4*>(tile + off);
+  split_tf32(f.x, r.h[0], r.l[0]);
+  split_tf32(f.y, r.h[1], r.l[1]);
+  split_tf32(f.z, r.h[2], r.l[2]);
+  split_tf32(f.w, r.h[3], r.l[3]);
+  return r;
+}
+
+// The offsets (floats) of the fragments a lane (g = lane / 4, c = lane % 4)
+// reads in a tile, past its row's start, by swz: a score product reads row
+// g (mod 8) at 16-column group p, chunk 4 p + c, at 32 (p / 2) + xo[p % 2];
+// an accumulating product reads rows 2 c + i (mod 8) at 32-column group jj,
+// chunk 8 jj + g, at 32 jj + yo[i] past row 2 c.
+struct LaneOffsets {
+  int xo[2], yo[2];
+  __device__ __forceinline__ LaneOffsets(int g, int c) {
+    const int f = (g & 6) ^ ((g & 1) << 2);
+    xo[0] = 4 * (c ^ f);
+    xo[1] = 4 * ((4 + c) ^ f);
+    yo[0] = 4 * (g ^ (2 * c));
+    yo[1] = b128::D + 4 * (g ^ (2 * c) ^ 4);
+  }
+};
+
+// s[u] (16 x 8, u = 0, 1) = A[rows a0 .. a0 + 16) B[rows b0 + 8 u .. + 8)^T
+// over the 128 columns: A stationary, B streamed; Ag = A + (a0 + g) D and
+// Bg = B + (b0 + g) D. The reduction index is permuted alike in A and B:
+// logical k = c and c + 4 of k-step e of 16-column group p are columns
+// 16 p + 4 c + 2 e and + 1, so one 16-byte load covers two k-steps.
+// s[u][x]: row a0 + g + 8 (x / 2), column b0 + 8 u + 2 c + x % 2.
+__device__ __forceinline__ void score16(float (&s)[2][4], const float* Ag, const float* Bg,
+                                        const LaneOffsets& lo) {
+  constexpr int D = b128::D;
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) s[u][x] = 0.f;
+#pragma unroll 1
+  for (int pp = 0; pp < 4; ++pp) {
+#pragma unroll
+    for (int par = 0; par < 2; ++par) {
+      const int off = 32 * pp + lo.xo[par];
+      const float4 x = *reinterpret_cast<const float4*>(Ag + off);
+      const float4 x8 = *reinterpret_cast<const float4*>(Ag + 8 * D + off);
+      uint32_t ah[2][4], al[2][4];
+      split_tf32(x.x, ah[0][0], al[0][0]);
+      split_tf32(x8.x, ah[0][1], al[0][1]);
+      split_tf32(x.y, ah[0][2], al[0][2]);
+      split_tf32(x8.y, ah[0][3], al[0][3]);
+      split_tf32(x.z, ah[1][0], al[1][0]);
+      split_tf32(x8.z, ah[1][1], al[1][1]);
+      split_tf32(x.w, ah[1][2], al[1][2]);
+      split_tf32(x8.w, ah[1][3], al[1][3]);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        // the two k-steps into fragments of their own: 4 independent
+        // chains of 3 products a warp in place of 2 of 6
+        const Split4 b = load_split4(Bg, 8 * u * D + off);
+        float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_3xtf32(t0, ah[0], al[0], b.h[0], b.h[1], b.l[0], b.l[1]);
+        mma_3xtf32(t1, ah[1], al[1], b.h[2], b.h[3], b.l[2], b.l[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[u][e] += t0[e] + t1[e];
+      }
+    }
+  }
+}
+
+// The A fragment index of score element x: elements 0 and 2 (columns 2 c)
+// are logical k = c of rows g and g + 8, elements 1 and 3 logical k = c + 4.
+__device__ __forceinline__ int a_index(int x) { return ((x & 1) << 1) | (x >> 1); }
+
+// acc[4 jj + i] (16 x 8) += P B[rows b0 .. b0 + 16): P the two score
+// fragments e = 0, 1 as the A fragments of k-steps (rows 8 e + 2 c, + 1 of
+// B), split (ph, pl); Bc = B + (b0 + 2 c) D. n-tile 4 jj + i's logical
+// column n is column 32 jj + 4 n + i, so that a 16-byte load gives the B
+// fragments of 4 n-tiles, and a lane's elements of row g are columns
+// 32 jj + 8 c + [0, 8): element 0 of n-tile 4 jj + i is column 32 jj + 8 c
+// + i, element 1 column 32 jj + 8 c + 4 + i.
+__device__ __forceinline__ void accumulate16(float (&acc)[16][4], const uint32_t (&ph)[2][4],
+                                             const uint32_t (&pl)[2][4], const float* Bc,
+                                             const LaneOffsets& lo) {
+  constexpr int D = b128::D;
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    float f[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) f[i][x] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const Split4 r0 = load_split4(Bc, 8 * e * D + 32 * jj + lo.yo[0]);
+      const Split4 r1 = load_split4(Bc, 8 * e * D + 32 * jj + lo.yo[1]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        mma_3xtf32(f[i], ph[e], pl[e], r0.h[i], r1.h[i], r0.l[i], r1.l[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[4 * jj + i][x] += f[i][x];
+  }
+}
+
+// Writes rows g and g + 8 of a warp's 16 x 128 sums (accumulate16's column
+// order) as rows [row0, row0 + 16) of one head; rows >= S are dropped.
+__device__ __forceinline__ void store16(const float (&acc)[16][4], float* head, int row0, int S,
+                                        int rs, int g, int c) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + g + 8 * i;
+    if (row >= S) continue;
+    float* out = head + (size_t)row * rs + 8 * c;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      *reinterpret_cast<float4*>(out + 32 * jj) =
+          make_float4(acc[4 * jj][2 * i], acc[4 * jj + 1][2 * i], acc[4 * jj + 2][2 * i],
+                      acc[4 * jj + 3][2 * i]);
+      *reinterpret_cast<float4*>(out + 32 * jj + 4) =
+          make_float4(acc[4 * jj][2 * i + 1], acc[4 * jj + 1][2 * i + 1],
+                      acc[4 * jj + 2][2 * i + 1], acc[4 * jj + 3][2 * i + 1]);
+    }
+  }
+}
+
+// The epilogue's exchange: the warps of streamed half 1 hand their sums to
+// those of half 0 through shared memory (slot: a row group's n x 4 x 32
+// floats, lane-minor), which add them, so each sum is half 0's share plus
+// half 1's, in that order.
+__device__ __forceinline__ void hand_over(const float (&acc)[16][4], float* slot) {
+#pragma unroll
+  for (int t = 0; t < 16; ++t)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) slot[(4 * t + x) * 32] = acc[t][x];
+}
+__device__ __forceinline__ void take_over(float (&acc)[16][4], const float* slot) {
+#pragma unroll
+  for (int t = 0; t < 16; ++t)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[t][x] += slot[(4 * t + x) * 32];
+}
+
+// dQ, and delta = rowsum(dO * O) for the dK/dV kernel. Grid (ceil(Sq / 32),
+// B * H); the key loop is inside the block.
+__global__ void __launch_bounds__(b128::THREADS, 2)
+flash_bwd_dq_f32_d128_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ o,
+                             const float* __restrict__ dout, const float* __restrict__ lse,
+                             float* __restrict__ delta, float* __restrict__ dq, int H, int Sq,
+                             int Skv, float scale) {
+  using namespace b128;
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sDO = sQ + TILE;
+  float* sK = sDO + TILE;                   // 2 stages
+  float* sV = sK + 2 * TILE;                // 2 stages
+  float* sLse = sV + 2 * TILE;
+  float* sDelta = sLse + BR;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
+  const int a0 = 16 * (warp & 1), b0 = 16 * (warp >> 1);
+  const LaneOffsets lo(g, c);
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * BR;
+  const int rs = H * D;
+  const size_t qoff = (size_t)b * Sq * rs + h * D;
+  const float* kh = k + (size_t)b * Skv * rs + h * D;
+  const float* vh = v + (size_t)b * Skv * rs + h * D;
+
+  load_rows32(sQ, q + qoff, q0, Sq, rs);
+  load_rows32(sDO, dout + qoff, q0, Sq, rs);
+  load_rows32(sK, kh, 0, Skv, rs);
+  load_rows32(sV, vh, 0, Skv, rs);
+  sm90::cp_async_commit();
+  {
+    // delta of row r: 4 threads, 32 columns each, reduced in a fixed order
+    const int r = tid / 4, u = tid % 4, row = q0 + r;
+    float dl = 0.f;
+    if (row < Sq) {
+      const float* orow = o + qoff + (size_t)row * rs + 32 * u;
+      const float* drow = dout + qoff + (size_t)row * rs + 32 * u;
+#pragma unroll
+      for (int x = 0; x < 32; x += 4) {
+        const float4 fo = *reinterpret_cast<const float4*>(orow + x);
+        const float4 fd = *reinterpret_cast<const float4*>(drow + x);
+        dl += fd.x * fo.x + fd.y * fo.y + fd.z * fo.z + fd.w * fo.w;
+      }
+    }
+    dl += __shfl_xor_sync(FULL, dl, 1);
+    dl += __shfl_xor_sync(FULL, dl, 2);
+    if (u == 0) {
+      sDelta[r] = dl;
+      sLse[r] = row < Sq ? lse[(size_t)bh * Sq + row] : 0.f;
+      if (row < Sq) delta[(size_t)bh * Sq + row] = dl;
+    }
+  }
+  __syncthreads();
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lse2[i] = sLse[a0 + g + 8 * i] * LOG2E;
+    dl[i] = sDelta[a0 + g + 8 * i];
+  }
+
+  float acc[16][4];
+#pragma unroll
+  for (int t = 0; t < 16; ++t)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[t][x] = 0.f;
+  const float sl2 = scale * LOG2E;
+  const int nk = (Skv + BR - 1) / BR;
+
+  for (int j = 0; j < nk; ++j) {
+    const int st = j & 1;
+    sm90::cp_async_wait<0>();
+    __syncthreads();                        // tile j landed; tile j - 1 is consumed
+    if (j + 1 < nk) {
+      load_rows32(sK + (st ^ 1) * TILE, kh, (j + 1) * BR, Skv, rs);
+      load_rows32(sV + (st ^ 1) * TILE, vh, (j + 1) * BR, Skv, rs);
+    }
+    sm90::cp_async_commit();
+    const float* tK = sK + st * TILE;
+    const float* tV = sV + st * TILE;
+
+    float s[2][4], dp[2][4];
+    score16(s, sQ + (a0 + g) * D, tK + (b0 + g) * D, lo);      // S = Q K^T
+    score16(dp, sDO + (a0 + g) * D, tV + (b0 + g) * D, lo);    // dP = dO V^T
+    // dS = P (dP - delta) scale, split, as the A fragments of dQ += dS K
+    uint32_t dsh[2][4], dsl[2][4];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int i = x >> 1;
+        const float p = (j * BR + b0 + 8 * e + 2 * c + (x & 1) < Skv)
+                            ? exp2f(s[e][x] * sl2 - lse2[i]) : 0.f;
+        split_tf32(p * (dp[e][x] - dl[i]) * scale, dsh[e][a_index(x)], dsl[e][a_index(x)]);
+      }
+    accumulate16(acc, dsh, dsl, tK + (b0 + 2 * c) * D, lo);
+  }
+
+  __syncthreads();                          // the K stages are free
+  float* slot = sK + (warp & 1) * 64 * 32 + lane;
+  if (warp >> 1) hand_over(acc, slot);
+  __syncthreads();
+  if (warp >> 1) return;
+  take_over(acc, slot);
+  store16(acc, dq + qoff, q0 + a0, Sq, rs, g, c);
+}
+
+// dK and dV from the saved lse and the dQ kernel's delta. Grid
+// (ceil(Skv / 32), B * H); the query loop is inside the block, on
+// transposed scores (rows = keys, columns = queries).
+__global__ void __launch_bounds__(b128::THREADS, 2)
+flash_bwd_dkv_f32_d128_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              float* __restrict__ dk, float* __restrict__ dv, int H, int Sq,
+                              int Skv, float scale) {
+  using namespace b128;
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ float4 smem4[];
+  float* sK = reinterpret_cast<float*>(smem4);
+  float* sV = sK + TILE;
+  float* sQ = sV + TILE;                    // 2 stages
+  float* sDO = sQ + 2 * TILE;               // 2 stages
+  float* sStats = sDO + 2 * TILE;           // [stage][lse | delta][BR]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
+  const int a0 = 16 * (warp & 1), b0 = 16 * (warp >> 1);
+  const LaneOffsets lo(g, c);
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int kv0 = blockIdx.x * BR;
+  const int rs = H * D;
+  const size_t kvoff = (size_t)b * Skv * rs + h * D;
+  const float* qh = q + (size_t)b * Sq * rs + h * D;
+  const float* doh = dout + (size_t)b * Sq * rs + h * D;
+  const float* lse_h = lse + (size_t)bh * Sq;
+  const float* delta_h = delta + (size_t)bh * Sq;
+
+  // query tile [row0, row0 + 32): Q, dO, lse and delta into a stage
+  auto load_q_tile = [&](int stage, int row0) {
+    load_rows32(sQ + stage * TILE, qh, row0, Sq, rs);
+    load_rows32(sDO + stage * TILE, doh, row0, Sq, rs);
+    if (tid < 2 * BR) {
+      const int row = row0 + tid % BR;
+      const bool ok = row < Sq;
+      sm90::cp_async4(sm90::smem_u32(sStats + stage * 2 * BR + tid),
+                      (tid < BR ? lse_h : delta_h) + (ok ? row : 0), ok);
+    }
+  };
+  load_rows32(sK, k + kvoff, kv0, Skv, rs);
+  load_rows32(sV, v + kvoff, kv0, Skv, rs);
+  load_q_tile(0, 0);
+  sm90::cp_async_commit();
+
+  float acc_dk[16][4], acc_dv[16][4];
+#pragma unroll
+  for (int t = 0; t < 16; ++t)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc_dk[t][x] = acc_dv[t][x] = 0.f;
+  const float sl2 = scale * LOG2E;
+  const int nq = (Sq + BR - 1) / BR;
+
+  for (int j = 0; j < nq; ++j) {
+    const int st = j & 1;
+    sm90::cp_async_wait<0>();
+    __syncthreads();                        // tile j landed; tile j - 1 is consumed
+    if (j + 1 < nq) load_q_tile(st ^ 1, (j + 1) * BR);
+    sm90::cp_async_commit();
+    const float* tQ = sQ + st * TILE;
+    const float* tDO = sDO + st * TILE;
+    const float* sl = sStats + st * 2 * BR;   // lse, then delta of the tile's queries
+
+    // S^T = K Q^T; P^T, 0 for queries >= Sq (their Q rows and lse are
+    // zeros), split as A fragments; dV += P^T dO
+    float p[2][4];
+    uint32_t ah[2][4], al[2][4];
+    score16(p, sK + (a0 + g) * D, tQ + (b0 + g) * D, lo);
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int col = b0 + 8 * e + 2 * c + (x & 1);
+        p[e][x] = (j * BR + col < Sq) ? exp2f(p[e][x] * sl2 - sl[col] * LOG2E) : 0.f;
+        split_tf32(p[e][x], ah[e][a_index(x)], al[e][a_index(x)]);
+      }
+    accumulate16(acc_dv, ah, al, tDO + (b0 + 2 * c) * D, lo);
+    // dP^T = V dO^T; dS^T = P^T (dP^T - delta) scale; dK += dS^T Q
+    float dp[2][4];
+    score16(dp, sV + (a0 + g) * D, tDO + (b0 + g) * D, lo);
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int col = b0 + 8 * e + 2 * c + (x & 1);
+        split_tf32(p[e][x] * (dp[e][x] - sl[BR + col]) * scale, ah[e][a_index(x)],
+                   al[e][a_index(x)]);
+      }
+    accumulate16(acc_dk, ah, al, tQ + (b0 + 2 * c) * D, lo);
+  }
+
+  __syncthreads();                          // the Q stages are free
+  float* slot = sQ + (warp & 1) * 128 * 32 + lane;
+  if (warp >> 1) {
+    hand_over(acc_dk, slot);
+    hand_over(acc_dv, slot + 64 * 32);
+  }
+  __syncthreads();
+  if (warp >> 1) return;
+  take_over(acc_dk, slot);
+  take_over(acc_dv, slot + 64 * 32);
+  store16(acc_dk, dk + kvoff, kv0 + a0, Skv, rs, g, c);
+  store16(acc_dv, dv + kvoff, kv0 + a0, Skv, rs, g, c);
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -786,6 +1219,36 @@ int fwd_d512(const void* q, const void* k, const void* v, void* o, float* lse, i
   dim3 grid((Sq + d512::BQ - 1) / d512::BQ, B * H);
   flash_fwd_f32_d512_kernel<<<grid, THREADS, d512::SMEM, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, H, Sq, Skv, scale);
+  return (int)cudaGetLastError();
+}
+
+int bwd_dq_d128(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                const float* lse, float* delta, void* dq, int B, int H, int Sq, int Skv,
+                float scale, void* stream) {
+  if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o) && aligned16(dout) &&
+        aligned16(dq)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(flash_bwd_dq_f32_d128_kernel, b128::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((Sq + b128::BR - 1) / b128::BR, B * H);
+  flash_bwd_dq_f32_d128_kernel<<<grid, b128::THREADS, b128::SMEM, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)o, (const float*)dout,
+      lse, delta, (float*)dq, H, Sq, Skv, scale);
+  return (int)cudaGetLastError();
+}
+
+int bwd_dkv_d128(const void* q, const void* k, const void* v, const void* dout,
+                 const float* lse, const float* delta, void* dk, void* dv, int B, int H, int Sq,
+                 int Skv, float scale, void* stream) {
+  if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) && aligned16(dk) &&
+        aligned16(dv)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(flash_bwd_dkv_f32_d128_kernel, b128::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((Skv + b128::BR - 1) / b128::BR, B * H);
+  flash_bwd_dkv_f32_d128_kernel<<<grid, b128::THREADS, b128::SMEM, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta,
+      (float*)dk, (float*)dv, H, Sq, Skv, scale);
   return (int)cudaGetLastError();
 }
 
@@ -866,14 +1329,14 @@ int aozora_flash_bwd_dkv_f32_d64(const void* q, const void* k, const void* v,
 int aozora_flash_bwd_dq_f32_d128(const void* q, const void* k, const void* v, const void* o,
                                  const void* dout, const float* lse, float* delta, void* dq, int B,
                                  int H, int Sq, int Skv, float scale, void* stream) {
-  return bwd_dq<128>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Skv, scale, stream);
+  return bwd_dq_d128(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Skv, scale, stream);
 }
 
 int aozora_flash_bwd_dkv_f32_d128(const void* q, const void* k, const void* v,
                                   const void* dout, const float* lse, const float* delta,
                                   void* dk, void* dv, int B, int H, int Sq, int Skv,
                                   float scale, void* stream) {
-  return bwd_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv, scale, stream);
+  return bwd_dkv_d128(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv, scale, stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
-// Flash attention for Hopper (sm_90a), built on wgmma: every bf16 kernel
-// but the head_dim-512 forward. At head_dim 64 (the SDXL UNet) the forward
-// K1 and the backward's dQ and dK/dV kernels K2/K3; at 128 (the Anima DiT)
-// the forward K4a and the backward K4b.
+// Flash attention for Hopper (sm_90a), built on wgmma: every bf16 kernel.
+// At head_dim 64 (the SDXL UNet) the forward K1 and the backward's dQ and
+// dK/dV kernels K2/K3; at 128 (the Anima DiT) the forward K4a and the
+// backward K4b; at 512 (the SD-VAE mid-attention) the forward K4a.
 //
 // They replace the Pallas TPU kernels of
 // aozora_sdxl_training_tpu/ops/flash_attention.py:
@@ -12,6 +12,7 @@
 //   flash_fwd_sm90_kernel<128>      <- _flash_forward_folded (body _fwd_kernel)
 //   flash_bwd_dq_sm90_kernel<128>   <- _flash_backward_folded, dq pallas_call
 //   flash_bwd_dkv_sm90_kernel<128>  <- _flash_backward_folded, dk/dv pallas_call
+//   flash_fwd_d512_sm90_kernel      <- _flash_forward_folded at head_dim 512
 //
 // and compute what those compute: exact attention with an online softmax
 // over KV tiles, fp32 statistics and accumulators, keys >= Skv masked to
@@ -29,11 +30,13 @@
 // the fp32 kernels of flash_attention_fp32.cu.
 //
 // What bounds them: at the SDXL shapes (B * H = 10, S = 4096 and
-// B * H = 20, S = 1024, D = 64) and the Anima shape (B * H = 16, S = 4096,
-// D = 128) 4, 6 and 8 * S^2 * D flop per head against 2 * S * D bytes per
-// operand, so the tensor cores. The design, per block of WG consumer
-// warpgroups (two at head_dim 128, one at 64), each owning a 64-row tile of
-// the block's stationary rows:
+// B * H = 20, S = 1024, D = 64), the Anima shape (B * H = 16, S = 4096,
+// D = 128) and the SD-VAE one (B * H = 1, S = 16384, D = 512) 4, 6 and
+// 8 * S^2 * D flop per head against 2 * S * D bytes per operand, so the
+// tensor cores. The design, per block of WG consumer warpgroups (two at
+// head_dim 128, one at 64), each owning a 64-row tile of the block's
+// stationary rows (the head_dim-512 forward has its own kernel, below: a
+// 64-row fp32 O does not fit one warpgroup's registers there):
 //
 // * Every product is a wgmma on a 64-row tile in bf16 with fp32
 //   accumulation: S = Q K^T and O += P V (forward); S, dP = dO V^T and
@@ -603,6 +606,159 @@ flash_bwd_dkv_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                 t, 1 + wg);
 }
 
+// ---------------------------------------------------------------------------
+// K4a at head_dim 512 (forward only). Grid (ceil(Sq / 64), B * H); the two
+// warpgroups share the block's 64 query rows, warpgroup w owning O's
+// columns [256 w, 256 w + 256): two m64n128 accumulators, 128 fp32
+// registers a thread (one warpgroup would need 256). Each warpgroup
+// computes S = Q K^T over its half of D (16 of the 32 k-steps) and the two
+// fp32 partials are summed through shared memory; both then run the same
+// online softmax on the whole row, so m, l and P agree without another
+// exchange (a + b and b + a are the same float). Computing all of S in each
+// warpgroup instead (no exchange, half as much tensor-core work again)
+// measured 7% slower on the H100 (PERF.md). K and V have one slot
+// each: V_j comes in under S_j, K_{j+1} under P V_j; 230,400 bytes of
+// shared memory (Q, K, V, the exchange), one block a SM, 252 registers a
+// thread. At B * H = 1, S = 16384 it runs at about 36% of its bound: the
+// softmax and the exchange leave the tensor cores idle (no ping-pong).
+// ---------------------------------------------------------------------------
+namespace d512 {
+constexpr int D = 512, THREADS = 256;
+constexpr int TILE = sm90::Tile<64, D>::BYTES;      // 64 KB: Q, K or V
+constexpr int HALF = 64 * 128;                      // one 64-column half of a tile
+constexpr int XCH = 2 * 32 * 128 * sizeof(float);   // [warpgroup][element][thread]
+constexpr size_t SMEM = 1024 + 3 * TILE + XCH;
+static_assert(SMEM <= 232448, "shared memory of one block");
+}  // namespace d512
+
+__global__ void __launch_bounds__(d512::THREADS, 1)
+flash_fwd_d512_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ o,
+                           float* __restrict__ lse, int H, int Sq, int Skv, float scale) {
+  using namespace d512;
+  extern __shared__ unsigned char smem_raw[];
+  const Smem sm(smem_raw);
+  const int tid = threadIdx.x, wg = tid / 128, t = tid % 128;
+  const int w = t / 32, g = (t % 32) / 4, c4 = t % 4;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * BM;
+  const int rs = H * D;
+  const bf16* kh = k + (size_t)b * Skv * rs + h * D;
+  const bf16* vh = v + (size_t)b * Skv * rs + h * D;
+  const uint32_t sQ = sm.addr, sK = sQ + TILE, sV = sK + TILE;
+  float* xch = reinterpret_cast<float*>(sm.ptr + 3 * TILE);
+
+  sm90::load_tile_async<BM, D, THREADS>(sQ, q + (size_t)b * Sq * rs + h * D, q0, Sq, rs, tid);
+  sm90::load_tile_async<BN, D, THREADS>(sK, kh, 0, Skv, rs, tid);
+  sm90::cp_async_commit();
+
+  float o0[64], o1[64];                // columns 256 wg + [0, 128) and + [128, 256)
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o0[i] = o1[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // m in log2 units
+  const float sl2 = scale * LOG2E;
+  constexpr int KS = D / 32;           // k-steps of this warpgroup's S
+  const int k0 = wg * KS;
+  const int nk = (Skv + BN - 1) / BN;
+
+  for (int j = 0; j < nk; ++j) {
+    sm90::cp_async_wait<0>();
+    sm90::fence_async_smem();
+    __syncthreads();                  // K_j landed; V_{j-1} is consumed
+    sm90::load_tile_async<BN, D, THREADS>(sV, vh, j * BN, Skv, rs, tid);
+    sm90::cp_async_commit();
+
+    float s[32];
+    sm90::fence_regs(o0);             // the rescale below is written before the fence
+    sm90::fence_regs(o1);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      sm90::mma_ss(s, sm90::kmajor_desc<BM>(sQ, k0 + kk), sm90::kmajor_desc<BN>(sK, k0 + kk),
+                   kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
+    // thread t of the other warpgroup holds the same elements of the other
+    // half's partial
+#pragma unroll
+    for (int x = 0; x < 32; ++x) xch[(wg * 32 + x) * 128 + t] = s[x];
+    __syncthreads();                  // both halves' S_j read K_j and wrote their partials
+#pragma unroll
+    for (int x = 0; x < 32; ++x) s[x] += xch[((wg ^ 1) * 32 + x) * 128 + t];
+    if (j + 1 < nk) sm90::load_tile_async<BN, D, THREADS>(sK, kh, (j + 1) * BN, Skv, rs, tid);
+    sm90::cp_async_commit();
+
+    // online softmax over this tile's 64 keys, as flash_fwd_sm90_kernel
+    float p[32], mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int i = (x / 2) % 2;
+      p[x] = (j * BN + 8 * (x / 4) + 2 * c4 + x % 2 < Skv) ? s[x] * sl2 : NEG_INF;
+      mx[i] = fmaxf(mx[i], p[x]);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+      alpha[i] = exp2f(m[i] - mx[i]);
+      m[i] = mx[i];
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int i = (x / 2) % 2;
+      p[x] = exp2f(p[x] - m[i]);
+      l[i] += p[x];
+    }
+#pragma unroll
+    for (int x = 0; x < 64; ++x) {
+      o0[x] *= alpha[(x / 2) % 2];
+      o1[x] *= alpha[(x / 2) % 2];
+    }
+    uint32_t pa[16];
+    sm90::pack_a(p, pa);
+
+    sm90::cp_async_wait<1>();         // V_j landed (K_{j+1} may still be in flight)
+    sm90::fence_async_smem();
+    __syncthreads();
+    // O += P V over this warpgroup's 256 columns (halves 4 wg .. 4 wg + 3)
+    sm90::fence_regs(o0);
+    sm90::fence_regs(o1);
+    sm90::fence_regs(pa);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      sm90::mma_rs(o0, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                   sm90::mnmajor_desc<BN>(sV + 4 * wg * HALF, kk));
+      sm90::mma_rs(o1, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                   sm90::mnmajor_desc<BN>(sV + (4 * wg + 2) * HALF, kk));
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(o0);
+    sm90::fence_regs(o1);
+    sm90::fence_regs(pa);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(FULL, l[i], 1);
+    l[i] += __shfl_xor_sync(FULL, l[i], 2);
+    const float safe_l = fmaxf(l[i], 1e-30f);
+    inv[i] = 1.f / safe_l;
+    const int row = q0 + 16 * w + g + 8 * i;
+    if (wg == 0 && c4 == 0 && row < Sq) lse[(size_t)bh * Sq + row] = m[i] * LN2 + logf(safe_l);
+  }
+  // no thread reads Q after the last barrier above: each warpgroup stages
+  // its two 64 x 128 quarters of O in its 32 KB of the Q tile
+  bf16* oh = o + (size_t)b * Sq * rs + h * D + 256 * wg;
+  store_rows<128>(o0, inv, sm.ptr + wg * 2 * 16384, oh, q0, Sq, rs, t, 1 + wg);
+  store_rows<128>(o1, inv, sm.ptr + (wg * 2 + 1) * 16384, oh + 128, q0, Sq, rs, t, 1 + wg);
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -658,6 +814,18 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
   return (int)cudaGetLastError();
 }
 
+int fwd_d512(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+             int Sq, int Skv, float scale, cudaStream_t stream) {
+  if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(flash_fwd_d512_sm90_kernel, d512::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((Sq + BM - 1) / BM, B * H);
+  flash_fwd_d512_sm90_kernel<<<grid, d512::THREADS, d512::SMEM, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, H, Sq, Skv, scale);
+  return (int)cudaGetLastError();
+}
+
 // cudaFuncGetAttributes and the occupancy of one kernel: out = {registers,
 // local (spill) bytes a thread, dynamic shared memory bytes, threads a
 // block, blocks a SM}.
@@ -694,7 +862,8 @@ int attributes_of(int kernel, int* out) {
 }  // namespace
 
 // Plain C interface, one entry point per kernel and head dim (no suffix:
-// head_dim 64, K1-K3; _d128: head_dim 128, K4a/K4b). Each returns the
+// head_dim 64, K1-K3; _d128: head_dim 128, K4a/K4b; _d512: the head_dim-512
+// forward). Each returns the
 // cudaError_t of its launch; cudaErrorInvalidValue for a pointer the
 // 16-byte loads cannot take.
 extern "C" {
@@ -741,11 +910,18 @@ int aozora_flash_bwd_dkv_d128(const void* q, const void* k, const void* v, const
                       (cudaStream_t)stream);
 }
 
-// kernel: 0 forward, 1 dQ, 2 dK/dV; head_dim 64 or 128; out: 5 ints (see
-// attributes()).
+int aozora_flash_fwd_d512(const void* q, const void* k, const void* v, void* o, float* lse,
+                          int B, int H, int Sq, int Skv, float scale, void* stream) {
+  return fwd_d512(q, k, v, o, lse, B, H, Sq, Skv, scale, (cudaStream_t)stream);
+}
+
+// kernel: 0 forward, 1 dQ, 2 dK/dV; head_dim 64 or 128 (512: the forward
+// only); out: 5 ints (see attributes()).
 int aozora_flash_sm90_attributes(int kernel, int head_dim, int* out) {
   if (head_dim == 64) return attributes_of<64>(kernel, out);
   if (head_dim == 128) return attributes_of<128>(kernel, out);
+  if (head_dim == 512 && kernel == 0)
+    return attributes(flash_fwd_d512_sm90_kernel, d512::THREADS, d512::SMEM, out);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,12 +1,12 @@
 // Hopper (sm_90a) building blocks for the flash kernels in
-// flash_attention_sm90.cu (head_dim 64 and 128): the 128-byte-swizzled
+// flash_attention_sm90.cu (head_dim 64, 128 and 512): the 128-byte-swizzled
 // shared-memory tile that wgmma reads, its matrix descriptors, the wgmma
 // shapes the kernels use, their fences, cp.async into the swizzled layout,
 // and a named barrier. The fp32 kernels of flash_attention_fp32.cu use its
 // cp.async helpers.
 //
-// A tile holds R rows of D bf16 (D = 64 or 128) as D / 64 column halves,
-// each R rows of 128 bytes; 16-byte chunk c of row r sits at chunk
+// A tile holds R rows of D bf16 (D = 64, 128 or 512) as D / 64 column
+// halves, each R rows of 128 bytes; 16-byte chunk c of row r sits at chunk
 // (c ^ (r % 8)) of its row in its half. That is the SWIZZLE_128B layout of
 // the hardware (address bits 4-6 XOR bits 7-9), so every tile starts on a
 // 1024-byte boundary. At D = 64 a row is exactly one 128-byte swizzle atom
@@ -20,10 +20,10 @@
 // * MN-major (the rows are K, the D columns are N): B of the accumulating
 //   products (P V, dS K, P^T dO, dS^T Q), read transposed (imm-trans-b 1,
 //   which bf16 allows). Each 64-column half is one N atom, R * 128 bytes
-//   after the one before (the leading byte offset: two atoms at D = 128,
-//   one at D = 64, where the offset is never used); 8-row K groups are
-//   1024 bytes apart (the stride byte offset). k-step kk starts kk * 16
-//   rows in.
+//   after the one before (the leading byte offset: two atoms for an n128
+//   product, never used by an n64 one); 8-row K groups are 1024 bytes apart
+//   (the stride byte offset). k-step kk starts kk * 16 rows in; a product
+//   over columns [64 a, ...) starts a halves in.
 //
 // The accumulator of an m64nNk16 wgmma gives thread t of the warpgroup
 // (warp w = t / 32, g = (t % 32) / 4, c4 = t % 4) the elements
@@ -51,7 +51,7 @@ struct Tile {
   static constexpr int HALF = R * 128;
   static constexpr int CHUNKS = D / 8;     // 16-byte chunks of a row
   static_assert(R % 8 == 0, "whole 8-row swizzle atoms");
-  static_assert(D == 64 || D == 128, "one or two 64-column halves");
+  static_assert(D % 64 == 0, "whole 64-column halves");
   // byte offset of 16-byte chunk c (0 .. CHUNKS - 1) of row r
   __device__ static __forceinline__ uint32_t chunk(int r, int c) {
     return (c >> 3) * HALF + r * 128 + (((c & 7) ^ (r & 7)) << 4);

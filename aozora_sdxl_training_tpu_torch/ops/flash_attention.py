@@ -6,26 +6,29 @@ Pallas kernels there become hand-written CUDA kernels, bound with
 call launches depends on the head dim, the dtype and the role (forward,
 dQ, dK/dV), as ``route`` decides::
 
-  route name            CUDA kernel (csrc/)                  replaces (Pallas)
+  route name              CUDA kernel (csrc/)                 replaces (Pallas)
   bf16, flash_attention_sm90.cu: wgmma, fp32 accumulators in registers
-    flash_fwd           flash_fwd_sm90_kernel<64, 1>         K1  _flash_forward (_fwd_kernel)
-    flash_bwd_dq        flash_bwd_dq_sm90_kernel<64, 1>      K2  _flash_backward, dq call
-    flash_bwd_dkv       flash_bwd_dkv_sm90_kernel<64, 1>     K3  _flash_backward, dk/dv call
-    flash_fwd_d128      flash_fwd_sm90_kernel<128, 2>        K4a _flash_forward_folded
-    flash_bwd_dq_d128   flash_bwd_dq_sm90_kernel<128, 2>     K4b _flash_backward_folded, dq
-    flash_bwd_dkv_d128  flash_bwd_dkv_sm90_kernel<128, 2>    K4b _flash_backward_folded, dk/dv
-  bf16, flash_attention.cu: WMMA, O in shared memory
-    flash_fwd_d512      flash_fwd_d512_kernel                K4a at head_dim 512
+    flash_fwd             flash_fwd_sm90_kernel<64, 1>        K1  _flash_forward (_fwd_kernel)
+    flash_bwd_dq          flash_bwd_dq_sm90_kernel<64, 1>     K2  _flash_backward, dq call
+    flash_bwd_dkv         flash_bwd_dkv_sm90_kernel<64, 1>    K3  _flash_backward, dk/dv call
+    flash_fwd_d128        flash_fwd_sm90_kernel<128, 2>       K4a _flash_forward_folded
+    flash_bwd_dq_d128     flash_bwd_dq_sm90_kernel<128, 2>    K4b _flash_backward_folded, dq
+    flash_bwd_dkv_d128    flash_bwd_dkv_sm90_kernel<128, 2>   K4b _flash_backward_folded, dk/dv
+    flash_fwd_d512        flash_fwd_d512_sm90_kernel          K4a at head_dim 512
   fp32, flash_attention_fp32.cu (no operand rounded to bf16)
-    flash_*_f32_d64     flash_{fwd,bwd_dq,bwd_dkv}_f32_kernel<64>    K1-K3 on fp32 inputs
-    flash_*_f32_d128    flash_{fwd,bwd_dq,bwd_dkv}_f32_kernel<128>   K4a/K4b on fp32 inputs
-    flash_fwd_f32_d512  flash_fwd_f32_d512_kernel            K4a at 512 on fp32 inputs
+    flash_fwd_f32_d64     flash_fwd_f32_kernel<64>            K1 on fp32 inputs
+    flash_bwd_*_f32_d64   flash_{bwd_dq,bwd_dkv}_f32_kernel<64>   K2/K3 on fp32 inputs
+    flash_fwd_f32_d128    flash_fwd_f32_kernel<128>           K4a on fp32 inputs
+    flash_bwd_dq_f32_d128   flash_bwd_dq_f32_d128_kernel      K4b dq on fp32 inputs
+    flash_bwd_dkv_f32_d128  flash_bwd_dkv_f32_d128_kernel     K4b dk/dv on fp32 inputs
+    flash_fwd_f32_d512    flash_fwd_f32_d512_kernel           K4a at 512 on fp32 inputs
 
 Head_dim 64 is the SDXL UNet's (K1-K3 run on every SDXL micro step and
 DDIM step), 128 the Anima DiT's, 512 the SD-VAE mid-attention's (bf16 in
 the encoder's flash route, fp32 in the preview's decoder). The fp32
-kernels at 64 and 128 multiply with fp32 FMAs on the CUDA cores (no
-trainer reaches them: both compute in bf16); the one at 512 runs on the
+forwards at 64 and 128 and the fp32 backward at 64 multiply with fp32
+FMAs on the CUDA cores (no trainer reaches the fp32 kernels: both compute
+in bf16); the fp32 backward at 128 and the forward at 512 run on the
 tensor cores in 3xTF32 (each operand split into two TF32 parts, three
 TF32 products with fp32 accumulation), to fp32 accuracy. Each source's
 header says what bounds its kernels, what their design does about it and
@@ -60,7 +63,7 @@ import torch
 from . import cuda_build
 
 ROLES = ("forward", "dq", "dkv")
-_WMMA, _SM90, _FP32 = "flash_attention", "flash_attention_sm90", "flash_attention_fp32"
+_SM90, _FP32 = "flash_attention_sm90", "flash_attention_fp32"
 # (kernel name, CUDA source) by (head dim, dtype), one per role (None: no
 # kernel). The kernel's C entry point is "aozora_<name>" in the library
 # built from csrc/<source>.cu.
@@ -69,7 +72,7 @@ ROUTES = {
                            ("flash_bwd_dkv", _SM90)),                               # K1-K3
     (128, torch.bfloat16): (("flash_fwd_d128", _SM90), ("flash_bwd_dq_d128", _SM90),
                             ("flash_bwd_dkv_d128", _SM90)),                         # K4a/K4b
-    (512, torch.bfloat16): (("flash_fwd_d512", _WMMA), None, None),                 # K4a
+    (512, torch.bfloat16): (("flash_fwd_d512", _SM90), None, None),                 # K4a
     (64, torch.float32): (("flash_fwd_f32_d64", _FP32), ("flash_bwd_dq_f32_d64", _FP32),
                           ("flash_bwd_dkv_f32_d64", _FP32)),
     (128, torch.float32): (("flash_fwd_f32_d128", _FP32), ("flash_bwd_dq_f32_d128", _FP32),

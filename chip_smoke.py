@@ -11,12 +11,13 @@ Phases, each of which exits non-zero on failure:
 2. build: compiles every CUDA source of the port (one nvcc each, all at
    once, a current library too); for the wgmma kernels
    (csrc/flash_attention_sm90.cu: forward and backward at head_dim 64 and
-   128) prints ptxas's registers and spill bytes, the registers, dynamic
-   shared memory and blocks per SM the runtime reports, and the HGMMA
-   instructions `cuobjdump -sass` finds in each kernel, and for the fp32
-   head_dim-512 forward (csrc/flash_attention_fp32.cu, 3xTF32) its
-   registers, spills and TF32 HMMA instructions (a spill, or no HGMMA or
-   HMMA, fails the phase; without cuobjdump it prints "not checked").
+   128, the forward at 512) prints ptxas's registers and spill bytes, the
+   registers, dynamic shared memory and blocks per SM the runtime reports,
+   and the HGMMA instructions `cuobjdump -sass` finds in each kernel, and
+   for the 3xTF32 kernels of csrc/flash_attention_fp32.cu (the fp32
+   backward at head_dim 128, the fp32 forward at 512) their registers,
+   spills and TF32 HMMA instructions (a spill, or no HGMMA or HMMA, fails
+   the phase; without cuobjdump it prints "not checked").
 3. kernels: each flash-attention kernel against its plain PyTorch version:
    K1 forward, K2 dQ, K3 dK/dV (head_dim 64) at the SDXL shapes, K4a forward
    and K4b dQ, dK/dV (head_dim 128) at the Anima shape, K4a forward at
@@ -24,15 +25,16 @@ Phases, each of which exits non-zero on failure:
    with ragged and unequal lengths and lengths around one tile; the fp32
    kernels (csrc/flash_attention_fp32.cu: all three at head_dim 64 and 128,
    the forward at 512) on fp32 inputs, held at 1e-4 of the largest
-   reference magnitude (the head_dim-512 forward also against a float64
-   reference, at 1e-5 of it); at head_dim 64 and 128, two launches that must
-   agree bitwise; then each timed beside its bound, its plain version and
-   the device time (torch.profiler) of scaled_dot_product_attention (a
+   reference magnitude (the 3xTF32 ones also against a float64 reference,
+   at 1e-5 of it); at head_dim 64 and 128, two launches that must agree
+   bitwise; then each timed beside its bound, its plain version and the
+   device time (torch.profiler) of scaled_dot_product_attention (a
    yardstick only: its forward beside the forward kernels, its backward,
    and its forward plus backward, beside the backward kernels), the bf16
    kernels at the main shapes by device time (torch.profiler) and CUDA
-   events, the fp32 ones at the unet and dit phases' shapes and the
-   SD-VAE's.
+   events, the fp32 ones at the unet and dit phases' shapes and at
+   ANIMA_BASE's attention width (head_dim 128; at each shape first held at
+   1e-4 against the plain version), and at the SD-VAE's.
 4. unet: a small UNet with head_dim 64 in fp32, flash path (the fp32
    kernels) against the einsum path, forward and parameter gradients, the
    launches counted.
@@ -109,10 +111,12 @@ H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak, H100 SXM
 H100_FP32_FLOPS = 67e12       # fp32 outside the tensor cores, H100 SXM
 H100_TF32_FLOPS = 495e12      # dense TF32 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM
-SM90 = "flash_attention_sm90"      # the wgmma kernels (head_dim 64 and 128)
-FP32 = "flash_attention_fp32"      # the fp32 kernels; at head_dim 512 in 3xTF32
-TF32_KERNEL = "flash_fwd_f32_d512_kernel"
-SOURCES = ("flash_attention", SM90, FP32, "groupnorm_silu")
+SM90 = "flash_attention_sm90"      # the wgmma kernels (every bf16 one)
+FP32 = "flash_attention_fp32"      # the fp32 kernels
+# the 3xTF32 kernels of the fp32 source, by head dim
+TF32_KERNELS = {"flash_bwd_dq_f32_d128_kernel": 128, "flash_bwd_dkv_f32_d128_kernel": 128,
+                "flash_fwd_f32_d512_kernel": 512}
+SOURCES = (SM90, FP32, "groupnorm_silu")
 FA = "aozora_sdxl_training_tpu/ops/flash_attention.py"
 GN = "aozora_sdxl_training_tpu/ops/groupnorm_silu.py"
 # each kernel (by its route name), the Pallas kernel it replaces (K1
@@ -130,13 +134,14 @@ KERNELS = {
     "flash_fwd_d128": (f"{FA}:302", 128, "anima", "flash_fwd_sm90_kernel<128, 2>"),
     "flash_bwd_dq_d128": (f"{FA}:355", 128, "anima", "flash_bwd_dq_sm90_kernel<128, 2>"),
     "flash_bwd_dkv_d128": (f"{FA}:378", 128, "anima", "flash_bwd_dkv_sm90_kernel<128, 2>"),
-    "flash_fwd_d512": (f"{FA}:302", 512, "vae", "flash_fwd_d512_kernel (WMMA)"),
+    "flash_fwd_d512": (f"{FA}:302", 512, "vae", "flash_fwd_d512_sm90_kernel"),
     "flash_fwd_f32_d64": (f"{FA}:65", 64, "unet", "flash_fwd_f32_kernel<64>"),
     "flash_bwd_dq_f32_d64": (f"{FA}:153", 64, "unet", "flash_bwd_dq_f32_kernel<64>"),
     "flash_bwd_dkv_f32_d64": (f"{FA}:186", 64, "unet", "flash_bwd_dkv_f32_kernel<64>"),
     "flash_fwd_f32_d128": (f"{FA}:302", 128, "dit", "flash_fwd_f32_kernel<128>"),
-    "flash_bwd_dq_f32_d128": (f"{FA}:355", 128, "dit", "flash_bwd_dq_f32_kernel<128>"),
-    "flash_bwd_dkv_f32_d128": (f"{FA}:378", 128, "dit", "flash_bwd_dkv_f32_kernel<128>"),
+    "flash_bwd_dq_f32_d128": (f"{FA}:355", 128, "dit", "flash_bwd_dq_f32_d128_kernel (3xTF32)"),
+    "flash_bwd_dkv_f32_d128": (f"{FA}:378", 128, "dit",
+                               "flash_bwd_dkv_f32_d128_kernel (3xTF32)"),
     "flash_fwd_f32_d512": (f"{FA}:302", 512, "trainer", "flash_fwd_f32_d512_kernel (3xTF32)"),
 }
 TRAIN_STEPS = 8               # two optimizer steps at the presets' GA 4
@@ -149,8 +154,9 @@ SDXL_FWD_FLOPS_1024 = 6.779495251968e12
 MAIN_SHAPES = {64: ((1, 10, 4096, 10), (1, 20, 1024, 60)),
                128: ((1, 16, 4096, 28),)}
 # the fp32 kernels' shapes in the unet and dit phases: batch 2, 2 heads,
-# 1024 tokens (the UNet's 32 x 32 level, the DiT's 32 x 32 patches)
-FP32_SHAPES = {64: (2, 2, 1024), 128: (2, 2, 1024)}
+# 1024 tokens (the UNet's 32 x 32 level, the DiT's 32 x 32 patches); at
+# head_dim 128 also ANIMA_BASE's attention at 1024px, timed only
+FP32_SHAPES = {64: ((2, 2, 1024),), 128: ((2, 2, 1024), (1, 16, 4096))}
 SELF_ATTN_CALLS = {d: sum(c for *_, c in shapes) for d, shapes in MAIN_SHAPES.items()}
 # the SD-VAE mid-attention at 1024px: one head of 512 over 128 x 128 tokens,
 # fp32 in the preview decoder, bf16 in the encoder's flash route
@@ -220,30 +226,36 @@ def build_phase():
                   or "wgmma" in line):
                 print(f"  ptxas: {line.strip()}")
     report = sm90_report(cuda_build, results[SM90][1])
-    report[TF32_KERNEL] = tf32_report(cuda_build, results[FP32][1])
+    report.update(tf32_report(cuda_build, results[FP32][1]))
     return report
 
 
-# the wgmma kernels as their mangled names spell them, with the head dims
-# each is instantiated at, and the flash kernel name of each (kernel, head
-# dim)
-SM90_KERNELS = {"flash_fwd_sm90_kernel": (64, 128), "flash_bwd_dq_sm90_kernel": (64, 128),
-                "flash_bwd_dkv_sm90_kernel": (64, 128)}
+# the wgmma kernels as their mangled names spell them: (kernel, head dim)
+# and the kernel's index in aozora_flash_sm90_attributes; the one kernel of
+# each route name
+SM90_KERNELS = {("flash_fwd_sm90_kernel", 64): 0, ("flash_fwd_sm90_kernel", 128): 0,
+                ("flash_bwd_dq_sm90_kernel", 64): 1, ("flash_bwd_dq_sm90_kernel", 128): 1,
+                ("flash_bwd_dkv_sm90_kernel", 64): 2, ("flash_bwd_dkv_sm90_kernel", 128): 2,
+                ("flash_fwd_d512_sm90_kernel", 512): 0}
+D512_KERNEL = "flash_fwd_d512_sm90_kernel"
 SM90_OF = {"flash_fwd": ("flash_fwd_sm90_kernel", 64),
            "flash_bwd_dq": ("flash_bwd_dq_sm90_kernel", 64),
            "flash_bwd_dkv": ("flash_bwd_dkv_sm90_kernel", 64),
            "flash_fwd_d128": ("flash_fwd_sm90_kernel", 128),
            "flash_bwd_dq_d128": ("flash_bwd_dq_sm90_kernel", 128),
-           "flash_bwd_dkv_d128": ("flash_bwd_dkv_sm90_kernel", 128)}
+           "flash_bwd_dkv_d128": ("flash_bwd_dkv_sm90_kernel", 128),
+           "flash_fwd_d512": (D512_KERNEL, 512)}
 
 
 def kernel_of(mangled: str):
-    """(kernel, head dim) of a mangled wgmma kernel name or of the 3xTF32
+    """(kernel, head dim) of a mangled wgmma kernel name or of a 3xTF32
     kernel, or None."""
     found = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_sm90_kernel)ILi(\d+)E", mangled)
     if found:
         return found.group(1), int(found.group(2))
-    return (TF32_KERNEL, 512) if TF32_KERNEL in mangled else None
+    if D512_KERNEL in mangled:
+        return D512_KERNEL, 512
+    return next(((name, d) for name, d in TF32_KERNELS.items() if name in mangled), None)
 
 
 def ptxas_usage(log: str) -> dict:
@@ -308,48 +320,49 @@ def sm90_report(cuda_build, log: str) -> dict:
     lib.aozora_flash_sm90_attributes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     sass = sass_counts(cuda_build, SM90)
     report = {}
-    for i, (kernel, dims) in enumerate(SM90_KERNELS.items()):
-        for d in dims:
-            key = (kernel, d)
-            check(key in usage and "registers" in usage[key],
-                  f"ptxas reported nothing for {kernel}<{d}>")
-            attrs = (ctypes.c_int * 5)()
-            err = lib.aozora_flash_sm90_attributes(i, d, ctypes.addressof(attrs))
-            check(err == 0, f"cudaFuncGetAttributes({kernel}<{d}>) failed: {err}")
-            regs, local, smem, threads, blocks = list(attrs)
-            row = {**usage[key], "runtime_registers": regs, "local_bytes": local,
-                   "dynamic_smem_bytes": smem, "threads": threads, "blocks_per_sm": blocks,
-                   "hgmma": None if sass is None else sass.get(key, {}).get("hgmma", 0)}
-            report[f"{kernel}<{d}>"] = row
-            print(f"  {kernel}<{d}>: ptxas {row['registers']} registers, spill "
-                  f"{row['spill_stores']} B stores / {row['spill_loads']} B loads; runtime "
-                  f"{regs} registers, {local} B local, {smem} B dynamic shared memory, "
-                  f"{threads} threads, {blocks} block(s)/SM; HGMMA "
-                  f"{'not checked (no cuobjdump)' if sass is None else row['hgmma']}")
-            check(row["spill_stores"] == 0 and row["spill_loads"] == 0 and local == 0,
-                  f"{kernel}<{d}> spills")
-            if sass is not None:
-                check(row["hgmma"] > 0, f"{kernel}<{d}>: no HGMMA instruction in its SASS")
+    for key, index in SM90_KERNELS.items():
+        kernel, d = key
+        check(key in usage and "registers" in usage[key],
+              f"ptxas reported nothing for {kernel}<{d}>")
+        attrs = (ctypes.c_int * 5)()
+        err = lib.aozora_flash_sm90_attributes(index, d, ctypes.addressof(attrs))
+        check(err == 0, f"cudaFuncGetAttributes({kernel}<{d}>) failed: {err}")
+        regs, local, smem, threads, blocks = list(attrs)
+        row = {**usage[key], "runtime_registers": regs, "local_bytes": local,
+               "dynamic_smem_bytes": smem, "threads": threads, "blocks_per_sm": blocks,
+               "hgmma": None if sass is None else sass.get(key, {}).get("hgmma", 0)}
+        report[f"{kernel}<{d}>"] = row
+        print(f"  {kernel}<{d}>: ptxas {row['registers']} registers, spill "
+              f"{row['spill_stores']} B stores / {row['spill_loads']} B loads; runtime "
+              f"{regs} registers, {local} B local, {smem} B dynamic shared memory, "
+              f"{threads} threads, {blocks} block(s)/SM; HGMMA "
+              f"{'not checked (no cuobjdump)' if sass is None else row['hgmma']}")
+        check(row["spill_stores"] == 0 and row["spill_loads"] == 0 and local == 0,
+              f"{kernel}<{d}> spills")
+        if sass is not None:
+            check(row["hgmma"] > 0, f"{kernel}<{d}>: no HGMMA instruction in its SASS")
     return report
 
 
 def tf32_report(cuda_build, log: str) -> dict:
-    """ptxas's registers and spills of the 3xTF32 head_dim-512 forward and
-    the TF32 HMMA instructions in its SASS; fails on a spill or on no
-    HMMA."""
-    key = (TF32_KERNEL, 512)
+    """ptxas's registers and spills of each 3xTF32 kernel and the TF32 HMMA
+    instructions in its SASS; fails on a spill or on no HMMA."""
     usage = ptxas_usage(log)
-    check(key in usage and "registers" in usage[key], f"ptxas reported nothing for {TF32_KERNEL}")
     sass = sass_counts(cuda_build, FP32)
-    row = {**usage[key], "hmma_tf32": None if sass is None else sass.get(key, {}).get(
-        "hmma_tf32", 0)}
-    print(f"  {TF32_KERNEL}: ptxas {row['registers']} registers, spill {row['spill_stores']} "
-          f"B stores / {row['spill_loads']} B loads; TF32 HMMA "
-          f"{'not checked (no cuobjdump)' if sass is None else row['hmma_tf32']}")
-    check(row["spill_stores"] == 0 and row["spill_loads"] == 0, f"{TF32_KERNEL} spills")
-    if sass is not None:
-        check(row["hmma_tf32"] > 0, f"{TF32_KERNEL}: no TF32 HMMA instruction in its SASS")
-    return row
+    report = {}
+    for key in TF32_KERNELS.items():
+        kernel, _ = key
+        check(key in usage and "registers" in usage[key], f"ptxas reported nothing for {kernel}")
+        row = {**usage[key], "hmma_tf32": None if sass is None else sass.get(key, {}).get(
+            "hmma_tf32", 0)}
+        print(f"  {kernel}: ptxas {row['registers']} registers, spill {row['spill_stores']} "
+              f"B stores / {row['spill_loads']} B loads; TF32 HMMA "
+              f"{'not checked (no cuobjdump)' if sass is None else row['hmma_tf32']}")
+        check(row["spill_stores"] == 0 and row["spill_loads"] == 0, f"{kernel} spills")
+        if sass is not None:
+            check(row["hmma_tf32"] > 0, f"{kernel}: no TF32 HMMA instruction in its SASS")
+        report[kernel] = row
+    return report
 
 
 # --------------------------------------------------------------------------
@@ -491,6 +504,8 @@ def kernel_phase(torch):
                 max_err[kname] = max(max_err[kname], err)
         if d == 512 and dtype == f32:
             check_against_float64(torch, label, q, k, v, scale, out)
+        if d == 128 and dtype == f32:
+            check_grads_against_float64(torch, label, q, k, v, do, scale, (dq, dk, dv))
         del q, k, v, do, out, lse, ref_out, ref_lse, rows
         torch.cuda.empty_cache()
     check_deterministic(torch, fa)
@@ -514,13 +529,29 @@ def check_against_float64(torch, label, q, k, v, scale, out, bar=1e-5):
     return err
 
 
+def check_grads_against_float64(torch, label, q, k, v, do, scale, grads, bar=1e-5):
+    """The 3xTF32 head_dim-128 backward's dq, dk and dv against attention's
+    gradients in float64, each held at ``bar`` of its largest magnitude."""
+    qd, kd, vd = (t.double().requires_grad_(True) for t in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) * scale
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vd)
+    wants = torch.autograd.grad(out, (qd, kd, vd), do.double())
+    del s, out
+    for name, got, want in zip(("dq", "dk", "dv"), grads, wants):
+        err = (got.double() - want).abs().max().item()
+        tol = bar * want.abs().max().item()
+        print(f"  {label:36s} {name:5s} max_abs_err {err:.3e} against float64 "
+              f"({err / tol * bar:.2e} of the largest magnitude)  tol {tol:.3e}")
+        check(err <= tol, f"{label} {name}: error {err} against float64 > {tol}")
+
+
 def check_deterministic(torch, fa):
     """No atomics in the bf16 kernels at head_dim 64 and 128, nor in the
     fp32 ones: two launches at each head dim's largest main shape (fp32 at
     the unet and dit phases' shapes) give bitwise-equal out, lse, dq, dk and
     dv."""
     shapes = [(MAIN_SHAPES[d][0][:3], d, torch.bfloat16) for d in (64, 128)]
-    shapes += [(FP32_SHAPES[d], d, torch.float32) for d in (64, 128)]
+    shapes += [(FP32_SHAPES[d][0], d, torch.float32) for d in (64, 128)]
     g = torch.Generator(device="cuda").manual_seed(10)
     for (b, h, s), d, dtype in shapes:
         q, k, v, do = (torch.randn(b, s, h, d, device="cuda", dtype=dtype, generator=g)
@@ -628,17 +659,32 @@ def print_row(kname, row, lib_note=""):
 
 
 def time_fp32(torch, fa):
-    """The fp32 kernels at head_dim 64 and 128 at the unet and dit phases'
-    shapes, as ``time_kernels`` times the bf16 ones; the bound at the fp32
-    CUDA-core peak."""
+    """The fp32 kernels at head_dim 64 and 128 at ``FP32_SHAPES``, as
+    ``time_kernels`` times the bf16 ones. Bound: the CUDA-core kernels' flop
+    at the fp32 FMA peak; the 3xTF32 backward at 128 as three TF32 products
+    at the TF32 peak (``bound_ms``), beside it as fp32 FMAs
+    (``bound_fp32_fma_ms``). At each shape out, dq, dk and dv are first held
+    at 1e-4 of the plain version's largest magnitude, as in ``check_kernels``
+    (which does not reach the full-width shape)."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(11)
     timings = {}
-    for d, (b, h, s) in FP32_SHAPES.items():
+    for d, b, h, s in ((d, *shape) for d, shapes in FP32_SHAPES.items() for shape in shapes):
         q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=g) for _ in range(4))
         scale = d ** -0.5
         out, lse = fa.flash_fwd(q, k, v, scale)
-        _, delta = fa.flash_bwd_dq(q, k, v, out, lse, do, scale)
+        dq, delta = fa.flash_bwd_dq(q, k, v, out, lse, do, scale)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale)
+        ref_out, _ = fa.flash_forward_reference(q, k, v, scale)
+        ref_dq, ref_delta = fa.flash_bwd_dq_reference(q, k, v, out, lse, do, scale)
+        ref_dk, ref_dv = fa.flash_bwd_dkv_reference(q, k, v, do, lse, ref_delta, scale)
+        for what, got, want in (("out", out, ref_out), ("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                                ("dv", dv, ref_dv)):
+            err = (got - want).abs().max().item()
+            tol = 1e-4 * want.abs().max().item()
+            print(f"  fp32 B={b} H={h} S={s} D={d} {what:3s} max_abs_err {err:.3e}  tol {tol:.3e}")
+            check(err <= tol, f"fp32 B={b} H={h} S={s} D={d} {what}: error {err} > tolerance {tol}")
+        del dq, dk, dv, ref_out, ref_dq, ref_delta, ref_dk, ref_dv
         lib, _ = sdpa_ms(torch, F, q, k, v, do)
         kf, kdq, kdkv = kernel_names(fa, d, torch.float32)
         calls_of = {
@@ -650,10 +696,18 @@ def time_fp32(torch, fa):
                    lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale), lib[1]),
         }
         for (kname, (kernel, plain, lib_ms)), w in zip(calls_of.items(), work(b, h, s, d, 4)):
-            row = timing_row(torch, kernel, plain, lib_ms, w, H100_FP32_FLOPS)
+            tf32 = KERNELS[kname][3].split()[0] in TF32_KERNELS
+            row = timing_row(torch, kernel, plain, lib_ms, (3 * w[0], w[1]) if tf32 else w,
+                             H100_TF32_FLOPS if tf32 else H100_FP32_FLOPS)
             row["shape"] = f"B={b} H={h} S={s} D={d} fp32"
-            timings[kname] = [row]
-            print_row(kname, row, "" if kname == kf else " (dq,dk,dv together)")
+            note = "" if kname == kf else " (dq,dk,dv together)"
+            if tf32:
+                row["tflops"] = w[0] / row["ms"] / 1e9
+                row["bound_fp32_fma_ms"] = bound(*w, H100_FP32_FLOPS)[0]
+                note += (f" (3 TF32 products; as fp32 FMAs {row['bound_fp32_fma_ms']:.4f} ms, "
+                         f"{row['bound_fp32_fma_ms'] / row['ms']:.1%})")
+            timings.setdefault(kname, []).append(row)
+            print_row(kname, row, note)
         del q, k, v, do, out, lse, delta
         torch.cuda.empty_cache()
     return timings
@@ -1698,8 +1752,8 @@ def kernels_json(timings, max_err, launches, k5, k6, sm90):
         build = {}
         if kname in SM90_OF:
             build["build"] = sm90["{}<{}>".format(*SM90_OF[kname])]
-        elif cuda_kernel.startswith(TF32_KERNEL):
-            build["build"] = sm90[TF32_KERNEL]
+        elif cuda_kernel.split()[0] in TF32_KERNELS:
+            build["build"] = sm90[cuda_kernel.split()[0]]
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"{PACKAGE}/csrc/{fa.SOURCES[kname]}.cu", "kernel": cuda_kernel,
@@ -1746,7 +1800,7 @@ def main(argv=None) -> int:
     elif args:
         print(USAGE, flush=True)
         return 2
-    if not (REPO / PACKAGE / "csrc" / "flash_attention.cu").exists():
+    if not (REPO / PACKAGE / "csrc" / f"{SM90}.cu").exists():
         print(f"FAIL: {PACKAGE} not found beside chip_smoke.py; run it from "
               "the root of a checkout", flush=True)
         return 1

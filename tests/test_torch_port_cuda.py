@@ -7,10 +7,10 @@ without JAX it runs apart from tests/conftest.py:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 
 All three head dims of the flash kernels are covered: 64 (K1-K3, the
-SDXL UNet; wgmma kernels of csrc/flash_attention_sm90.cu), 128 (K4a/K4b,
-the Anima DiT, the same file) and 512 (K4a forward, the SD-VAE
-mid-attention), in bf16 and, through the fp32 kernels of
-csrc/flash_attention_fp32.cu (3xTF32 on the tensor cores at 512), in fp32;
+SDXL UNet), 128 (K4a/K4b, the Anima DiT) and 512 (K4a forward, the SD-VAE
+mid-attention), in bf16 (the wgmma kernels of csrc/flash_attention_sm90.cu)
+and, through the fp32 kernels of csrc/flash_attention_fp32.cu (3xTF32 on
+the tensor cores for the backward at 128 and the forward at 512), in fp32;
 with ragged lengths, unequal query and key lengths, lengths below, at and
 one past a tile, two launches that must agree bitwise, and an input the
 16-byte loads cannot take.
@@ -24,12 +24,13 @@ divide, and at a large mean.
 Tolerances: the bf16 kernels multiply bf16 operands on the tensor cores
 with fp32 accumulation, so their outputs are held at 2e-2 of unit-scale
 values, gradients at five times that, and lse at 1e-3 (exact bf16
-products). The fp32 kernels multiply fp32 with fp32 FMAs, so outputs and
-gradients are held at 1e-4 of the plain fp32 version's largest magnitude
+products). The fp32 kernels multiply to fp32 accuracy (fp32 FMAs, or
+3xTF32), so outputs and gradients are held at 1e-4 of the plain fp32
+version's largest magnitude
 (the sums run in another order; with one key, where dq and dk are zero
 but for rounding, at 1e-4 of the unit-scale inputs) and lse at 1e-4; the
-3xTF32 head_dim-512 forward also against a float64 version at 1e-5 of its
-largest magnitude (its products keep ~2^-22 of each term). K5
+3xTF32 kernels also against a float64 version at 1e-5 of its largest
+magnitude (their products keep ~2^-22 of each term). K5
 and the one-card ring: 2e-2 of the largest magnitude (bf16 kernels; the
 ring's merges are fp32). K6: bf16 2e-2
 of the largest magnitude (one bf16 rounding of the output), fp32 1e-4 of
@@ -183,7 +184,8 @@ def test_wrappers_raise_at_head_dim_512(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,sq,skv", [(1, 1, 2048, 2048), (1, 1, 1000, 1000),
                                         (2, 2, 333, 1000), (1, 1, 1000, 333),
-                                        (2, 2, 40, 1000), (1, 1, 65, 65), (1, 3, 65, 1000)])
+                                        (2, 2, 40, 1000), (1, 1, 65, 65), (1, 3, 65, 1000),
+                                        (2, 2, 1000, 3000)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_d512_forward_matches_plain_version_on_card(cuda_device, dtype, b, h, sq, skv):
     """flash_fwd_d512 (K4a at head_dim 512, bf16) and flash_fwd_f32_d512
@@ -222,8 +224,29 @@ def test_f32_d512_forward_matches_float64_on_card(cuda_device, b, h, sq, skv):
     assert _rel_err(out.double(), want) <= 1e-5
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,sq,skv", [(1, 1, 4096, 4096), (2, 2, 333, 1000)])
+def test_f32_d128_backward_matches_float64_on_card(cuda_device, b, h, sq, skv):
+    """flash_bwd_dq_f32_d128 and flash_bwd_dkv_f32_d128 (3xTF32) against
+    attention's gradients in float64: dq, dk and dv within 1e-5 of their
+    largest magnitudes, as fp32 products would be."""
+    g = torch.Generator(device=cuda_device).manual_seed(sq + 11)
+    q, do = (torch.randn(b, sq, h, 128, device=cuda_device, generator=g) for _ in range(2))
+    k, v = (torch.randn(b, skv, h, 128, device=cuda_device, generator=g) for _ in range(2))
+    scale = 128 ** -0.5
+    out, lse = port.flash_fwd(q, k, v, scale)
+    got = port.flash_bwd(q, k, v, out, lse, do, scale)
+    qd, kd, vd = (t.double().requires_grad_(True) for t in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) * scale
+    want = torch.autograd.grad(torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vd),
+                               (qd, kd, vd), do.double())
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_err(a.double(), w) <= 1e-5, name
+
+
 def _rel_err(got, want):
-    got, want = got.float(), want.float()
+    if want.dtype != torch.float64:
+        got, want = got.float(), want.float()
     return ((got - want).abs().max() / want.abs().max()).item()
 
 

@@ -11,10 +11,11 @@ card by ``chip_smoke.py`` and by tests/test_torch_port_cuda.py. What runs
 without a card is checked here too: which library each kernel is bound
 from, the nvcc command of the wgmma source, the rebuild rule, and the
 wrappers' alignment check (tests/test_torch_port_flash_routes.py holds the
-routing by head dim, dtype and role). The arithmetic of the fp32 head_dim-512
-kernel (3xTF32: each operand split into two TF32 parts, three TF32
-products) is emulated here and held against the JAX kernel in fp32 at a
-bar that one TF32 product does not meet.
+routing by head dim, dtype and role). The arithmetic of the 3xTF32 kernels
+(each operand split into two TF32 parts, three TF32 products: the fp32
+head_dim-512 forward and the fp32 head_dim-128 backward) is emulated here
+and held against the JAX kernels in fp32 at a bar that one TF32 product
+does not meet.
 """
 
 import os
@@ -29,8 +30,8 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from aozora_sdxl_training_tpu.ops.flash_attention import (
-    _flash_forward_folded, _pick_blocks, _round_up, flash_attention as jax_flash,
-    flash_fwd_stats)
+    LANES, _flash_backward_folded, _flash_forward_folded, _pick_blocks, _round_up,
+    flash_attention as jax_flash, flash_fwd_stats)
 from aozora_sdxl_training_tpu_torch.ops import cuda_build
 from aozora_sdxl_training_tpu_torch.ops import flash_attention as port
 from aozora_sdxl_training_tpu_torch.ops.attention import attention
@@ -108,13 +109,12 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
 
 
 def test_each_kernel_is_bound_from_the_library_of_its_source(monkeypatch):
-    """The wgmma entry points (all of head_dim 64 and 128) come from
-    csrc/flash_attention_sm90.cu (and only its library is loaded for them,
-    with their argument types); the bf16 head_dim-512 forward from
-    csrc/flash_attention.cu; the fp32 ones from csrc/flash_attention_fp32.cu.
-    A launch goes to the library of its kernel."""
-    assert set(port.SOURCES.values()) == {"flash_attention", "flash_attention_sm90",
-                                          "flash_attention_fp32"}
+    """The wgmma entry points (all of head_dim 64 and 128 and the bf16
+    head_dim-512 forward) come from csrc/flash_attention_sm90.cu (and only
+    its library is loaded for them, with their argument types); the fp32
+    ones from csrc/flash_attention_fp32.cu. A launch goes to the library of
+    its kernel."""
+    assert set(port.SOURCES.values()) == {"flash_attention_sm90", "flash_attention_fp32"}
     assert set(port.SOURCES) == {kernel[0] for kernels in port.ROUTES.values()
                                  for kernel in kernels if kernel}
     loaded, called = [], []
@@ -138,18 +138,18 @@ def test_each_kernel_is_bound_from_the_library_of_its_source(monkeypatch):
     lib = port._library("flash_attention_sm90")
     assert loaded == ["flash_attention_sm90"]
     for names in ([name for name, _ in port.ROUTES[128, torch.bfloat16]],
-                  ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
+                  ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), ("flash_fwd_d512",)):
         for name, types_ in zip(names, port._ARGTYPES):
             assert getattr(lib, f"aozora_{name}").argtypes == types_
-    assert not hasattr(lib, "aozora_flash_fwd_d512")
+    assert not hasattr(lib, "aozora_flash_fwd_f32_d512")
     assert port._library("flash_attention_sm90") is lib and len(loaded) == 1
     port._launch("flash_bwd_dkv_d128", 7)
     port._launch("flash_fwd_d512", 8)
     port._launch("flash_fwd_f32_d512", 9)
     assert called == [("flash_attention_sm90", "flash_bwd_dkv_d128", (7,)),
-                      ("flash_attention", "flash_fwd_d512", (8,)),
+                      ("flash_attention_sm90", "flash_fwd_d512", (8,)),
                       ("flash_attention_fp32", "flash_fwd_f32_d512", (9,))]
-    assert loaded == ["flash_attention_sm90", "flash_attention", "flash_attention_fp32"]
+    assert loaded == ["flash_attention_sm90", "flash_attention_fp32"]
     assert {k: v for k, v in port.LAUNCHES.items() if v} == {
         "flash_bwd_dkv_d128": 1, "flash_fwd_d512": 1, "flash_fwd_f32_d512": 1}
 
@@ -308,3 +308,59 @@ def test_split_tf32_arithmetic_matches_jax_kernel_at_head_dim_512():
                           np.abs(got_lse.numpy() - ref_lse).max())
     assert errs[3][0] <= bar and errs[3][1] <= 1e-5, errs
     assert errs[1][0] > 10 * bar, errs
+
+
+def _tf32_backward(q, k, v, o, do, lse, scale, products, block=32):
+    """The 3xTF32 head_dim-128 backward kernels' loops on (S, D) fp32 rows:
+    the dQ kernel over 32-key tiles, the dK/dV kernel over 32-query tiles;
+    each tile's products (scores and accumulating ones) in TF32 products,
+    added into the running dq, dk, dv in fp32; P, dS and delta in fp32."""
+    delta = (do * o).sum(1)
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    for j0 in range(0, k.shape[0], block):
+        kt, vt = k[j0:j0 + block], v[j0:j0 + block]
+        p = torch.exp(_tf32_matmul(q, kt.T, products) * scale - lse[:, None])
+        ds = p * (_tf32_matmul(do, vt.T, products) - delta[:, None]) * scale
+        dq = dq + _tf32_matmul(ds, kt, products)
+    for i0 in range(0, q.shape[0], block):
+        qt, dot = q[i0:i0 + block], do[i0:i0 + block]
+        pt = torch.exp(_tf32_matmul(k, qt.T, products) * scale - lse[None, i0:i0 + block])
+        dv = dv + _tf32_matmul(pt, dot, products)
+        dst = pt * (_tf32_matmul(v, dot.T, products) - delta[None, i0:i0 + block]) * scale
+        dk = dk + _tf32_matmul(dst, qt, products)
+    return dq, dk, dv
+
+
+def test_split_tf32_backward_matches_jax_kernel_at_head_dim_128():
+    """3xTF32 dq, dk and dv at head_dim 128 (one head, 128 tokens) against
+    the JAX package's _flash_backward_folded in fp32 (interpret mode), from
+    its own forward's out and lse: within 1e-5 of each gradient's largest
+    magnitude (about 1e-6 here), where one TF32 product alone misses by
+    more than 10x that (about 7e-4)."""
+    s, d = 128, 128
+    q, k, v = _inputs(128, s, s, h=1, d=d)
+    do = np.random.default_rng(129).normal(size=q.shape).astype(np.float32)
+    scale = d ** -0.5
+    block_q, block_k = _pick_blocks(s, s)
+    pad = _round_up(s, block_q)
+
+    def fold(x):
+        return jnp.pad(jnp.asarray(x).reshape(1, s, d), ((0, 0), (0, pad - s), (0, 0)))
+
+    with pltpu.force_tpu_interpret_mode():
+        out, lse = _flash_forward_folded(fold(q), fold(k), fold(v), h=1, scale=scale,
+                                         kv_valid=s, block_q=block_q, block_k=block_k)
+        grads = _flash_backward_folded(fold(q), fold(k), fold(v), out, lse, fold(do), h=1,
+                                       scale=scale, kv_valid=s, block_q=block_q,
+                                       block_k=block_k)
+    assert lse.shape[-1] == LANES
+    refs = [np.asarray(g)[0, :s] for g in grads]
+    rows = [torch.from_numpy(x[0, :, 0]) for x in (q, k, v)]
+    o, l = (torch.from_numpy(np.asarray(x)[0, :s]) for x in (out, lse[..., 0]))
+    errs = {}
+    for products in (1, 3):
+        got = _tf32_backward(*rows, o, torch.from_numpy(do[0, :, 0]), l, scale, products)
+        errs[products] = [np.abs(g.numpy() - r).max() / np.abs(r).max()
+                          for g, r in zip(got, refs)]
+    assert max(errs[3]) <= 1e-5, errs
+    assert min(errs[1]) > 10 * 1e-5, errs

@@ -4,12 +4,13 @@
 role (forward, dQ, dK/dV) which kernel a wrapper launches on CUDA tensors,
 and which CUDA source's library exports it. bf16 goes to the tensor-core
 kernels (``csrc/flash_attention_sm90.cu``: every role at head_dim 64 and
-128, on wgmma; ``csrc/flash_attention.cu``: the head_dim-512 forward),
-fp32 to the fp32 kernels (``csrc/flash_attention_fp32.cu``: fp32 FMAs at
-64 and 128, 3xTF32 at 512), so that no fp32 operand is rounded to bf16. The
-backward at head_dim 512 has no kernel in either dtype. Each entry point is
-checked to be defined in its source, and each source to define no other;
-the WMMA head_dim-64 forward that the wgmma one replaced is gone.
+128 and the head_dim-512 forward, on wgmma), fp32 to the fp32 kernels
+(``csrc/flash_attention_fp32.cu``: fp32 FMAs for the forwards at 64 and
+128 and the backward at 64, 3xTF32 for the backward at 128 and the forward
+at 512), so that no fp32 operand is rounded to bf16. The backward at
+head_dim 512 has no kernel in either dtype. Each entry point is checked to
+be defined in its source, and each source to define no other; no WMMA
+source remains.
 """
 
 import re
@@ -21,12 +22,12 @@ from aozora_sdxl_training_tpu_torch.ops import cuda_build
 from aozora_sdxl_training_tpu_torch.ops import flash_attention as port
 
 BF16, F32 = torch.bfloat16, torch.float32
-WMMA, SM90, FP32 = "flash_attention", "flash_attention_sm90", "flash_attention_fp32"
+SM90, FP32 = "flash_attention_sm90", "flash_attention_fp32"
 ROUTE_TABLE = {
     (64, BF16): (("flash_fwd", SM90), ("flash_bwd_dq", SM90), ("flash_bwd_dkv", SM90)),
     (128, BF16): (("flash_fwd_d128", SM90), ("flash_bwd_dq_d128", SM90),
                   ("flash_bwd_dkv_d128", SM90)),
-    (512, BF16): (("flash_fwd_d512", WMMA), None, None),
+    (512, BF16): (("flash_fwd_d512", SM90), None, None),
     (64, F32): (("flash_fwd_f32_d64", FP32), ("flash_bwd_dq_f32_d64", FP32),
                 ("flash_bwd_dkv_f32_d64", FP32)),
     (128, F32): (("flash_fwd_f32_d128", FP32), ("flash_bwd_dq_f32_d128", FP32),
@@ -60,8 +61,11 @@ def test_other_head_dims_and_dtypes_have_no_kernel():
 def test_every_entry_point_is_defined_in_its_source():
     """Each kernel's C entry point ``aozora_<name>`` is defined in the
     source ``route`` names, and each source defines no other kernel entry
-    point (the sm90 one also exports its attribute query)."""
-    for source in (WMMA, SM90, FP32):
+    point (the sm90 one also exports its attribute query); the two sources
+    are every flash source of ``csrc/``."""
+    assert set(port.SOURCES.values()) == {SM90, FP32}
+    assert sorted(p.stem for p in cuda_build.CSRC.glob("flash_*.cu")) == [FP32, SM90]
+    for source in (SM90, FP32):
         text = (cuda_build.CSRC / f"{source}.cu").read_text()
         defined = set(re.findall(r"^int aozora_(\w+)\(", text, re.M)) - {"flash_sm90_attributes"}
         assert defined == {n for n, src in port.SOURCES.items() if src == source}, source
@@ -69,12 +73,14 @@ def test_every_entry_point_is_defined_in_its_source():
 
 
 def test_the_head_dim_64_forward_is_the_wgmma_kernel():
-    """K1 is flash_fwd_sm90_kernel at head_dim 64: the WMMA
-    flash_fwd_kernel<64> and its geometry are gone from flash_attention.cu,
-    which keeps the bf16 head_dim-512 forward alone, and the sm90 source
-    exports the head_dim-64 forward beside the backward."""
-    wmma = (cuda_build.CSRC / f"{WMMA}.cu").read_text()
+    """No WMMA source remains: K1 is flash_fwd_sm90_kernel at head_dim 64
+    and the bf16 head_dim-512 forward is flash_fwd_d512_sm90_kernel, both
+    exported by the sm90 source, and no source uses the WMMA API."""
+    assert not (cuda_build.CSRC / "flash_attention.cu").exists()
+    for path in cuda_build.CSRC.glob("*.cu*"):
+        assert "nvcuda::wmma" not in path.read_text() and "<mma.h>" not in path.read_text(), path
     sm90 = (cuda_build.CSRC / f"{SM90}.cu").read_text()
-    assert "flash_fwd_kernel" not in wmma and "Geometry" not in wmma
-    assert re.findall(r"^(flash_\w+_kernel)\(", wmma, re.M) == ["flash_fwd_d512_kernel"]
     assert re.search(r"^int aozora_flash_fwd\([^)]*\)\s*\{\s*return fwd<64>", sm90, re.M)
+    assert re.search(r"^int aozora_flash_fwd_d512\([^)]*\)\s*\{\s*return fwd_d512\(", sm90,
+                     re.M)
+    assert re.search(r"^flash_fwd_d512_sm90_kernel\(", sm90, re.M)
