@@ -1,90 +1,63 @@
-// Flash attention for fp32 inputs, to fp32 accuracy: no operand is
-// rounded to bf16 (the bf16 kernels of flash_attention_sm90.cu take bf16
-// only). Each kernel computes what a Pallas TPU kernel of
+// Flash attention for fp32 inputs, to fp32 accuracy, on the tensor cores:
+// no operand is rounded to bf16 (the bf16 kernels of flash_attention_sm90.cu
+// take bf16 only). Each kernel computes what a Pallas TPU kernel of
 // aozora_sdxl_training_tpu/ops/flash_attention.py computes when its
 // operands are fp32 (the Pallas bodies multiply in the operands' own
 // dtype):
 //
-//   flash_fwd_f32_kernel<D>         <- _fwd_kernel (_flash_forward)   D = 64, 128
-//   flash_bwd_dq_f32_kernel<64>     <- _bwd_dq_kernel (_flash_backward)
-//   flash_bwd_dkv_f32_kernel<64>    <- _bwd_dkv_kernel (_flash_backward)
-//   flash_bwd_dq_f32_d128_kernel    <- _flash_backward_folded, dq pallas_call
-//   flash_bwd_dkv_f32_d128_kernel   <- _flash_backward_folded, dk/dv pallas_call
+//   flash_fwd_3xtf32_kernel<D>      <- _fwd_kernel (_flash_forward at 64,
+//                                      _flash_forward_folded at 128)
+//   flash_bwd_dq_3xtf32_kernel<D>   <- _bwd_dq_kernel (_flash_backward at 64,
+//                                      _flash_backward_folded's dq call at 128)
+//   flash_bwd_dkv_3xtf32_kernel<D>  <- _bwd_dkv_kernel (the dk/dv call of
+//                                      either)
 //   flash_fwd_f32_d512_kernel       <- _fwd_kernel (_flash_forward_folded) at D = 512
 //
-// The last is the SD-VAE decoder's mid-attention in the preview (one head
-// of 512 over 16384 tokens at 1024px), forward only: no caller
-// differentiates there. All: exact attention with an online softmax over
-// key tiles, fp32 statistics, keys >= Skv masked to -1e30, l clamped at
-// 1e-30, the backward recomputing P from the saved row logsumexp, delta =
-// rowsum(dO * O) written by the dQ kernel and read by the dK/dV kernel. No
-// atomics: the sums over the other sequence run inside a block, and the row
-// reductions over lanes in a fixed order, so results are bitwise the same
+// D = 64 (the SDXL UNet's head dim) or 128 (the Anima DiT's). The last is
+// the SD-VAE decoder's mid-attention in the preview (one head of 512 over
+// 16384 tokens at 1024px), forward only: no caller differentiates there.
+// All: exact attention with an online softmax over key tiles, fp32
+// statistics, keys >= Skv masked to -1e30, l clamped at 1e-30, the backward
+// recomputing P from the saved row logsumexp, delta = rowsum(dO * O)
+// written by the dQ kernel and read by the dK/dV kernel. No atomics: the
+// sums over the other sequence run inside a block, and the row reductions
+// over lanes and warps in a fixed order, so results are bitwise the same
 // from run to run.
 //
 // Layout (the callers'): q, o, dout, dq contiguous fp32 (B, Sq, H, D); k,
 // v, dk, dv contiguous fp32 (B, Skv, H, D); lse and delta contiguous fp32
 // (B * H, Sq).
 //
-// The forwards at head_dim 64 and 128 and the backward at 64, on the CUDA
-// cores: bound by the fp32 FMA rate (4, 6 and 8 * Sq * Skv * D flop per
-// head against 4 * S * D bytes per operand); no caller of the trainers
-// reaches them (both compute in bf16), so they are the simple design: a
-// block of 256 threads owns 64 rows of the stationary sequence and loops
-// over 64-row tiles of the other,
-// all tiles in shared memory (rows padded by 4 floats, so that the 16-byte
-// loads of 8 neighbouring rows fall in 8 different bank groups). Thread
-// t = 16 rb + cb computes a register tile: rows rb + 16 i of the score
-// products (columns cb + 16 j), reading 4 columns of D at a time, and the
-// same rows of the output products (4-column groups cb + 16 j). The score
-// tile (P, dS, P^T, dS^T) goes through shared memory between the two
-// products, and the online softmax reads it there, 4 threads to a row. The
-// tiles come in by cp.async; the second operand of a tile's score products
-// (V, dO) is waited for only after the first product.
-//
-// The backward at head_dim 128 and the forward at 512, on the tensor cores
-// in 3xTF32 (the backward's design is at its kernels). The forward's 4 * S^2 *
-// 512 flop (5.5e11 at S = 16384) take 8.2 ms at the fp32 FMA peak (67
-// TFLOP/s), where the CUDA-core kernel of the design above took 23.6 ms on
-// the H100; as three TF32 products (495 TFLOP/s) they take 3.3 ms. Each
-// fp32 operand x is split into hi = x rounded to TF32 and lo = x - hi,
-// and a product is lo hi + hi lo + hi hi on mma.sync m16n8k8 TF32 with fp32
-// accumulation: hi hi alone keeps about 11 bits (~5e-4 of the output), the
-// two cross terms bring it to ~2^-21 (the lo lo term left out), the level
-// of fp32 summation order. The softmax statistics stay fp32. What bounds it
-// on the card is the work around the tensor cores, not their rate: it runs
-// at about a quarter of the 3.3 ms, and the form of the split alone moves
-// its time by a quarter (see tf32_rna), as every element of a fragment is
-// split in registers each time a warp loads it. The design does about
-// that:
-// * a block owns 64 query rows (the Q tile, 132 KB of the 227 KB, stays
-//   in shared memory; in registers its fragments would take 256 per
-//   thread) and its 8 warps split the work 4 row groups x 2 halves of D:
-//   the O accumulator (64 x 512 fp32) is 128 registers a thread, and the
-//   score products run over each warp's half of D, the two partial 16 x 16
-//   score tiles summed through shared memory, so that a Q fragment is
-//   loaded and split once per 2 n-tiles and both halves' warps have the
-//   whole row for the softmax;
-// * 16-key tiles, K and V taking turns in two slots (the copy of V_j runs
-//   under S_j, that of K_{j + 1} under P V_j), by cp.async;
-// * every fragment comes by wide loads: the reduction index of the score
-//   products is permuted (the same way in Q and K) and O's columns are
-//   permuted within 32-column groups, so that one 16-byte load covers two
-//   k-steps of a Q or K fragment and one 8-byte load the V fragments of two
-//   n-tiles; row strides keep the loads free of bank conflicts;
+// One design, 3xTF32 on mma.sync m16n8k8. Each fp32 operand x is split
+// into hi = x rounded to TF32 and lo = x - hi, and a product is lo hi +
+// hi lo + hi hi with fp32 accumulation: hi hi alone keeps about 11 bits
+// (~5e-4 of the output), the two cross terms bring it to ~2^-21 (the lo lo
+// term left out), the level of fp32 summation order. The softmax
+// statistics stay fp32. Counted as three TF32 products at 495 TFLOP/s, the
+// 4, 6 and 8 * Sq * Skv * D flop per head of the forward, dQ and dK/dV
+// bound every kernel by operations (as fp32 FMAs at 67 TFLOP/s they would
+// take 2.5x as long). What bounds them on the H100 is the work around the
+// tensor cores, not their rate: every element of a fragment is split in
+// registers each time a warp loads it, and the form of the split alone
+// moves a kernel's time by a quarter (see tf32_rna). Common to all:
 // * the tensor cores' adder truncates, so no running sum lives in an mma
-//   accumulator: each 16-key tile's P V and each pair of k-steps' scores
-//   go into fresh fragments that are added into O and S in fp32 (kept
-//   across all 1024 tiles of S = 16384, O drifted 1.3e-4 of its largest
-//   magnitude from the fp32 result; now ~2e-6 from float64);
-// * O is written straight from the registers: after the permutation a
-//   lane holds 8 neighbouring columns of each of its rows. The kernel takes
-//   255 registers a thread without a spill; the epilogue reads the block
-//   index anew so that no offset stays live through the key loop.
+//   accumulator: each tile's accumulating products and each k-step's (or
+//   pair of k-steps') scores go into fresh fragments that are added into
+//   the sums in fp32 (kept across all 1024 tiles of S = 16384, O drifted
+//   1.3e-4 of its largest magnitude from the fp32 result; now ~2e-6 from
+//   float64);
+// * scores stay in registers: the accumulator of a score n-tile is the A
+//   fragment of a k-step of the next product once that product's reduction
+//   index is permuted to match, and outputs are written straight from the
+//   registers;
+// * every fragment comes by wide loads from tiles laid out so that a
+//   quarter warp's loads fall in 8 different bank groups (a padded row
+//   stride at 512, a swizzle at 64 and 128).
 // Weighed and not taken: wgmma, whose TF32 form reads shared-memory
 // operands K-major only (V would be transposed on the way in) and B only
-// from shared memory (K and V split there: twice the bytes), with Q's split
-// pieces (2 x 128 KB) not fitting beside the rest.
+// from shared memory (K and V split there: twice the bytes; splitting the
+// streamed tiles once in shared memory made the backward at 128 1.2-1.7x
+// slower, PERF.md). Each kernel's design is at it.
 //
 // Built by aozora_sdxl_training_tpu_torch/ops/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
@@ -94,432 +67,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "sm90_wgmma.cuh"   // cp.async
+#include "sm90_wgmma.cuh"   // cp.async, the host side of a launch
 
 namespace {
+
+using sm90::aligned16;
+using sm90::allow_smem;
+using sm90::attributes;
 
 constexpr int THREADS = 256;
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
-
-template <int D>
-struct Cfg {
-  static constexpr int BQ = 64;                   // stationary rows of a block
-  static constexpr int BK = 64;                   // rows of a streamed tile
-  static constexpr int TM = BQ / 16;              // rows of a thread's register tile
-  static constexpr int TN = BK / 16;              // score columns of a thread
-  static constexpr int C4 = D / 64;               // 4-column output groups of a thread
-  static constexpr int LD = D + 4;                // row stride of the D-wide tiles
-  static constexpr int LDS = BK + 4;              // row stride of the score tiles
-  static constexpr int ROW_T = THREADS / BQ;      // softmax threads a row
-  static constexpr int QTILE = BQ * LD;           // floats of a stationary D-wide tile
-  static constexpr int KTILE = BK * LD;           // floats of a streamed D-wide tile
-  static constexpr int STILE = BQ * LDS;          // floats of one score tile
-  static constexpr size_t FWD_SMEM = (QTILE + 2 * KTILE + STILE + BQ) * sizeof(float);
-  static constexpr size_t DQ_SMEM = (2 * QTILE + 2 * KTILE + STILE + 2 * BQ) * sizeof(float);
-  static constexpr size_t DKV_SMEM =
-      (2 * QTILE + 2 * KTILE + 2 * STILE + 2 * BK) * sizeof(float);
-  static_assert(16 * TM == BQ && 16 * TN == BK && 64 * C4 == D, "register tiles");
-  static_assert(DKV_SMEM <= 232448, "shared memory of one block");
-};
-
-// Rows [row0, row0 + R) of one head of a (B, S, H, D) fp32 tensor (row
-// stride rs floats) into a tile of row stride LD, by cp.async (the caller
-// commits and waits); rows >= S are zeros.
-template <int R, int D, int LD = D + 4>
-__device__ __forceinline__ void load_tile_async(float* dst, const float* head, int row0, int S,
-                                                int rs) {
-  constexpr int C = D / 4;                  // 16-byte chunks of a row
-  static_assert((R * C) % THREADS == 0, "whole chunks per thread");
-#pragma unroll
-  for (int i = 0; i < R * C / THREADS; ++i) {
-    const unsigned c = threadIdx.x + i * THREADS;
-    const int r = c / C, col = (c % C) * 4;
-    const bool ok = row0 + r < S;
-    sm90::cp_async16(sm90::smem_u32(dst + r * LD + col),
-                     head + (size_t)(ok ? row0 + r : 0) * rs + col, ok);
-  }
-}
-
-// acc[i][j] = sum_d A[rb + 16 i][d] B[cb + 16 j][d] over d < D; A and B
-// tiles of row stride D + 4.
-template <int D, int TM, int TN>
-__device__ __forceinline__ void nt_product(float (&acc)[TM][TN], const float* A,
-                                           const float* B, int rb, int cb) {
-  constexpr int LD = D + 4;
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 a[TM], b[TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (rb + 16 * i) * LD + d);
-#pragma unroll
-    for (int j = 0; j < TN; ++j)
-      b[j] = *reinterpret_cast<const float4*>(B + (cb + 16 * j) * LD + d);
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
-        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
-        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
-        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
-      }
-  }
-}
-
-__device__ __forceinline__ float lane4(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-// acc[i][4 j + e] += sum_c P[rb + 16 i][c] V[c][4 (cb + 16 j) + e] over
-// c < K; P of row stride ldp, V of row stride D + 4; W = 4 C4 columns.
-template <int D, int K, int TM, int W>
-__device__ __forceinline__ void nn_accumulate(float (&acc)[TM][W], const float* P, int ldp,
-                                              const float* V, int rb, int cb) {
-  constexpr int LD = D + 4, C4 = W / 4;
-#pragma unroll 2
-  for (int c = 0; c < K; c += 4) {
-    float4 p[TM];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-      p[i] = *reinterpret_cast<const float4*>(P + (rb + 16 * i) * ldp + c);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-#pragma unroll
-      for (int j = 0; j < C4; ++j) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(V + (c + e) * LD + 4 * (cb + 16 * j));
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const float pi = lane4(p[i], e);
-          acc[i][4 * j] = fmaf(pi, v.x, acc[i][4 * j]);
-          acc[i][4 * j + 1] = fmaf(pi, v.y, acc[i][4 * j + 1]);
-          acc[i][4 * j + 2] = fmaf(pi, v.z, acc[i][4 * j + 2]);
-          acc[i][4 * j + 3] = fmaf(pi, v.w, acc[i][4 * j + 3]);
-        }
-      }
-    }
-  }
-}
-
-// Writes rows rb + 16 i of a thread's output tile, scaled by mul[i], into
-// rows [row0, row0 + 16 TM) of one head (row stride rs floats); rows >= S
-// are dropped.
-template <int TM, int W>
-__device__ __forceinline__ void store_tile(const float (&acc)[TM][W], const float (&mul)[TM],
-                                           float* head, int row0, int S, int rs, int rb,
-                                           int cb) {
-  constexpr int C4 = W / 4;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = row0 + rb + 16 * i;
-    if (row >= S) continue;
-#pragma unroll
-    for (int j = 0; j < C4; ++j)
-      *reinterpret_cast<float4*>(head + (size_t)row * rs + 4 * (cb + 16 * j)) =
-          make_float4(acc[i][4 * j] * mul[i], acc[i][4 * j + 1] * mul[i],
-                      acc[i][4 * j + 2] * mul[i], acc[i][4 * j + 3] * mul[i]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Forward. Grid (ceil(Sq / BQ), B * H).
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int H, int Sq, int Skv, float scale) {
-  using C = Cfg<D>;
-  extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sK = sQ + C::QTILE;
-  float* sV = sK + C::KTILE;
-  float* sP = sV + C::KTILE;
-  float* sRow = sP + C::STILE;              // per row: alpha, then 1 / l
-  const int tid = threadIdx.x, rb = tid / 16, cb = tid % 16;
-  const int r = tid / C::ROW_T, u = tid % C::ROW_T;   // softmax: row and lane in it
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * C::BQ;
-  const int rs = H * D;
-  const float* kh = k + (size_t)b * Skv * rs + h * D;
-  const float* vh = v + (size_t)b * Skv * rs + h * D;
-
-  load_tile_async<C::BQ, D>(sQ, q + (size_t)b * Sq * rs + h * D, q0, Sq, rs);
-  sm90::cp_async_commit();
-  float acc[C::TM][4 * C::C4];
-#pragma unroll
-  for (int i = 0; i < C::TM; ++i)
-#pragma unroll
-    for (int x = 0; x < 4 * C::C4; ++x) acc[i][x] = 0.f;
-  float m = NEG_INF, l = 0.f;               // of row r, held by its ROW_T threads
-
-  for (int k0 = 0; k0 < Skv; k0 += C::BK) {
-    __syncthreads();                        // the previous tile is consumed
-    load_tile_async<C::BK, D>(sK, kh, k0, Skv, rs);
-    sm90::cp_async_commit();
-    load_tile_async<C::BK, D>(sV, vh, k0, Skv, rs);
-    sm90::cp_async_commit();
-    sm90::cp_async_wait<1>();               // K (and Q) landed
-    __syncthreads();
-    float s[C::TM][C::TN];
-    nt_product<D>(s, sQ, sK, rb, cb);       // S = Q K^T
-#pragma unroll
-    for (int i = 0; i < C::TM; ++i)
-#pragma unroll
-      for (int j = 0; j < C::TN; ++j) {
-        const int col = cb + 16 * j;
-        sP[(rb + 16 * i) * C::LDS + col] = (k0 + col < Skv) ? s[i][j] * scale : NEG_INF;
-      }
-    __syncthreads();
-    // online softmax of row r over this tile's BK keys
-    float* prow = sP + r * C::LDS;
-    float mx = m;
-#pragma unroll
-    for (int x = u; x < C::BK; x += C::ROW_T) mx = fmaxf(mx, prow[x]);
-#pragma unroll
-    for (int off = 1; off < C::ROW_T; off *= 2) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
-    const float alpha = expf(m - mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int x = u; x < C::BK; x += C::ROW_T) {
-      const float p = expf(prow[x] - mx);
-      prow[x] = p;
-      sum += p;
-    }
-#pragma unroll
-    for (int off = 1; off < C::ROW_T; off *= 2) sum += __shfl_xor_sync(FULL, sum, off);
-    l = l * alpha + sum;
-    m = mx;
-    if (u == 0) sRow[r] = alpha;
-    sm90::cp_async_wait<0>();               // V landed
-    __syncthreads();
-    // O = alpha O + P V
-#pragma unroll
-    for (int i = 0; i < C::TM; ++i) {
-      const float a = sRow[rb + 16 * i];
-#pragma unroll
-      for (int x = 0; x < 4 * C::C4; ++x) acc[i][x] *= a;
-    }
-    nn_accumulate<D, C::BK>(acc, sP, C::LDS, sV, rb, cb);
-  }
-
-  const float safe_l = fmaxf(l, 1e-30f);
-  __syncthreads();                          // every thread has read this tile's alpha
-  if (u == 0) {
-    sRow[r] = 1.f / safe_l;
-    if (q0 + r < Sq) lse[(size_t)bh * Sq + q0 + r] = m + logf(safe_l);
-  }
-  __syncthreads();
-  float inv[C::TM];
-#pragma unroll
-  for (int i = 0; i < C::TM; ++i) inv[i] = sRow[rb + 16 * i];
-  store_tile(acc, inv, o + (size_t)b * Sq * rs + h * D, q0, Sq, rs, rb, cb);
-}
-
-// ---------------------------------------------------------------------------
-// dQ, and delta = rowsum(dO * O) for the dK/dV kernel. Grid
-// (ceil(Sq / BQ), B * H); the key loop is inside the block.
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ o,
-                        const float* __restrict__ dout, const float* __restrict__ lse,
-                        float* __restrict__ delta, float* __restrict__ dq, int H, int Sq,
-                        int Skv, float scale) {
-  using C = Cfg<D>;
-  extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sDO = sQ + C::QTILE;
-  float* sK = sDO + C::QTILE;
-  float* sV = sK + C::KTILE;
-  float* sDS = sV + C::KTILE;
-  float* sLse = sDS + C::STILE;
-  float* sDelta = sLse + C::BQ;
-  const int tid = threadIdx.x, rb = tid / 16, cb = tid % 16;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * C::BQ;
-  const int rs = H * D;
-  const size_t qoff = (size_t)b * Sq * rs + h * D;
-  const float* kh = k + (size_t)b * Skv * rs + h * D;
-  const float* vh = v + (size_t)b * Skv * rs + h * D;
-
-  load_tile_async<C::BQ, D>(sQ, q + qoff, q0, Sq, rs);
-  load_tile_async<C::BQ, D>(sDO, dout + qoff, q0, Sq, rs);
-  sm90::cp_async_commit();
-  {
-    // delta of row r: ROW_T threads, D / ROW_T columns each, reduced over
-    // the lanes in a fixed order
-    const int r = tid / C::ROW_T, u = tid % C::ROW_T, row = q0 + r;
-    float dl = 0.f;
-    if (row < Sq) {
-      const float* orow = o + qoff + (size_t)row * rs;
-      const float* drow = dout + qoff + (size_t)row * rs;
-#pragma unroll 4
-      for (int c = u * 4; c < D; c += 4 * C::ROW_T) {
-        const float4 fo = *reinterpret_cast<const float4*>(orow + c);
-        const float4 fd = *reinterpret_cast<const float4*>(drow + c);
-        dl += fd.x * fo.x + fd.y * fo.y + fd.z * fo.z + fd.w * fo.w;
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < C::ROW_T; off *= 2) dl += __shfl_xor_sync(FULL, dl, off);
-    if (u == 0) {
-      sDelta[r] = dl;
-      sLse[r] = row < Sq ? lse[(size_t)bh * Sq + row] : 0.f;
-      if (row < Sq) delta[(size_t)bh * Sq + row] = dl;
-    }
-  }
-  __syncthreads();
-  float lse_r[C::TM], dl_r[C::TM];
-#pragma unroll
-  for (int i = 0; i < C::TM; ++i) {
-    lse_r[i] = sLse[rb + 16 * i];
-    dl_r[i] = sDelta[rb + 16 * i];
-  }
-
-  float acc[C::TM][4 * C::C4];
-#pragma unroll
-  for (int i = 0; i < C::TM; ++i)
-#pragma unroll
-    for (int x = 0; x < 4 * C::C4; ++x) acc[i][x] = 0.f;
-
-  for (int k0 = 0; k0 < Skv; k0 += C::BK) {
-    __syncthreads();                        // the previous tile is consumed
-    load_tile_async<C::BK, D>(sK, kh, k0, Skv, rs);
-    sm90::cp_async_commit();
-    load_tile_async<C::BK, D>(sV, vh, k0, Skv, rs);
-    sm90::cp_async_commit();
-    sm90::cp_async_wait<1>();               // K (and Q, dO) landed
-    __syncthreads();
-    float s[C::TM][C::TN], dp[C::TM][C::TN];
-    nt_product<D>(s, sQ, sK, rb, cb);       // S = Q K^T
-    sm90::cp_async_wait<0>();               // V landed
-    __syncthreads();
-    nt_product<D>(dp, sDO, sV, rb, cb);     // dP = dO V^T
-    // dS = P (dP - delta) scale
-#pragma unroll
-    for (int i = 0; i < C::TM; ++i)
-#pragma unroll
-      for (int j = 0; j < C::TN; ++j) {
-        const int col = cb + 16 * j;
-        const float p = (k0 + col < Skv) ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
-        sDS[(rb + 16 * i) * C::LDS + col] = p * (dp[i][j] - dl_r[i]) * scale;
-      }
-    __syncthreads();
-    nn_accumulate<D, C::BK>(acc, sDS, C::LDS, sK, rb, cb);   // dQ += dS K
-  }
-
-  float one[C::TM];
-#pragma unroll
-  for (int i = 0; i < C::TM; ++i) one[i] = 1.f;
-  store_tile(acc, one, dq + qoff, q0, Sq, rs, rb, cb);
-}
-
-// ---------------------------------------------------------------------------
-// dK and dV from the saved lse and the dQ kernel's delta. Grid
-// (ceil(Skv / BQ), B * H); the query loop is inside the block, on
-// transposed scores (rows = keys, columns = queries).
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv, int H, int Sq,
-                         int Skv, float scale) {
-  using C = Cfg<D>;
-  extern __shared__ float4 smem4[];
-  float* sK = reinterpret_cast<float*>(smem4);
-  float* sV = sK + C::QTILE;
-  float* sQ = sV + C::QTILE;
-  float* sDO = sQ + C::KTILE;
-  float* sPT = sDO + C::KTILE;
-  float* sDST = sPT + C::STILE;
-  float* sLse = sDST + C::STILE;
-  float* sDelta = sLse + C::BK;
-  const int tid = threadIdx.x, rb = tid / 16, cb = tid % 16;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int kv0 = blockIdx.x * C::BQ;
-  const int rs = H * D;
-  const size_t kvoff = (size_t)b * Skv * rs + h * D;
-  const float* qh = q + (size_t)b * Sq * rs + h * D;
-  const float* doh = dout + (size_t)b * Sq * rs + h * D;
-
-  load_tile_async<C::BQ, D>(sK, k + kvoff, kv0, Skv, rs);
-  load_tile_async<C::BQ, D>(sV, v + kvoff, kv0, Skv, rs);
-  sm90::cp_async_commit();
-  float acc_dk[C::TM][4 * C::C4], acc_dv[C::TM][4 * C::C4];
-#pragma unroll
-  for (int i = 0; i < C::TM; ++i)
-#pragma unroll
-    for (int x = 0; x < 4 * C::C4; ++x) acc_dk[i][x] = acc_dv[i][x] = 0.f;
-
-  for (int j0 = 0; j0 < Sq; j0 += C::BK) {
-    __syncthreads();                        // the previous tile is consumed
-    load_tile_async<C::BK, D>(sQ, qh, j0, Sq, rs);
-    sm90::cp_async_commit();
-    load_tile_async<C::BK, D>(sDO, doh, j0, Sq, rs);
-    sm90::cp_async_commit();
-    if (tid < C::BK) {
-      const bool ok = j0 + tid < Sq;
-      sLse[tid] = ok ? lse[(size_t)bh * Sq + j0 + tid] : 0.f;
-      sDelta[tid] = ok ? delta[(size_t)bh * Sq + j0 + tid] : 0.f;
-    }
-    sm90::cp_async_wait<1>();               // Q (and K, V) landed
-    __syncthreads();
-    float st[C::TM][C::TN], dpt[C::TM][C::TN];
-    nt_product<D>(st, sK, sQ, rb, cb);      // S^T = K Q^T
-    sm90::cp_async_wait<0>();               // dO landed
-    __syncthreads();
-    nt_product<D>(dpt, sV, sDO, rb, cb);    // dP^T = V dO^T
-    // P^T, 0 for queries >= Sq, and dS^T = P^T (dP^T - delta) scale
-#pragma unroll
-    for (int i = 0; i < C::TM; ++i)
-#pragma unroll
-      for (int j = 0; j < C::TN; ++j) {
-        const int col = cb + 16 * j;
-        const float p = (j0 + col < Sq) ? expf(st[i][j] * scale - sLse[col]) : 0.f;
-        sPT[(rb + 16 * i) * C::LDS + col] = p;
-        sDST[(rb + 16 * i) * C::LDS + col] = p * (dpt[i][j] - sDelta[col]) * scale;
-      }
-    __syncthreads();
-    nn_accumulate<D, C::BK>(acc_dv, sPT, C::LDS, sDO, rb, cb);   // dV += P^T dO
-    nn_accumulate<D, C::BK>(acc_dk, sDST, C::LDS, sQ, rb, cb);   // dK += dS^T Q
-  }
-
-  float one[C::TM];
-#pragma unroll
-  for (int i = 0; i < C::TM; ++i) one[i] = 1.f;
-  store_tile(acc_dk, one, dk + kvoff, kv0, Skv, rs, rb, cb);
-  store_tile(acc_dv, one, dv + kvoff, kv0, Skv, rs, rb, cb);
-}
-
-// ---------------------------------------------------------------------------
-// The forward at head_dim 512 on the tensor cores, to fp32 accuracy: both
-// products in 3xTF32 (see the header). Grid (ceil(Sq / 64), B * H); 8
-// warps, warp w owning rows [16 (w % 4), +16) of the block's 64 and half
-// w / 4 of D: its 256 columns of the score products' reduction and its 256
-// columns of O. Key tiles of 16 rows; K and V take turns in two slots, so
-// each tile's copy overlaps the other product.
-// ---------------------------------------------------------------------------
-namespace d512 {
-constexpr int D = 512, BQ = 64, BK = 16;
-// Row strides in floats. Q and K: 16 mod 32, so that the 16-byte fragment
-// loads of a quarter warp (rows g, g + 1 at 4 c) fall in 8 bank groups; V:
-// 8 mod 32 (rows c, columns 4 g); the score exchange: rows g, keys c.
-constexpr int LDQ = D + 16, LDV = D + 8, LDX = BK + 4;
-constexpr int Q_FLOATS = BQ * LDQ, K_FLOATS = BK * LDQ, V_FLOATS = BK * LDV;
-constexpr int X_FLOATS = 2 * BQ * LDX;   // [half of D][row][key]
-constexpr size_t SMEM = (size_t)(Q_FLOATS + K_FLOATS + V_FLOATS + X_FLOATS) * sizeof(float);
-static_assert(SMEM <= 232448, "shared memory of one block");
-}  // namespace d512
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 // The TF32 split x = hi + lo. hi is x rounded to TF32, to nearest with ties
 // away as cvt.rna.tf32.f32 (for every finite x): add half a TF32 ulp to the
@@ -534,8 +93,8 @@ static_assert(SMEM <= 232448, "shared memory of one block");
 // part with NumericConverter<tfloat32_t, float, round_half_ulp_truncate>
 // (or round_half_ulp_trunc_dntz) of cutlass/numeric_conversion.h, which add
 // half a TF32 ulp and leave the low 13 bits for the tensor cores to drop;
-// tests/test_torch_port_cuda.py::test_f32_d512_forward_matches_float64_on_card
-// holds the kernel to 1e-5 of float64 on the card. Timed on the H100 and not
+// tests/test_torch_port_cuda.py::test_f32_forward_matches_float64_on_card
+// holds the kernels to 1e-5 of float64 on the card. Timed on the H100 and not
 // kept: hi and lo both by cvt.rna.tf32.f32 (29% slower), lo rounded by the
 // integer form (8% slower, no more accurate).
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
@@ -577,12 +136,69 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4
   mma_3xtf32(d, ah, al, bh0, bh1, bl0, bl1);
 }
 
+// Rows [row0, row0 + R) of one head of a (B, S, H, D) fp32 tensor (row
+// stride rs floats) into a tile of row stride LD, by cp.async (the caller
+// commits and waits); rows >= S are zeros.
+template <int R, int D, int LD = D + 4>
+__device__ __forceinline__ void load_tile_async(float* dst, const float* head, int row0, int S,
+                                                int rs) {
+  constexpr int C = D / 4;                  // 16-byte chunks of a row
+  static_assert((R * C) % THREADS == 0, "whole chunks per thread");
+#pragma unroll
+  for (int i = 0; i < R * C / THREADS; ++i) {
+    const unsigned c = threadIdx.x + i * THREADS;
+    const int r = c / C, col = (c % C) * 4;
+    const bool ok = row0 + r < S;
+    sm90::cp_async16(sm90::smem_u32(dst + r * LD + col),
+                     head + (size_t)(ok ? row0 + r : 0) * rs + col, ok);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The forward at head_dim 512. Its 4 * S^2 * 512 flop (5.5e11 at S =
+// 16384) take 8.2 ms at the fp32 FMA peak, where a CUDA-core kernel took
+// 23.6 ms on the H100; as three TF32 products they take 3.3 ms, and the
+// kernel runs at about a quarter of that. Grid (ceil(Sq / 64), B * H):
+// * a block owns 64 query rows (the Q tile, 132 KB of the 227 KB, stays
+//   in shared memory; in registers its fragments would take 256 per
+//   thread) and its 8 warps split the work 4 row groups x 2 halves of D
+//   (warp w: rows [16 (w % 4), +16), half w / 4): the O accumulator (64 x
+//   512 fp32) is 128 registers a thread, and the score products run over
+//   each warp's half of D, the two partial 16 x 16 score tiles summed
+//   through shared memory, so that a Q fragment is loaded and split once
+//   per 2 n-tiles and both halves' warps have the whole row for the
+//   softmax;
+// * 16-key tiles, K and V taking turns in two slots (the copy of V_j runs
+//   under S_j, that of K_{j + 1} under P V_j), by cp.async;
+// * the reduction index of the score products is permuted (the same way
+//   in Q and K) and O's columns are permuted within 32-column groups, so
+//   that one 16-byte load covers two k-steps of a Q or K fragment and one
+//   8-byte load the V fragments of two n-tiles; row strides keep the loads
+//   free of bank conflicts;
+// * O is written straight from the registers: after the permutation a
+//   lane holds 8 neighbouring columns of each of its rows. The kernel takes
+//   255 registers a thread without a spill; the epilogue reads the block
+//   index anew so that no offset stays live through the key loop.
+// Weighed and not taken here: wgmma, with Q's split pieces (2 x 128 KB)
+// not fitting beside the rest.
+// ---------------------------------------------------------------------------
+namespace d512 {
+constexpr int D = 512, BQ = 64, BK = 16;
+// Row strides in floats. Q and K: 16 mod 32, so that the 16-byte fragment
+// loads of a quarter warp (rows g, g + 1 at 4 c) fall in 8 bank groups; V:
+// 8 mod 32 (rows c, columns 4 g); the score exchange: rows g, keys c.
+constexpr int LDQ = D + 16, LDV = D + 8, LDX = BK + 4;
+constexpr int Q_FLOATS = BQ * LDQ, K_FLOATS = BK * LDQ, V_FLOATS = BK * LDV;
+constexpr int X_FLOATS = 2 * BQ * LDX;   // [half of D][row][key]
+constexpr size_t SMEM = (size_t)(Q_FLOATS + K_FLOATS + V_FLOATS + X_FLOATS) * sizeof(float);
+static_assert(SMEM <= 232448, "shared memory of one block");
+}  // namespace d512
+
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_f32_d512_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, float* __restrict__ o,
                           float* __restrict__ lse, int H, int Sq, int Skv, float scale) {
   using namespace d512;
-  constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
   float* sK = sQ + Q_FLOATS;
@@ -767,63 +383,95 @@ flash_fwd_f32_d512_kernel(const float* __restrict__ q, const float* __restrict__
 }
 
 // ---------------------------------------------------------------------------
-// The backward at head_dim 128 on the tensor cores, to fp32 accuracy: every
-// product in 3xTF32 as above. A block of 4 warps owns 32 rows of the
-// stationary sequence (queries in the dQ kernel, keys in the dK/dV kernel)
-// and loops over 32-row tiles of the other; warp w takes the stationary
-// rows a0 = 16 (w % 2) .. + 16 and the streamed rows b0 = 16 (w / 2) .. + 16
-// of each tile. Its score products (16 x 16, reduced over all of D) stay in
-// registers: the accumulator of an n-tile is the A fragment of a k-step of
-// the accumulating product once that product's reduction index (the
-// streamed rows) is permuted to match (logical k = c and c + 4 of k-step e
-// are rows 8 e + 2 c and 8 e + 2 c + 1), so no score tile goes through
-// shared memory. Each warp accumulates its 16 streamed rows' share of the
-// 16 x 128 output (dQ; dK and dV) and the two warps of a row group add
-// theirs once, in the epilogue, in a fixed order. Every tile's accumulating
-// products go into fresh fragments added into the fp32 sums, and each
-// k-step's scores likewise (the tensor cores' adder truncates).
+// The kernels at head_dim 64 and 128. Every tile holds rows of D floats
+// whose 16-byte chunks are permuted by row (swz). A warp forms 16 x 16
+// score tiles (score16: 16 rows of the stationary sequence against 16 of
+// the streamed one, reduced over all of D), keeps them in registers as the
+// A fragments of the accumulating product (accumulate16: a 16 x D sum over
+// those 16 streamed rows), and writes its sums straight from the registers
+// (store16).
 //
-// Tiles are rows of 128 floats whose 16-byte chunks are permuted by row
-// (swz): the score products read a row's chunks 4 p + c (rows g of a
-// quarter warp), the accumulating products chunk 8 jj + g of rows 2 c and
-// 2 c + 1, and both fall in 8 different bank groups. 32-row blocks give
-// B * H = 4, S = 1024 128 blocks; 96.5 KB of shared memory (the stationary
-// tiles, two cp.async stages of the streamed ones, the lse and delta rows)
-// lets 2 blocks share a SM (registers allow no third: dQ 214, dK/dV 255 a
-// thread, where dK/dV applies P to dV before it forms dP, and reads its
-// fragments at per-lane offsets, to fit). What bounds it on the H100 is the
-// work around the tensor cores: about 30% of the 3xTF32 bound at B * H =
-// 16, S = 4096, with 8 warps a SM and the stationary operand split again
-// for every tile. Also measured on the H100 (PERF.md), and slower: each
-// stage's streamed tiles split into hi and lo once in shared memory (160.5
-// KB, 1 block a SM; 1.2-1.7x slower), hi by truncation in place of rounding
-// (and 3x further from float64); a fully unrolled score loop spills dK/dV.
+// The backward: a block of 4 warps owns 32 rows of the stationary sequence
+// (queries in the dQ kernel, keys in the dK/dV kernel) and loops over
+// 32-row tiles of the other, in two cp.async stages; warp w takes the
+// stationary rows a0 = 16 (w % 2) .. + 16 and the streamed rows b0 =
+// 16 (w / 2) .. + 16 of each tile. Each warp accumulates its 16 streamed
+// rows' share of the 16 x D output (dQ; dK and dV) and the two warps of a
+// row group add theirs once, in the epilogue, in a fixed order. 32-row
+// blocks give B * H = 4, S = 1024 128 blocks. At D = 128 the stationary
+// tiles, the two stages and the lse and delta rows take 96.5 KB and 2
+// blocks share a SM (registers allow no third: dQ 214, dK/dV 255 a thread,
+// where dK/dV applies P to dV before it forms dP, and reads its fragments
+// at per-lane offsets, to fit); at D = 64 they take 48.5 KB, and dQ (159
+// registers) runs 3 blocks a SM, dK/dV (187) 2. What bounds it on the H100
+// is the work around the tensor cores: about 30% of the 3xTF32 bound at
+// full width, with the stationary operand split again for every tile.
+// Also measured on the H100 (PERF.md), and slower: at D = 128 each stage's
+// streamed tiles split into hi and lo once in shared memory (160.5 KB, 1
+// block a SM; 1.2-1.7x slower), hi by truncation in place of rounding (and
+// 3x further from float64); at D = 64 dK/dV held to 168 registers for 3
+// blocks a SM (12% slower at B * H = 4, S = 1024, 2% faster at B * H = 10,
+// S = 4096). A fully unrolled score loop spills dK/dV at D = 128.
+//
+// The forward: a block of 8 warps owns 32 query rows and loops over 64-key
+// tiles of K and V in two cp.async stages; warp w takes the query rows
+// a0 = 16 (w % 2) .. + 16 and the keys b0 = 16 (w / 2) .. + 16 of each
+// tile, with an online softmax of its own (m, l and O over its quarter of
+// the keys, m and l quad-reduced in a fixed order), and the four quarters
+// of a row group are merged once, in the epilogue, in a fixed order. So
+// B * H = 4, S = 1024 gives 128 blocks of 8 warps, where 64-row blocks
+// would leave half the SMs idle, and each K and V element is loaded and
+// split by two warps. Q stays in shared memory (its split fragments in
+// registers would take 128 a thread at D = 128, beside O's 64) and is
+// split again on every key tile. At D = 128 a thread takes 216 registers
+// (1 block a SM); at D = 64 the launch bounds hold it to 128 (153 free),
+// so 2 blocks share a SM: 11% faster at B * H = 10, S = 4096, 2% slower at
+// B * H = 4, S = 1024, where the grid fills 128 SMs once. It runs at ~25%
+// of the 3xTF32 bound. Also measured on the H100 (PERF.md), and slower: Q
+// split once into hi and lo planes in shared memory (6-9%; the loads that
+// score16 gains cost more than the splits it saves), and P V in 8 chains
+// of 3 products in place of 4 of 6 (3-5%; 243 registers at D = 128).
 // ---------------------------------------------------------------------------
-namespace b128 {
-constexpr int D = 128, BR = 32, THREADS = 128;
-constexpr int CH = D / 4;                        // 16-byte chunks of a row
-constexpr int TILE = BR * D;                     // floats of a 32-row tile
-// the stationary tiles, 2 stages of the 2 streamed tiles, then lse and
-// delta: of the block's rows (dQ), of each stage (dK/dV)
-constexpr size_t SMEM = (size_t)(6 * TILE + 4 * BR) * sizeof(float);
-static_assert(SMEM <= 232448, "shared memory of one block");
-}  // namespace b128
+template <int D>
+struct Tc {
+  static_assert(D == 64 || D == 128, "head_dim 64 or 128");
+  static constexpr int NT = D / 8;                 // n-tiles of a warp's 16 x D sums
+  static constexpr int BR = 32;                    // backward: rows of a tile
+  static constexpr int BWD_THREADS = 128;
+  static constexpr int TILE = BR * D;              // floats of a backward tile
+  // the stationary tiles, 2 stages of the 2 streamed tiles, then lse and
+  // delta: of the block's rows (dQ), of each stage (dK/dV)
+  static constexpr size_t BWD_SMEM = (size_t)(6 * TILE + 4 * BR) * sizeof(float);
+  static constexpr int BQ = 32, BK = 64;           // forward: query rows, keys of a tile
+  static constexpr size_t FWD_SMEM = (size_t)(BQ + 4 * BK) * D * sizeof(float);
+  static_assert(BWD_SMEM <= 232448 && FWD_SMEM <= 232448, "shared memory of one block");
+};
 
-// float offset of 16-byte chunk ch of row r
+// float offset of 16-byte chunk ch of row r: the chunk is permuted within
+// its group of 8 by row, so that the score products' loads (chunk 4 p + c
+// of rows g) and the accumulating products' (chunk 8 jj + g of rows 2 c and
+// 2 c + 1) fall in 8 different bank groups. A row is 32 (D = 128) or 16
+// (D = 64) chunks, a multiple of the 8 bank groups, so a chunk's bank group
+// is its index mod 8 at either D and the same permutation serves both.
+template <int D>
 __device__ __forceinline__ int swz(int r, int ch) {
-  return (r * b128::CH + (ch ^ ((r & 6) ^ ((r & 1) << 2)))) * 4;
+  return (r * (D / 4) + (ch ^ ((r & 6) ^ ((r & 1) << 2)))) * 4;
 }
 
-// Rows [row0, row0 + 32) of one head (row stride rs floats) into a tile, by
-// cp.async (the caller commits and waits); rows >= S are zeros.
-__device__ __forceinline__ void load_rows32(float* tile, const float* head, int row0, int S,
-                                            int rs) {
+// Rows [row0, row0 + R) of one head (row stride rs floats) into a tile, by
+// cp.async from NTH threads (the caller commits and waits); rows >= S are
+// zeros.
+template <int D, int R, int NTH>
+__device__ __forceinline__ void load_rows(float* tile, const float* head, int row0, int S,
+                                          int rs) {
+  constexpr int CH = D / 4;
+  static_assert(R * CH % NTH == 0, "whole chunks per thread");
 #pragma unroll
-  for (int i = 0; i < b128::BR * b128::CH / b128::THREADS; ++i) {
-    const unsigned c = threadIdx.x + i * b128::THREADS;
-    const int r = c / b128::CH, ch = c % b128::CH;
+  for (int i = 0; i < R * CH / NTH; ++i) {
+    const unsigned c = threadIdx.x + i * NTH;
+    const int r = c / CH, ch = c % CH;
     const bool ok = row0 + r < S;
-    sm90::cp_async16(sm90::smem_u32(tile + swz(r, ch)),
+    sm90::cp_async16(sm90::smem_u32(tile + swz<D>(r, ch)),
                      head + (size_t)(ok ? row0 + r : 0) * rs + ch * 4, ok);
   }
 }
@@ -847,6 +495,7 @@ __device__ __forceinline__ Split4 load_split4(const float* tile, int off) {
 // g (mod 8) at 16-column group p, chunk 4 p + c, at 32 (p / 2) + xo[p % 2];
 // an accumulating product reads rows 2 c + i (mod 8) at 32-column group jj,
 // chunk 8 jj + g, at 32 jj + yo[i] past row 2 c.
+template <int D>
 struct LaneOffsets {
   int xo[2], yo[2];
   __device__ __forceinline__ LaneOffsets(int g, int c) {
@@ -854,25 +503,25 @@ struct LaneOffsets {
     xo[0] = 4 * (c ^ f);
     xo[1] = 4 * ((4 + c) ^ f);
     yo[0] = 4 * (g ^ (2 * c));
-    yo[1] = b128::D + 4 * (g ^ (2 * c) ^ 4);
+    yo[1] = D + 4 * (g ^ (2 * c) ^ 4);
   }
 };
 
 // s[u] (16 x 8, u = 0, 1) = A[rows a0 .. a0 + 16) B[rows b0 + 8 u .. + 8)^T
-// over the 128 columns: A stationary, B streamed; Ag = A + (a0 + g) D and
+// over the D columns: A stationary, B streamed; Ag = A + (a0 + g) D and
 // Bg = B + (b0 + g) D. The reduction index is permuted alike in A and B:
 // logical k = c and c + 4 of k-step e of 16-column group p are columns
 // 16 p + 4 c + 2 e and + 1, so one 16-byte load covers two k-steps.
 // s[u][x]: row a0 + g + 8 (x / 2), column b0 + 8 u + 2 c + x % 2.
+template <int D>
 __device__ __forceinline__ void score16(float (&s)[2][4], const float* Ag, const float* Bg,
-                                        const LaneOffsets& lo) {
-  constexpr int D = b128::D;
+                                        const LaneOffsets<D>& lo) {
 #pragma unroll
   for (int u = 0; u < 2; ++u)
 #pragma unroll
     for (int x = 0; x < 4; ++x) s[u][x] = 0.f;
 #pragma unroll 1
-  for (int pp = 0; pp < 4; ++pp) {
+  for (int pp = 0; pp < D / 32; ++pp) {
 #pragma unroll
     for (int par = 0; par < 2; ++par) {
       const int off = 32 * pp + lo.xo[par];
@@ -912,13 +561,16 @@ __device__ __forceinline__ int a_index(int x) { return ((x & 1) << 1) | (x >> 1)
 // column n is column 32 jj + 4 n + i, so that a 16-byte load gives the B
 // fragments of 4 n-tiles, and a lane's elements of row g are columns
 // 32 jj + 8 c + [0, 8): element 0 of n-tile 4 jj + i is column 32 jj + 8 c
-// + i, element 1 column 32 jj + 8 c + 4 + i.
-__device__ __forceinline__ void accumulate16(float (&acc)[16][4], const uint32_t (&ph)[2][4],
+// + i, element 1 column 32 jj + 8 c + 4 + i. With RESCALE, acc = acc alpha
+// + P B, alpha0 for row g and alpha1 for row g + 8 (the forward's online
+// softmax).
+template <int D, bool RESCALE = false>
+__device__ __forceinline__ void accumulate16(float (&acc)[D / 8][4], const uint32_t (&ph)[2][4],
                                              const uint32_t (&pl)[2][4], const float* Bc,
-                                             const LaneOffsets& lo) {
-  constexpr int D = b128::D;
+                                             const LaneOffsets<D>& lo, float alpha0 = 1.f,
+                                             float alpha1 = 1.f) {
 #pragma unroll
-  for (int jj = 0; jj < 4; ++jj) {
+  for (int jj = 0; jj < D / 32; ++jj) {
     float f[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -935,21 +587,25 @@ __device__ __forceinline__ void accumulate16(float (&acc)[16][4], const uint32_t
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int x = 0; x < 4; ++x) acc[4 * jj + i][x] += f[i][x];
+      for (int x = 0; x < 4; ++x) {
+        float& a = acc[4 * jj + i][x];
+        a = RESCALE ? fmaf(a, x < 2 ? alpha0 : alpha1, f[i][x]) : a + f[i][x];
+      }
   }
 }
 
-// Writes rows g and g + 8 of a warp's 16 x 128 sums (accumulate16's column
+// Writes rows g and g + 8 of a warp's 16 x D sums (accumulate16's column
 // order) as rows [row0, row0 + 16) of one head; rows >= S are dropped.
-__device__ __forceinline__ void store16(const float (&acc)[16][4], float* head, int row0, int S,
-                                        int rs, int g, int c) {
+template <int D>
+__device__ __forceinline__ void store16(const float (&acc)[D / 8][4], float* head, int row0,
+                                        int S, int rs, int g, int c) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + g + 8 * i;
     if (row >= S) continue;
     float* out = head + (size_t)row * rs + 8 * c;
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
+    for (int jj = 0; jj < D / 32; ++jj) {
       *reinterpret_cast<float4*>(out + 32 * jj) =
           make_float4(acc[4 * jj][2 * i], acc[4 * jj + 1][2 * i], acc[4 * jj + 2][2 * i],
                       acc[4 * jj + 3][2 * i]);
@@ -960,33 +616,189 @@ __device__ __forceinline__ void store16(const float (&acc)[16][4], float* head, 
   }
 }
 
-// The epilogue's exchange: the warps of streamed half 1 hand their sums to
-// those of half 0 through shared memory (slot: a row group's n x 4 x 32
-// floats, lane-minor), which add them, so each sum is half 0's share plus
-// half 1's, in that order.
-__device__ __forceinline__ void hand_over(const float (&acc)[16][4], float* slot) {
+// The epilogues' exchange of a warp's sums through shared memory (slot: n x
+// 4 x 32 floats, lane-minor, read back by the same lane of another warp).
+template <int N>
+__device__ __forceinline__ void hand_over(const float (&acc)[N][4], float* slot) {
 #pragma unroll
-  for (int t = 0; t < 16; ++t)
+  for (int t = 0; t < N; ++t)
 #pragma unroll
     for (int x = 0; x < 4; ++x) slot[(4 * t + x) * 32] = acc[t][x];
 }
-__device__ __forceinline__ void take_over(float (&acc)[16][4], const float* slot) {
+template <int N>
+__device__ __forceinline__ void take_over(float (&acc)[N][4], const float* slot) {
 #pragma unroll
-  for (int t = 0; t < 16; ++t)
+  for (int t = 0; t < N; ++t)
 #pragma unroll
     for (int x = 0; x < 4; ++x) acc[t][x] += slot[(4 * t + x) * 32];
 }
 
+// ---------------------------------------------------------------------------
+// Forward. Grid (ceil(Sq / 32), B * H); the key loop is inside the block.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(THREADS, D == 64 ? 2 : 1)
+flash_fwd_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        float* __restrict__ lse, int H, int Sq, int Skv, float scale) {
+  using C = Tc<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, NT = C::NT;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sK = sQ + BQ * D;                  // 2 stages
+  float* sV = sK + 2 * BK * D;              // 2 stages
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
+  const int a0 = 16 * (warp & 1), quarter = warp >> 1, b0 = 16 * quarter;
+  const LaneOffsets<D> lo(g, c);
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * BQ;
+  const int rs = H * D;
+  const size_t qoff = (size_t)b * Sq * rs + h * D;
+  const float* kh = k + (size_t)b * Skv * rs + h * D;
+  const float* vh = v + (size_t)b * Skv * rs + h * D;
+
+  load_rows<D, BQ, THREADS>(sQ, q + qoff, q0, Sq, rs);
+  load_rows<D, BK, THREADS>(sK, kh, 0, Skv, rs);
+  load_rows<D, BK, THREADS>(sV, vh, 0, Skv, rs);
+  sm90::cp_async_commit();
+
+  float acc[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[t][x] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // rows g, g + 8; m in log2 units
+  const float sl2 = scale * LOG2E;
+  const float* Ag = sQ + (a0 + g) * D;
+  const int nk = (Skv + BK - 1) / BK;
+
+  for (int j = 0; j < nk; ++j) {
+    const int st = j & 1;
+    sm90::cp_async_wait<0>();
+    __syncthreads();                        // tile j landed; tile j - 1 is consumed
+    if (j + 1 < nk) {
+      load_rows<D, BK, THREADS>(sK + (st ^ 1) * BK * D, kh, (j + 1) * BK, Skv, rs);
+      load_rows<D, BK, THREADS>(sV + (st ^ 1) * BK * D, vh, (j + 1) * BK, Skv, rs);
+    }
+    sm90::cp_async_commit();
+    const float* tK = sK + st * BK * D;
+    const float* tV = sV + st * BK * D;
+
+    // S = Q K^T over this warp's 16 keys, then the online softmax of rows
+    // g and g + 8 (the 4 lanes of a quad hold a row's 16 scores). Keys >=
+    // Skv are -1e30: a warp whose keys are all past Skv keeps m at -1e30
+    // and its O at zero (V's rows there are zeros), and weighs nothing in
+    // the merge.
+    float s[2][4], mx[2] = {m[0], m[1]};
+    score16<D>(s, Ag, tK + (b0 + g) * D, lo);
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int key = j * BK + b0 + 8 * e + 2 * c + (x & 1);
+        s[e][x] = key < Skv ? s[e][x] * sl2 : NEG_INF;
+        mx[x >> 1] = fmaxf(mx[x >> 1], s[e][x]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+      alpha[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+    // P, split, as the A fragments of O = alpha O + P V
+    uint32_t ph[2][4], pl[2][4];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const float p = exp2f(s[e][x] - m[x >> 1]);
+        l[x >> 1] += p;
+        split_tf32(p, ph[e][a_index(x)], pl[e][a_index(x)]);
+      }
+    accumulate16<D, true>(acc, ph, pl, tV + (b0 + 2 * c) * D, lo, alpha[0], alpha[1]);
+  }
+
+  // the four quarters of a row group: quarters 1-3 hand (O, m, l) to
+  // quarter 0 through the stages, which adds them in that order
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(FULL, l[r], 1);
+    l[r] += __shfl_xor_sync(FULL, l[r], 2);
+  }
+  constexpr int XS = (4 * NT + 4) * 32;     // floats of a warp's slot
+  static_assert(6 * XS <= 4 * BK * D, "the exchange fits in the stages");
+  float* xs = sK + 3 * (warp & 1) * XS + lane;
+  __syncthreads();                          // every warp is done with the stages
+  if (quarter > 0) {
+    float* slot = xs + (quarter - 1) * XS;
+    hand_over(acc, slot);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      slot[(4 * NT + r) * 32] = m[r];
+      slot[(4 * NT + 2 + r) * 32] = l[r];
+    }
+  }
+  __syncthreads();
+  if (quarter > 0) return;
+  float mt[2] = {m[0], m[1]};
+#pragma unroll
+  for (int w = 0; w < 3; ++w)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) mt[r] = fmaxf(mt[r], xs[w * XS + (4 * NT + r) * 32]);
+  float wt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    wt[r] = exp2f(m[r] - mt[r]);
+    l[r] *= wt[r];
+  }
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[t][x] *= wt[x >> 1];
+#pragma unroll
+  for (int w = 0; w < 3; ++w) {
+    const float* slot = xs + w * XS;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      wt[r] = exp2f(slot[(4 * NT + r) * 32] - mt[r]);
+      l[r] = fmaf(slot[(4 * NT + 2 + r) * 32], wt[r], l[r]);
+    }
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[t][x] = fmaf(slot[(4 * t + x) * 32], wt[x >> 1], acc[t][x]);
+  }
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float safe_l = fmaxf(l[r], 1e-30f);
+    inv[r] = 1.f / safe_l;
+    const int row = q0 + a0 + g + 8 * r;
+    if (c == 0 && row < Sq) lse[(size_t)bh * Sq + row] = mt[r] * LN2 + logf(safe_l);
+  }
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[t][x] *= inv[x >> 1];
+  store16<D>(acc, o + qoff, q0 + a0, Sq, rs, g, c);
+}
+
+// ---------------------------------------------------------------------------
 // dQ, and delta = rowsum(dO * O) for the dK/dV kernel. Grid (ceil(Sq / 32),
 // B * H); the key loop is inside the block.
-__global__ void __launch_bounds__(b128::THREADS, 2)
-flash_bwd_dq_f32_d128_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, const float* __restrict__ o,
-                             const float* __restrict__ dout, const float* __restrict__ lse,
-                             float* __restrict__ delta, float* __restrict__ dq, int H, int Sq,
-                             int Skv, float scale) {
-  using namespace b128;
-  constexpr float LOG2E = 1.4426950408889634f;
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(Tc<D>::BWD_THREADS, 2)
+flash_bwd_dq_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ o,
+                           const float* __restrict__ dout, const float* __restrict__ lse,
+                           float* __restrict__ delta, float* __restrict__ dq, int H, int Sq,
+                           int Skv, float scale) {
+  using C = Tc<D>;
+  constexpr int BR = C::BR, TILE = C::TILE, NTH = C::BWD_THREADS;
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
   float* sDO = sQ + TILE;
@@ -996,7 +808,7 @@ flash_bwd_dq_f32_d128_kernel(const float* __restrict__ q, const float* __restric
   float* sDelta = sLse + BR;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
   const int a0 = 16 * (warp & 1), b0 = 16 * (warp >> 1);
-  const LaneOffsets lo(g, c);
+  const LaneOffsets<D> lo(g, c);
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * BR;
   const int rs = H * D;
@@ -1004,20 +816,20 @@ flash_bwd_dq_f32_d128_kernel(const float* __restrict__ q, const float* __restric
   const float* kh = k + (size_t)b * Skv * rs + h * D;
   const float* vh = v + (size_t)b * Skv * rs + h * D;
 
-  load_rows32(sQ, q + qoff, q0, Sq, rs);
-  load_rows32(sDO, dout + qoff, q0, Sq, rs);
-  load_rows32(sK, kh, 0, Skv, rs);
-  load_rows32(sV, vh, 0, Skv, rs);
+  load_rows<D, BR, NTH>(sQ, q + qoff, q0, Sq, rs);
+  load_rows<D, BR, NTH>(sDO, dout + qoff, q0, Sq, rs);
+  load_rows<D, BR, NTH>(sK, kh, 0, Skv, rs);
+  load_rows<D, BR, NTH>(sV, vh, 0, Skv, rs);
   sm90::cp_async_commit();
   {
-    // delta of row r: 4 threads, 32 columns each, reduced in a fixed order
+    // delta of row r: 4 threads, D / 4 columns each, reduced in a fixed order
     const int r = tid / 4, u = tid % 4, row = q0 + r;
     float dl = 0.f;
     if (row < Sq) {
-      const float* orow = o + qoff + (size_t)row * rs + 32 * u;
-      const float* drow = dout + qoff + (size_t)row * rs + 32 * u;
+      const float* orow = o + qoff + (size_t)row * rs + (D / 4) * u;
+      const float* drow = dout + qoff + (size_t)row * rs + (D / 4) * u;
 #pragma unroll
-      for (int x = 0; x < 32; x += 4) {
+      for (int x = 0; x < D / 4; x += 4) {
         const float4 fo = *reinterpret_cast<const float4*>(orow + x);
         const float4 fd = *reinterpret_cast<const float4*>(drow + x);
         dl += fd.x * fo.x + fd.y * fo.y + fd.z * fo.z + fd.w * fo.w;
@@ -1039,9 +851,9 @@ flash_bwd_dq_f32_d128_kernel(const float* __restrict__ q, const float* __restric
     dl[i] = sDelta[a0 + g + 8 * i];
   }
 
-  float acc[16][4];
+  float acc[C::NT][4];
 #pragma unroll
-  for (int t = 0; t < 16; ++t)
+  for (int t = 0; t < C::NT; ++t)
 #pragma unroll
     for (int x = 0; x < 4; ++x) acc[t][x] = 0.f;
   const float sl2 = scale * LOG2E;
@@ -1052,16 +864,16 @@ flash_bwd_dq_f32_d128_kernel(const float* __restrict__ q, const float* __restric
     sm90::cp_async_wait<0>();
     __syncthreads();                        // tile j landed; tile j - 1 is consumed
     if (j + 1 < nk) {
-      load_rows32(sK + (st ^ 1) * TILE, kh, (j + 1) * BR, Skv, rs);
-      load_rows32(sV + (st ^ 1) * TILE, vh, (j + 1) * BR, Skv, rs);
+      load_rows<D, BR, NTH>(sK + (st ^ 1) * TILE, kh, (j + 1) * BR, Skv, rs);
+      load_rows<D, BR, NTH>(sV + (st ^ 1) * TILE, vh, (j + 1) * BR, Skv, rs);
     }
     sm90::cp_async_commit();
     const float* tK = sK + st * TILE;
     const float* tV = sV + st * TILE;
 
     float s[2][4], dp[2][4];
-    score16(s, sQ + (a0 + g) * D, tK + (b0 + g) * D, lo);      // S = Q K^T
-    score16(dp, sDO + (a0 + g) * D, tV + (b0 + g) * D, lo);    // dP = dO V^T
+    score16<D>(s, sQ + (a0 + g) * D, tK + (b0 + g) * D, lo);      // S = Q K^T
+    score16<D>(dp, sDO + (a0 + g) * D, tV + (b0 + g) * D, lo);    // dP = dO V^T
     // dS = P (dP - delta) scale, split, as the A fragments of dQ += dS K
     uint32_t dsh[2][4], dsl[2][4];
 #pragma unroll
@@ -1073,29 +885,34 @@ flash_bwd_dq_f32_d128_kernel(const float* __restrict__ q, const float* __restric
                             ? exp2f(s[e][x] * sl2 - lse2[i]) : 0.f;
         split_tf32(p * (dp[e][x] - dl[i]) * scale, dsh[e][a_index(x)], dsl[e][a_index(x)]);
       }
-    accumulate16(acc, dsh, dsl, tK + (b0 + 2 * c) * D, lo);
+    accumulate16<D>(acc, dsh, dsl, tK + (b0 + 2 * c) * D, lo);
   }
 
+  // the two streamed halves: half 1 hands its sums to half 0 through the K
+  // stages, which adds them
   __syncthreads();                          // the K stages are free
-  float* slot = sK + (warp & 1) * 64 * 32 + lane;
+  float* slot = sK + (warp & 1) * 4 * C::NT * 32 + lane;
   if (warp >> 1) hand_over(acc, slot);
   __syncthreads();
   if (warp >> 1) return;
   take_over(acc, slot);
-  store16(acc, dq + qoff, q0 + a0, Sq, rs, g, c);
+  store16<D>(acc, dq + qoff, q0 + a0, Sq, rs, g, c);
 }
 
+// ---------------------------------------------------------------------------
 // dK and dV from the saved lse and the dQ kernel's delta. Grid
 // (ceil(Skv / 32), B * H); the query loop is inside the block, on
 // transposed scores (rows = keys, columns = queries).
-__global__ void __launch_bounds__(b128::THREADS, 2)
-flash_bwd_dkv_f32_d128_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                              const float* __restrict__ v, const float* __restrict__ dout,
-                              const float* __restrict__ lse, const float* __restrict__ delta,
-                              float* __restrict__ dk, float* __restrict__ dv, int H, int Sq,
-                              int Skv, float scale) {
-  using namespace b128;
-  constexpr float LOG2E = 1.4426950408889634f;
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(Tc<D>::BWD_THREADS, 2)
+flash_bwd_dkv_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            float* __restrict__ dk, float* __restrict__ dv, int H, int Sq,
+                            int Skv, float scale) {
+  using C = Tc<D>;
+  constexpr int BR = C::BR, TILE = C::TILE, NTH = C::BWD_THREADS;
   extern __shared__ float4 smem4[];
   float* sK = reinterpret_cast<float*>(smem4);
   float* sV = sK + TILE;
@@ -1104,7 +921,7 @@ flash_bwd_dkv_f32_d128_kernel(const float* __restrict__ q, const float* __restri
   float* sStats = sDO + 2 * TILE;           // [stage][lse | delta][BR]
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
   const int a0 = 16 * (warp & 1), b0 = 16 * (warp >> 1);
-  const LaneOffsets lo(g, c);
+  const LaneOffsets<D> lo(g, c);
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int kv0 = blockIdx.x * BR;
   const int rs = H * D;
@@ -1116,8 +933,8 @@ flash_bwd_dkv_f32_d128_kernel(const float* __restrict__ q, const float* __restri
 
   // query tile [row0, row0 + 32): Q, dO, lse and delta into a stage
   auto load_q_tile = [&](int stage, int row0) {
-    load_rows32(sQ + stage * TILE, qh, row0, Sq, rs);
-    load_rows32(sDO + stage * TILE, doh, row0, Sq, rs);
+    load_rows<D, BR, NTH>(sQ + stage * TILE, qh, row0, Sq, rs);
+    load_rows<D, BR, NTH>(sDO + stage * TILE, doh, row0, Sq, rs);
     if (tid < 2 * BR) {
       const int row = row0 + tid % BR;
       const bool ok = row < Sq;
@@ -1125,14 +942,14 @@ flash_bwd_dkv_f32_d128_kernel(const float* __restrict__ q, const float* __restri
                       (tid < BR ? lse_h : delta_h) + (ok ? row : 0), ok);
     }
   };
-  load_rows32(sK, k + kvoff, kv0, Skv, rs);
-  load_rows32(sV, v + kvoff, kv0, Skv, rs);
+  load_rows<D, BR, NTH>(sK, k + kvoff, kv0, Skv, rs);
+  load_rows<D, BR, NTH>(sV, v + kvoff, kv0, Skv, rs);
   load_q_tile(0, 0);
   sm90::cp_async_commit();
 
-  float acc_dk[16][4], acc_dv[16][4];
+  float acc_dk[C::NT][4], acc_dv[C::NT][4];
 #pragma unroll
-  for (int t = 0; t < 16; ++t)
+  for (int t = 0; t < C::NT; ++t)
 #pragma unroll
     for (int x = 0; x < 4; ++x) acc_dk[t][x] = acc_dv[t][x] = 0.f;
   const float sl2 = scale * LOG2E;
@@ -1152,7 +969,7 @@ flash_bwd_dkv_f32_d128_kernel(const float* __restrict__ q, const float* __restri
     // zeros), split as A fragments; dV += P^T dO
     float p[2][4];
     uint32_t ah[2][4], al[2][4];
-    score16(p, sK + (a0 + g) * D, tQ + (b0 + g) * D, lo);
+    score16<D>(p, sK + (a0 + g) * D, tQ + (b0 + g) * D, lo);
 #pragma unroll
     for (int e = 0; e < 2; ++e)
 #pragma unroll
@@ -1161,10 +978,10 @@ flash_bwd_dkv_f32_d128_kernel(const float* __restrict__ q, const float* __restri
         p[e][x] = (j * BR + col < Sq) ? exp2f(p[e][x] * sl2 - sl[col] * LOG2E) : 0.f;
         split_tf32(p[e][x], ah[e][a_index(x)], al[e][a_index(x)]);
       }
-    accumulate16(acc_dv, ah, al, tDO + (b0 + 2 * c) * D, lo);
+    accumulate16<D>(acc_dv, ah, al, tDO + (b0 + 2 * c) * D, lo);
     // dP^T = V dO^T; dS^T = P^T (dP^T - delta) scale; dK += dS^T Q
     float dp[2][4];
-    score16(dp, sV + (a0 + g) * D, tDO + (b0 + g) * D, lo);
+    score16<D>(dp, sV + (a0 + g) * D, tDO + (b0 + g) * D, lo);
 #pragma unroll
     for (int e = 0; e < 2; ++e)
 #pragma unroll
@@ -1173,39 +990,33 @@ flash_bwd_dkv_f32_d128_kernel(const float* __restrict__ q, const float* __restri
         split_tf32(p[e][x] * (dp[e][x] - sl[BR + col]) * scale, ah[e][a_index(x)],
                    al[e][a_index(x)]);
       }
-    accumulate16(acc_dk, ah, al, tQ + (b0 + 2 * c) * D, lo);
+    accumulate16<D>(acc_dk, ah, al, tQ + (b0 + 2 * c) * D, lo);
   }
 
+  // as in the dQ kernel, through the Q stages
   __syncthreads();                          // the Q stages are free
-  float* slot = sQ + (warp & 1) * 128 * 32 + lane;
+  float* slot = sQ + (warp & 1) * 8 * C::NT * 32 + lane;
   if (warp >> 1) {
     hand_over(acc_dk, slot);
-    hand_over(acc_dv, slot + 64 * 32);
+    hand_over(acc_dv, slot + 4 * C::NT * 32);
   }
   __syncthreads();
   if (warp >> 1) return;
   take_over(acc_dk, slot);
-  take_over(acc_dv, slot + 64 * 32);
-  store16(acc_dk, dk + kvoff, kv0 + a0, Skv, rs, g, c);
-  store16(acc_dv, dv + kvoff, kv0 + a0, Skv, rs, g, c);
+  take_over(acc_dv, slot + 4 * C::NT * 32);
+  store16<D>(acc_dk, dk + kvoff, kv0 + a0, Skv, rs, g, c);
+  store16<D>(acc_dv, dv + kvoff, kv0 + a0, Skv, rs, g, c);
 }
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 template <int D>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Sq,
         int Skv, float scale, void* stream) {
   if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o)))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_smem(flash_fwd_f32_kernel<D>, Cfg<D>::FWD_SMEM);
+  cudaError_t e = allow_smem(flash_fwd_3xtf32_kernel<D>, Tc<D>::FWD_SMEM);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Sq + Cfg<D>::BQ - 1) / Cfg<D>::BQ, B * H);
-  flash_fwd_f32_kernel<D><<<grid, THREADS, Cfg<D>::FWD_SMEM, (cudaStream_t)stream>>>(
+  dim3 grid((Sq + Tc<D>::BQ - 1) / Tc<D>::BQ, B * H);
+  flash_fwd_3xtf32_kernel<D><<<grid, THREADS, Tc<D>::FWD_SMEM, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, H, Sq, Skv, scale);
   return (int)cudaGetLastError();
 }
@@ -1222,36 +1033,6 @@ int fwd_d512(const void* q, const void* k, const void* v, void* o, float* lse, i
   return (int)cudaGetLastError();
 }
 
-int bwd_dq_d128(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                const float* lse, float* delta, void* dq, int B, int H, int Sq, int Skv,
-                float scale, void* stream) {
-  if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o) && aligned16(dout) &&
-        aligned16(dq)))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_smem(flash_bwd_dq_f32_d128_kernel, b128::SMEM);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((Sq + b128::BR - 1) / b128::BR, B * H);
-  flash_bwd_dq_f32_d128_kernel<<<grid, b128::THREADS, b128::SMEM, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)o, (const float*)dout,
-      lse, delta, (float*)dq, H, Sq, Skv, scale);
-  return (int)cudaGetLastError();
-}
-
-int bwd_dkv_d128(const void* q, const void* k, const void* v, const void* dout,
-                 const float* lse, const float* delta, void* dk, void* dv, int B, int H, int Sq,
-                 int Skv, float scale, void* stream) {
-  if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) && aligned16(dk) &&
-        aligned16(dv)))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_smem(flash_bwd_dkv_f32_d128_kernel, b128::SMEM);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((Skv + b128::BR - 1) / b128::BR, B * H);
-  flash_bwd_dkv_f32_d128_kernel<<<grid, b128::THREADS, b128::SMEM, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta,
-      (float*)dk, (float*)dv, H, Sq, Skv, scale);
-  return (int)cudaGetLastError();
-}
-
 template <int D>
 int bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
            const float* lse, float* delta, void* dq, int B, int H, int Sq, int Skv,
@@ -1259,10 +1040,11 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* o, const voi
   if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o) && aligned16(dout) &&
         aligned16(dq)))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_smem(flash_bwd_dq_f32_kernel<D>, Cfg<D>::DQ_SMEM);
+  using C = Tc<D>;
+  cudaError_t e = allow_smem(flash_bwd_dq_3xtf32_kernel<D>, C::BWD_SMEM);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Sq + Cfg<D>::BQ - 1) / Cfg<D>::BQ, B * H);
-  flash_bwd_dq_f32_kernel<D><<<grid, THREADS, Cfg<D>::DQ_SMEM, (cudaStream_t)stream>>>(
+  dim3 grid((Sq + C::BR - 1) / C::BR, B * H);
+  flash_bwd_dq_3xtf32_kernel<D><<<grid, C::BWD_THREADS, C::BWD_SMEM, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)o, (const float*)dout,
       lse, delta, (float*)dq, H, Sq, Skv, scale);
   return (int)cudaGetLastError();
@@ -1275,13 +1057,25 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
   if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) && aligned16(dk) &&
         aligned16(dv)))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_smem(flash_bwd_dkv_f32_kernel<D>, Cfg<D>::DKV_SMEM);
+  using C = Tc<D>;
+  cudaError_t e = allow_smem(flash_bwd_dkv_3xtf32_kernel<D>, C::BWD_SMEM);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Skv + Cfg<D>::BQ - 1) / Cfg<D>::BQ, B * H);
-  flash_bwd_dkv_f32_kernel<D><<<grid, THREADS, Cfg<D>::DKV_SMEM, (cudaStream_t)stream>>>(
+  dim3 grid((Skv + C::BR - 1) / C::BR, B * H);
+  flash_bwd_dkv_3xtf32_kernel<D><<<grid, C::BWD_THREADS, C::BWD_SMEM, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta,
       (float*)dk, (float*)dv, H, Sq, Skv, scale);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int attributes_of(int kernel, int* out) {
+  using C = Tc<D>;
+  if (kernel == 0) return attributes(flash_fwd_3xtf32_kernel<D>, THREADS, C::FWD_SMEM, out);
+  if (kernel == 1)
+    return attributes(flash_bwd_dq_3xtf32_kernel<D>, C::BWD_THREADS, C::BWD_SMEM, out);
+  if (kernel == 2)
+    return attributes(flash_bwd_dkv_3xtf32_kernel<D>, C::BWD_THREADS, C::BWD_SMEM, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1303,13 +1097,13 @@ int aozora_flash_fwd_f32_d64(const void* q, const void* k, const void* v, void* 
 
 int aozora_flash_fwd_f32_d128(const void* q, const void* k, const void* v, void* o,
                               float* lse, int B, int H, int Sq, int Skv, float scale,
-                             void* stream) {
+                              void* stream) {
   return fwd<128>(q, k, v, o, lse, B, H, Sq, Skv, scale, stream);
 }
 
 int aozora_flash_fwd_f32_d512(const void* q, const void* k, const void* v, void* o,
                               float* lse, int B, int H, int Sq, int Skv, float scale,
-                             void* stream) {
+                              void* stream) {
   return fwd_d512(q, k, v, o, lse, B, H, Sq, Skv, scale, stream);
 }
 
@@ -1329,14 +1123,24 @@ int aozora_flash_bwd_dkv_f32_d64(const void* q, const void* k, const void* v,
 int aozora_flash_bwd_dq_f32_d128(const void* q, const void* k, const void* v, const void* o,
                                  const void* dout, const float* lse, float* delta, void* dq, int B,
                                  int H, int Sq, int Skv, float scale, void* stream) {
-  return bwd_dq_d128(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Skv, scale, stream);
+  return bwd_dq<128>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Skv, scale, stream);
 }
 
 int aozora_flash_bwd_dkv_f32_d128(const void* q, const void* k, const void* v,
                                   const void* dout, const float* lse, const float* delta,
                                   void* dk, void* dv, int B, int H, int Sq, int Skv,
                                   float scale, void* stream) {
-  return bwd_dkv_d128(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv, scale, stream);
+  return bwd_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv, scale, stream);
+}
+
+// kernel: 0 forward, 1 dQ, 2 dK/dV; head_dim 64 or 128 (512: the forward
+// only); out: 5 ints (see attributes() in sm90_wgmma.cuh).
+int aozora_flash_fp32_attributes(int kernel, int head_dim, int* out) {
+  if (head_dim == 64) return attributes_of<64>(kernel, out);
+  if (head_dim == 128) return attributes_of<128>(kernel, out);
+  if (head_dim == 512 && kernel == 0)
+    return attributes(flash_fwd_f32_d512_kernel, THREADS, d512::SMEM, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

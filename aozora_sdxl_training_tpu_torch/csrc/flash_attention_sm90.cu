@@ -106,6 +106,9 @@
 namespace {
 
 using sm90::bf16;
+using sm90::aligned16;
+using sm90::allow_smem;
+using sm90::attributes;
 
 constexpr int BM = 64;             // rows of a warpgroup's tile (wgmma M)
 constexpr int BN = 64;             // rows of a streamed tile
@@ -759,13 +762,6 @@ flash_fwd_d512_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   store_rows<128>(o1, inv, sm.ptr + (wg * 2 + 1) * 16384, oh + 128, q0, Sq, rs, t, 1 + wg);
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
 template <int D, int WG = warpgroups(D)>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Sq,
         int Skv, float scale, cudaStream_t stream) {
@@ -824,26 +820,6 @@ int fwd_d512(const void* q, const void* k, const void* v, void* o, float* lse, i
   flash_fwd_d512_sm90_kernel<<<grid, d512::THREADS, d512::SMEM, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, H, Sq, Skv, scale);
   return (int)cudaGetLastError();
-}
-
-// cudaFuncGetAttributes and the occupancy of one kernel: out = {registers,
-// local (spill) bytes a thread, dynamic shared memory bytes, threads a
-// block, blocks a SM}.
-template <typename K>
-int attributes(K kernel, int threads, size_t smem, int* out) {
-  cudaFuncAttributes a;
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, kernel);
-  int blocks = 0;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)smem;
-  out[3] = threads;
-  out[4] = blocks;
-  return 0;
 }
 
 template <int D>
@@ -916,7 +892,7 @@ int aozora_flash_fwd_d512(const void* q, const void* k, const void* v, void* o, 
 }
 
 // kernel: 0 forward, 1 dQ, 2 dK/dV; head_dim 64 or 128 (512: the forward
-// only); out: 5 ints (see attributes()).
+// only); out: 5 ints (see attributes() in sm90_wgmma.cuh).
 int aozora_flash_sm90_attributes(int kernel, int head_dim, int* out) {
   if (head_dim == 64) return attributes_of<64>(kernel, out);
   if (head_dim == 128) return attributes_of<128>(kernel, out);

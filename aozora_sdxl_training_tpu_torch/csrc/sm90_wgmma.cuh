@@ -2,8 +2,9 @@
 // flash_attention_sm90.cu (head_dim 64, 128 and 512): the 128-byte-swizzled
 // shared-memory tile that wgmma reads, its matrix descriptors, the wgmma
 // shapes the kernels use, their fences, cp.async into the swizzled layout,
-// and a named barrier. The fp32 kernels of flash_attention_fp32.cu use its
-// cp.async helpers.
+// a named barrier, and the host side of a launch (the shared-memory
+// attribute, the alignment check, the attribute query). The fp32 kernels
+// of flash_attention_fp32.cu use its cp.async and host helpers.
 //
 // A tile holds R rows of D bf16 (D = 64, 128 or 512) as D / 64 column
 // halves, each R rows of 128 bytes; 16-byte chunk c of row r sits at chunk
@@ -35,6 +36,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace sm90 {
@@ -211,6 +213,33 @@ __device__ __forceinline__ void load_tile_async(uint32_t tile, const bf16* head,
     cp_async16(tile + Tile<R, D>::chunk(r, ch),
                head + (size_t)(ok ? row0 + r : 0) * rs + ch * 8, ok);
   }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// cudaFuncGetAttributes and the occupancy of one kernel: out = {registers,
+// local (spill) bytes a thread, dynamic shared memory bytes, threads a
+// block, blocks a SM}.
+template <typename K>
+int attributes(K kernel, int threads, size_t smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, kernel);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)smem;
+  out[3] = threads;
+  out[4] = blocks;
+  return 0;
 }
 
 }  // namespace sm90

@@ -15,22 +15,22 @@ dQ, dK/dV), as ``route`` decides::
     flash_bwd_dq_d128     flash_bwd_dq_sm90_kernel<128, 2>    K4b _flash_backward_folded, dq
     flash_bwd_dkv_d128    flash_bwd_dkv_sm90_kernel<128, 2>   K4b _flash_backward_folded, dk/dv
     flash_fwd_d512        flash_fwd_d512_sm90_kernel          K4a at head_dim 512
-  fp32, flash_attention_fp32.cu (no operand rounded to bf16)
-    flash_fwd_f32_d64     flash_fwd_f32_kernel<64>            K1 on fp32 inputs
-    flash_bwd_*_f32_d64   flash_{bwd_dq,bwd_dkv}_f32_kernel<64>   K2/K3 on fp32 inputs
-    flash_fwd_f32_d128    flash_fwd_f32_kernel<128>           K4a on fp32 inputs
-    flash_bwd_dq_f32_d128   flash_bwd_dq_f32_d128_kernel      K4b dq on fp32 inputs
-    flash_bwd_dkv_f32_d128  flash_bwd_dkv_f32_d128_kernel     K4b dk/dv on fp32 inputs
+  fp32, flash_attention_fp32.cu: 3xTF32 on mma.sync (no operand rounded to bf16)
+    flash_fwd_f32_d64     flash_fwd_3xtf32_kernel<64>         K1 on fp32 inputs
+    flash_bwd_dq_f32_d64  flash_bwd_dq_3xtf32_kernel<64>      K2 on fp32 inputs
+    flash_bwd_dkv_f32_d64 flash_bwd_dkv_3xtf32_kernel<64>     K3 on fp32 inputs
+    flash_fwd_f32_d128    flash_fwd_3xtf32_kernel<128>        K4a on fp32 inputs
+    flash_bwd_dq_f32_d128   flash_bwd_dq_3xtf32_kernel<128>   K4b dq on fp32 inputs
+    flash_bwd_dkv_f32_d128  flash_bwd_dkv_3xtf32_kernel<128>  K4b dk/dv on fp32 inputs
     flash_fwd_f32_d512    flash_fwd_f32_d512_kernel           K4a at 512 on fp32 inputs
 
 Head_dim 64 is the SDXL UNet's (K1-K3 run on every SDXL micro step and
 DDIM step), 128 the Anima DiT's, 512 the SD-VAE mid-attention's (bf16 in
-the encoder's flash route, fp32 in the preview's decoder). The fp32
-forwards at 64 and 128 and the fp32 backward at 64 multiply with fp32
-FMAs on the CUDA cores (no trainer reaches the fp32 kernels: both compute
-in bf16); the fp32 backward at 128 and the forward at 512 run on the
-tensor cores in 3xTF32 (each operand split into two TF32 parts, three
-TF32 products with fp32 accumulation), to fp32 accuracy. Each source's
+the encoder's flash route, fp32 in the preview's decoder). Every fp32
+kernel runs on the tensor cores in 3xTF32 (each operand split into two
+TF32 parts, three TF32 products with fp32 accumulation), to fp32
+accuracy; of the trainers only the preview's fp32 decoder reaches one
+(the forward at 512): both compute in bf16. Each source's
 header says what bounds its kernels, what their design does about it and
 what was tried and not kept; ``PERF.md`` §6 has their times.
 

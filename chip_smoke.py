@@ -14,10 +14,11 @@ Phases, each of which exits non-zero on failure:
    128, the forward at 512) prints ptxas's registers and spill bytes, the
    registers, dynamic shared memory and blocks per SM the runtime reports,
    and the HGMMA instructions `cuobjdump -sass` finds in each kernel, and
-   for the 3xTF32 kernels of csrc/flash_attention_fp32.cu (the fp32
-   backward at head_dim 128, the fp32 forward at 512) their registers,
-   spills and TF32 HMMA instructions (a spill, or no HGMMA or HMMA, fails
-   the phase; without cuobjdump it prints "not checked").
+   for the fp32 kernels of csrc/flash_attention_fp32.cu (every one 3xTF32
+   on mma.sync: all three at head_dim 64 and 128, the forward at 512)
+   their registers, spills and TF32 HMMA instructions (a spill, or no
+   HGMMA or HMMA, fails the phase; without cuobjdump it prints "not
+   checked").
 3. kernels: each flash-attention kernel against its plain PyTorch version:
    K1 forward, K2 dQ, K3 dK/dV (head_dim 64) at the SDXL shapes, K4a forward
    and K4b dQ, dK/dV (head_dim 128) at the Anima shape, K4a forward at
@@ -25,16 +26,17 @@ Phases, each of which exits non-zero on failure:
    with ragged and unequal lengths and lengths around one tile; the fp32
    kernels (csrc/flash_attention_fp32.cu: all three at head_dim 64 and 128,
    the forward at 512) on fp32 inputs, held at 1e-4 of the largest
-   reference magnitude (the 3xTF32 ones also against a float64 reference,
-   at 1e-5 of it); at head_dim 64 and 128, two launches that must agree
+   reference magnitude and against a float64 reference at 1e-5 of it
+   (3xTF32 products); at head_dim 64 and 128, two launches that must agree
    bitwise; then each timed beside its bound, its plain version and the
    device time (torch.profiler) of scaled_dot_product_attention (a
    yardstick only: its forward beside the forward kernels, its backward,
    and its forward plus backward, beside the backward kernels), the bf16
    kernels at the main shapes by device time (torch.profiler) and CUDA
    events, the fp32 ones at the unet and dit phases' shapes and at
-   ANIMA_BASE's attention width (head_dim 128; at each shape first held at
-   1e-4 against the plain version), and at the SD-VAE's.
+   SDXL_BASE's widest head_dim-64 and ANIMA_BASE's head_dim-128 attention
+   (at each shape first held at 1e-4 against the plain version), and at
+   the SD-VAE's.
 4. unet: a small UNet with head_dim 64 in fp32, flash path (the fp32
    kernels) against the einsum path, forward and parameter gradients, the
    launches counted.
@@ -113,9 +115,14 @@ H100_TF32_FLOPS = 495e12      # dense TF32 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM
 SM90 = "flash_attention_sm90"      # the wgmma kernels (every bf16 one)
 FP32 = "flash_attention_fp32"      # the fp32 kernels
-# the 3xTF32 kernels of the fp32 source, by head dim
-TF32_KERNELS = {"flash_bwd_dq_f32_d128_kernel": 128, "flash_bwd_dkv_f32_d128_kernel": 128,
-                "flash_fwd_f32_d512_kernel": 512}
+# the kernels of the fp32 source (all 3xTF32) as their mangled names spell
+# them, (kernel, head dim), and the kernel's index in
+# aozora_flash_fp32_attributes
+F32_D512_KERNEL = "flash_fwd_f32_d512_kernel"
+TF32_KERNELS = {**{(kernel, d): i for i, kernel in enumerate(
+                    ("flash_fwd_3xtf32_kernel", "flash_bwd_dq_3xtf32_kernel",
+                     "flash_bwd_dkv_3xtf32_kernel")) for d in (64, 128)},
+                (F32_D512_KERNEL, 512): 0}
 SOURCES = (SM90, FP32, "groupnorm_silu")
 FA = "aozora_sdxl_training_tpu/ops/flash_attention.py"
 GN = "aozora_sdxl_training_tpu/ops/groupnorm_silu.py"
@@ -135,14 +142,13 @@ KERNELS = {
     "flash_bwd_dq_d128": (f"{FA}:355", 128, "anima", "flash_bwd_dq_sm90_kernel<128, 2>"),
     "flash_bwd_dkv_d128": (f"{FA}:378", 128, "anima", "flash_bwd_dkv_sm90_kernel<128, 2>"),
     "flash_fwd_d512": (f"{FA}:302", 512, "vae", "flash_fwd_d512_sm90_kernel"),
-    "flash_fwd_f32_d64": (f"{FA}:65", 64, "unet", "flash_fwd_f32_kernel<64>"),
-    "flash_bwd_dq_f32_d64": (f"{FA}:153", 64, "unet", "flash_bwd_dq_f32_kernel<64>"),
-    "flash_bwd_dkv_f32_d64": (f"{FA}:186", 64, "unet", "flash_bwd_dkv_f32_kernel<64>"),
-    "flash_fwd_f32_d128": (f"{FA}:302", 128, "dit", "flash_fwd_f32_kernel<128>"),
-    "flash_bwd_dq_f32_d128": (f"{FA}:355", 128, "dit", "flash_bwd_dq_f32_d128_kernel (3xTF32)"),
-    "flash_bwd_dkv_f32_d128": (f"{FA}:378", 128, "dit",
-                               "flash_bwd_dkv_f32_d128_kernel (3xTF32)"),
-    "flash_fwd_f32_d512": (f"{FA}:302", 512, "trainer", "flash_fwd_f32_d512_kernel (3xTF32)"),
+    "flash_fwd_f32_d64": (f"{FA}:65", 64, "unet", "flash_fwd_3xtf32_kernel<64>"),
+    "flash_bwd_dq_f32_d64": (f"{FA}:153", 64, "unet", "flash_bwd_dq_3xtf32_kernel<64>"),
+    "flash_bwd_dkv_f32_d64": (f"{FA}:186", 64, "unet", "flash_bwd_dkv_3xtf32_kernel<64>"),
+    "flash_fwd_f32_d128": (f"{FA}:302", 128, "dit", "flash_fwd_3xtf32_kernel<128>"),
+    "flash_bwd_dq_f32_d128": (f"{FA}:355", 128, "dit", "flash_bwd_dq_3xtf32_kernel<128>"),
+    "flash_bwd_dkv_f32_d128": (f"{FA}:378", 128, "dit", "flash_bwd_dkv_3xtf32_kernel<128>"),
+    "flash_fwd_f32_d512": (f"{FA}:302", 512, "trainer", F32_D512_KERNEL),
 }
 TRAIN_STEPS = 8               # two optimizer steps at the presets' GA 4
 GA = 4
@@ -154,9 +160,10 @@ SDXL_FWD_FLOPS_1024 = 6.779495251968e12
 MAIN_SHAPES = {64: ((1, 10, 4096, 10), (1, 20, 1024, 60)),
                128: ((1, 16, 4096, 28),)}
 # the fp32 kernels' shapes in the unet and dit phases: batch 2, 2 heads,
-# 1024 tokens (the UNet's 32 x 32 level, the DiT's 32 x 32 patches); at
-# head_dim 128 also ANIMA_BASE's attention at 1024px, timed only
-FP32_SHAPES = {64: ((2, 2, 1024),), 128: ((2, 2, 1024), (1, 16, 4096))}
+# 1024 tokens (the UNet's 32 x 32 level, the DiT's 32 x 32 patches); then
+# the widest self-attention at 1024px of SDXL_BASE (head_dim 64, 10 heads,
+# 4096 tokens) and of ANIMA_BASE (head_dim 128), held and timed only
+FP32_SHAPES = {64: ((2, 2, 1024), (1, 10, 4096)), 128: ((2, 2, 1024), (1, 16, 4096))}
 SELF_ATTN_CALLS = {d: sum(c for *_, c in shapes) for d, shapes in MAIN_SHAPES.items()}
 # the SD-VAE mid-attention at 1024px: one head of 512 over 128 x 128 tokens,
 # fp32 in the preview decoder, bf16 in the encoder's flash route
@@ -208,8 +215,7 @@ def device_phase(torch):
 
 def build_phase():
     """Builds every source (a current library too, so the ptxas report is
-    this run's); returns the wgmma kernels' and the 3xTF32 kernel's
-    report."""
+    this run's); returns the wgmma and 3xTF32 kernels' report."""
     phase("build")
     from aozora_sdxl_training_tpu_torch.ops import cuda_build
     results = cuda_build.build_all(SOURCES, force=True)
@@ -225,8 +231,8 @@ def build_phase():
             elif ("registers" in line or "spill" in line or "error" in line.lower()
                   or "wgmma" in line):
                 print(f"  ptxas: {line.strip()}")
-    report = sm90_report(cuda_build, results[SM90][1])
-    report.update(tf32_report(cuda_build, results[FP32][1]))
+    report = build_report(cuda_build, SM90, results[SM90][1], SM90_KERNELS, "hgmma")
+    report.update(build_report(cuda_build, FP32, results[FP32][1], TF32_KERNELS, "hmma_tf32"))
     return report
 
 
@@ -248,14 +254,21 @@ SM90_OF = {"flash_fwd": ("flash_fwd_sm90_kernel", 64),
 
 
 def kernel_of(mangled: str):
-    """(kernel, head dim) of a mangled wgmma kernel name or of a 3xTF32
-    kernel, or None."""
-    found = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_sm90_kernel)ILi(\d+)E", mangled)
+    """(kernel, head dim) of a mangled wgmma or 3xTF32 kernel name, or
+    None."""
+    found = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_(?:sm90|3xtf32)_kernel)ILi(\d+)E",
+                      mangled)
     if found:
         return found.group(1), int(found.group(2))
-    if D512_KERNEL in mangled:
-        return D512_KERNEL, 512
-    return next(((name, d) for name, d in TF32_KERNELS.items() if name in mangled), None)
+    for kernel in (D512_KERNEL, F32_D512_KERNEL):
+        if kernel in mangled:
+            return kernel, 512
+    return None
+
+
+def kernel_label(kernel: str, d: int) -> str:
+    """A kernel's name in the reports: a template's with its head dim."""
+    return kernel if kernel in (D512_KERNEL, F32_D512_KERNEL) else f"{kernel}<{d}>"
 
 
 def ptxas_usage(log: str) -> dict:
@@ -309,59 +322,42 @@ def sass_counts(cuda_build, source: str):
     return mma_counts(proc.stdout)
 
 
-def sm90_report(cuda_build, log: str) -> dict:
+def build_report(cuda_build, source: str, log: str, kernels: dict, what: str) -> dict:
     """ptxas's registers and spills, the runtime's registers, shared memory
-    and blocks per SM, and the HGMMA count of each wgmma kernel at each of
-    its head dims; fails if ptxas did not report one, if one spills or if
-    cuobjdump finds no HGMMA in one."""
+    and blocks per SM, and the ``what`` instructions ("hgmma": wgmma;
+    "hmma_tf32": TF32 mma.sync) that ``cuobjdump -sass`` finds, of each of
+    ``kernels`` ({(kernel, head dim): its index in the library's
+    aozora_flash_<sm90|fp32>_attributes}) built from ``source``; fails if
+    ptxas reported nothing for one, if one spills or if its SASS has none
+    of them."""
     import ctypes
     usage = ptxas_usage(log)
-    lib = ctypes.CDLL(str(cuda_build.library_path(SM90)))
-    lib.aozora_flash_sm90_attributes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    sass = sass_counts(cuda_build, SM90)
+    lib = ctypes.CDLL(str(cuda_build.library_path(source)))
+    query = getattr(lib, {SM90: "aozora_flash_sm90_attributes",
+                          FP32: "aozora_flash_fp32_attributes"}[source])
+    query.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    sass = sass_counts(cuda_build, source)
+    instruction = {"hgmma": "HGMMA", "hmma_tf32": "TF32 HMMA"}[what]
     report = {}
-    for key, index in SM90_KERNELS.items():
-        kernel, d = key
-        check(key in usage and "registers" in usage[key],
-              f"ptxas reported nothing for {kernel}<{d}>")
+    for key, index in kernels.items():
+        kernel = kernel_label(*key)
+        check(key in usage and "registers" in usage[key], f"ptxas reported nothing for {kernel}")
         attrs = (ctypes.c_int * 5)()
-        err = lib.aozora_flash_sm90_attributes(index, d, ctypes.addressof(attrs))
-        check(err == 0, f"cudaFuncGetAttributes({kernel}<{d}>) failed: {err}")
+        err = query(index, key[1], ctypes.addressof(attrs))
+        check(err == 0, f"cudaFuncGetAttributes({kernel}) failed: {err}")
         regs, local, smem, threads, blocks = list(attrs)
         row = {**usage[key], "runtime_registers": regs, "local_bytes": local,
                "dynamic_smem_bytes": smem, "threads": threads, "blocks_per_sm": blocks,
-               "hgmma": None if sass is None else sass.get(key, {}).get("hgmma", 0)}
-        report[f"{kernel}<{d}>"] = row
-        print(f"  {kernel}<{d}>: ptxas {row['registers']} registers, spill "
-              f"{row['spill_stores']} B stores / {row['spill_loads']} B loads; runtime "
-              f"{regs} registers, {local} B local, {smem} B dynamic shared memory, "
-              f"{threads} threads, {blocks} block(s)/SM; HGMMA "
-              f"{'not checked (no cuobjdump)' if sass is None else row['hgmma']}")
-        check(row["spill_stores"] == 0 and row["spill_loads"] == 0 and local == 0,
-              f"{kernel}<{d}> spills")
-        if sass is not None:
-            check(row["hgmma"] > 0, f"{kernel}<{d}>: no HGMMA instruction in its SASS")
-    return report
-
-
-def tf32_report(cuda_build, log: str) -> dict:
-    """ptxas's registers and spills of each 3xTF32 kernel and the TF32 HMMA
-    instructions in its SASS; fails on a spill or on no HMMA."""
-    usage = ptxas_usage(log)
-    sass = sass_counts(cuda_build, FP32)
-    report = {}
-    for key in TF32_KERNELS.items():
-        kernel, _ = key
-        check(key in usage and "registers" in usage[key], f"ptxas reported nothing for {kernel}")
-        row = {**usage[key], "hmma_tf32": None if sass is None else sass.get(key, {}).get(
-            "hmma_tf32", 0)}
-        print(f"  {kernel}: ptxas {row['registers']} registers, spill {row['spill_stores']} "
-              f"B stores / {row['spill_loads']} B loads; TF32 HMMA "
-              f"{'not checked (no cuobjdump)' if sass is None else row['hmma_tf32']}")
-        check(row["spill_stores"] == 0 and row["spill_loads"] == 0, f"{kernel} spills")
-        if sass is not None:
-            check(row["hmma_tf32"] > 0, f"{kernel}: no TF32 HMMA instruction in its SASS")
+               what: None if sass is None else sass.get(key, {}).get(what, 0)}
         report[kernel] = row
+        print(f"  {kernel}: ptxas {row['registers']} registers, spill {row['spill_stores']} "
+              f"B stores / {row['spill_loads']} B loads; runtime {regs} registers, {local} B "
+              f"local, {smem} B dynamic shared memory, {threads} threads, {blocks} block(s)/SM; "
+              f"{instruction} {'not checked (no cuobjdump)' if sass is None else row[what]}")
+        check(row["spill_stores"] == 0 and row["spill_loads"] == 0 and local == 0,
+              f"{kernel} spills")
+        if sass is not None:
+            check(row[what] > 0, f"{kernel}: no {instruction} instruction in its SASS")
     return report
 
 
@@ -502,9 +498,9 @@ def kernel_phase(torch):
             check(err <= tol, f"{label} {what}: error {err} > tolerance {tol}")
             if what != "lse" and label.startswith(main):
                 max_err[kname] = max(max_err[kname], err)
-        if d == 512 and dtype == f32:
-            check_against_float64(torch, label, q, k, v, scale, out)
-        if d == 128 and dtype == f32:
+        if dtype == f32:
+            check_against_float64(torch, label, q, k, v, scale, out, lse)
+        if dtype == f32 and kdq is not None:
             check_grads_against_float64(torch, label, q, k, v, do, scale, (dq, dk, dv))
         del q, k, v, do, out, lse, ref_out, ref_lse, rows
         torch.cuda.empty_cache()
@@ -514,24 +510,25 @@ def kernel_phase(torch):
                      **time_d512(torch, fa)}
 
 
-def check_against_float64(torch, label, q, k, v, scale, out, bar=1e-5):
-    """The 3xTF32 head_dim-512 forward's output against attention in
-    float64, held at ``bar`` of the largest magnitude (the fp32 plain
-    version is held at 1e-4 above; 3xTF32 keeps ~2^-22 of each product)."""
+def check_against_float64(torch, label, q, k, v, scale, out, lse, bar=1e-5):
+    """A 3xTF32 forward's output and lse against attention in float64, each
+    held at ``bar`` of its largest magnitude (the fp32 plain version is held
+    at 1e-4 above; 3xTF32 keeps ~2^-22 of each product)."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * scale
     want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v.double())
+    want_lse = torch.logsumexp(s, dim=-1).reshape(lse.shape)
     del s
-    err = (out.double() - want).abs().max().item()
-    tol = bar * want.abs().max().item()
-    print(f"  {label:36s} out   max_abs_err {err:.3e} against float64 ({err / tol * bar:.2e} "
-          f"of the largest magnitude)  tol {tol:.3e}")
-    check(err <= tol, f"{label}: error {err} against float64 > {tol}")
-    return err
+    for name, got, ref in (("out", out, want), ("lse", lse, want_lse)):
+        err = (got.double() - ref).abs().max().item()
+        tol = bar * ref.abs().max().item()
+        print(f"  {label:36s} {name:5s} max_abs_err {err:.3e} against float64 "
+              f"({err / tol * bar:.2e} of the largest magnitude)  tol {tol:.3e}")
+        check(err <= tol, f"{label} {name}: error {err} against float64 > {tol}")
 
 
 def check_grads_against_float64(torch, label, q, k, v, do, scale, grads, bar=1e-5):
-    """The 3xTF32 head_dim-128 backward's dq, dk and dv against attention's
-    gradients in float64, each held at ``bar`` of its largest magnitude."""
+    """A 3xTF32 backward's dq, dk and dv against attention's gradients in
+    float64, each held at ``bar`` of its largest magnitude."""
     qd, kd, vd = (t.double().requires_grad_(True) for t in (q, k, v))
     s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) * scale
     out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vd)
@@ -660,12 +657,12 @@ def print_row(kname, row, lib_note=""):
 
 def time_fp32(torch, fa):
     """The fp32 kernels at head_dim 64 and 128 at ``FP32_SHAPES``, as
-    ``time_kernels`` times the bf16 ones. Bound: the CUDA-core kernels' flop
-    at the fp32 FMA peak; the 3xTF32 backward at 128 as three TF32 products
-    at the TF32 peak (``bound_ms``), beside it as fp32 FMAs
-    (``bound_fp32_fma_ms``). At each shape out, dq, dk and dv are first held
-    at 1e-4 of the plain version's largest magnitude, as in ``check_kernels``
-    (which does not reach the full-width shape)."""
+    ``time_kernels`` times the bf16 ones. Bound: the flop as the three TF32
+    products the kernels run them as, at the TF32 peak (``bound_ms``), and
+    beside it as fp32 FMAs at the CUDA cores' peak (``bound_fp32_fma_ms``).
+    At each shape out, dq, dk and dv are first held at 1e-4 of the plain
+    version's largest magnitude, as in ``kernel_phase`` (which does not
+    reach the full-width shapes)."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(11)
     timings = {}
@@ -696,16 +693,13 @@ def time_fp32(torch, fa):
                    lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale), lib[1]),
         }
         for (kname, (kernel, plain, lib_ms)), w in zip(calls_of.items(), work(b, h, s, d, 4)):
-            tf32 = KERNELS[kname][3].split()[0] in TF32_KERNELS
-            row = timing_row(torch, kernel, plain, lib_ms, (3 * w[0], w[1]) if tf32 else w,
-                             H100_TF32_FLOPS if tf32 else H100_FP32_FLOPS)
+            row = timing_row(torch, kernel, plain, lib_ms, (3 * w[0], w[1]), H100_TF32_FLOPS)
             row["shape"] = f"B={b} H={h} S={s} D={d} fp32"
+            row["tflops"] = w[0] / row["ms"] / 1e9
+            row["bound_fp32_fma_ms"] = bound(*w, H100_FP32_FLOPS)[0]
             note = "" if kname == kf else " (dq,dk,dv together)"
-            if tf32:
-                row["tflops"] = w[0] / row["ms"] / 1e9
-                row["bound_fp32_fma_ms"] = bound(*w, H100_FP32_FLOPS)[0]
-                note += (f" (3 TF32 products; as fp32 FMAs {row['bound_fp32_fma_ms']:.4f} ms, "
-                         f"{row['bound_fp32_fma_ms'] / row['ms']:.1%})")
+            note += (f" (3 TF32 products; as fp32 FMAs {row['bound_fp32_fma_ms']:.4f} ms, "
+                     f"{row['bound_fp32_fma_ms'] / row['ms']:.1%})")
             timings.setdefault(kname, []).append(row)
             print_row(kname, row, note)
         del q, k, v, do, out, lse, delta
@@ -1751,9 +1745,9 @@ def kernels_json(timings, max_err, launches, k5, k6, sm90):
         head = timings[kname][0]      # the largest main shape of its head dim
         build = {}
         if kname in SM90_OF:
-            build["build"] = sm90["{}<{}>".format(*SM90_OF[kname])]
-        elif cuda_kernel.split()[0] in TF32_KERNELS:
-            build["build"] = sm90[cuda_kernel.split()[0]]
+            build["build"] = sm90[kernel_label(*SM90_OF[kname])]
+        elif cuda_kernel in sm90:
+            build["build"] = sm90[cuda_kernel]
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"{PACKAGE}/csrc/{fa.SOURCES[kname]}.cu", "kernel": cuda_kernel,

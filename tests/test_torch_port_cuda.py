@@ -9,8 +9,8 @@ without JAX it runs apart from tests/conftest.py:
 All three head dims of the flash kernels are covered: 64 (K1-K3, the
 SDXL UNet), 128 (K4a/K4b, the Anima DiT) and 512 (K4a forward, the SD-VAE
 mid-attention), in bf16 (the wgmma kernels of csrc/flash_attention_sm90.cu)
-and, through the fp32 kernels of csrc/flash_attention_fp32.cu (3xTF32 on
-the tensor cores for the backward at 128 and the forward at 512), in fp32;
+and, through the fp32 kernels of csrc/flash_attention_fp32.cu (every one
+3xTF32 on the tensor cores), in fp32;
 with ragged lengths, unequal query and key lengths, lengths below, at and
 one past a tile, two launches that must agree bitwise, and an input the
 16-byte loads cannot take.
@@ -24,13 +24,12 @@ divide, and at a large mean.
 Tolerances: the bf16 kernels multiply bf16 operands on the tensor cores
 with fp32 accumulation, so their outputs are held at 2e-2 of unit-scale
 values, gradients at five times that, and lse at 1e-3 (exact bf16
-products). The fp32 kernels multiply to fp32 accuracy (fp32 FMAs, or
-3xTF32), so outputs and gradients are held at 1e-4 of the plain fp32
-version's largest magnitude
-(the sums run in another order; with one key, where dq and dk are zero
-but for rounding, at 1e-4 of the unit-scale inputs) and lse at 1e-4; the
-3xTF32 kernels also against a float64 version at 1e-5 of its largest
-magnitude (their products keep ~2^-22 of each term). K5
+products). The fp32 kernels multiply to fp32 accuracy (3xTF32), so
+outputs and gradients are held at 1e-4 of the plain fp32 version's largest
+magnitude (the sums run in another order; with one key, where dq and dk
+are zero but for rounding, at 1e-4 of the unit-scale inputs) and lse at
+1e-4, and against a float64 version at 1e-5 of its largest magnitude
+(their products keep ~2^-22 of each term). K5
 and the one-card ring: 2e-2 of the largest magnitude (bf16 kernels; the
 ring's merges are fp32). K6: bf16 2e-2
 of the largest magnitude (one bf16 rounding of the output), fp32 1e-4 of
@@ -209,31 +208,42 @@ def test_d512_forward_matches_plain_version_on_card(cuda_device, dtype, b, h, sq
     assert port.LAUNCHES[kname] == counts[kname] + 1
 
 
+# (B, H, Sq, Skv) of the fp32 kernels against float64: one head over 4096
+# tokens, more queries than keys and the reverse, and lengths a tile
+# boundary cuts at both ends (the 3xTF32 kernels at 64 and 128 take 32
+# stationary rows a block and 32- or 64-row tiles of the other sequence)
+F32_SHAPES = [(1, 1, 4096, 4096), (2, 2, 333, 1000), (2, 2, 1000, 334), (2, 2, 65, 130)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,sq,skv", [(1, 1, 4096, 4096), (2, 2, 333, 1000)])
-def test_f32_d512_forward_matches_float64_on_card(cuda_device, b, h, sq, skv):
-    """flash_fwd_f32_d512 (3xTF32) against attention in float64: within
-    1e-5 of the largest magnitude, as fp32 products would be."""
-    g = torch.Generator(device=cuda_device).manual_seed(sq + 7)
-    q = torch.randn(b, sq, h, 512, device=cuda_device, generator=g)
-    k, v = (torch.randn(b, skv, h, 512, device=cuda_device, generator=g) for _ in range(2))
-    scale = 512 ** -0.5
-    out, _ = port.flash_fwd(q, k, v, scale)
+@pytest.mark.parametrize("d,b,h,sq,skv",
+                         [(512, *shape) for shape in F32_SHAPES[:2]]
+                         + [(d, *shape) for d in (64, 128) for shape in F32_SHAPES])
+def test_f32_forward_matches_float64_on_card(cuda_device, d, b, h, sq, skv):
+    """flash_fwd_f32_d{64,128,512} (3xTF32) against attention in float64:
+    out and lse within 1e-5 of their largest magnitudes, as fp32 products
+    would be."""
+    g = torch.Generator(device=cuda_device).manual_seed(sq + d + 7)
+    q = torch.randn(b, sq, h, d, device=cuda_device, generator=g)
+    k, v = (torch.randn(b, skv, h, d, device=cuda_device, generator=g) for _ in range(2))
+    scale = d ** -0.5
+    out, lse = port.flash_fwd(q, k, v, scale)
     s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * scale
     want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v.double())
     assert _rel_err(out.double(), want) <= 1e-5
+    assert _rel_err(lse.double(), torch.logsumexp(s, dim=-1).reshape(lse.shape)) <= 1e-5
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,sq,skv", [(1, 1, 4096, 4096), (2, 2, 333, 1000)])
-def test_f32_d128_backward_matches_float64_on_card(cuda_device, b, h, sq, skv):
-    """flash_bwd_dq_f32_d128 and flash_bwd_dkv_f32_d128 (3xTF32) against
-    attention's gradients in float64: dq, dk and dv within 1e-5 of their
-    largest magnitudes, as fp32 products would be."""
-    g = torch.Generator(device=cuda_device).manual_seed(sq + 11)
-    q, do = (torch.randn(b, sq, h, 128, device=cuda_device, generator=g) for _ in range(2))
-    k, v = (torch.randn(b, skv, h, 128, device=cuda_device, generator=g) for _ in range(2))
-    scale = 128 ** -0.5
+@pytest.mark.parametrize("d,b,h,sq,skv", [(d, *shape) for d in (64, 128) for shape in F32_SHAPES])
+def test_f32_backward_matches_float64_on_card(cuda_device, d, b, h, sq, skv):
+    """flash_bwd_dq_f32_d{64,128} and flash_bwd_dkv_f32_d{64,128} (3xTF32)
+    against attention's gradients in float64: dq, dk and dv within 1e-5 of
+    their largest magnitudes, as fp32 products would be."""
+    g = torch.Generator(device=cuda_device).manual_seed(sq + d + 11)
+    q, do = (torch.randn(b, sq, h, d, device=cuda_device, generator=g) for _ in range(2))
+    k, v = (torch.randn(b, skv, h, d, device=cuda_device, generator=g) for _ in range(2))
+    scale = d ** -0.5
     out, lse = port.flash_fwd(q, k, v, scale)
     got = port.flash_bwd(q, k, v, out, lse, do, scale)
     qd, kd, vd = (t.double().requires_grad_(True) for t in (q, k, v))

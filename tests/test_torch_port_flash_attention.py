@@ -11,11 +11,11 @@ card by ``chip_smoke.py`` and by tests/test_torch_port_cuda.py. What runs
 without a card is checked here too: which library each kernel is bound
 from, the nvcc command of the wgmma source, the rebuild rule, and the
 wrappers' alignment check (tests/test_torch_port_flash_routes.py holds the
-routing by head dim, dtype and role). The arithmetic of the 3xTF32 kernels
-(each operand split into two TF32 parts, three TF32 products: the fp32
-head_dim-512 forward and the fp32 head_dim-128 backward) is emulated here
-and held against the JAX kernels in fp32 at a bar that one TF32 product
-does not meet.
+routing by head dim, dtype and role). The arithmetic of the fp32 kernels
+(3xTF32: each operand split into two TF32 parts, three TF32 products; the
+forward at head_dim 64, 128 and 512, the backward at 64 and 128) is
+emulated here in each kernel's loop and held against the JAX kernels in
+fp32 at a bar that one TF32 product does not meet.
 """
 
 import os
@@ -30,8 +30,8 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from aozora_sdxl_training_tpu.ops.flash_attention import (
-    LANES, _flash_backward_folded, _flash_forward_folded, _pick_blocks, _round_up,
-    flash_attention as jax_flash, flash_fwd_stats)
+    LANES, _flash_backward, _flash_backward_folded, _flash_forward, _flash_forward_folded,
+    _pick_blocks, _round_up, flash_attention as jax_flash, flash_fwd_stats)
 from aozora_sdxl_training_tpu_torch.ops import cuda_build
 from aozora_sdxl_training_tpu_torch.ops import flash_attention as port
 from aozora_sdxl_training_tpu_torch.ops.attention import attention
@@ -236,7 +236,7 @@ def test_a_forced_build_rebuilds_a_current_library(monkeypatch, tmp_path):
 
 
 # --------------------------------------------------------------------------
-# The fp32 head_dim-512 forward's 3xTF32 arithmetic, emulated
+# The fp32 kernels' 3xTF32 arithmetic, emulated
 # --------------------------------------------------------------------------
 
 def _tf32(x):
@@ -263,47 +263,81 @@ def _tf32_matmul(a, b, products):
     return al @ bh + ah @ bl + ah @ bh
 
 
-def _tf32_attention(q, k, v, scale, products, block_k=16):
-    """The kernel's loop on (S, D) fp32 rows: per 16-key tile the scores in
-    TF32 products, the online softmax in fp32, O += P V in TF32 products."""
-    m = torch.full((q.shape[0],), -1e30)
-    l = torch.zeros(q.shape[0])
-    o = torch.zeros_like(q)
-    for j0 in range(0, k.shape[0], block_k):
-        s = _tf32_matmul(q, k[j0:j0 + block_k].T, products) * scale
-        m_new = torch.maximum(m, s.max(1).values)
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[:, None])
-        l = l * alpha + p.sum(1)
-        o = o * alpha[:, None] + _tf32_matmul(p, v[j0:j0 + block_k], products)
-        m = m_new
+def _tf32_attention(q, k, v, scale, products, block_k, quarters):
+    """The forward kernels' loop on (S, D) fp32 rows: each block_k-key tile
+    split into ``quarters`` runs of keys, each run with an online softmax of
+    its own over its keys of every tile (the scores in TF32 products, m and
+    l in fp32, O += P V in TF32 products), the runs merged at the end in
+    order. At head_dim 512: 16-key tiles, one run; at 64 and 128: 64-key
+    tiles, one run of 16 keys for each of a row group's 4 warps."""
+    width = block_k // quarters
+    runs = []
+    for run in range(quarters):
+        m = torch.full((q.shape[0],), -1e30)
+        l = torch.zeros(q.shape[0])
+        o = torch.zeros_like(q)
+        for j0 in range(run * width, k.shape[0], block_k):
+            s = _tf32_matmul(q, k[j0:j0 + width].T, products) * scale
+            m_new = torch.maximum(m, s.max(1).values)
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[:, None])
+            l = l * alpha + p.sum(1)
+            o = o * alpha[:, None] + _tf32_matmul(p, v[j0:j0 + width], products)
+            m = m_new
+        runs.append((m, l, o))
+    m = torch.stack([r[0] for r in runs]).max(0).values
+    l, o = torch.zeros_like(m), torch.zeros_like(q)
+    for m_r, l_r, o_r in runs:
+        w = torch.exp(m_r - m)
+        l, o = l + l_r * w, o + o_r * w[:, None]
     return o / l[:, None], m + torch.log(l)
 
 
-def test_split_tf32_arithmetic_matches_jax_kernel_at_head_dim_512():
-    """3xTF32 attention at head_dim 512 (one head, 192 tokens) against the
-    JAX package's _flash_forward_folded in fp32 (interpret mode): within
-    1e-5 of the largest output magnitude (lse 1e-5 absolute), where one
-    TF32 product alone misses that bar (about 5e-4 here) and 3xTF32 lands
-    near fp32's own summation error (about 1e-6)."""
-    s, d = 192, 512
-    q, k, v = _inputs(512, s, s, h=1, d=d)
-    scale = d ** -0.5
+def _jax_kernels(q, k, v, do, scale):
+    """out, lse and, for ``do`` not None, dq, dk and dv of the JAX package's
+    Pallas kernels in fp32 (interpret mode) on one head of (S, D) rows:
+    _flash_forward and _flash_backward at head_dim 64, the folded ones
+    (lane-aligned heads) at 128 and 512."""
+    s, d = q.shape
     block_q, block_k = _pick_blocks(s, s)
     pad = _round_up(s, block_q)
 
-    def fold(x):
+    def lay(x):
         return jnp.pad(jnp.asarray(x).reshape(1, s, d), ((0, 0), (0, pad - s), (0, 0)))
 
+    blocks = dict(scale=scale, kv_valid=s, block_q=block_q, block_k=block_k)
+    folded = {} if d == 64 else dict(h=1)
+    forward = _flash_forward if d == 64 else _flash_forward_folded
+    backward = _flash_backward if d == 64 else _flash_backward_folded
     with pltpu.force_tpu_interpret_mode():
-        out, lse = _flash_forward_folded(fold(q), fold(k), fold(v), h=1, scale=scale,
-                                         kv_valid=s, block_q=block_q, block_k=block_k)
-    ref, ref_lse = np.asarray(out)[0, :s], np.asarray(lse)[0, :s, 0]
+        out, lse = forward(lay(q), lay(k), lay(v), **folded, **blocks)
+        grads = (() if do is None else
+                 backward(lay(q), lay(k), lay(v), out, lse, lay(do), **folded, **blocks))
+    assert lse.shape[-1] == LANES
+    return (np.array(out)[0, :s], np.array(lse)[0, :s, 0], [np.array(g)[0, :s] for g in grads])
+
+
+# (head dim, tokens, block_k, quarters) of the forward kernels: the head_dim-
+# 512 kernel's 16-key tiles, the 64/128 kernel's 64-key tiles in 4 runs
+FORWARDS = [(64, 192, 64, 4), (128, 192, 64, 4), (512, 192, 16, 1)]
+
+
+@pytest.mark.parametrize("d,s,block_k,quarters", FORWARDS, ids=[f"d{f[0]}" for f in FORWARDS])
+def test_split_tf32_forward_matches_jax_kernel(d, s, block_k, quarters):
+    """3xTF32 attention (one head, 192 tokens) in the loop of the fp32
+    forward kernel at its head dim against the JAX package's forward kernel
+    in fp32 (interpret mode): within 1e-5 of the largest output magnitude
+    (lse 1e-5 absolute), where one TF32 product alone misses that bar by
+    more than 10x and 3xTF32 lands near fp32's own summation error (about
+    1e-6)."""
+    q, k, v = _inputs(d, s, s, h=1, d=d)
+    scale = d ** -0.5
+    ref, ref_lse, _ = _jax_kernels(q[0, :, 0], k[0, :, 0], v[0, :, 0], None, scale)
     bar = 1e-5 * np.abs(ref).max()
     errs = {}
     for products in (1, 3):
         got, got_lse = _tf32_attention(*(torch.from_numpy(x[0, :, 0]) for x in (q, k, v)),
-                                       scale, products)
+                                       scale, products, block_k, quarters)
         errs[products] = (np.abs(got.numpy() - ref).max(),
                           np.abs(got_lse.numpy() - ref_lse).max())
     assert errs[3][0] <= bar and errs[3][1] <= 1e-5, errs
@@ -311,10 +345,10 @@ def test_split_tf32_arithmetic_matches_jax_kernel_at_head_dim_512():
 
 
 def _tf32_backward(q, k, v, o, do, lse, scale, products, block=32):
-    """The 3xTF32 head_dim-128 backward kernels' loops on (S, D) fp32 rows:
-    the dQ kernel over 32-key tiles, the dK/dV kernel over 32-query tiles;
-    each tile's products (scores and accumulating ones) in TF32 products,
-    added into the running dq, dk, dv in fp32; P, dS and delta in fp32."""
+    """The 3xTF32 backward kernels' loops on (S, D) fp32 rows: the dQ kernel
+    over 32-key tiles, the dK/dV kernel over 32-query tiles; each tile's
+    products (scores and accumulating ones) in TF32 products, added into the
+    running dq, dk, dv in fp32; P, dS and delta in fp32."""
     delta = (do * o).sum(1)
     dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     for j0 in range(0, k.shape[0], block):
@@ -331,35 +365,23 @@ def _tf32_backward(q, k, v, o, do, lse, scale, products, block=32):
     return dq, dk, dv
 
 
-def test_split_tf32_backward_matches_jax_kernel_at_head_dim_128():
-    """3xTF32 dq, dk and dv at head_dim 128 (one head, 128 tokens) against
-    the JAX package's _flash_backward_folded in fp32 (interpret mode), from
-    its own forward's out and lse: within 1e-5 of each gradient's largest
-    magnitude (about 1e-6 here), where one TF32 product alone misses by
-    more than 10x that (about 7e-4)."""
-    s, d = 128, 128
-    q, k, v = _inputs(128, s, s, h=1, d=d)
-    do = np.random.default_rng(129).normal(size=q.shape).astype(np.float32)
+@pytest.mark.parametrize("d", [64, 128])
+def test_split_tf32_backward_matches_jax_kernel(d):
+    """3xTF32 dq, dk and dv (one head, 128 tokens) in the loops of the fp32
+    backward kernels at head_dim ``d`` against the JAX package's backward
+    kernels in fp32 (interpret mode), from its own forward's out and lse:
+    within 1e-5 of each gradient's largest magnitude (about 1e-6 here),
+    where one TF32 product alone misses by more than 10x that."""
+    s = 128
+    q, k, v = _inputs(d, s, s, h=1, d=d)
+    do = np.random.default_rng(d + 1).normal(size=q.shape).astype(np.float32)
     scale = d ** -0.5
-    block_q, block_k = _pick_blocks(s, s)
-    pad = _round_up(s, block_q)
-
-    def fold(x):
-        return jnp.pad(jnp.asarray(x).reshape(1, s, d), ((0, 0), (0, pad - s), (0, 0)))
-
-    with pltpu.force_tpu_interpret_mode():
-        out, lse = _flash_forward_folded(fold(q), fold(k), fold(v), h=1, scale=scale,
-                                         kv_valid=s, block_q=block_q, block_k=block_k)
-        grads = _flash_backward_folded(fold(q), fold(k), fold(v), out, lse, fold(do), h=1,
-                                       scale=scale, kv_valid=s, block_q=block_q,
-                                       block_k=block_k)
-    assert lse.shape[-1] == LANES
-    refs = [np.asarray(g)[0, :s] for g in grads]
+    out, lse, refs = _jax_kernels(q[0, :, 0], k[0, :, 0], v[0, :, 0], do[0, :, 0], scale)
     rows = [torch.from_numpy(x[0, :, 0]) for x in (q, k, v)]
-    o, l = (torch.from_numpy(np.asarray(x)[0, :s]) for x in (out, lse[..., 0]))
     errs = {}
     for products in (1, 3):
-        got = _tf32_backward(*rows, o, torch.from_numpy(do[0, :, 0]), l, scale, products)
+        got = _tf32_backward(*rows, torch.from_numpy(out), torch.from_numpy(do[0, :, 0]),
+                             torch.from_numpy(lse), scale, products)
         errs[products] = [np.abs(g.numpy() - r).max() / np.abs(r).max()
                           for g, r in zip(got, refs)]
     assert max(errs[3]) <= 1e-5, errs

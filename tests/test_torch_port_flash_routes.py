@@ -5,12 +5,12 @@ role (forward, dQ, dK/dV) which kernel a wrapper launches on CUDA tensors,
 and which CUDA source's library exports it. bf16 goes to the tensor-core
 kernels (``csrc/flash_attention_sm90.cu``: every role at head_dim 64 and
 128 and the head_dim-512 forward, on wgmma), fp32 to the fp32 kernels
-(``csrc/flash_attention_fp32.cu``: fp32 FMAs for the forwards at 64 and
-128 and the backward at 64, 3xTF32 for the backward at 128 and the forward
-at 512), so that no fp32 operand is rounded to bf16. The backward at
-head_dim 512 has no kernel in either dtype. Each entry point is checked to
-be defined in its source, and each source to define no other; no WMMA
-source remains.
+(``csrc/flash_attention_fp32.cu``: every role at 64 and 128 and the
+forward at 512, all in 3xTF32 on mma.sync), so that no fp32 operand is
+rounded to bf16. The backward at head_dim 512 has no kernel in either
+dtype. Each entry point is checked to be defined in its source, and each
+source to define no other; no WMMA source remains, and every kernel of
+the fp32 source runs its products on the tensor cores.
 """
 
 import re
@@ -61,13 +61,14 @@ def test_other_head_dims_and_dtypes_have_no_kernel():
 def test_every_entry_point_is_defined_in_its_source():
     """Each kernel's C entry point ``aozora_<name>`` is defined in the
     source ``route`` names, and each source defines no other kernel entry
-    point (the sm90 one also exports its attribute query); the two sources
-    are every flash source of ``csrc/``."""
+    point (each also exports its attribute query); the two sources are
+    every flash source of ``csrc/``."""
     assert set(port.SOURCES.values()) == {SM90, FP32}
     assert sorted(p.stem for p in cuda_build.CSRC.glob("flash_*.cu")) == [FP32, SM90]
     for source in (SM90, FP32):
         text = (cuda_build.CSRC / f"{source}.cu").read_text()
-        defined = set(re.findall(r"^int aozora_(\w+)\(", text, re.M)) - {"flash_sm90_attributes"}
+        defined = set(re.findall(r"^int aozora_(\w+)\(", text, re.M)) - {
+            "flash_sm90_attributes", "flash_fp32_attributes"}
         assert defined == {n for n, src in port.SOURCES.items() if src == source}, source
         assert "aozora_flash_error_string" in text
 
@@ -84,3 +85,47 @@ def test_the_head_dim_64_forward_is_the_wgmma_kernel():
     assert re.search(r"^int aozora_flash_fwd_d512\([^)]*\)\s*\{\s*return fwd_d512\(", sm90,
                      re.M)
     assert re.search(r"^flash_fwd_d512_sm90_kernel\(", sm90, re.M)
+
+
+def _functions(text):
+    """{name: body} of every function defined in a CUDA source: its name is
+    the identifier before the parameter list, its body the braces after."""
+    found = {}
+    for m in re.finditer(r"(?:__global__|__device__)[^;{(]*?(?:__launch_bounds__\([^)]*\)\s*)?"
+                         r"(\w+)\s*\(", text):
+        depth, i = 1, m.end()
+        while depth:                         # the parameter list
+            depth += {"(": 1, ")": -1}.get(text[i], 0)
+            i += 1
+        if text[i:].lstrip()[:1] != "{":
+            continue
+        start = text.index("{", i)
+        depth, i = 1, start + 1
+        while depth:
+            depth += {"{": 1, "}": -1}.get(text[i], 0)
+            i += 1
+        found[m.group(1)] = text[start:i]
+    return found
+
+
+def test_every_fp32_kernel_runs_on_the_tensor_cores():
+    """Each __global__ kernel of the fp32 source reaches mma_3xtf32 (directly
+    or through the helpers it calls), and the CUDA-core design's helpers are
+    gone."""
+    text = (cuda_build.CSRC / f"{FP32}.cu").read_text()
+    functions = _functions(text)
+    kernels = set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\(",
+                             text))
+    assert kernels == {"flash_fwd_3xtf32_kernel", "flash_bwd_dq_3xtf32_kernel",
+                       "flash_bwd_dkv_3xtf32_kernel", "flash_fwd_f32_d512_kernel"}
+    reaches = {"mma_3xtf32"}
+    while True:
+        more = {name for name, body in functions.items()
+                if any(re.search(rf"\b{callee}\s*(?:<[^;{{}}]*?>)?\s*\(", body)
+                       for callee in reaches)} - reaches
+        if not more:
+            break
+        reaches |= more
+    assert kernels <= reaches, kernels - reaches
+    for gone in ("nt_product", "nn_accumulate", "lane4", "store_tile", "Cfg"):
+        assert not re.search(rf"\b{gone}\b", text), gone
