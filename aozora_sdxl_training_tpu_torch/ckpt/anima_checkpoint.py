@@ -1,15 +1,14 @@
-"""Anima DiT checkpoint IO: prefix handling, load, streaming save.
+"""Anima checkpoint IO: prefix handling, component loading, streaming save.
 
-Counterpart of the DiT half of
-``aozora_sdxl_training_tpu/ckpt/anima_checkpoint.py``:
+Counterpart of ``aozora_sdxl_training_tpu/ckpt/anima_checkpoint.py``:
 
 * the >=80% prefix-stripping rule over (``pipe.dit.``,
   ``model.diffusion_model.``, ``diffusion_model.``, ``dit.``, ``net.``);
+* the Qwen3 text encoder's prefixes stripped and ``lm_head`` dropped; the
+  Wan VAE's keys remapped under ``model.*``;
 * save-prefix auto-detection from the source checkpoint;
 * a streaming save through the port's safetensors writer, one tensor on the
   host at a time, cast to the compute dtype.
-
-The text-encoder and VAE loaders come with the caching encoders.
 """
 
 from __future__ import annotations
@@ -21,6 +20,8 @@ from .sd_checkpoint import numpy_dtype_for_torch, tensor_to_numpy
 
 DIT_PREFIXES = ("pipe.dit.", "model.diffusion_model.", "diffusion_model.",
                 "dit.", "net.")
+TEXT_PREFIXES = ("text_encoder.", "model.text_encoder.")
+VAE_PREFIXES = ("pipe.vae.", "vae.")
 
 
 def strip_prefix(state: dict, prefixes) -> tuple[dict, str]:
@@ -36,6 +37,27 @@ def load_dit_state(path) -> tuple[dict, str]:
     """Load (numpy, bf16 via ml_dtypes) + prefix-strip a DiT checkpoint;
     returns (state, detected_prefix)."""
     return strip_prefix(load_all(path), DIT_PREFIXES)
+
+
+def load_text_encoder_state(path) -> dict:
+    """The Qwen3 tensors (numpy) under HF names, ``lm_head`` dropped."""
+    state, _ = strip_prefix(load_all(path), TEXT_PREFIXES)
+    state.pop("lm_head.weight", None)
+    return state
+
+
+def load_vae_state(path) -> dict:
+    """The Wan VAE tensors (numpy) remapped under ``model.*``."""
+    out = {}
+    for key, value in load_all(path).items():
+        for prefix in VAE_PREFIXES:
+            if key.startswith(prefix):
+                key = key[len(prefix):]
+                break
+        if not key.startswith("model."):
+            key = f"model.{key}"
+        out[key] = value
+    return out
 
 
 def resolve_save_prefix(config, detected_prefix: str) -> str:

@@ -1,12 +1,13 @@
 """CLI: run the caching pass only.
 
 ``python -m aozora_sdxl_training_tpu_torch.cli.cache_datasets --config
-preset.json [--rebuild | --clear]`` builds or refreshes the SDXL
-VAE-latent + text-embedding cache of the preset's datasets on the card (set
-``AOZORA_PLATFORM=cpu`` to run it on the CPU) and exits: the standalone
-form of the caching phase the trainer runs first. ``--clear`` deletes the
-active mode's cache dirs. The port of the JAX package's CLI of the same
-name; the Anima caching path (Qwen3 + Wan VAE) is not ported yet.
+preset.json [--rebuild | --clear]`` builds or refreshes the cache of the
+preset's datasets for its active mode on the card (set
+``AOZORA_PLATFORM=cpu`` to run it on the CPU) and exits: SDXL's VAE latents
+and CLIP embeddings, or Anima's Wan VAE latents, Qwen3 embeddings and T5
+ids. It is the standalone form of the caching phase the trainers run first.
+``--clear`` deletes the active mode's cache dirs. The port of the JAX
+package's CLI of the same name.
 """
 
 from __future__ import annotations
@@ -49,23 +50,25 @@ def main(argv=None) -> None:
                     removed += 1
         print(f"INFO: cleared {removed} cache dir(s).")
         return
-    if str(config.TRAINING_MODE).lower().startswith("anima"):
-        raise NotImplementedError(
-            "Anima caching (Qwen3 text encoder + Wan VAE) is not ported to the "
-            "PyTorch package yet; build the Anima cache with the JAX package: "
-            "python -m aozora_sdxl_training_tpu.cli.cache_datasets --config "
-            "<preset.json>")
     if args.rebuild:
         config.REBUILD_CACHE = True
 
     from ..core.platform import resolve_device
-    from ..data.cache_builder import check_if_caching_needed, precompute_and_cache
 
     device = resolve_device()
-    if args.rebuild or check_if_caching_needed(config):
-        precompute_and_cache(config, force=args.rebuild, device=device)
+    if str(config.TRAINING_MODE).lower().startswith("anima"):
+        from ..data.anima_cache import (check_if_anima_caching_needed,
+                                        precompute_and_cache_anima)
+        if args.rebuild or check_if_anima_caching_needed(config):
+            precompute_and_cache_anima(config, force=args.rebuild, device=device)
+        else:
+            print("INFO: Anima datasets already cached.")
     else:
-        print("INFO: Datasets already cached.")
+        from ..data.cache_builder import check_if_caching_needed, precompute_and_cache
+        if args.rebuild or check_if_caching_needed(config):
+            precompute_and_cache(config, force=args.rebuild, device=device)
+        else:
+            print("INFO: Datasets already cached.")
 
 
 if __name__ == "__main__":

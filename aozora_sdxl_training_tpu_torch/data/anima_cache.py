@@ -1,13 +1,20 @@
-"""Anima cache: option schema, validation and the training dataset.
+"""Anima cache: two-phase (Qwen3 text + Wan VAE) build, validation, dataset.
 
-Counterpart of ``aozora_sdxl_training_tpu/data/anima_cache.py`` without the
-encoders: the same version-6 option schema, the same cache check over the
-same files, and the same dataset (text payload = Qwen3 ``prompt_emb``
-(512 x 1024) + raw T5 token ids; dual Qwen/T5 null dropout; deterministic
-per-caption T5 token dropout; ids padded to 512). Building the cache needs
-the Qwen3 text encoder and the Wan VAE, which are not ported yet, so
-``precompute_and_cache_anima`` raises and names the JAX package's cache
-builder.
+Counterpart of ``aozora_sdxl_training_tpu/data/anima_cache.py``, writing the
+same cache:
+
+* the version-6 option schema, with the VAE tiling parameters, and the
+  same cache check over the same files;
+* text payload = Qwen3 ``prompt_emb`` (512 x 1024) + raw T5 token ids (the
+  LLM adapter runs inside the DiT forward, trainable);
+* the two-phase build on one device: the text pass in batches of 8
+  captions, then the tiled VAE pass image by image, then the null embeds
+  and the index;
+* dataset-side conditioning: dual Qwen/T5 null dropout and deterministic
+  per-caption T5 token dropout, ids padded to 512.
+
+Video clips (``ANIMA_VIDEO_FRAMES`` > 1) and the line-art loss masks are not
+ported yet: the build refuses them before any weight loads.
 """
 
 from __future__ import annotations
@@ -17,10 +24,14 @@ import random
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from . import cache_store as cs
+from .buckets import (get_multi_bucket_resolutions, make_bucket_variant_metadata,
+                      max_bucket_resolution_for_config)
 from .captions import CAPTION_JSON_TYPES, caption_source_type, caption_weights_from_config
 from .dataset import unpack_sample_index
+from .image_prep import load_and_resize_for_bucket, validate_images_parallel
 from ..train.anima_objectives import apply_t5_token_dropout
 
 ANIMA_CACHE_VERSION = 6
@@ -130,12 +141,281 @@ def check_if_anima_caching_needed(config) -> bool:
     return False
 
 
-def precompute_and_cache_anima(config) -> None:
-    raise NotImplementedError(
-        "The Anima cache must be (re)built before the PyTorch port can train: "
-        "the Qwen3 text encoder and the Wan VAE are not ported yet. Build it "
-        "with the JAX package: python -m aozora_sdxl_training_tpu.cli."
-        "cache_datasets --config <preset.json>")
+class AnimaCacheEncoders:
+    """encode_prompt(captions) -> (prompt_emb list, t5_ids list);
+    encode_image(pixels HWC) -> latents (H/8, W/8, z). numpy in and out."""
+
+    def __init__(self, *, encode_prompt, encode_image):
+        self.encode_prompt = encode_prompt
+        self.encode_image = encode_image
+
+    @classmethod
+    def from_config(cls, config, device=None):
+        """The Qwen3 text encoder and the Wan VAE encoder (fp32) of the
+        config's files, on ``device`` (default:
+        ``core.platform.resolve_device()``), with both tokenizers."""
+        from ..ckpt.anima_checkpoint import load_text_encoder_state, load_vae_state
+        from ..core.platform import resolve_device
+        from ..models.anima import qwen3, wan_vae
+
+        device = resolve_device() if device is None else torch.device(device)
+        te_state = load_text_encoder_state(config.TEXT_ENCODER_PATH)
+        q_cfg = qwen3.detect_config(te_state)
+        q_params = qwen3.params_from_torch_state(te_state, q_cfg, device=device)
+        del te_state
+        vae_params = wan_vae.params_from_torch_state(load_vae_state(config.DIT_VAE_PATH),
+                                                     device=device)
+        v_cfg = wan_vae.detect_config(vae_params)
+
+        qwen_tok = _load_hf_tokenizer(getattr(config, "TOKENIZER_PATH", ""))
+        t5_tok = _load_hf_tokenizer(getattr(config, "TOKENIZER_T5XXL_PATH", ""))
+        tiled = bool(getattr(config, "VAE_CACHING_TILED", True))
+        tile_size = tuple(getattr(config, "VAE_CACHING_TILE_SIZE", [96, 96]))
+        tile_stride = tuple(getattr(config, "VAE_CACHING_TILE_STRIDE", [72, 72]))
+
+        @torch.inference_mode()
+        def encode_prompt(captions: list[str]):
+            ids, masks, t5_ids_list = [], [], []
+            for caption in captions:
+                enc = qwen_tok(caption, padding="max_length",
+                               max_length=CONTEXT_TOKENS, truncation=True)
+                row = list(enc.input_ids)
+                ids.append(row)
+                masks.append([1 if t != qwen_tok.pad_token_id else 0 for t in row])
+                t5 = t5_tok(caption, truncation=True, max_length=CONTEXT_TOKENS)
+                t5_ids_list.append(np.asarray(t5.input_ids, np.int32))
+            emb = qwen3.qwen3_forward(
+                q_params, torch.as_tensor(ids, dtype=torch.int32, device=device),
+                torch.as_tensor(masks, dtype=torch.int32, device=device), q_cfg)
+            emb = emb.float().cpu().numpy()
+            return [emb[i] for i in range(len(captions))], t5_ids_list
+
+        @torch.inference_mode()
+        def encode_tile(px: np.ndarray) -> np.ndarray:
+            out = wan_vae.encode_image(vae_params, torch.as_tensor(px, device=device),
+                                       cfg=v_cfg)
+            return out.float().cpu().numpy()
+
+        def encode_image(pixels_hwc: np.ndarray) -> np.ndarray:
+            px = pixels_hwc[None]
+            if tiled:
+                out = wan_vae.encode_image_tiled(
+                    vae_params, px, cfg=v_cfg, tile_size=tile_size,
+                    tile_stride=tile_stride, encode_fn=encode_tile)
+            else:
+                out = encode_tile(px)
+            return out[0]
+
+        return cls(encode_prompt=encode_prompt, encode_image=encode_image)
+
+
+def _load_hf_tokenizer(path):
+    from .tokenization import HashTokenizer
+    p = Path(path) if path else None
+    if p and p.exists():
+        try:
+            from transformers import AutoTokenizer
+            return AutoTokenizer.from_pretrained(str(p))
+        except Exception as e:  # noqa: BLE001
+            print(f"WARNING: could not load tokenizer from {p}: {e}; "
+                  f"falling back to hash tokenizer")
+    else:
+        print("WARNING: no tokenizer path configured — captions use the "
+              "deterministic HASH tokenizer (fine for tests/dry runs, "
+              "WRONG for real training). Set anima_qwen_tokenizer / "
+              "anima_t5xxl_tokenizer to local HF tokenizer dirs.")
+    return HashTokenizer(model_max_length=CONTEXT_TOKENS)
+
+
+def _refuse_unported(config) -> None:
+    refused = (
+        (clip_frames_for_config(config) > 1,
+         "ANIMA_VIDEO_FRAMES > 1: the video clips' cache (the Wan VAE's video encode)"),
+        (bool(getattr(config, "ANIMA_REPAIR_LINEART_LOSS_ENABLED", False)),
+         "ANIMA_REPAIR_LINEART_LOSS_ENABLED: the line-art loss masks"),
+    )
+    for asked, what in refused:
+        if asked:
+            raise NotImplementedError(
+                f"{what} is not ported to the PyTorch package yet")
+
+
+def precompute_and_cache_anima(config, encoders: AnimaCacheEncoders | None = None,
+                               *, force: bool = False, device=None) -> None:
+    """Build or refresh the cache of every dataset root; the encoders load
+    on ``device`` when none are given."""
+    from .cache_builder import _cache_dtype, null_conditioning_cache_needed
+
+    if not force and not check_if_anima_caching_needed(config):
+        print("\n" + "=" * 60 + "\nINFO: Anima datasets already cached.\n"
+              + "=" * 60 + "\n")
+        return
+    _refuse_unported(config)
+    if encoders is None:
+        encoders = AnimaCacheEncoders.from_config(config, device=device)
+
+    cache_dir_name = anima_cache_dir_name(config)
+    options = anima_cache_options(config)
+    caption_mode = caption_source_type(config)
+    json_mode = caption_mode == "json"
+    max_res = max_bucket_resolution_for_config(config)
+    extra = (int(getattr(config, "MULTI_BUCKET_EXTRA_BUCKETS", 0) or 0)
+             if getattr(config, "MULTI_BUCKET_ENABLED", False) else 0)
+    text_dtype = _cache_dtype(getattr(config, "TEXT_CACHE_PRECISION", "bfloat16"))
+    vae_dtype = _cache_dtype(getattr(config, "VAE_CACHE_PRECISION", "bfloat16"))
+    caption_types = (("tags", "nl", "tags_nl", "nl_tags") if json_mode else ("txt",))
+
+    for ds in config.INSTANCE_DATASETS:
+        root = Path(ds["path"])
+        if not root.exists():
+            continue
+        cache_dir = root / cache_dir_name
+        cache_dir.mkdir(parents=True, exist_ok=True)
+        image_paths = cs.collect_image_paths(root)
+        current_stems = {cs.cache_stem_for_image(root, p) for p in image_paths}
+        for f in cache_dir.glob("*.safetensors"):
+            stem = cs.base_stem_from_cache_path(f)
+            if stem is not None and stem not in current_stems:
+                f.unlink(missing_ok=True)
+        if not image_paths:
+            cs.save_index(cache_dir, {"version": ANIMA_CACHE_VERSION,
+                                      "cache_options": options, "files": []})
+            continue
+
+        print(f"INFO: Validating {len(image_paths)} images in {root} ...")
+        metas = [m for m in validate_images_parallel(
+            image_paths, max_res * max_res,
+            getattr(config, "SHOULD_UPSCALE", False), caption_mode) if m]
+        variant_metas = []
+        for meta in metas:
+            w, h = meta["original_size"]
+            for vi, (bw, bh) in enumerate(get_multi_bucket_resolutions(
+                    w, h, max_res * max_res,
+                    getattr(config, "SHOULD_UPSCALE", False), extra)):
+                variant_metas.append(make_bucket_variant_metadata(meta, bw, bh, vi))
+
+        # phase 1: text
+        text_jobs = []
+        for meta in variant_metas:
+            stem = cs.cache_stem_for_image(root, meta["ip"]) + meta["cache_suffix"]
+            for ctype in caption_types:
+                caption = meta["caption_variants"].get(ctype)
+                if caption is None:
+                    continue
+                te_path = cs.te_path_for(cache_dir, stem, ctype, json_mode)
+                if te_path.exists():
+                    try:
+                        pm = cs.load_payload_meta(te_path)
+                        if (cs.text_options_match(pm.get("cache_options"), options)
+                                and pm.get("caption_signature") == meta["caption_signature"]):
+                            continue
+                    except Exception:
+                        pass
+                text_jobs.append((meta, ctype, caption, te_path))
+        if text_jobs:
+            print(f"INFO: Anima cache phase 1/2: encoding {len(text_jobs)} captions")
+            batch = 8
+            for start in range(0, len(text_jobs), batch):
+                chunk = text_jobs[start:start + batch]
+                embs, t5s = encoders.encode_prompt([j[2] for j in chunk])
+                for (meta, ctype, caption, te_path), emb, t5 in zip(chunk, embs, t5s):
+                    cs.save_payload(te_path, {
+                        "prompt_emb": np.asarray(emb, np.float32).astype(text_dtype),
+                        "t5xxl_ids": np.asarray(t5, np.int32),
+                    }, _meta(root, meta, options, caption_mode, caption=caption,
+                             caption_type=ctype))
+
+        # phase 2: VAE
+        lat_jobs = []
+        for meta in variant_metas:
+            stem = cs.cache_stem_for_image(root, meta["ip"]) + meta["cache_suffix"]
+            lat_path = cs.lat_path_for(cache_dir, stem)
+            if lat_path.exists():
+                try:
+                    if _latent_match(cs.load_payload_meta(lat_path).get("cache_options"),
+                                     options):
+                        continue
+                except Exception:
+                    pass
+            lat_jobs.append((meta, lat_path))
+        if lat_jobs:
+            print(f"INFO: Anima cache phase 2/2: encoding {len(lat_jobs)} latents "
+                  f"(tiled={options['vae_caching_tiled']})")
+            for meta, lat_path in lat_jobs:
+                try:
+                    latents = encoders.encode_image(load_and_resize_for_bucket(meta))
+                    cs.save_payload(lat_path, {
+                        "latents": np.asarray(latents, np.float32).astype(vae_dtype)},
+                        _meta(root, meta, options, caption_mode))
+                except Exception as e:  # noqa: BLE001
+                    print(f"[SKIP ANIMA VAE] {meta['ip'].name}: {e}")
+
+        # null conditioning
+        if null_conditioning_cache_needed(config) or \
+                float(getattr(config, "QWEN_NULL_DROPOUT_CHANCE", 0) or 0) > 0 or \
+                float(getattr(config, "T5_NULL_DROPOUT_CHANCE", 0) or 0) > 0:
+            null_path = cache_dir / "null_embeds.safetensors"
+            if not null_path.exists():
+                embs, t5s = encoders.encode_prompt([""])
+                cs.save_payload(null_path, {
+                    "prompt_emb": np.asarray(embs[0], np.float32).astype(text_dtype),
+                    "t5xxl_ids": np.asarray(t5s[0], np.int32),
+                }, {"cache_options": options})
+
+        # index
+        files = []
+        for meta in variant_metas:
+            stem = cs.cache_stem_for_image(root, meta["ip"]) + meta["cache_suffix"]
+            item = {
+                "te_path": str(cs.te_path_for(
+                    cache_dir, stem, "tags_nl" if json_mode else "txt", json_mode)),
+                "lat_path": str(cs.lat_path_for(cache_dir, stem)),
+                "relative_path": str(meta["ip"].relative_to(root)),
+                "original_size": list(meta["original_size"]),
+                "scaled_size": list(meta["scaled_size"]),
+                "target_size": list(meta["target_resolution"]),
+                "crop_coords": list(meta["crop_coords"]),
+                "bucket_variant_index": meta["bucket_variant_index"],
+                "caption_signature": meta["caption_signature"],
+                "image_file_signature": cs.file_stat_signature(meta["ip"]),
+                "caption_file_signature": cs.caption_file_signature(
+                    meta["ip"], caption_mode),
+            }
+            if json_mode:
+                item["caption_variants"] = {
+                    ctype: {"te_path": str(cs.te_path_for(cache_dir, stem, ctype, True))}
+                    for ctype in caption_types
+                    if ctype in meta["caption_variants"]
+                }
+            if all(Path(p).exists() for p in (item["te_path"], item["lat_path"])):
+                files.append(item)
+        cs.save_index(cache_dir, {"version": ANIMA_CACHE_VERSION,
+                                  "cache_options": options, "files": files})
+        print(cache_complete_message(len(files), cache_dir))
+
+
+def cache_complete_message(n_files: int, cache_dir) -> str:
+    """The cache-completion line. The GUI keys its cache-created signal on
+    the lowercase substring "anima dit items", so the wording is part of
+    the wire format."""
+    return f"INFO: Cached {n_files} Anima DiT items to {cache_dir}"
+
+
+def _meta(root, meta, options, caption_mode, caption=None, caption_type=None):
+    out = {
+        "cache_options": options,
+        "relative_path": str(meta["ip"].relative_to(root)),
+        "original_size": list(meta["original_size"]),
+        "scaled_size": list(meta["scaled_size"]),
+        "target_size": list(meta["target_resolution"]),
+        "crop_coords": list(meta["crop_coords"]),
+        "bucket_variant_index": meta["bucket_variant_index"],
+        "caption_signature": meta["caption_signature"],
+    }
+    if caption is not None:
+        out["caption"] = caption
+        out["caption_type"] = caption_type
+    return out
 
 
 class AnimaLatentDataset:

@@ -11,7 +11,9 @@ trainers run on it without the encoders or downloaded weights.
 ``write_image_dataset`` writes images and captions only, for the cache
 builder to encode; ``write_random_sd_checkpoint`` writes a random SD
 single-file checkpoint (UNet, CLIP-L, bigG and the SD-VAE) under the key
-names the loaders read; ``write_random_dit_checkpoint`` a random Anima DiT.
+names the loaders read; ``write_random_dit_checkpoint`` a random Anima DiT,
+``write_random_qwen3_checkpoint`` and ``write_random_wan_vae_checkpoint``
+the Anima cache's text encoder and VAE encoder.
 """
 
 from __future__ import annotations
@@ -141,6 +143,38 @@ def write_random_dit_checkpoint(path, cfg, *, seed: int, device="cpu") -> int:
                          dtype=torch.bfloat16)
     save_dit_model(path, params, prefix="pipe.dit.")
     return sum(t.numel() for t in params.values())
+
+
+def _write_bf16(path, params: dict) -> int:
+    """``params`` (tensors on any device) in bf16, one tensor on the host at
+    a time; returns the parameter count."""
+    from ..ckpt.safetensors_io import write_streaming
+    from ..ckpt.sd_checkpoint import tensor_to_numpy
+    write_streaming(path, {k: (tuple(t.shape), _BF16,
+                               lambda t=t: tensor_to_numpy(t, _BF16))
+                           for k, t in params.items()})
+    return sum(t.numel() for t in params.values())
+
+
+def write_random_qwen3_checkpoint(path, cfg, *, seed: int, device="cpu") -> int:
+    """A Qwen3 text encoder of ``cfg`` from ``models.anima.qwen3.init_params``
+    (a torch generator on ``device`` seeded with ``seed``) in bf16 under its
+    HF names (``model.*``, torch layout), as a Qwen3 file holds it. Returns
+    the parameter count."""
+    from ..models.anima.qwen3 import init_params
+    return _write_bf16(path, init_params(
+        cfg, torch.Generator(device=device).manual_seed(seed), dtype=torch.bfloat16))
+
+
+def write_random_wan_vae_checkpoint(path, cfg, *, seed: int, device="cpu") -> int:
+    """The encoder half of a Wan VAE of ``cfg`` from
+    ``models.anima.wan_vae.init_params`` (a torch generator on ``device``
+    seeded with ``seed``) in bf16, in a Wan file's layout (5-D causal
+    kernels, the temporal downsamples' ``time_conv``, gammas with their
+    broadcast dims), no key prefix. Returns the parameter count."""
+    from ..models.anima.wan_vae import init_params
+    return _write_bf16(path, init_params(
+        cfg, torch.Generator(device=device).manual_seed(seed), dtype=torch.bfloat16))
 
 
 def write_image_dataset(root, *, n_images: int, image_size: tuple[int, int],

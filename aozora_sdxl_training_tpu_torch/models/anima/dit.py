@@ -285,6 +285,16 @@ def _rotate(x, rope):
     return (x * cos[None, :, None, :] + _rotate_half(x) * sin[None, :, None, :]).to(x.dtype)
 
 
+def embedding_lookup(table, ids):
+    """``table[ids]`` with JAX's gather semantics: an id past the table
+    reads its last row (the ids are clamped to [0, rows - 1]), and its
+    gradient is dropped, as JAX's scatter-add drops out-of-range updates."""
+    ids = ids.long()
+    rows = table[ids.clamp(0, table.shape[0] - 1)]
+    inside = ((ids >= 0) & (ids < table.shape[0]))[..., None]
+    return torch.where(inside, rows, rows.detach())
+
+
 def _adapter_attention(params: Params, prefix: str, x, context, heads: int,
                        rope_q, rope_k, attn_impl: str = "xla"):
     b, l, dq = x.shape
@@ -303,7 +313,7 @@ def llm_adapter_forward(params: Params, source_hidden, target_ids,
     """Qwen3 hidden states + T5 token ids -> adapted context. Trainable;
     runs inside the DiT forward."""
     p = "llm_adapter"
-    x = params[f"{p}.embed.weight"][target_ids.long()].to(source_hidden.dtype)
+    x = embedding_lookup(params[f"{p}.embed.weight"], target_ids).to(source_hidden.dtype)
     heads = cfg.adapter_heads
     head_dim = cfg.adapter_target_dim // heads
     rope_q = _rope_1d(x.shape[1], head_dim, x.device)

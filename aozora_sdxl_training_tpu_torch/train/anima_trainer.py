@@ -30,16 +30,22 @@ is the global batch's, and only global rank 0 prints and saves. Under Full
 remat the ring's P2P runs again in each block's recompute; every rank
 recomputes the same blocks in the same order, which keeps that safe.
 
+When the cache check fails, the trainer first builds the cache on its
+device (``data/anima_cache.py``: the Qwen3 text encoder and the Wan VAE),
+then frees the encoders before the DiT loads; a multi-rank run asks for
+the cache CLI instead, so that no two ranks write one cache.
+
 Not ported yet, and refused with an error when the config asks for them:
 resume (and the training-state file), "Conservative" checkpointing,
 preview sampling, pipeline/tensor parallelism, the line-art loss, video
-mode, a cache rebuild and int8 moments. There is no memory planner:
+mode and int8 moments. There is no memory planner:
 masters are fp32. ``AOZORA_PROFILE_DIR`` traces micro steps 3-8
 (``train/profiling.py``).
 """
 
 from __future__ import annotations
 
+import gc
 import time
 from collections import deque
 from dataclasses import dataclass, replace
@@ -229,7 +235,16 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
 
     # ---- caching ----
     if check_if_anima_caching_needed(config):
-        precompute_and_cache_anima(config)
+        if shard.world_size() > 1:
+            raise RuntimeError(
+                "The Anima cache must be current before a multi-rank run; build "
+                "it first: python -m aozora_sdxl_training_tpu_torch.cli."
+                "cache_datasets --config <preset.json>")
+        precompute_and_cache_anima(config, device=device)
+        # the encoders went with the call; hand their blocks back before the
+        # DiT loads, so the run's peak stays the DiT's
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # ---- model ----
     print("\n--- Loading Anima DiT ---")

@@ -55,12 +55,25 @@ Phases, each of which exits non-zero on failure:
    fp32 head_dim-512 launch for the preview's decoder, 140 forward launches
    per micro step under full remat), the 1024x1024 preview PNG and the
    merged checkpoint.
-8. anima: the port's Anima training CLI at ANIMA_BASE width and depth,
-   1024px, batch 1, GA 4, Full gradient checkpointing, 8 micro steps, on a
-   random DiT checkpoint and a synthetic cache; checks the GUI grammar,
-   finite losses, the flash launch counts (per micro step 56 K4a: 28
-   forward + 28 recompute, 28 of each K4b kernel, no K1-K3) and the saved
-   bf16 DiT under the detected key prefix.
+8. anima: first the anima_cache phase, the Anima user's first run: random
+   full-width Qwen3-0.6B and Wan VAE encoder files (bf16, from seeds) and 2
+   captioned 1024px images; the port's cache_datasets CLI in Anima mode
+   builds the cache (Qwen3 over 512 tokens, the Wan VAE over 4 tiles of
+   96x96 latents an image; no flash launch), checked for 2 text and 2
+   latent payloads (prompt_emb (512, 1024) bf16, int32 T5 ids, latents
+   (128, 128, 16) bf16, finite), the index and the GUI's "Cached 2 Anima
+   DiT items" line; a second run loads no encoder and encodes nothing; one
+   caption's Qwen3 output and one tile's VAE output in fp32 are held
+   against float64 on the card at 1e-4 of the largest magnitude; the times
+   a caption batch and a latent and the pass's peak memory are printed
+   beside the card's name and power limit. Then the port's Anima training
+   CLI at ANIMA_BASE width and depth, 1024px, batch 1, GA 4, Full gradient
+   checkpointing, 8 micro steps, on a random DiT checkpoint and that cache
+   (its hash T5 ids run past the DiT's 32128-row vocabulary); checks the
+   GUI grammar, finite losses, the flash launch counts (per micro step 56
+   K4a: 28 forward + 28 recompute, 28 of each K4b kernel, no K1-K3), the
+   peak memory (at most 0.5 GB above the 27.8 GB of a synthetic cache) and
+   the saved bf16 DiT under the detected key prefix.
 9. k5: the stats-level entry points (flash_fwd_stats, flash_bwd_stats over
    the head_dim-128 kernels) against their plain versions at the Anima
    ring hop shape (B=1, H=16, D=128, 2048 and 1024 tokens a shard, bf16);
@@ -85,7 +98,8 @@ Phases, each of which exits non-zero on failure:
    DiT. With one device it prints "anima_sp: skipped, 1 CUDA device".
 
 `python3 chip_smoke.py --only anima_sp` runs the device, build and anima_sp
-phases alone (on a machine with several cards).
+phases alone (on a machine with several cards); `--only anima` runs the
+anima_cache and anima phases.
 
 The second-to-last lines are the kernels JSON and the card's name and power
 limit; the last line is {"ok": true, "device": {...}}.
@@ -1551,10 +1565,12 @@ def anima_forward_flops(cfg, tokens: int) -> int:
     return cfg.num_blocks * block + cfg.adapter_layers * adapter + edges
 
 
-def anima_env(torch, work_dir: Path, steps: int, **preset_overrides):
-    """A random ANIMA_BASE checkpoint (seed 4321), a synthetic cache of 2
-    images at 1024px and the default preset pointed at them. Returns
-    (cfg, preset path)."""
+def anima_env(torch, work_dir: Path, steps: int, synthetic_cache: bool = True,
+              **preset_overrides):
+    """A random ANIMA_BASE checkpoint (seed 4321), the default preset pointed
+    at it and at ``work_dir``/data, and there (with ``synthetic_cache``) a
+    synthetic cache of 2 images at 1024px. Returns (cfg, preset path,
+    config)."""
     from aozora_sdxl_training_tpu_torch.config import schema
     from aozora_sdxl_training_tpu_torch.config.runtime import RuntimeConfig
     from aozora_sdxl_training_tpu_torch.data.synthetic import (
@@ -1588,6 +1604,8 @@ def anima_env(torch, work_dir: Path, steps: int, **preset_overrides):
     check(config.GRADIENT_ACCUMULATION_STEPS == GA and config.BATCH_SIZE == 1
           and config.ANIMA_GRADIENT_CHECKPOINTING_MODE == "Full",
           "the default Anima preset is not batch 1, GA 4, Full checkpointing")
+    if not synthetic_cache:
+        return cfg, preset_path, config
     # with no VAE path in the preset, the cache options name the VAE source
     # by a relative path, resolved in the working directory: write the cache
     # from the directory the CLI runs in
@@ -1611,15 +1629,264 @@ def check_saved_dit(final: Path, cfg):
     check(all(v["dtype"] == "BF16" for v in header.values()), "DiT tensors not BF16")
 
 
-def anima_phase(torch, work_dir: Path, steps: int):
-    phase("anima")
+ANIMA_PEAK_GB = 27.8          # the anima phase's peak on a synthetic cache (PERF.md §5)
+
+
+def anima_cache_inputs(torch, work_dir: Path) -> dict:
+    """Random full-width Qwen3-0.6B (seed 2468) and Wan VAE (seed 1357)
+    files in bf16 and 2 captioned 1024px images. Returns the preset's keys
+    for them."""
+    from aozora_sdxl_training_tpu_torch.data.synthetic import (
+        write_image_dataset, write_random_qwen3_checkpoint, write_random_wan_vae_checkpoint)
+    from aozora_sdxl_training_tpu_torch.models.anima import qwen3, wan_vae
+
+    t0 = time.perf_counter()
+    te, vae = work_dir / "qwen3_random.safetensors", work_dir / "wan_vae_random.safetensors"
+    n_te = write_random_qwen3_checkpoint(te, qwen3.QWEN3_0_6B, seed=2468, device="cuda")
+    n_vae = write_random_wan_vae_checkpoint(vae, wan_vae.WAN_VAE, seed=1357, device="cuda")
+    torch.cuda.empty_cache()
+    write_image_dataset(work_dir / "data", n_images=2, image_size=(1024, 1024), seed=3)
+    print(f"  wrote {te.name}: {n_te:,} parameters, {vae.name}: {n_vae:,} (bf16), 2 "
+          f"captioned 1024x1024 images in {time.perf_counter() - t0:.1f} s")
+    check(5.9e8 < n_te < 6.0e8, f"Qwen3-0.6B has {n_te} parameters")
+    return {"anima_text_encoder_path": str(te), "anima_vae_path": str(vae)}
+
+
+def timed_anima_encoders(torch, anima_cache, record: dict):
+    """Wraps ``AnimaCacheEncoders.from_config`` so that each encoder call
+    ends in torch.cuda.synchronize() and adds (host s, calls, items) to
+    ``record`` ("text": caption batches, "latents": images), and the most
+    it allocated above what was held before it to "<kind>_peak_gb"; "peak_gb"
+    is the largest allocation at any call's peak and "loads" counts the
+    encoder loads. Returns a restore function."""
+    cls = anima_cache.AnimaCacheEncoders
+    original = cls.from_config
+
+    def timed(kind, fn, items):
+        def run(arg):
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn(arg)
+            torch.cuda.synchronize()
+            s, n, k = record.get(kind, (0.0, 0, 0))
+            record[kind] = (s + time.perf_counter() - t0, n + 1, k + items(arg))
+            peak = torch.cuda.max_memory_allocated()
+            record[f"{kind}_peak_gb"] = max(record.get(f"{kind}_peak_gb", 0.0),
+                                            (peak - base) / 1e9)
+            record["peak_gb"] = max(record.get("peak_gb", 0.0), peak / 1e9)
+            return out
+        return run
+
+    def from_config(*args, **kwargs):
+        record["loads"] = record.get("loads", 0) + 1
+        enc = original(*args, **kwargs)
+        enc.encode_prompt = timed("text", enc.encode_prompt, len)
+        enc.encode_image = timed("latents", enc.encode_image, lambda px: 1)
+        return enc
+
+    cls.from_config = from_config
+    return lambda: setattr(cls, "from_config", original)
+
+
+def rel_err(got, want) -> float:
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+def top_kernels(torch, fn, n: int = 4):
+    """(name, device ms, launches) of the ``n`` kernels that took the most
+    device time in one warm call of ``fn`` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return [(e.key[:120], e.self_device_time_total / 1e3, e.count) for e in kernels[:n]]
+
+
+def anima_encoders_against_float64(torch, config, work_dir: Path) -> dict:
+    """One caption through Qwen3-0.6B and one 96x96-latent tile (768 px of
+    the first image) through the Wan VAE encoder on the card, each in fp32
+    (timed, warm) and in float64: the port's own functions, weights from the
+    files the cache was built from."""
+    import numpy as np
+    from PIL import Image
+    from aozora_sdxl_training_tpu_torch.ckpt.anima_checkpoint import (
+        load_text_encoder_state, load_vae_state)
+    from aozora_sdxl_training_tpu_torch.data.anima_cache import CONTEXT_TOKENS
+    from aozora_sdxl_training_tpu_torch.data.tokenization import HashTokenizer
+    from aozora_sdxl_training_tpu_torch.models.anima import qwen3, wan_vae
+
+    caption = (work_dir / "data" / "img0.txt").read_text()
+    tok = HashTokenizer(model_max_length=CONTEXT_TOKENS)
+    row = tok(caption, padding="max_length", max_length=CONTEXT_TOKENS,
+              truncation=True).input_ids
+    ids = torch.tensor([row], device="cuda")
+    mask = (ids != tok.pad_token_id).int()
+    with Image.open(work_dir / "data" / "img0.png") as im:
+        image = np.asarray(im.convert("RGB"), np.float32)[None] / 127.5 - 1.0
+    tile = torch.from_numpy(np.ascontiguousarray(image[:, :768, :768])).cuda()
+    tile_shapes = sorted({(min(b, 1024) - t, min(r, 1024) - l) for t, b, l, r in
+                          wan_vae.tile_tasks(1024, 1024, 768, 768, 576, 576)}, reverse=True)
+    smallest = "tile {}x{}".format(*tile_shapes[-1])
+    te_state = load_text_encoder_state(config.TEXT_ENCODER_PATH)
+    q_cfg = qwen3.detect_config(te_state)
+    vae_state = load_vae_state(config.DIT_VAE_PATH)
+    out, times, peaks = {}, {}, {}
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.float64):
+            qp = qwen3.params_from_torch_state(te_state, q_cfg, dtype=dtype, device="cuda")
+            vp = wan_vae.params_from_torch_state(vae_state, dtype=dtype, device="cuda")
+            v_cfg = wan_vae.detect_config(vp)
+            calls = [("qwen3", lambda: qwen3.qwen3_forward(qp, ids, mask, q_cfg,
+                                                           compute_dtype=dtype)),
+                     ("vae", lambda: wan_vae.encode_image(vp, tile, cfg=v_cfg,
+                                                          compute_dtype=dtype))]
+            if dtype == torch.float32:
+                # each tile shape of a 1024 px image alone, then the whole
+                # tiled encode, and these again with cuDNN's benchmark mode
+                for h, w in tile_shapes:
+                    px = torch.from_numpy(np.ascontiguousarray(image[:, :h, :w])).cuda()
+                    calls.append((f"tile {h}x{w}", lambda px=px: wan_vae.encode_image(
+                        vp, px, cfg=v_cfg)))
+                calls.append(("latent", lambda: wan_vae.encode_image_tiled(vp, image,
+                                                                           cfg=v_cfg)))
+                calls += [(f"{name} benchmark", fn) for name, fn in calls[2:]]
+            for name, fn in calls:
+                torch.backends.cudnn.benchmark = name.endswith("benchmark")
+                try:
+                    result = fn()
+                    if dtype == torch.float32:
+                        torch.cuda.synchronize()
+                        base = torch.cuda.memory_allocated()
+                        torch.cuda.reset_peak_memory_stats()
+                        t0 = time.perf_counter()
+                        fn()
+                        torch.cuda.synchronize()
+                        times[name] = time.perf_counter() - t0
+                        peaks[name] = (torch.cuda.max_memory_allocated() - base) / 1e9
+                finally:
+                    torch.backends.cudnn.benchmark = False
+                if name in ("qwen3", "vae"):
+                    out[name, dtype] = result
+            if dtype == torch.float32:
+                top = top_kernels(torch, dict(calls)[smallest])
+            del qp, vp, calls
+    errs = {name: rel_err(out[name, torch.float32], out[name, torch.float64])
+            for name in ("qwen3", "vae")}
+    check(tuple(out["qwen3", torch.float32].shape) == (1, CONTEXT_TOKENS, q_cfg.hidden_size)
+          and tuple(out["vae", torch.float32].shape) == (1, 96, 96, v_cfg.z_dim),
+          "encoder output shapes")
+    print(f"  fp32 against float64 on the card: Qwen3 one caption {errs['qwen3']:.3e}, "
+          f"VAE one 96x96-latent tile {errs['vae']:.3e} of the largest magnitude "
+          f"(bar 1e-4); warm fp32: Qwen3 {times['qwen3']:.4f} s a caption, VAE "
+          f"{times['vae']:.4f} s a 768 px tile; allocated above the weights at the "
+          f"peak: Qwen3 {peaks['qwen3']:.3f} GB, VAE tile {peaks['vae']:.3f} GB")
+    print("  warm fp32 VAE by input (the latent: the 4 tiles of a 1024 px image, "
+          "blended; benchmark: with torch.backends.cudnn.benchmark):")
+    for name in times:
+        if name.startswith(("tile", "latent")):
+            print(f"    {name}: {times[name]:.4f} s, {peaks[name]:.3f} GB above the weights")
+    print(f"  the {smallest}'s kernels by device time (torch.profiler): "
+          + "; ".join(f"{ms:.2f} ms x{n} {k}" for k, ms, n in top))
+    check(all(e <= 1e-4 for e in errs.values()), f"fp32 against float64: {errs}")
+    return {"max_abs_err_of_max": errs, "warm_s": times, "peak_above_weights_gb": peaks,
+            f"kernels {smallest}": top}
+
+
+def anima_cache_phase(torch, preset_path: Path, work_dir: Path, config, smi: str):
+    """The port's cache_datasets CLI in Anima mode on the images: builds the
+    cache (Qwen3-0.6B in batches of 8 captions, then the Wan VAE over 4
+    tiles an image), then a second run finds it current and loads no
+    encoder. Returns the cache pass's numbers."""
+    import numpy as np
+    from aozora_sdxl_training_tpu_torch.cli import cache_datasets
+    from aozora_sdxl_training_tpu_torch.data import anima_cache
+    from aozora_sdxl_training_tpu_torch.data import cache_store as cs
+    from aozora_sdxl_training_tpu_torch.ops import flash_attention as fa
+
+    record: dict = {}
+    restore = timed_anima_encoders(torch, anima_cache, record)
+    logs = []
+    try:
+        for attempt in range(2):
+            log = io.StringIO()
+            fa.reset_launch_counts()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with contextlib.chdir(work_dir), contextlib.redirect_stdout(Tee(sys.stdout, log)):
+                cache_datasets.main(["--config", str(preset_path)])
+            logs.append((log.getvalue(), time.perf_counter() - t0,
+                         {k: v for k, v in fa.LAUNCHES.items() if v},
+                         max(torch.cuda.max_memory_allocated() / 1e9,
+                             record.get("peak_gb", 0.0)),
+                         record.get("loads", 0)))
+    finally:
+        restore()
+    (first, wall, launches, peak_gb, loads), (second, _, _, _, loads2) = logs
+    LOG_DIR.mkdir(parents=True, exist_ok=True)
+    (LOG_DIR / "chip_smoke_anima_cache.log").write_text(first + second)
+    check(launches == {}, f"the Anima cache pass launched flash kernels: {launches}")
+    check("phase 1/2: encoding 2 captions" in first and "phase 2/2: encoding 2 latents" in first,
+          "the first cache run did not encode 2 captions and 2 latents")
+    check("Cached 2 Anima DiT items" in first, "no 'Cached 2 Anima DiT items' line")
+    check(loads == 1 and loads2 == 1, f"encoder loads: {loads} in the first run, "
+          f"{loads2 - loads} in the second")
+    check("encoding" not in second and "already cached" in second,
+          "the second cache run encoded again")
+    check(not anima_cache.check_if_anima_caching_needed(config),
+          "the cache check rejects the cache the CLI built")
+    index = cs.load_index(work_dir / "data" / anima_cache.anima_cache_dir_name(config))
+    check(len(index["files"]) == 2, f"{len(index['files'])} items in the index")
+    max_id = 0
+    for item in index["files"]:
+        te, _ = cs.load_payload(item["te_path"])
+        lat, _ = cs.load_payload(item["lat_path"])
+        shapes = {k: (v.shape[1:] if k == "t5xxl_ids" else v.shape, v.dtype.name)
+                  for k, v in {**te, **lat}.items()}
+        check(shapes == {"prompt_emb": ((512, 1024), "bfloat16"),
+                         "t5xxl_ids": ((), "int32"),
+                         "latents": ((128, 128, 16), "bfloat16")},
+              f"payload shapes {shapes}")
+        check(all(np.isfinite(np.asarray(v, np.float32)).all()
+                  for v in (te["prompt_emb"], lat["latents"])), "non-finite payload")
+        max_id = max(max_id, int(te["t5xxl_ids"].max()))
+    (t_text, n_batches, n_text), (t_lat, _, n_lat) = record["text"], record["latents"]
+    print(f"  cache pass ({smi}): {n_text} captions in {n_batches} batch(es), "
+          f"{t_text / n_batches:.4f} s a caption batch; {n_lat} latents at "
+          f"1024x1024 (4 tiles each), {t_lat / n_lat:.4f} s a latent; peak "
+          f"{peak_gb:.2f} GB allocated (above what was held before the call: "
+          f"{record['text_peak_gb']:.3f} GB in a caption batch, "
+          f"{record['latents_peak_gb']:.3f} GB in a latent); CLI {wall:.1f} s "
+          "(encoder load included); "
+          f"T5 ids up to {max_id} (the DiT's vocabulary: 32128); the second run "
+          "loaded no encoder and encoded nothing")
+    f64 = anima_encoders_against_float64(torch, config, work_dir)
+    return {"s_per_caption_batch": t_text / n_batches, "caption_batches": n_batches,
+            "captions": n_text, "s_per_latent_1024": t_lat / n_lat, "latents": n_lat,
+            "max_memory_allocated_gb": peak_gb, "cli_wall_s": wall, "max_t5_id": max_id,
+            "peak_above_held_gb": {k: record[f"{k}_peak_gb"] for k in ("text", "latents")},
+            "float64": f64, "card": smi}
+
+
+def anima_phase(torch, work_dir: Path, steps: int, smi: str):
     from aozora_sdxl_training_tpu_torch.cli import train_anima
     from aozora_sdxl_training_tpu_torch.train import anima_trainer
 
-    cfg, preset_path, _ = anima_env(torch, work_dir, steps)
+    phase("anima_cache")
+    inputs = anima_cache_inputs(torch, work_dir)
+    cfg, preset_path, config = anima_env(torch, work_dir, steps, synthetic_cache=False,
+                                         **inputs)
+    cache = anima_cache_phase(torch, preset_path, work_dir, config, smi)
+    phase("anima")
     raw, marks, launches, peak_gb, wall = run_trainer_cli(
         torch, train_anima.main, preset_path, work_dir, anima_trainer,
         ("make_anima_micro_step", "make_apply_step"), "chip_smoke_anima.log")
+    check("encoding" not in raw, "the trainer encoded the cache again")
     losses = check_progress(raw, ANIMA_PROGRESS, steps)
     calls = SELF_ATTN_CALLS[128]
     check_launches(launches, {"flash_fwd_d128": 2 * calls * steps,
@@ -1631,7 +1898,9 @@ def anima_phase(torch, work_dir: Path, steps: int):
     print(f"  analytic forward at {tokens} tokens: {fwd:.4e} flop; a micro step "
           f"counts 3x (forward + backward; the Full recompute is not counted)")
     summary = step_summary(marks, steps, fwd, peak_gb, wall, launches, losses,
-                           remat="full", forward_flops=fwd)
+                           remat="full", forward_flops=fwd, cache=cache)
+    check(peak_gb <= ANIMA_PEAK_GB + 0.5,
+          f"peak {peak_gb:.2f} GB, above {ANIMA_PEAK_GB} GB (a synthetic cache's) + 0.5 GB")
     return summary, launches
 
 
@@ -1831,7 +2100,7 @@ def main(argv=None) -> int:
         if "anima" in only:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_anima_") as tmp:
                 summary["anima"], launches["anima"] = anima_phase(torch, Path(tmp),
-                                                                  TRAIN_STEPS)
+                                                                  TRAIN_STEPS, smi)
         if "anima_sp" in only:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_anima_sp_") as tmp:
                 summary["anima_sp"] = anima_sp_phase(torch, Path(tmp), TRAIN_STEPS)

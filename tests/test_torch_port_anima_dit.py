@@ -174,6 +174,41 @@ def test_adapter_matches_jax(setup):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-5)
 
 
+def test_adapter_reads_ids_past_the_vocabulary_like_jax(setup):
+    """T5 ids at and above ``adapter_vocab`` (128 here; a cache written with
+    the hash tokenizer holds ids up to its EOS 49407): JAX's gather reads
+    the last row for them and its scatter-add drops their gradient. The
+    adapter's output and the embedding table's gradient match JAX's."""
+    from aozora_sdxl_training_tpu_torch.data.tokenization import HashTokenizer
+    np_params, inputs, _ = setup
+    _, _, ctx, ids = inputs
+    ids = ids.copy()
+    tok = HashTokenizer()
+    ids[0, :4] = tok.bos_token_id, CFG.adapter_vocab, CFG.adapter_vocab + 9, tok.eos_token_id
+    ids[1, 5] = CFG.adapter_vocab - 1
+    tangent = np.random.default_rng(5).normal(
+        size=(B, LS, CFG.adapter_target_dim)).astype(np.float32)
+
+    def jax_loss(embed):
+        params = {**{k: jnp.asarray(v) for k, v in np_params.items()},
+                  "llm_adapter.embed.weight": embed}
+        out = jax_dit.llm_adapter_forward(params, jnp.asarray(ctx), jnp.asarray(ids), CFG)
+        return jnp.sum(out * tangent), out
+
+    (_, want), want_grad = jax.jit(jax.value_and_grad(jax_loss, has_aux=True))(
+        jnp.asarray(np_params["llm_adapter.embed.weight"]))
+    params = port_dit.params_from_jax(np_params)
+    embed = params["llm_adapter.embed.weight"].requires_grad_(True)
+    got = port_dit.llm_adapter_forward(params, torch.from_numpy(ctx),
+                                       torch.from_numpy(ids), PORT_CFG)
+    (got * torch.from_numpy(tangent)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=2e-4, atol=2e-5)
+    want_grad = np.asarray(want_grad)
+    np.testing.assert_allclose(embed.grad.numpy(), want_grad, rtol=0,
+                               atol=1e-4 * np.abs(want_grad).max())
+    assert np.abs(want_grad[-1]).max() > 0          # the in-range id 127's share
+
+
 def test_params_round_trip_between_packages(setup):
     """params_from_jax, the port's torch-layout checkpoint state and the JAX
     package's checkpoint loader agree, both ways, bit for bit."""

@@ -293,8 +293,9 @@ def test_dit_config_read_off_the_checkpoint_matches_jax(runs):
 
 def test_dataset_batches_match_jax_from_one_synthetic_cache(tmp_path):
     """The port's synthetic Anima cache passes both cache checks (and fails
-    both after a caption edit); both datasets, with null and T5 token
-    dropout on, assemble the same batches from it."""
+    both after a caption edit, until the port's builder re-encodes that one
+    caption); both datasets, with null and T5 token dropout on, assemble the
+    same batches from it."""
     flat = {**FLAT, "DIT_PATH": str(tmp_path / "none.safetensors"),
             "INSTANCE_DATASETS": [{"path": str(tmp_path / "d"), "repeats": 2}],
             "T5_TOKEN_DROPOUT_ENABLED": True, "T5_TOKEN_DROPOUT_CHANCE": 0.8,
@@ -329,8 +330,33 @@ def test_dataset_batches_match_jax_from_one_synthetic_cache(tmp_path):
     (tmp_path / "d" / "img1.txt").write_text("edited caption")
     assert port_cache.check_if_anima_caching_needed(config) is True
     assert jax_cache.check_if_anima_caching_needed(jax_config) is True
-    with pytest.raises(NotImplementedError, match="cache_datasets"):
-        port_cache.precompute_and_cache_anima(config)
+    # the port rebuilds it: the edited caption alone is encoded, and both
+    # checks accept the cache again; the unported cache options are refused
+    # before any encoder loads
+    calls = []
+
+    def encode_prompt(captions):
+        calls.extend(captions)
+        return ([np.full((port_cache.CONTEXT_TOKENS, 32), 0.5, np.float32)] * len(captions),
+                [np.arange(1, 9, dtype=np.int32)] * len(captions))
+
+    def encode_image(pixels):
+        raise AssertionError("a latent was encoded again")
+
+    encoders = port_cache.AnimaCacheEncoders(encode_prompt=encode_prompt,
+                                             encode_image=encode_image)
+    port_cache.precompute_and_cache_anima(config, encoders)
+    assert calls == ["edited caption"]
+    assert port_cache.check_if_anima_caching_needed(config) is False
+    assert jax_cache.check_if_anima_caching_needed(jax_config) is False
+    for key, match in (("ANIMA_VIDEO_FRAMES", "video"),
+                       ("ANIMA_REPAIR_LINEART_LOSS_ENABLED", "line-art")):
+        refused = RuntimeConfig({**flat, key: 5 if key == "ANIMA_VIDEO_FRAMES" else True},
+                                validate_resume_paths=False)
+        with mock.patch.object(port_cache.AnimaCacheEncoders, "from_config",
+                               side_effect=AssertionError("encoders loaded")):
+            with pytest.raises(NotImplementedError, match=match):
+                port_cache.precompute_and_cache_anima(refused)
 
 
 # --------------------------------------------------------------------------
@@ -354,7 +380,6 @@ def test_cli_raises_without_cuda_unless_cpu_is_asked_for(monkeypatch):
     ({"TENSOR_PARALLEL_SIZE": 2}, "PARALLEL"),
     ({"ANIMA_REPAIR_LINEART_LOSS_ENABLED": True}, "line-art"),
     ({"ANIMA_VIDEO_FRAMES": 5}, "video"),
-    ({"REBUILD_CACHE": True}, "cache_datasets"),
     ({"OPTIMIZER_TYPE": "paged_adamw_8bit"}, "int8"),
 ])
 def test_unported_options_are_refused(tmp_path, overrides, match):
@@ -364,6 +389,33 @@ def test_unported_options_are_refused(tmp_path, overrides, match):
     with pytest.raises(NotImplementedError, match=match):
         port_trainer.run_anima_training(config, device="cpu")
     assert not (tmp_path / "out" / "anima_run.safetensors").exists()
+
+
+def test_rebuild_cache_builds_on_the_device_before_the_dit_loads(tmp_path):
+    """REBUILD_CACHE: the trainer builds the cache on its device first, and
+    the DiT loads after it; a multi-rank run asks for the cache CLI
+    instead."""
+    _build_env(tmp_path)
+    config = RuntimeConfig(_flat(tmp_path, "out", REBUILD_CACHE=True),
+                           validate_resume_paths=False)
+    order = []
+
+    class DitLoaded(Exception):
+        pass
+
+    def load_dit_state(path):
+        order.append(("dit", path))
+        raise DitLoaded
+
+    with mock.patch.object(port_trainer, "precompute_and_cache_anima",
+                           side_effect=lambda cfg, device: order.append(("cache", device))), \
+            mock.patch.object(port_trainer, "load_dit_state", side_effect=load_dit_state):
+        with pytest.raises(DitLoaded):
+            port_trainer.run_anima_training(config, device="cpu")
+        assert order == [("cache", torch.device("cpu")), ("dit", config.DIT_PATH)]
+        with mock.patch.object(port_trainer.shard, "world_size", return_value=2):
+            with pytest.raises(RuntimeError, match="cache_datasets"):
+                port_trainer.run_anima_training(config, device="cpu")
 
 
 @pytest.mark.parametrize("master", ["bfloat16", "bf16"])

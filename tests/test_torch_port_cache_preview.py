@@ -363,6 +363,15 @@ def test_first_run_through_the_port_clis(first_run, monkeypatch):
 
 
 def test_cache_cli_clear_and_anima_refusal(first_run, tmp_path, monkeypatch):
+    """``--clear`` removes the active mode's cache dir; in Anima mode the
+    CLI builds the Anima cache with the port's own encoders (random TINY
+    Qwen3 and Wan VAE files), which its check then accepts."""
+    from aozora_sdxl_training_tpu_torch.data import anima_cache
+    from aozora_sdxl_training_tpu_torch.data.synthetic import (
+        write_random_qwen3_checkpoint, write_random_wan_vae_checkpoint)
+    from aozora_sdxl_training_tpu_torch.models.anima.qwen3 import TINY_QWEN3
+    from aozora_sdxl_training_tpu_torch.models.anima.wan_vae import TINY_WAN_VAE
+
     root, flat, _ = first_run
     data = tmp_path / "data"
     (data / cs.sdxl_cache_dir_name(False)).mkdir(parents=True)
@@ -371,8 +380,23 @@ def test_cache_cli_clear_and_anima_refusal(first_run, tmp_path, monkeypatch):
         {**flat, "INSTANCE_DATASETS": [{"path": str(data), "repeats": 1}]}, "sdxl")))
     port_cache_cli.main(["--config", str(preset), "--clear"])
     assert not (data / cs.sdxl_cache_dir_name(False)).exists()
+
+    shutil.copytree(root / "data", data, dirs_exist_ok=True, copy_function=shutil.copy2)
+    write_random_qwen3_checkpoint(tmp_path / "qwen.safetensors", TINY_QWEN3, seed=1)
+    write_random_wan_vae_checkpoint(tmp_path / "vae.safetensors", TINY_WAN_VAE, seed=2)
     nested = json.loads(preset.read_text())
     nested["active_mode"] = "anima"
+    nested["anima"].update({
+        "anima_text_encoder_path": str(tmp_path / "qwen.safetensors"),
+        "anima_vae_path": str(tmp_path / "vae.safetensors"),
+        "anima_instance_datasets": [{"path": str(data), "repeats": 1}],
+        "anima_max_bucket_resolution": 640})
     preset.write_text(json.dumps(nested))
-    with pytest.raises(NotImplementedError, match="cache_datasets"):
-        port_cache_cli.main(["--config", str(preset)])
+    monkeypatch.setenv("AOZORA_PLATFORM", "cpu")
+    port_cache_cli.main(["--config", str(preset)])
+    config = RuntimeConfig.from_preset_file(preset)
+    assert anima_cache.check_if_anima_caching_needed(config) is False
+    index = cs.load_index(data / anima_cache.anima_cache_dir_name(config))
+    assert len(index["files"]) == 2
+    lat, _ = cs.load_payload(index["files"][0]["lat_path"])
+    assert lat["latents"].shape == (80, 80, TINY_WAN_VAE.z_dim)

@@ -383,3 +383,33 @@ def test_group_norm_silu_wrapper_raises_on_what_the_kernel_does_not_take(cuda_de
     with pytest.raises(ValueError, match="scale"):
         gn.group_norm_silu_forward(x, s.cpu(), s, 8)
     assert gn.LAUNCHES == counts
+
+
+@pytest.mark.cuda
+def test_anima_cache_encoders_match_the_cpu_on_card(cuda_device):
+    """The Anima cache's encoders (no kernel of the port's own: cuBLAS and
+    cuDNN through torch, TF32 off) at TINY sizes on the card against the
+    same functions on the CPU in fp32: Qwen3 over padded captions with ids
+    past its vocabulary, and the Wan VAE's tiled encode over ragged tiles;
+    1e-4 of the largest magnitude (fp32 sums in another order)."""
+    from aozora_sdxl_training_tpu_torch.models.anima import qwen3, wan_vae
+    g = torch.Generator().manual_seed(4)
+    q_params = qwen3.init_params(qwen3.TINY_QWEN3, g)
+    v_params = wan_vae.init_params(wan_vae.TINY_WAN_VAE, g)
+    ids = torch.randint(0, 49408, (2, 40), generator=g)
+    mask = torch.ones(2, 40, dtype=torch.int32)
+    mask[1, 17:] = 0
+    pixels = (torch.rand(1, 72, 56, 3, generator=g) * 2 - 1).numpy()
+    outs = []
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for device in (torch.device("cpu"), cuda_device):
+            qp = {k: t.to(device) for k, t in q_params.items()}
+            vp = wan_vae.params_from_torch_state({k: t.to(device) for k, t in v_params.items()})
+            outs.append((
+                qwen3.qwen3_forward(qp, ids.to(device), mask.to(device),
+                                    qwen3.TINY_QWEN3).cpu(),
+                torch.from_numpy(wan_vae.encode_image_tiled(
+                    vp, pixels, cfg=wan_vae.TINY_WAN_VAE, tile_size=(4, 4),
+                    tile_stride=(3, 3)))))
+    for want, got in zip(*outs):
+        assert _rel_err(got, want) <= 1e-4
