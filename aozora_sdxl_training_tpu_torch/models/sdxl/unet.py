@@ -13,6 +13,9 @@ same graph and the same numerics choices:
   embedding is ``[cos | sin]``, and the up path concatenates ``[x, skip]``;
 * ``remat`` False or ``"full"``/True wraps each resnet and transformer unit
   in ``torch.utils.checkpoint`` (the JAX ``_maybe_remat`` units);
+* ``fused_gn`` (False by default, as in JAX; no trainer sets it) sends the
+  resnets' norm1/norm2 + SiLU through ``ops.groupnorm_silu``'s NCHW entry
+  (K6 on the card, its plain version on the CPU), SiLU in fp32 and one cast;
 * attention dispatches through ``ops.attention`` (einsum or the flash
   kernels).
 """
@@ -26,6 +29,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import attention
+from ...ops.groupnorm_silu import group_norm_silu_nchw
 from .arch import UNetConfig, param_shapes
 
 Params = dict[str, torch.Tensor]
@@ -85,13 +89,27 @@ def timestep_embedding(timesteps, dim: int, max_period: float = 10000.0):
 # Blocks
 # --------------------------------------------------------------------------
 
-def resnet_block(params: Params, prefix: str, x, temb, *, groups: int):
+def _gn_silu(params: Params, name: str, x, groups: int, fused: bool):
+    """silu(group_norm(x)) at eps 1e-5; ``fused``: through the fused op's
+    NCHW entry. The resnets' inputs keep the channels-last memory that
+    cuDNN carries over from the NHWC sample, and the kernel takes contiguous
+    NCHW: such an input is made contiguous first, as torch's own GroupNorm
+    does on CUDA, so the convolutions see the same memory formats on both
+    routes."""
+    if fused:
+        return group_norm_silu_nchw(x.contiguous(), params[f"{name}.weight"],
+                                    params[f"{name}.bias"], groups=groups, use_pallas=True)
+    return F.silu(group_norm(params, name, x, groups=groups))
+
+
+def resnet_block(params: Params, prefix: str, x, temb, *, groups: int,
+                 fused_gn: bool = False):
     h = conv2d(params, f"{prefix}.conv1",
-               F.silu(group_norm(params, f"{prefix}.norm1", x, groups=groups)))
+               _gn_silu(params, f"{prefix}.norm1", x, groups, fused_gn))
     t = linear(params, f"{prefix}.time_emb_proj", F.silu(temb))
     h = h + t[:, :, None, None].to(h.dtype)
     h = conv2d(params, f"{prefix}.conv2",
-               F.silu(group_norm(params, f"{prefix}.norm2", h, groups=groups)))
+               _gn_silu(params, f"{prefix}.norm2", h, groups, fused_gn))
     if f"{prefix}.conv_shortcut.weight" in params:
         x = conv2d(params, f"{prefix}.conv_shortcut", x)
     return x + h
@@ -159,7 +177,7 @@ def _remat_enabled(mode) -> bool:
 def unet_forward(params: Params, sample, timesteps, encoder_hidden_states,
                  pooled_text_embeds, time_ids, *, cfg: UNetConfig,
                  attn_impl: str = "xla", compute_dtype=torch.bfloat16,
-                 remat=False):
+                 remat=False, fused_gn: bool = False):
     """SDXL UNet forward.
 
     sample: (B, H, W, C_in) NHWC latents.
@@ -194,7 +212,8 @@ def unet_forward(params: Params, sample, timesteps, encoder_hidden_states,
         return fn(*args, **kw)
 
     def res_fn(prefix, h):
-        return unit(resnet_block, params, prefix, h, temb, groups=groups)
+        return unit(resnet_block, params, prefix, h, temb, groups=groups,
+                    fused_gn=fused_gn)
 
     def tf2d_fn(prefix, h, depth, heads):
         return unit(transformer2d, params, prefix, h, context, depth=depth,

@@ -37,7 +37,7 @@ for tree in "$parent" "$root" "$root" "$parent"; do
   rc=$?
   echo "rc=$rc"
   [ $rc -eq 0 ] || status=1
-  grep -E "^  flash_|^  (flash_fwd_stats|flash_bwd_stats) |forward \+ backward|s/micro-step|losses|max_memory|^  launches|FAIL|^total|HGMMA" \
+  grep -E "^  flash_|^  (flash_fwd_stats|flash_bwd_stats) |forward \+ backward|s/micro-step|losses|max_memory|^  launches|FAIL|^total|HGMMA|sites a forward|by site|by kernel|SDXL_BASE UNet|fused_gn True" \
     "$run.log" | cut -c1-260
   find "$run" -name trace.json.gz -delete 2>/dev/null
   for summary in "$run"/trace/*/summary.json; do

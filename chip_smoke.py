@@ -84,13 +84,20 @@ Phases, each of which exits non-zero on failure:
    gradients, its launches counted; the entry points and
    scaled_dot_product_attention at the hop shapes by device time
    (torch.profiler), the schedule beside K4a/K4b at 4096 with CUDA events.
-10. k6: the fused GroupNorm+SiLU kernel against its plain version at every
-   distinct resnet shape of SDXL_BASE at 1024px, bf16 and fp32, plus a
-   ragged HW, C=320 at a small HW, a width the vector loads do not divide
-   and a large mean; then the op (group_norm_silu(..., use_pallas=True),
-   forward and backward) over the 34 sites of one forward, its launches
-   counted; the 34 forwards timed as a CUDA graph beside the bound, the
-   plain version and F.silu(F.group_norm(...)) on the NCHW view.
+10. k6: the fused GroupNorm+SiLU kernel in both layouts (NHWC, the op's,
+   two launches; NCHW, the UNet's fused_gn route, one launch) against its
+   plain version at every distinct resnet shape of SDXL_BASE at 1024px,
+   bf16 and fp32, plus a ragged HW, C=320 at a small HW, a width the vector
+   loads do not divide and a large mean (against float64); two calls
+   bit-identical in each layout; then the NHWC op (group_norm_silu(...,
+   use_pallas=True), forward and backward) over the 34 sites of one
+   forward, its launches counted; both layouts' 34 forwards timed as CUDA
+   graphs beside the bound, the plain versions and F.silu(F.group_norm(...))
+   on contiguous NCHW and on the NCHW view of NHWC memory, with the device
+   time by kernel; then one SDXL_BASE UNet forward and backward at 1024px,
+   B=1, bf16, random weights, with fused_gn False and True: finite, in
+   agreement (5e-2 relative L2), 34 NCHW launches in the True run, both
+   synced times printed.
 11. anima_sp: with two or more CUDA devices, torchrun runs the Anima CLI on
    2 ranks with SEQUENCE_PARALLEL_SIZE 2 (ring attention over NCCL) at
    ANIMA_BASE, 1024px, Full remat, 8 micro steps; checks rank 0's GUI
@@ -400,11 +407,11 @@ def device_ms(torch, fn, iters=10):
     ``cuda_ms`` when a call's launches take longer to issue than to run. A
     trace now and then loses some of its device records, or all of them: a
     trace in which a kernel's records are not a whole multiple of
-    ``iters`` is taken again, up to 3 times."""
+    ``iters`` is taken again, up to 5 times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -413,7 +420,7 @@ def device_ms(torch, fn, iters=10):
                   if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
         if events and all(e.count % iters == 0 for e in events):
             return sum(e.self_device_time_total for e in events) / iters / 1e3
-    raise PhaseError(f"torch.profiler lost device records in 3 traces of {iters} calls")
+    raise PhaseError(f"torch.profiler lost device records in 5 traces of {iters} calls")
 
 
 def kernel_names(fa, d, dtype):
@@ -766,48 +773,16 @@ def time_d512(torch, fa):
     return timings
 
 
-def k6_sites():
-    """The UNet resnet GroupNorm+SiLU sites of one SDXL_BASE forward at
-    1024px (the 34 norm1/norm2 sites of ``unet.py::_gn_silu``): (side, C)."""
-    from aozora_sdxl_training_tpu_torch.models.sdxl.arch import SDXL_BASE, param_shapes
-    sites = []
-    for name, (shape, _) in param_shapes(SDXL_BASE).items():
-        if "resnets" not in name or not name.endswith((".norm1.weight", ".norm2.weight")):
-            continue
-        part, level = name.split(".")[:2]
-        side = (32 if part == "mid_block" else 128 >> int(level)
-                if part == "down_blocks" else 32 << int(level))
-        sites.append((side, shape[0]))
-    return sites
-
-
 def k6_bound(sites, elem=2):
     """K6 at ``sites``, batch 1: a bound by bytes, x read once and y written
-    once per site (this kernel reads x twice, 1.5x that)."""
+    once per site (the NCHW kernel moves just that; the NHWC one reads x a
+    second time, mostly from L2)."""
     nbytes = [2 * elem * side * side * c for side, c in sites]
     per_site = [bound(0, b)[0] for b in nbytes]
     largest = max(zip(nbytes, sites))[1]
     return {"sites": len(sites), "largest_site": f"{largest[0]}x{largest[0]}x{largest[1]}",
             "largest_bound_ms": max(per_site), "bound_ms_per_forward": sum(per_site),
             "bytes_per_forward": sum(nbytes)}
-
-
-def graph_ms(torch, fn, iters=20):
-    """Device time of ``fn``'s launches: captured once into a CUDA graph and
-    replayed ``iters`` times between CUDA events, so the host's per-call
-    cost does not show (it does in ``cuda_ms`` for kernels of a few us)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    ms = cuda_ms(torch, graph.replay, iters, 2)
-    del graph
-    return ms
 
 
 def device_ms_by_kernel(torch, fn, prefix: str):
@@ -962,14 +937,21 @@ def k5_phase(torch):
 # --------------------------------------------------------------------------
 
 def k6_phase(torch):
-    """Returns (max abs err at the main shapes in bf16, launches of the op's
-    run, timing row)."""
+    """Returns {layout: (max abs err at the main shapes in bf16, launches of
+    the layout's main-path run, timing row)}: "nhwc" (the op, forward and
+    backward, over one forward's sites) and "nchw" (the SDXL_BASE UNet with
+    fused_gn=True)."""
     phase("k6")
     import torch.nn.functional as F
     from aozora_sdxl_training_tpu_torch.ops import groupnorm_silu as gn
+    from aozora_sdxl_training_tpu_torch.tools.k6_probe import forward_sites, graph_ms
     bf16, f32 = torch.bfloat16, torch.float32
-    sites = k6_sites()
+    # the 34 resnet norm1/norm2 sites of one SDXL_BASE forward at 1024px
+    # (unet.py::_gn_silu): (side, C)
+    sites = forward_sites()
     g = torch.Generator(device="cuda").manual_seed(8)
+    forward = {"nhwc": gn.group_norm_silu_forward, "nchw": gn.group_norm_silu_nchw_forward}
+    plain = {"nhwc": gn.group_norm_silu_reference, "nchw": gn.group_norm_silu_nchw_reference}
 
     def inputs(shape, dtype, mean=0.5):
         c = shape[-1]
@@ -977,9 +959,13 @@ def k6_phase(torch):
         return (x, 1 + 0.3 * torch.randn(c, device="cuda", generator=g),
                 0.2 * torch.randn(c, device="cuda", generator=g))
 
+    def to_layout(x, layout):
+        return x if layout == "nhwc" else x.permute(0, 3, 1, 2).contiguous()
+
     # tolerance: bf16 2% of the largest reference magnitude (one bf16
     # rounding of the output), fp32 1e-4 of it (fp32 statistics summed in
-    # another order); the large mean 1e-3 (E[x^2] - mean^2 would lose it)
+    # another order); the large mean 1e-3 (E[x^2] - mean^2 would lose it).
+    # Each case runs in both layouts (NCHW: the NHWC values transposed).
     tol = {bf16: 2e-2, f32: 1e-4}
     cases = ([(f"{side}x{side}x{c}", (1, side, side, c), 32, 0.5)
               for side, c in sorted(set(sites))]
@@ -987,32 +973,51 @@ def k6_phase(torch):
                 ("C=320 8x8", (1, 8, 8, 320), 32, 0.5),
                 ("C=36 (no 16-byte loads in bf16)", (1, 16, 16, 36), 12, 0.5),
                 ("mean 100, 32x32x320", (1, 32, 32, 320), 32, 100.0)])
-    max_err = 0.0
+    max_err = {"nhwc": 0.0, "nchw": 0.0}
     for label, shape, groups, mean in cases:
         for dtype in (bf16, f32):
             x, scale, bias = inputs(shape, dtype, mean)
-            y = gn.group_norm_silu_forward(x, scale, bias, groups)
-            torch.cuda.synchronize()
             if mean > 1:
                 xd = x.double().reshape(shape[0], -1, groups, shape[-1] // groups)
                 xd = ((xd - xd.mean(dim=(1, 3), keepdim=True))
                       / (xd.var(dim=(1, 3), unbiased=False, keepdim=True) + 1e-5).sqrt())
                 z = xd.reshape(shape) * scale.double() + bias.double()
-                ref, rel = z * torch.sigmoid(z), (2e-2 if dtype == bf16 else 1e-3)
-            else:
-                ref, rel = gn.group_norm_silu_reference(x, scale, bias, groups), tol[dtype]
-            check(bool(torch.isfinite(y).all()), f"K6 {label}: non-finite")
-            err = (y.double() - ref.double()).abs().max().item()
-            bar = rel * ref.abs().max().item()
-            name = str(dtype).replace("torch.", "")
-            print(f"  {label:34s} {name:8s} max_abs_err {err:.3e}  tol {bar:.3e}")
-            check(err <= bar, f"K6 {label} {name}: error {err} > tolerance {bar}")
-            if dtype == bf16 and label[0].isdigit():
-                max_err = max(max_err, err)
+                ref_nhwc, rel = z * torch.sigmoid(z), (2e-2 if dtype == bf16 else 1e-3)
+            for layout in ("nhwc", "nchw"):
+                xl = to_layout(x, layout)
+                y = forward[layout](xl, scale, bias, groups)
+                torch.cuda.synchronize()
+                if mean > 1:
+                    ref = to_layout(ref_nhwc, layout)
+                else:
+                    ref, rel = plain[layout](xl, scale, bias, groups), tol[dtype]
+                check(bool(torch.isfinite(y).all()) and y.shape == xl.shape,
+                      f"K6 {layout} {label}: non-finite or misshapen")
+                err = (y.double() - ref.double()).abs().max().item()
+                bar = rel * ref.abs().max().item()
+                name = str(dtype).replace("torch.", "")
+                print(f"  {layout} {label:34s} {name:8s} max_abs_err {err:.3e}  tol {bar:.3e}")
+                check(err <= bar, f"K6 {layout} {label} {name}: error {err} > tolerance {bar}")
+                if dtype == bf16 and label[0].isdigit():
+                    max_err[layout] = max(max_err[layout], err)
         torch.cuda.empty_cache()
 
-    # the op over one forward's 34 sites, forward and backward: K6's main
-    # path here, its launches counted from 0
+    # two calls on the same input are bit-identical (fixed fold orders), at
+    # the widest site in bf16 and in fp32 (where the NCHW slices outgrow
+    # shared memory and their tails are read twice)
+    for dtype in (bf16, f32):
+        x, scale, bias = inputs((1, 128, 128, 960), dtype)
+        for layout in ("nhwc", "nchw"):
+            xl = to_layout(x, layout)
+            same = torch.equal(forward[layout](xl, scale, bias, 32),
+                               forward[layout](xl, scale, bias, 32))
+            print(f"  {layout} 128x128x960 {dtype}: two calls bit-identical: {same}")
+            check(same, f"K6 {layout} {dtype}: two calls differ")
+    del x, xl
+    torch.cuda.empty_cache()
+
+    # the NHWC op over one forward's 34 sites, forward and backward: the
+    # NHWC entry's main path here, its launches counted from 0
     xs = [inputs((1, side, side, c), bf16) for side, c in sites]
     torch.cuda.synchronize()
     gn.reset_launch_counts()
@@ -1022,34 +1027,128 @@ def k6_phase(torch):
         y.float().square().mean().backward()
         check(bool(torch.isfinite(xg.grad.float()).all()), "K6 op: non-finite gradient")
     torch.cuda.synchronize()
-    launches = gn.LAUNCHES["group_norm_silu"]
-    print(f"  the op over {len(sites)} sites, forward and backward: {launches} launches")
-    check(launches == len(sites), f"K6 op: {launches} launches for {len(sites)} sites")
+    nhwc_launches = gn.LAUNCHES["group_norm_silu"]
+    print(f"  the NHWC op over {len(sites)} sites, forward and backward: "
+          f"{nhwc_launches} launches")
+    check(nhwc_launches == len(sites) and gn.LAUNCHES["group_norm_silu_nchw"] == 0,
+          f"K6 op: {gn.LAUNCHES} for {len(sites)} sites")
 
-    def run(fn):
-        return lambda: [fn(x, scale, bias) for x, scale, bias in xs]
+    # both layouts over the 34 sites as CUDA graphs, beside the bound, the
+    # plain versions and F.silu(F.group_norm(...)): on the NCHW view of the
+    # NHWC memory (the earlier PRs' yardstick) and on contiguous NCHW
+    xs_nchw = [(to_layout(x, "nchw"), scale, bias) for x, scale, bias in xs]
 
-    kernel = run(lambda x, s, b: gn.group_norm_silu_forward(x, s, b, 32))
-    plain = run(lambda x, s, b: gn.group_norm_silu_reference(x, s, b, 32))
-    library = run(lambda x, s, b: F.silu(F.group_norm(x.permute(0, 3, 1, 2), 32, s.to(x.dtype),
-                                                      b.to(x.dtype), 1e-5)))
-    row = {**k6_bound(sites),
-           "shape": f"{len(sites)} SDXL_BASE resnet sites at 1024px, B=1, bf16",
-           "ms": graph_ms(torch, kernel), "plain_ms": graph_ms(torch, plain),
-           "library_ms": graph_ms(torch, library),
-           "ms_eager": cuda_ms(torch, kernel, 10, 2), "bound_by": "bytes"}
-    row["bound_ms"] = row["bound_ms_per_forward"]
-    row["device_ms_by_kernel"] = device_ms_by_kernel(torch, kernel, "gn_")
-    print(f"  {len(sites)} sites a forward ({row['bytes_per_forward'] / 1e6:.1f} MB in + out): "
-          f"kernel {row['ms']:.4f} ms (CUDA graph; {row['ms_eager']:.4f} ms eager), bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_ms'] / row['ms']:.1%}), plain "
-          f"{row['plain_ms']:.4f} ms, F.silu(F.group_norm) {row['library_ms']:.4f} ms; "
-          f"largest site {row['largest_site']} bound {row['largest_bound_ms']:.4f} ms")
-    print(f"  device time of one such forward by kernel (torch.profiler): "
-          f"{row['device_ms_by_kernel']}")
-    del xs
+    def run(fn, args):
+        return lambda: [fn(x, scale, bias) for x, scale, bias in args]
+
+    def library(x, s, b):
+        return F.silu(F.group_norm(x, 32, s.to(x.dtype), b.to(x.dtype), 1e-5))
+
+    lib_view = graph_ms(run(lambda x, s, b: library(x.permute(0, 3, 1, 2), s, b), xs))
+    lib_nchw = graph_ms(run(library, xs_nchw))
+    rows = {}
+    for layout, args in (("nhwc", xs), ("nchw", xs_nchw)):
+        kernel = run(lambda x, s, b: forward[layout](x, s, b, 32), args)
+        row = {**k6_bound(sites),
+               "shape": f"{len(sites)} SDXL_BASE resnet sites at 1024px, B=1, bf16, {layout}",
+               "ms": graph_ms(kernel),
+               "plain_ms": graph_ms(run(lambda x, s, b: plain[layout](x, s, b, 32), args)),
+               "library_ms": lib_nchw, "library_ms_nchw_view_of_nhwc": lib_view,
+               "ms_eager": cuda_ms(torch, kernel, 10, 2), "bound_by": "bytes"}
+        row["bound_ms"] = row["bound_ms_per_forward"]
+        row["device_ms_by_kernel"] = device_ms_by_kernel(torch, kernel, "gn_")
+        # each distinct site alone: 10 launches of it in a CUDA graph
+        by_site = {}
+        for side, c in sorted(set(sites)):
+            x, s_, b_ = args[sites.index((side, c))]
+            ms = graph_ms(lambda: [forward[layout](x, s_, b_, 32) for _ in range(10)])
+            by_site[f"{side}x{side}x{c}"] = (1e3 * ms / 10, 1e3 * bound(0, 4 * side * side * c)[0])
+        row["us_by_site_and_bound"] = by_site
+        rows[layout] = row
+        print(f"  {layout}: {len(sites)} sites a forward ({row['bytes_per_forward'] / 1e6:.1f} MB "
+              f"in + out): kernel {row['ms']:.4f} ms (CUDA graph; {row['ms_eager']:.4f} ms "
+              f"eager), bound {row['bound_ms']:.4f} ms ({row['bound_ms'] / row['ms']:.1%}), "
+              f"plain {row['plain_ms']:.4f} ms, F.silu(F.group_norm) {lib_nchw:.4f} ms on "
+              f"contiguous NCHW, {lib_view:.4f} ms on the NCHW view of NHWC; largest site "
+              f"{row['largest_site']} bound {row['largest_bound_ms']:.4f} ms")
+        print(f"  {layout}: device time of one such forward by kernel (torch.profiler): "
+              f"{row['device_ms_by_kernel']}")
+        print(f"  {layout}: us a launch by site (bound): " + ", ".join(
+            f"{k} {t:.2f} ({b:.2f})" for k, (t, b) in by_site.items()))
+    del xs, xs_nchw
     torch.cuda.empty_cache()
-    return max_err, launches, row
+    nchw_launches = k6_unet(torch, gn)
+    return {"nhwc": (max_err["nhwc"], nhwc_launches, rows["nhwc"]),
+            "nchw": (max_err["nchw"], nchw_launches, rows["nchw"])}
+
+
+def k6_unet(torch, gn):
+    """One SDXL_BASE UNet forward and backward at 1024px, B=1, bf16 compute,
+    flash attention, random fp32 weights (init_params, seed 2024), with
+    fused_gn False and then True (a warm-up run of each first); returns the
+    NCHW K6 launches of the True run. The two routes differ by one bf16
+    rounding per site (the unfused one rounds the norm's output, then the
+    SiLU's; the fused one only the SiLU's), 34 sites deep: output and the
+    gradient of every parameter, as one vector, are held at 5e-2 relative
+    L2 error (1.5e-2 and 2.2e-2 on the TINY UNet in bf16)."""
+    from aozora_sdxl_training_tpu_torch.models.sdxl.arch import SDXL_BASE as cfg
+    from aozora_sdxl_training_tpu_torch.models.sdxl.unet import init_params, unet_forward
+    g = torch.Generator(device="cuda").manual_seed(2024)
+    params = init_params(cfg, g)
+    names = list(params)
+    for p in params.values():
+        p.requires_grad_(True)
+    sample = torch.randn(1, 128, 128, 4, device="cuda", generator=g)
+    ctx = torch.randn(1, 77, cfg.cross_attention_dim, device="cuda", generator=g)
+    pooled = torch.randn(1, cfg.pooled_projection_dim, device="cuda", generator=g)
+    tangent = torch.randn(1, 128, 128, 4, device="cuda", generator=g)
+    t = torch.tensor([500.0], device="cuda")
+    time_ids = torch.tensor([[1024, 1024, 0, 0, 1024, 1024]], device="cuda",
+                            dtype=torch.float32)
+    results, times, launches = {}, {}, {}
+    for fused in (False, True):
+        for timed in (False, True):
+            for p in params.values():
+                p.grad = None
+            torch.cuda.synchronize()
+            gn.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = unet_forward(params, sample, t, ctx, pooled, time_ids, cfg=cfg,
+                               attn_impl="flash", compute_dtype=torch.bfloat16,
+                               fused_gn=fused)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            (out.float() * tangent).mean().backward()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        times[fused] = (1e3 * (t1 - t0), 1e3 * (t2 - t1))
+        launches[fused] = dict(gn.LAUNCHES)
+        grads = [params[n].grad for n in names]
+        check(bool(torch.isfinite(out.float()).all())
+              and all(bool(torch.isfinite(gr).all()) for gr in grads),
+              f"SDXL_BASE UNet fused_gn={fused}: non-finite output or gradient")
+        results[fused] = (out.detach().float(), grads)
+        for p in params.values():
+            p.grad = None
+        print(f"  SDXL_BASE UNet 1024px B=1 bf16, fused_gn={fused}: forward "
+              f"{times[fused][0]:.1f} ms, backward {times[fused][1]:.1f} ms (synced); "
+              f"K6 launches {launches[fused]}")
+    (o0, g0), (o1, g1) = results[False], results[True]
+    out_err = ((o1 - o0).norm() / o0.norm()).item()
+    num = sum(((a.double() - b.double()) ** 2).sum() for a, b in zip(g1, g0)).item()
+    den = sum((b.double() ** 2).sum() for b in g0).item()
+    grad_err = math.sqrt(num / den)
+    worst = max(((a - b).norm() / b.norm().clamp_min(1e-30)).item() for a, b in zip(g1, g0))
+    print(f"  fused_gn True vs False: out rel L2 {out_err:.3e}, all-parameter gradient rel L2 "
+          f"{grad_err:.3e} (tol 5e-2 each); worst single tensor {worst:.3e}; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check(launches[False] == {"group_norm_silu": 0, "group_norm_silu_nchw": 0}
+          and launches[True] == {"group_norm_silu": 0, "group_norm_silu_nchw": 34},
+          f"SDXL_BASE UNet K6 launches {launches}, expected 34 NCHW with fused_gn")
+    check(out_err <= 5e-2 and grad_err <= 5e-2, "SDXL_BASE UNet: fused_gn disagrees")
+    del params, results, g0, g1, o0, o1, out, grads
+    torch.cuda.empty_cache()
+    return launches[True]["group_norm_silu_nchw"]
 
 
 # --------------------------------------------------------------------------
@@ -2041,15 +2140,19 @@ def kernels_json(timings, max_err, launches, k5, k6, sm90):
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shapes": k5_timings[kname], "ring_one_card": ring_ms})
-    k6_err, k6_launches, k6_row = k6
-    kernels.append({
-        "name": "group_norm_silu", "route": "cuda",
-        "source": f"{PACKAGE}/csrc/groupnorm_silu.cu", "replaces": f"{GN}:60",
-        "phase": "k6 (the op, forward and backward, over one SDXL_BASE forward's sites)",
-        "launches": k6_launches, "max_abs_err": k6_err, "ms": k6_row["ms"],
-        "plain_ms": k6_row["plain_ms"], "bound_ms": k6_row["bound_ms"],
-        "bound_by": k6_row["bound_by"], "library_ms": k6_row["library_ms"],
-        "shapes": [k6_row]})
+    for layout, kname, ph in (
+            ("nhwc", "group_norm_silu",
+             "k6 (the NHWC op, forward and backward, over one SDXL_BASE forward's sites)"),
+            ("nchw", "group_norm_silu_nchw",
+             "k6 (the SDXL_BASE UNet forward and backward with fused_gn=True)")):
+        k6_err, k6_launches, k6_row = k6[layout]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"{PACKAGE}/csrc/groupnorm_silu.cu", "replaces": f"{GN}:60",
+            "phase": ph, "launches": k6_launches, "max_abs_err": k6_err, "ms": k6_row["ms"],
+            "plain_ms": k6_row["plain_ms"], "bound_ms": k6_row["bound_ms"],
+            "bound_by": k6_row["bound_by"], "library_ms": k6_row["library_ms"],
+            "shapes": [k6_row]})
     return kernels
 
 
@@ -2085,7 +2188,7 @@ def main(argv=None) -> int:
             summary["k5"] = k5[1:]
         if "k6" in only:
             k6 = k6_phase(torch)
-            summary["k6"] = k6[1:]
+            summary["k6"] = {layout: v[1:] for layout, v in k6.items()}
         launches = {}
         if "unet" in only:
             launches["unet"] = unet_phase(torch)

@@ -17,9 +17,12 @@ one past a tile, two launches that must agree bitwise, and an input the
 K5 (the stats-level entry points over those kernels) is held against its
 plain versions on a KV shard, and the ring's hop schedule composed on one
 card at sp 2 against full attention. K6 (the fused GroupNorm + SiLU
-forward) is held against its plain version in bf16 and fp32, at a ragged
-HW, at C=320 (groups of 10 channels), at a width the 16-byte loads do not
-divide, and at a large mean.
+forward) is held against its plain version in both layouts (NHWC, two
+kernels a call; NCHW, one), in bf16 and fp32, at a ragged HW, at C=320
+(groups of 10 channels), at a width the 16-byte loads do not divide, at
+the widest SDXL_BASE site (whose fp32 slices outgrow shared memory) and at
+a large mean; two calls must agree bitwise, and the TINY UNet's fused_gn
+route must agree with its unfused one.
 
 Tolerances: the bf16 kernels multiply bf16 operands on the tensor cores
 with fp32 accumulation, so their outputs are held at 2e-2 of unit-scale
@@ -36,6 +39,8 @@ of the largest magnitude (one bf16 rounding of the output), fp32 1e-4 of
 it (fp32 statistics summed in another order), and 1e-3 against a float64
 reference where the mean is 100 times the spread.
 """
+
+import re
 
 import pytest
 import torch
@@ -383,6 +388,129 @@ def test_group_norm_silu_wrapper_raises_on_what_the_kernel_does_not_take(cuda_de
     with pytest.raises(ValueError, match="scale"):
         gn.group_norm_silu_forward(x, s.cpu(), s, 8)
     assert gn.LAUNCHES == counts
+
+
+K6_SHAPES = [((1, 32, 32, 320), 32), ((2, 37, 53, 640), 32), ((1, 8, 8, 320), 32),
+             ((1, 16, 16, 36), 12), ((1, 64, 64, 1280), 32), ((1, 5, 3, 2560), 32),
+             ((1, 128, 128, 960), 32)]
+
+
+def _gn_inputs(device, shape, dtype, seed, mean=0.5):
+    g = torch.Generator(device=device).manual_seed(seed)
+    c = shape[-1]
+    x = (torch.randn(shape, device=device, generator=g) * 2 + mean).to(dtype)
+    return (x, 1 + 0.3 * torch.randn(c, device=device, generator=g),
+            0.2 * torch.randn(c, device=device, generator=g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups", K6_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+def test_group_norm_silu_nchw_kernel_matches_plain_version_on_card(cuda_device, shape,
+                                                                   groups, dtype, tol):
+    x, scale, bias = _gn_inputs(cuda_device, shape, dtype, sum(shape))
+    x = x.permute(0, 3, 1, 2).contiguous()
+    counts = dict(gn.LAUNCHES)
+    y = gn.group_norm_silu_nchw_forward(x, scale, bias, groups)
+    assert y.dtype == dtype and y.shape == x.shape
+    assert _rel_err(y, gn.group_norm_silu_nchw_reference(x, scale, bias, groups)) <= tol
+    assert gn.LAUNCHES == {**counts, "group_norm_silu_nchw": counts["group_norm_silu_nchw"] + 1}
+
+
+@pytest.mark.cuda
+def test_group_norm_silu_nchw_kernel_keeps_the_variance_at_a_large_mean(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randn(1, 320, 32, 32, device=cuda_device, generator=g) + 100.0
+    scale, bias = torch.ones(320, device=cuda_device), torch.zeros(320, device=cuda_device)
+    y = gn.group_norm_silu_nchw_forward(x, scale, bias, 32)
+    xd = x.double().reshape(1, 32, 10 * 32 * 32)
+    xd = ((xd - xd.mean(dim=2, keepdim=True))
+          / (xd.var(dim=2, unbiased=False, keepdim=True) + 1e-5).sqrt())
+    want = torch.nn.functional.silu(xd.reshape(x.shape))
+    assert _rel_err(y, want) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,kernels", [("nhwc", 2), ("nchw", 1)])
+def test_group_norm_silu_launches_its_kernels_once_a_call(cuda_device, layout, kernels):
+    """The profiler sees the NHWC op's two kernels (statistics, apply) and
+    the NCHW entry's one, once each in a call."""
+    from torch.profiler import ProfilerActivity, profile
+    x, scale, bias = _gn_inputs(cuda_device, (1, 64, 64, 640), torch.bfloat16, 5)
+    fn = gn.group_norm_silu_forward
+    if layout == "nchw":
+        x, fn = x.permute(0, 3, 1, 2).contiguous(), gn.group_norm_silu_nchw_forward
+    fn(x, scale, bias, 32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(x, scale, bias, 32)
+        torch.cuda.synchronize()
+    launched = [e.key for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
+    assert len(launched) == kernels, launched
+    assert all(re.search(r"\bgn_\w+_kernel", k) for k in launched), launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_group_norm_silu_kernels_are_deterministic_on_card(cuda_device, layout, dtype):
+    x, scale, bias = _gn_inputs(cuda_device, (1, 128, 128, 960), dtype, 9)
+    fn = gn.group_norm_silu_forward
+    if layout == "nchw":
+        x, fn = x.permute(0, 3, 1, 2).contiguous(), gn.group_norm_silu_nchw_forward
+    assert torch.equal(fn(x, scale, bias, 32), fn(x, scale, bias, 32))
+
+
+@pytest.mark.cuda
+def test_group_norm_silu_nchw_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    x = torch.zeros(1, 32, 4, 4, device=cuda_device)
+    s = torch.ones(32, device=cuda_device)
+    counts = dict(gn.LAUNCHES)
+    with pytest.raises(TypeError, match="dtype"):
+        gn.group_norm_silu_nchw_forward(x.half(), s, s, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        gn.group_norm_silu_nchw_forward(x.to(memory_format=torch.channels_last), s, s, 8)
+    with pytest.raises(ValueError, match="groups"):
+        gn.group_norm_silu_nchw_forward(x, s, s, 5)
+    with pytest.raises(ValueError, match="scale"):
+        gn.group_norm_silu_nchw_forward(x, s.cpu(), s, 8)
+    with pytest.raises(ValueError, match="scale"):
+        gn.group_norm_silu_nchw_forward(x, s[:16], s, 8)
+    assert gn.LAUNCHES == counts
+
+
+@pytest.mark.cuda
+def test_tiny_unet_fused_gn_route_on_card(cuda_device, monkeypatch):
+    """The TINY UNet in fp32 with fused_gn (the NCHW kernel at each of its
+    34 resnet norm sites, the plain backward) against the unfused route:
+    output and parameter gradients at 1e-4 of their largest magnitude.
+    cuDNN's TF32 convolutions are turned off: they round each input to 10
+    bits, which turns the routes' 1e-6 differences into 1e-3."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    from aozora_sdxl_training_tpu_torch.models.sdxl.arch import TINY
+    from aozora_sdxl_training_tpu_torch.models.sdxl.unet import init_params, unet_forward
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    params = init_params(TINY, g)
+    for p in params.values():
+        p.requires_grad_(True)
+    args = (torch.randn(2, 32, 32, 4, device=cuda_device, generator=g),
+            torch.tensor([10.0, 700.0], device=cuda_device),
+            torch.randn(2, 7, TINY.cross_attention_dim, device=cuda_device, generator=g),
+            torch.randn(2, TINY.pooled_projection_dim, device=cuda_device, generator=g),
+            torch.tensor([[512.0, 512, 0, 0, 512, 512]] * 2, device=cuda_device))
+    results = []
+    for fused in (False, True):
+        counts = dict(gn.LAUNCHES)
+        out = unet_forward(params, *args, cfg=TINY, compute_dtype=torch.float32,
+                           fused_gn=fused)
+        grads = torch.autograd.grad(out.square().mean(), list(params.values()))
+        results.append((out.detach(), grads))
+        assert (gn.LAUNCHES["group_norm_silu_nchw"] - counts["group_norm_silu_nchw"]
+                == (34 if fused else 0))
+    (want, want_g), (got, got_g) = results
+    assert _rel_err(got, want) <= 1e-4
+    assert max(_rel_err(a, b) for a, b in zip(got_g, want_g) if b.abs().max() > 0) <= 1e-4
 
 
 @pytest.mark.cuda

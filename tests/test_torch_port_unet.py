@@ -4,6 +4,10 @@ Same weights (numpy, in the JAX layout, carried over with
 ``params_from_jax``) and the same numpy inputs go through both packages at
 fp32. The forward bar is the JAX package's own bar for its UNet against
 the torch twin (rtol 2e-4, atol 2e-5, tests/test_full_model_parity.py).
+The ``fused_gn`` route (the resnets' GroupNorm + SiLU through the fused
+op: JAX ``group_norm_silu``'s XLA composition, the port's NCHW entry with
+its plain version and hand-written backward on the CPU) is held to the
+same bars.
 """
 
 import functools
@@ -126,4 +130,47 @@ def test_param_gradients_match_jax_grad(setup, jax_grads, remat):
         worst = max(worst, np.abs(got[name] - want[name]).max() / scale)
     # fp32 both sides; reductions in another order: 1e-4 of each tensor's
     # largest gradient
+    assert worst < 1e-4, worst
+
+
+@pytest.fixture(scope="module")
+def fused_gn_runs(setup):
+    """JAX's and the port's ``unet_forward(fused_gn=True)``: the output and
+    d sum(out * tangent) / d params of each (one jit for JAX's pair)."""
+    np_params, inputs, tangent = setup
+
+    def loss(p):
+        out = jax_unet.unet_forward(p, *(jnp.asarray(x) for x in inputs),
+                                    cfg=TINY, attn_impl="xla",
+                                    compute_dtype=jnp.float32, remat=False,
+                                    fused_gn=True)
+        return jnp.sum(out * tangent), out
+
+    grads, out = jax.jit(jax.grad(loss, has_aux=True))(
+        {k: jnp.asarray(v) for k, v in np_params.items()})
+    want_grads = params_from_jax({k: np.asarray(g) for k, g in grads.items()})
+    params = params_from_jax(np_params)
+    for p in params.values():
+        p.requires_grad_(True)
+    got = port_unet.unet_forward(
+        params, *(torch.from_numpy(x) for x in inputs), cfg=PORT_TINY,
+        attn_impl="xla", compute_dtype=torch.float32, fused_gn=True)
+    (got * torch.from_numpy(tangent)).sum().backward()
+    return ((got.detach().numpy(), {k: p.grad.numpy() for k, p in params.items()}),
+            (np.asarray(out), {k: v.numpy() for k, v in want_grads.items()}))
+
+
+@pytest.mark.parametrize("what", ["forward", "param_grads"])
+def test_fused_gn_route_matches_jax(fused_gn_runs, what):
+    """The port's ``unet_forward(fused_gn=True)`` against JAX's, at fp32:
+    the forward at the forward bar, and every parameter's gradient at 1e-4
+    of its largest magnitude (as ``test_param_gradients_match_jax_grad``)."""
+    (out, grads), (want_out, want_grads) = fused_gn_runs
+    if what == "forward":
+        assert out.shape == want_out.shape
+        np.testing.assert_allclose(out, want_out, rtol=2e-4, atol=2e-5)
+        return
+    assert grads.keys() == want_grads.keys()
+    worst = max(np.abs(grads[k] - want_grads[k]).max()
+                / max(np.abs(want_grads[k]).max(), 1e-6) for k in want_grads)
     assert worst < 1e-4, worst
