@@ -1,17 +1,42 @@
-"""Output naming shared by checkpoint saves.
+"""Training-state checkpointing (optimizer moments, counters, sampler state).
 
-Counterpart of the naming part of ``aozora_sdxl_training_tpu/ckpt/
-train_state.py``. Saving and loading the training-state file (optimizer
-moments, counters, sampler state) is not ported yet; the trainer refuses a
-resume until it is.
+Counterpart of ``aozora_sdxl_training_tpu/ckpt/train_state.py``, in its
+format, so that a state saved by either package resumes in the other: one
+safetensors file holding ``opt.step`` (int32, 0-d), ``m.<param>`` /
+``v.<param>`` for each moment (an int8 moment as its codes plus
+``m.<param>@scales``) and a ``json`` metadata blob with the counters and
+the sampler state. Noise and schedules are pure functions of (seed, step),
+so nothing else is needed to resume.
+
+Moments are stored in the JAX package's layout (conv HWIO, linear (in,
+out)): a float moment is viewed in it on the way out and back on the way
+in (the optimizer state's ``Layout``); int8 codes are held in it already.
+
+Filenames mirror the reference:
+``{stem}_step_{N}.safetensors`` + ``{stem}_training_state_step_{N}.safetensors``.
 """
 
 from __future__ import annotations
 
+import json
 import re
 import secrets
 import string
+import struct
 from pathlib import Path
+
+import ml_dtypes
+import numpy as np
+import torch
+
+from ..opt.adamw import SAME_LAYOUT, AdamWState, Layout
+from .safetensors_io import read_metadata, write_streaming
+
+_TORCH_OF_ST = {"F32": torch.float32, "BF16": torch.bfloat16, "F16": torch.float16,
+                "I8": torch.int8, "I32": torch.int32}
+_NUMPY_OF_TORCH = {torch.float32: np.dtype(np.float32),
+                   torch.bfloat16: np.dtype(ml_dtypes.bfloat16),
+                   torch.float16: np.dtype(np.float16), torch.int8: np.dtype(np.int8)}
 
 
 def output_model_stem(config, source_path) -> str:
@@ -33,3 +58,121 @@ def output_model_stem(config, source_path) -> str:
     resolved = requested or f"{Path(source_path).stem}_trained_{run_uuid}"
     config._RESOLVED_OUTPUT_STEM = resolved
     return resolved
+
+
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    """A host numpy copy of ``t`` in its own dtype (bf16 via ml_dtypes)."""
+    t = t.detach().contiguous().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def save_train_state(path, *, global_step: int, micro_step: int,
+                     opt_state: AdamWState, sampler_seed: int,
+                     sampler_epoch: int, timestep_sampler_state: dict | None,
+                     extra: dict | None = None) -> None:
+    """Streams the moments to ``path`` one tensor at a time (each copied to
+    the host when its turn comes), in the JAX package's layout."""
+    to_jax = opt_state.layout.to_jax
+    tensors = {"opt.step": np.asarray(opt_state.step, np.int32)}
+
+    def lazy(t):
+        return (tuple(t.shape), _NUMPY_OF_TORCH[t.dtype], lambda: _host_array(t))
+
+    def put(prefix, name, value):
+        if isinstance(value, tuple):  # int8_blockwise (codes, scales)
+            tensors[f"{prefix}.{name}"] = lazy(value[0])
+            tensors[f"{prefix}.{name}@scales"] = lazy(value[1])
+        else:
+            tensors[f"{prefix}.{name}"] = lazy(to_jax(name, value))
+
+    for name, m in opt_state.exp_avg.items():
+        put("m", name, m)
+    for name, v in opt_state.exp_avg_sq.items():
+        put("v", name, v)
+    meta = {
+        "global_step": global_step,
+        "micro_step": micro_step,
+        "sampler_seed": sampler_seed,
+        "sampler_epoch": sampler_epoch,
+        "timestep_sampler_state": timestep_sampler_state,
+        **(extra or {}),
+    }
+    write_streaming(Path(path), tensors, metadata={"json": json.dumps(meta)})
+
+
+def check_resume_global_batch(resume_meta: dict, global_batch: int) -> None:
+    """Refuse resuming onto a layout that changes the schedule's global batch.
+
+    The image/timestep schedules are pure functions of
+    ``global_batch = BATCH_SIZE x dp`` (data/schedule.py); resuming a
+    state trained at one global batch on a layout that implies another
+    would silently reinterpret the entire remaining schedule. The basis is
+    persisted in the train state, and a mismatch fails loudly.
+    """
+    saved = resume_meta.get("schedule_global_batch")
+    if saved is None:
+        print("WARNING: resume state predates the schedule-global-batch "
+              "guard; cannot verify the batch schedule basis matches. "
+              "Proceeding — ensure BATCH_SIZE x dp is unchanged from the "
+              "original run.")
+        return
+    if int(saved) != int(global_batch):
+        raise RuntimeError(
+            f"Resume refused: this training state was saved with a global "
+            f"batch of {int(saved)} (BATCH_SIZE x dp of the original run), "
+            f"but the current mesh/config implies {int(global_batch)}. "
+            f"Resuming would reinterpret the image/timestep schedules and "
+            f"break bit-exact resume. Adjust BATCH_SIZE or the device "
+            f"count/AOZORA_DEVICES so BATCH_SIZE x dp = {int(saved)}, or "
+            f"start a fresh run.")
+
+
+def _read_tensors(path) -> dict:
+    """Every tensor of a safetensors file as a writable host tensor, each
+    read into a buffer of its own (the file packs tensors without
+    alignment)."""
+    out = {}
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        header.pop("__metadata__", None)
+        for name, spec in sorted(header.items(),
+                                 key=lambda kv: kv[1]["data_offsets"][0]):
+            start, end = spec["data_offsets"]
+            dtype = _TORCH_OF_ST[spec["dtype"]]
+            t = torch.empty(spec["shape"], dtype=dtype)
+            f.seek(8 + n + start)
+            if end > start and f.readinto(t.view(-1).view(torch.uint8).numpy()) != end - start:
+                raise IOError(f"{path}: {name} is cut short")
+            out[name] = t
+    return out
+
+
+def load_train_state(path, layout: Layout = SAME_LAYOUT) -> tuple[dict, AdamWState]:
+    """Returns (meta dict, AdamWState of HOST tensors keyed like params):
+    float moments as views in the port's layout (``layout.from_jax``),
+    int8 moments as (codes, scales) in the JAX package's.
+
+    The tensors stay on the host: the trainer moves them to the device
+    (``adamw.restored_state``) only once it has decided between restore and
+    a fresh start, so a zero state never sits beside a restored one (the
+    double residency of moments that ran a full-size resume out of
+    memory)."""
+    meta = json.loads(read_metadata(path).get("json", "{}"))
+    tensors = _read_tensors(path)
+
+    def collect(prefix):
+        out = {}
+        for k, t in tensors.items():
+            if not k.startswith(prefix) or k.endswith("@scales"):
+                continue
+            name = k[len(prefix):]
+            scales = tensors.get(f"{prefix}{name}@scales")
+            out[name] = (t, scales) if scales is not None else layout.from_jax(name, t)
+        return out
+
+    step = int(tensors["opt.step"]) if "opt.step" in tensors else 0
+    return meta, AdamWState(step=step, exp_avg=collect("m."),
+                            exp_avg_sq=collect("v."), layout=layout)

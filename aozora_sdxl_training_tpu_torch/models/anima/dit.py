@@ -11,7 +11,8 @@ padded to 512 tokens.
 * Parameters are a flat ``{checkpoint_name: tensor}`` dict in torch layout
   (linear (out, in), embeddings (vocab, dim)), so a checkpoint loads with a
   shape check and ``params_from_jax`` transposes the JAX package's (in, out)
-  linear weights.
+  linear weights (``from_jax_layout``; ``to_jax_layout`` is its inverse,
+  which the training-state file and the int8 moments share).
 * Activations are channel-last like the JAX function: latents (B, T, H, W,
   C), tokens (B, L, D).
 * RMSNorm and LayerNorm statistics, RoPE and the timestep sinusoid are
@@ -540,15 +541,22 @@ def params_to_torch_state(params: Params) -> dict:
     return dict(params)
 
 
+def from_jax_layout(name: str, t: torch.Tensor) -> torch.Tensor:
+    """One DiT tensor of the JAX package's layout in the port's, as a view:
+    linear weights (in, out) -> (out, in); embeddings and the rest as they
+    are."""
+    return t.t() if _is_linear(name, t.shape) else t
+
+
+def to_jax_layout(name: str, t: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``from_jax_layout`` (a transpose is its own)."""
+    return from_jax_layout(name, t)
+
+
 def params_from_jax(flat_numpy_params: dict, dtype=torch.float32,
                     device=None) -> Params:
     """The JAX package's DiT params (numpy, linear weights (in, out)) in the
     port's torch layout (linear weights (out, in); embeddings as they are)."""
-    out: Params = {}
-    for name, arr in flat_numpy_params.items():
-        a = np.asarray(arr, np.float32)
-        if _is_linear(name, a.shape):
-            a = a.T
-        out[name] = torch.from_numpy(np.array(a, order="C")).to(device=device,
-                                                                dtype=dtype)
-    return out
+    return {name: from_jax_layout(name, torch.from_numpy(np.array(arr, np.float32)))
+            .contiguous().to(device=device, dtype=dtype)
+            for name, arr in flat_numpy_params.items()}

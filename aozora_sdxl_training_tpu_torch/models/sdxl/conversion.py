@@ -4,7 +4,9 @@ Counterpart of ``aozora_sdxl_training_tpu/models/sdxl/conversion.py``. SD
 checkpoints already hold torch layouts (conv OIHW, linear (out, in)), which
 is the port's layout too, so loading is a key mapping plus a shape check.
 ``params_from_jax`` carries the JAX package's parameters (numpy, conv HWIO,
-linear (in, out)) into the port so that both compute the same function.
+linear (in, out)) into the port so that both compute the same function;
+``from_jax_layout`` and its inverse ``to_jax_layout`` are that layout map
+for one tensor, which the training-state file and the int8 moments share.
 """
 
 from __future__ import annotations
@@ -63,17 +65,26 @@ def sd_state_from_params(params: Params, dtype=torch.bfloat16) -> dict:
     return {mapping[k]: v.to(dtype) for k, v in params.items()}
 
 
+def from_jax_layout(name: str, t: torch.Tensor) -> torch.Tensor:
+    """One UNet tensor of the JAX package's layout in the port's, as a view:
+    conv HWIO -> OIHW, linear (in, out) -> (out, in), the rest as it is."""
+    if t.ndim == 4:
+        return t.permute(3, 2, 0, 1)
+    return t.t() if t.ndim == 2 else t
+
+
+def to_jax_layout(name: str, t: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``from_jax_layout``: OIHW -> HWIO, (out, in) -> (in,
+    out), as a view."""
+    if t.ndim == 4:
+        return t.permute(2, 3, 1, 0)
+    return t.t() if t.ndim == 2 else t
+
+
 def params_from_jax(flat_numpy_params: dict, dtype=torch.float32,
                     device=None) -> Params:
     """The JAX package's flat params (conv HWIO, linear (in, out)) in the
     port's torch layout (conv OIHW, linear (out, in))."""
-    out: Params = {}
-    for name, arr in flat_numpy_params.items():
-        a = np.asarray(arr, np.float32)
-        if a.ndim == 4:
-            a = a.transpose(3, 2, 0, 1)
-        elif a.ndim == 2:
-            a = a.T
-        out[name] = torch.from_numpy(np.array(a, order="C")).to(
-            device=device, dtype=dtype)
-    return out
+    return {name: from_jax_layout(name, torch.from_numpy(np.array(arr, np.float32)))
+            .contiguous().to(device=device, dtype=dtype)
+            for name, arr in flat_numpy_params.items()}

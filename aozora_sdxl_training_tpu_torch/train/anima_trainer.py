@@ -3,13 +3,15 @@ dp x sp ranks of a torchrun world.
 
 Counterpart of ``aozora_sdxl_training_tpu/train/anima_trainer.py::
 run_anima_training`` with the same phases and the same output as the port's
-SDXL trainer: cache check -> DiT load (key prefix detected, config read off
-the checkpoint's shapes) -> dataset, ticket sampler and schedule -> micro
-and apply steps -> progress lines (Ticket + Sigma) and optimizer blocks ->
-scheduled / ``force_save.flag`` saves -> final DiT save under the detected
-prefix. Tickets map to flow-matching sigmas, the DiT is conditioned on
-sigma, loss weights are indexed by ticket, and the LLM adapter trains
-inside the DiT forward.
+SDXL trainer: resume (``ANIMA_RESUME_MODEL_PATH`` and
+``ANIMA_RESUME_STATE_PATH``, the JAX package's training-state file) ->
+cache check -> DiT load (key prefix detected, config read off the
+checkpoint's shapes) -> dataset, ticket sampler and schedule -> micro and
+apply steps -> progress lines (Ticket + Sigma) and optimizer blocks ->
+scheduled / ``force_save.flag`` saves (DiT + training state) -> final DiT
+save under the detected prefix. Tickets map to flow-matching sigmas, the
+DiT is conditioned on sigma, loss weights are indexed by ticket, and the
+LLM adapter trains inside the DiT forward.
 
 The step runs eagerly on fp32 master weights: the micro step accumulates
 gradients into ``.grad``, the apply step (shared with the SDXL trainer)
@@ -26,9 +28,11 @@ rows [r*B, (r+1)*B) of each global batch, and with
 attention over the sp ranks (``ops/ring_attention.py``). Parameters are
 replicated; the gradients are reduced once per optimizer step, before the
 global-norm clip, so every rank applies the same update. The loss printed
-is the global batch's, and only global rank 0 prints and saves. Under Full
-remat the ring's P2P runs again in each block's recompute; every rank
-recomputes the same blocks in the same order, which keeps that safe.
+is the global batch's, and only global rank 0 prints and saves (the model
+and the training state); on resume every rank reads the state, whose
+moments every rank holds whole. Under Full remat the ring's P2P runs
+again in each block's recompute; every rank recomputes the same blocks in
+the same order, which keeps that safe.
 
 When the cache check fails, the trainer first builds the cache on its
 device (``data/anima_cache.py``: the Qwen3 text encoder and the Wan VAE),
@@ -36,9 +40,8 @@ then frees the encoders before the DiT loads; a multi-rank run asks for
 the cache CLI instead, so that no two ranks write one cache.
 
 Not ported yet, and refused with an error when the config asks for them:
-resume (and the training-state file), "Conservative" checkpointing,
-preview sampling, pipeline/tensor parallelism, the line-art loss, video
-mode and int8 moments. There is no memory planner:
+"Conservative" checkpointing, preview sampling, pipeline/tensor
+parallelism, the line-art loss and video mode. There is no memory planner:
 masters are fp32. ``AOZORA_PROFILE_DIR`` traces micro steps 3-8
 (``train/profiling.py``).
 """
@@ -58,7 +61,8 @@ import torch.distributed as dist
 
 from ..ckpt.anima_checkpoint import (load_dit_state, resolve_save_prefix,
                                      save_dit_model)
-from ..ckpt.train_state import output_model_stem
+from ..ckpt.train_state import (check_resume_global_batch, load_train_state,
+                                 output_model_stem, save_train_state)
 from ..config.runtime import parse_exclude_targets
 from ..core.platform import resolve_device
 from ..data.anima_cache import (AnimaLatentDataset, check_if_anima_caching_needed,
@@ -182,8 +186,6 @@ def anima_remat_mode(config):
 
 def _refuse_unported(config) -> None:
     refused = (
-        (config.RESUME_TRAINING,
-         "RESUME_TRAINING: resume and the training-state file"),
         (int(getattr(config, "ANIMA_PREVIEW_EVERY_N_STEPS", 0) or 0) > 0,
          "ANIMA_PREVIEW_EVERY_N_STEPS: preview sampling"),
         (any(int(getattr(config, key, 1) or 1) > 1 for key in (
@@ -233,6 +235,25 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
           + "=" * 50 + "\n")
     print(f"INFO: Set random seed to {config.SEED}")
 
+    # ---- resume ----
+    micro_step = optimizer_step = 0
+    resume_meta, resume_opt_state = None, None
+    model_to_load = config.DIT_PATH
+    initial_sampler_seed = config.SEED
+    initial_ts_state = None
+    dit_layout = adamw.Layout(dit_mod.to_jax_layout, dit_mod.from_jax_layout)
+    if config.RESUME_TRAINING:
+        print("--- RESUMING TRAINING SESSION ---")
+        resume_meta, resume_opt_state = load_train_state(
+            config.ANIMA_RESUME_STATE_PATH, dit_layout)
+        global_step = int(resume_meta.get("global_step", 0))
+        micro_step = int(resume_meta.get(
+            "micro_step", global_step * config.GRADIENT_ACCUMULATION_STEPS))
+        optimizer_step = micro_step // config.GRADIENT_ACCUMULATION_STEPS
+        initial_sampler_seed = int(resume_meta.get("sampler_seed", config.SEED))
+        initial_ts_state = resume_meta.get("timestep_sampler_state")
+        model_to_load = config.ANIMA_RESUME_MODEL_PATH
+
     # ---- caching ----
     if check_if_anima_caching_needed(config):
         if shard.world_size() > 1:
@@ -248,7 +269,7 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
 
     # ---- model ----
     print("\n--- Loading Anima DiT ---")
-    state, detected_prefix = load_dit_state(config.DIT_PATH)
+    state, detected_prefix = load_dit_state(model_to_load)
     dit_cfg = _dit_config_for_state(state)
     save_prefix = resolve_save_prefix(config, detected_prefix)
     print(f"INFO: DiT key prefix: detected='{detected_prefix}' save='{save_prefix}'")
@@ -257,6 +278,8 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
     # ---- layout (decides the global batch the schedules use) ----
     layout = shard.resolve_mesh_layout(config)
     global_batch = layout.global_batch
+    if resume_meta is not None:
+        check_resume_global_batch(resume_meta, global_batch)
     mesh = _mesh_for(layout)
     # this rank's rows of each global batch
     rows = (slice(mesh.dp_rank * int(config.BATCH_SIZE),
@@ -266,11 +289,15 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
     # ---- schedules ----
     dataset = AnimaLatentDataset(config)
     ts_sampler = TimestepTicketSampler(config, batch_size=global_batch)
+    if initial_ts_state is not None:
+        ts_sampler.load_state_dict(initial_ts_state)
+    elif config.RESUME_TRAINING and micro_step > 0:
+        ts_sampler.set_current_step(micro_step)
     loss_weights = torch.as_tensor(
         curves.timestep_loss_curve_from_config(config, 1000), device=device)
     schedule = build_image_batch_schedule(
         dataset.bucket_keys, config.MAX_TRAIN_STEPS, global_batch,
-        config.SEED, ts_sampler.ticket_pool, ts_sampler.bin_ranges,
+        initial_sampler_seed, ts_sampler.ticket_pool, ts_sampler.bin_ranges,
         bool(getattr(config, "TIMESTEP_FORCE_IMAGE_BIN_SPREAD", False)))
     packed = pack_sample_schedule(schedule, global_batch)
     print(f"INFO: Precomputed batch schedule for {len(packed):,} step(s).")
@@ -315,7 +342,17 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
         compute_dtype=config.compute_dtype, remat=remat)
     micro_fn = make_anima_micro_step(step_cfg)
     apply_fn = make_apply_step(step_cfg, opt_cfg)
-    opt_state = adamw.init_state(trainable, opt_cfg)
+    # the restored moments are host tensors: they reach the device once,
+    # and no zero state is made beside them
+    if resume_opt_state is not None and set(trainable) <= set(resume_opt_state.exp_avg):
+        opt_state = adamw.restored_state(resume_opt_state, trainable, opt_cfg)
+        print("INFO: Restored optimizer state from resume checkpoint.")
+    else:
+        if resume_opt_state is not None:
+            print("WARNING: resumed optimizer state keys do not match the "
+                  "trainable set; starting with fresh moments.")
+        opt_state = adamw.init_state(trainable, opt_cfg, dit_layout)
+    del resume_opt_state
     seed = int(config.SEED or 42)
     print_optimizer_summary(config, opt_cfg, trainable, lr_curve.initial_lr,
                             device)
@@ -339,13 +376,14 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
             out[key] = torch.as_tensor(out[key][rows], device=device)
         return out
 
-    prefetcher = BatchPrefetcher(dataset, packed, transform=upload)
+    prefetcher = BatchPrefetcher(dataset, packed,
+                                 start_step=micro_step if config.RESUME_TRAINING else 0,
+                                 transform=upload)
     diag_losses: deque = deque(maxlen=config.GRADIENT_ACCUMULATION_STEPS)
     step_times: deque = deque(maxlen=50)
     optim_times: deque = deque(maxlen=20)
     start_time = last_step_time = last_optim_time = time.time()
     ga = config.GRADIENT_ACCUMULATION_STEPS
-    micro_step = optimizer_step = 0
     pending = None  # (micro_step, loss_dev, sigma_dev, ticket, optim_diag)
 
     def emit(pending_entry, s_per_step):
@@ -373,6 +411,16 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
     def save_model(path):
         save_dit_model(path, {**frozen, **trainable}, prefix=save_prefix,
                        dtype=config.compute_dtype)
+
+    def save_checkpoint(step):
+        stem = output_model_stem(config, config.DIT_PATH)
+        save_model(output_dir / f"{stem}_step_{step}.safetensors")
+        save_train_state(
+            output_dir / f"{stem}_training_state_step_{step}.safetensors",
+            global_step=step, micro_step=micro_step, opt_state=opt_state,
+            sampler_seed=initial_sampler_seed, sampler_epoch=0,
+            timestep_sampler_state=ts_sampler.state_dict(),
+            extra={"schedule_global_batch": global_batch})
 
     profiler = StepProfiler.from_env("anima") if is_main else StepProfiler(None)
     for batch in prefetcher:
@@ -425,10 +473,7 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
                           if forced and not scheduled else "Saving checkpoint")
                 reporter.log_message(
                     f"\n--- {reason} at optimizer step {optimizer_step} ---")
-                stem = output_model_stem(config, config.DIT_PATH)
-                save_model(output_dir / f"{stem}_step_{optimizer_step}.safetensors")
-                print("WARNING: the training-state file is not written: it is "
-                      "not ported to the PyTorch package yet")
+                save_checkpoint(optimizer_step)
 
         message = profiler.after_step(micro_step)
         if message:

@@ -101,7 +101,8 @@ def make_micro_step(cfg: TrainStepConfig):
 
 def make_apply_step(cfg: TrainStepConfig, opt_cfg: adamw.AdamWConfig):
     """apply_step(trainable, opt_state, lr) -> (raw_grad_norm, update_norm),
-    updating ``trainable`` and ``opt_state`` in place."""
+    updating ``trainable`` and ``opt_state`` in place, whatever its moments'
+    storage (bf16, fp32, or int8 codes and scales in the JAX layout)."""
     inv_ga = 1.0 / float(cfg.grad_accum_steps)
 
     @torch.no_grad()

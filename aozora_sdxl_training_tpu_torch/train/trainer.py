@@ -1,17 +1,19 @@
 """SDXL training loop for one CUDA device.
 
 Counterpart of ``aozora_sdxl_training_tpu/train/trainer.py::
-run_sdxl_training`` with the same phases and the same output: cache check
-and (re)build -> model load -> dataset, ticket sampler and schedule ->
-micro and apply steps -> progress lines and optimizer blocks -> scheduled /
-``force_save.flag`` saves and preview PNGs -> final merged save. The step
-runs eagerly on fp32 master weights with moments in the configured dtype
-and gradients accumulated in ``.grad``.
+run_sdxl_training`` with the same phases and the same output: resume
+(training-state file, counters, sampler state) -> cache check and
+(re)build -> model load -> dataset, ticket sampler and schedule -> micro
+and apply steps -> progress lines and optimizer blocks -> scheduled /
+``force_save.flag`` saves (model + training state) and preview PNGs ->
+final merged save. The step runs eagerly on fp32 master weights with
+moments in the configured dtype (bf16, fp32 or int8 blockwise) and
+gradients accumulated in ``.grad``. The training-state file is the JAX
+package's: a run resumes from either package's files.
 
 Not ported yet, and refused with an error when the config asks for them:
-resume (and the training-state file), tensor-parallel meshes, int8
-moments. There is no memory planner: remat follows
-``AOZORA_SDXL_REMAT`` (``off`` by default, or ``full``).
+tensor-parallel meshes, more than one process. There is no memory planner:
+remat follows ``AOZORA_SDXL_REMAT`` (``off`` by default, or ``full``).
 ``AOZORA_PROFILE_DIR`` traces micro steps 3-8 (``train/profiling.py``).
 """
 
@@ -27,7 +29,8 @@ import torch
 
 from ..ckpt.sd_checkpoint import (detect_unet_io_channels, load_sd_tensors,
                                   save_merged_checkpoint)
-from ..ckpt.train_state import output_model_stem
+from ..ckpt.train_state import (check_resume_global_batch, load_train_state,
+                                 output_model_stem, save_train_state)
 from ..core.platform import resolve_device
 from ..data.cache_builder import check_if_caching_needed, precompute_and_cache
 from ..data.dataset import (BatchPrefetcher, CachedLatentDataset,
@@ -35,7 +38,8 @@ from ..data.dataset import (BatchPrefetcher, CachedLatentDataset,
 from ..data.schedule import TimestepTicketSampler, build_image_batch_schedule
 from ..models.sdxl.arch import SDXL_BASE, UNetConfig
 from ..models.sdxl import vae as vae_mod
-from ..models.sdxl.conversion import params_from_sd_state
+from ..models.sdxl.conversion import (from_jax_layout, params_from_sd_state,
+                                      to_jax_layout)
 from ..opt import adamw
 from . import curves
 from .profiling import StepProfiler
@@ -122,6 +126,11 @@ def print_optimizer_summary(config, opt_cfg: adamw.AdamWConfig, trainable,
     print(f"  - Weight decay:        {opt_cfg.weight_decay:.8g}")
     print(f"  - Debias strength:     {opt_cfg.debias_strength:.8g}")
     print(f"  - Momentum state:      {device.type} {dtype_name}")
+    if opt_cfg.int8_state:
+        n_exempt = sum(1 for p in trainable.values()
+                       if p.numel() < opt_cfg.min_8bit_size)
+        print(f"  - Min 8-bit size:      {opt_cfg.min_8bit_size} "
+              f"({n_exempt} small tensor(s) keep fp32 state)")
     print("  - Update math:         FP32, in place, per tensor")
     print("=" * 58 + "\n")
     print(f"GUI_PARAM_INFO::Trainable: {n_elements:,} elements in "
@@ -197,10 +206,6 @@ def refuse_unported_master_dtype(config) -> None:
 
 def _refuse_unported(config) -> None:
     refuse_unported_master_dtype(config)
-    if config.RESUME_TRAINING:
-        raise NotImplementedError(
-            "RESUME_TRAINING: resume and the training-state file are not "
-            "ported to the PyTorch package yet")
     if int(getattr(config, "TENSOR_PARALLEL_SIZE", 1) or 1) > 1:
         raise NotImplementedError(
             "TENSOR_PARALLEL_SIZE > 1: meshes are not ported yet")
@@ -222,9 +227,27 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
 
     mode_str = ("RECTIFIED FLOW" if config.is_rectified_flow
                 else f"STANDARD SDXL ({config.PREDICTION_TYPE})")
+
+    # ---- resume ----
     micro_step = optimizer_step = 0
+    resume_meta, resume_opt_state = None, None
     model_to_load = Path(config.SINGLE_FILE_CHECKPOINT_PATH)
-    print("\n" + "=" * 50 + f"\n--- STARTING {mode_str} TRAINING ---\n" + "=" * 50 + "\n")
+    initial_sampler_seed = config.SEED
+    initial_ts_state = None
+    layout = adamw.Layout(to_jax_layout, from_jax_layout)
+    if config.RESUME_TRAINING:
+        print("\n" + "=" * 50 + "\n--- RESUMING TRAINING SESSION ---\n")
+        resume_meta, resume_opt_state = load_train_state(config.RESUME_STATE_PATH,
+                                                         layout)
+        global_step = int(resume_meta.get("global_step", 0))
+        micro_step = int(resume_meta.get(
+            "micro_step", global_step * config.GRADIENT_ACCUMULATION_STEPS))
+        optimizer_step = micro_step // config.GRADIENT_ACCUMULATION_STEPS
+        initial_sampler_seed = int(resume_meta.get("sampler_seed", config.SEED))
+        initial_ts_state = resume_meta.get("timestep_sampler_state")
+        model_to_load = Path(config.RESUME_MODEL_PATH)
+    else:
+        print("\n" + "=" * 50 + f"\n--- STARTING {mode_str} TRAINING ---\n" + "=" * 50 + "\n")
     print(f"INFO: Noise type: {getattr(config, 'NOISE_MODE', 'normal')}")
     print(f"INFO: Set random seed to {config.SEED}")
 
@@ -235,21 +258,28 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
     # ---- model config ----
     print("\n--- Loading Model ---")
     if unet_cfg is None:
-        unet_cfg = unet_config_for_checkpoint(model_to_load)
+        unet_cfg = unet_config_for_checkpoint(
+            model_to_load, sidecar_fallback=config.SINGLE_FILE_CHECKPOINT_PATH)
     print(f"INFO: Detected UNet configuration - in_channels: "
           f"{unet_cfg.in_channels}, out_channels: {unet_cfg.out_channels}")
-    global_batch = int(config.BATCH_SIZE)
+    global_batch = int(config.BATCH_SIZE)     # x dp, which is 1 here
+    if resume_meta is not None:
+        check_resume_global_batch(resume_meta, global_batch)
 
     # ---- schedules ----
     print("\n--- Initializing Dataset ---")
     dataset = CachedLatentDataset(config)
     print_dataset_resolution_sample(dataset)
     ts_sampler = TimestepTicketSampler(config, batch_size=global_batch)
+    if initial_ts_state is not None:
+        ts_sampler.load_state_dict(initial_ts_state)
+    elif config.RESUME_TRAINING and micro_step > 0:
+        ts_sampler.set_current_step(micro_step)
     loss_weights = torch.as_tensor(
         curves.timestep_loss_curve_from_config(config, 1000), device=device)
     image_schedule = build_image_batch_schedule(
         dataset.bucket_keys, config.MAX_TRAIN_STEPS, global_batch,
-        config.SEED, ts_sampler.ticket_pool, ts_sampler.bin_ranges,
+        initial_sampler_seed, ts_sampler.ticket_pool, ts_sampler.bin_ranges,
         bool(getattr(config, "TIMESTEP_FORCE_IMAGE_BIN_SPREAD", False)))
     packed_schedule = pack_sample_schedule(image_schedule, global_batch)
     print(f"INFO: Precomputed image batch schedule for {len(packed_schedule):,} step(s).")
@@ -306,7 +336,21 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
               f"DDIM/Euler steps)")
     micro_fn = make_micro_step(step_cfg)
     apply_fn = make_apply_step(step_cfg, opt_cfg)
-    opt_state = adamw.init_state(trainable, opt_cfg)
+    # restore or start fresh before any moment is on the device: the
+    # restored moments are host tensors, and a zero state made first would
+    # sit beside them
+    opt_state = None
+    if resume_opt_state is not None:
+        # moments of tensors that are not trainable now are left out
+        if set(trainable) <= set(resume_opt_state.exp_avg):
+            opt_state = adamw.restored_state(resume_opt_state, trainable, opt_cfg)
+            print("INFO: Restored optimizer state from resume checkpoint.")
+        else:
+            print("WARNING: Resume optimizer state does not match trainable set; "
+                  "starting moments fresh.")
+    if opt_state is None:
+        opt_state = adamw.init_state(trainable, opt_cfg, layout)
+    del resume_opt_state
     seed = int(config.SEED or 42)
     print_optimizer_summary(config, opt_cfg, trainable, lr_curve.initial_lr,
                             device)
@@ -321,7 +365,9 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
             out[key] = torch.as_tensor(out[key], device=device)
         return out
 
-    prefetcher = BatchPrefetcher(dataset, packed_schedule, transform=upload)
+    prefetcher = BatchPrefetcher(dataset, packed_schedule,
+                                 start_step=micro_step if config.RESUME_TRAINING else 0,
+                                 transform=upload)
     diag_losses: deque = deque(maxlen=config.GRADIENT_ACCUMULATION_STEPS)
     step_times: deque = deque(maxlen=50)
     optim_times: deque = deque(maxlen=20)
@@ -360,8 +406,12 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
                                {**frozen, **trainable},
                                config.SINGLE_FILE_CHECKPOINT_PATH,
                                config.compute_dtype)
-        print("WARNING: the training-state file is not written: it is not "
-              "ported to the PyTorch package yet")
+        save_train_state(
+            output_dir / f"{stem}_training_state_step_{step}.safetensors",
+            global_step=step, micro_step=micro_step, opt_state=opt_state,
+            sampler_seed=initial_sampler_seed, sampler_epoch=0,
+            timestep_sampler_state=ts_sampler.state_dict(),
+            extra={"schedule_global_batch": global_batch})
 
     profiler = StepProfiler.from_env("sdxl")
     for batch in prefetcher:

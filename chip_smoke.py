@@ -104,9 +104,28 @@ Phases, each of which exits non-zero on failure:
    lines (one set), finite losses, each rank's launch counts and the saved
    DiT. With one device it prints "anima_sp: skipped, 1 CUDA device".
 
+12. resume: the trainer phase's run takes the GUI's emergency save
+   (force_save.flag) at optimizer step 1, the merged model and the
+   training state (bf16 moments, the JAX package's format; the save is
+   left out of the step times); the SDXL CLI resumes from them for micro
+   steps 5-8 and is held against the unbroken run: the same tickets, every
+   moment restored on the card bit for bit, optimizer steps going on at 2,
+   the step-2 update magnitude within 1e-2, the peak memory at most 0.5 GB
+   above, and the losses within 5e-2 (the resumed masters are the bf16
+   model file's, which drops updates under half an ulp; the share of
+   weights it left at their base values is printed); the state's bytes
+   and the s to save, load and restore it are printed. Then
+   paged_adamw_8bit (int8 blockwise moments): one optimizer step with a
+   save and a one-step resume whose restored codes and scales must equal
+   the saved ones bit for bit; its apply step is printed beside the bf16
+   one. The anima phase's run does the same (save at step 1, resume for
+   micro steps 5-8). The free disk is printed and checked first; every
+   file goes once it has been used.
+
 `python3 chip_smoke.py --only anima_sp` runs the device, build and anima_sp
 phases alone (on a machine with several cards); `--only anima` runs the
-anima_cache and anima phases.
+anima_cache and anima phases; `--only resume` runs the trainer and anima
+phases with their resume parts.
 
 The second-to-last lines are the kernels JSON and the card's name and power
 limit; the last line is {"ok": true, "device": {...}}.
@@ -1343,9 +1362,13 @@ def step_times(marks: list, skip: int):
     leaving out the first ``skip`` micro steps (warm-up) and the apply
     steps among them. A micro step runs from the end of the step before it
     (micro or apply) to its own end, so it holds the host's work between
-    steps too."""
+    steps too; a checkpoint save (a "save" mark of ``timed_state_io`` at its
+    end) is left out of every step."""
     micro, apply_, n_micro, t_prev = [], [], 0, None
     for kind, t in marks:
+        if kind == "save":
+            t_prev = t
+            continue
         n_micro += kind == "micro"
         if n_micro > skip:
             (micro if kind == "micro" else apply_).append(t - t_prev)
@@ -1367,11 +1390,66 @@ class Tee(io.TextIOBase):
             st.flush()
 
 
+def host_moments(state) -> dict:
+    """A host copy of an optimizer state's moments: {field: {name: tuple of
+    tensors}} (an int8 moment's codes and scales, or a float moment)."""
+    return {field: {name: tuple(t.to("cpu", copy=True) for t in (m if isinstance(m, tuple) else (m,)))
+                    for name, m in getattr(state, field).items()}
+            for field in ("exp_avg", "exp_avg_sq")}
+
+
+def timed_state_io(torch, module, marks: list, record: dict):
+    """Wraps the trainer ``module``'s save_train_state and load_train_state
+    and ``opt.adamw.restored_state``, each call synced and timed into
+    ``record``: "save" [(s, file bytes)], "load" s, "restore" s (host to
+    device). A save appends ("save", its end) to ``marks``, so that
+    ``step_times`` leaves the checkpoint (model and state) out of the
+    steps. With ``record["snapshot"]`` set, host copies of the saved and of
+    the restored moments go into record["saved"] and record["restored"].
+    Returns a restore function."""
+    from aozora_sdxl_training_tpu_torch.opt import adamw
+    save, load, restored = module.save_train_state, module.load_train_state, adamw.restored_state
+
+    def save_train_state(path, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(path, **kwargs)
+        record.setdefault("save", []).append((time.perf_counter() - t0,
+                                              Path(path).stat().st_size))
+        if record.get("snapshot"):
+            record["saved"] = host_moments(kwargs["opt_state"])
+        marks.append(("save", time.perf_counter()))
+
+    def load_train_state(path, *args):
+        t0 = time.perf_counter()
+        out = load(path, *args)
+        record["load"] = time.perf_counter() - t0
+        return out
+
+    def restored_state(*args):
+        t0 = time.perf_counter()
+        state = restored(*args)
+        torch.cuda.synchronize()
+        record["restore"] = time.perf_counter() - t0
+        if record.get("snapshot"):
+            record["restored"] = host_moments(state)
+        return state
+
+    module.save_train_state, module.load_train_state = save_train_state, load_train_state
+    adamw.restored_state = restored_state
+
+    def restore():
+        module.save_train_state, module.load_train_state = save, load
+        adamw.restored_state = restored
+    return restore
+
+
 def run_trainer_cli(torch, cli_main, preset_path: Path, work_dir: Path, module,
-                    step_names, log_name: str):
+                    step_names, log_name: str, state_io: dict | None = None):
     """Runs a training CLI in ``work_dir`` with the flash launch counts set
-    to 0 just before and read just after, its steps timed and its stdout
-    kept. Returns (stdout, marks, launches, peak GB, wall s)."""
+    to 0 just before and read just after, its steps timed, its training
+    state's saves and loads timed into ``state_io`` (``timed_state_io``) and
+    its stdout kept. Returns (stdout, marks, launches, peak GB, wall s)."""
     import gc
     from aozora_sdxl_training_tpu_torch.ops import flash_attention as fa
     gc.collect()                  # an earlier trainer's weights, held in cycles
@@ -1380,12 +1458,14 @@ def run_trainer_cli(torch, cli_main, preset_path: Path, work_dir: Path, module,
     log = io.StringIO()
     marks = []
     restore = timed_steps(torch, module, step_names, marks)
+    restore_io = timed_state_io(torch, module, marks, {} if state_io is None else state_io)
     fa.reset_launch_counts()
     t0 = time.perf_counter()
     try:
         with contextlib.chdir(work_dir), contextlib.redirect_stdout(Tee(sys.stdout, log)):
             cli_main(["--config", str(preset_path)])
     finally:
+        restore_io()
         restore()
     wall = time.perf_counter() - t0
     launches = dict(fa.LAUNCHES)
@@ -1554,7 +1634,7 @@ def timed_previews(torch, sampler_module, record: list):
     return lambda: setattr(cls, "maybe_render", original)
 
 
-def trainer_phase(torch, work_dir: Path, steps: int):
+def trainer_phase(torch, work_dir: Path, steps: int, smi: str, resume: bool):
     phase("trainer")
     from PIL import Image
     from aozora_sdxl_training_tpu_torch.ckpt.safetensors_io import read_header
@@ -1597,14 +1677,23 @@ def trainer_phase(torch, work_dir: Path, steps: int):
     cache = cache_phase(torch, preset_path, work_dir, config)
 
     remat = trainer_module.sdxl_remat_mode()
+    if resume:
+        # the GUI's emergency save, taken at optimizer step 1: the resume
+        # phase resumes from its files
+        check_disk(work_dir, RESUME_FREE_GB["sdxl"], smi)
+        (work_dir / "force_save.flag").write_text("")
     previews: list = []
+    state_io: dict = {"snapshot": resume}
     restore = timed_previews(torch, sampler_module, previews)
     try:
         raw, marks, launches, peak_gb, wall = run_trainer_cli(
             torch, train_sdxl.main, preset_path, work_dir, trainer_module,
-            ("make_micro_step", "make_apply_step"), "chip_smoke_trainer.log")
+            ("make_micro_step", "make_apply_step"), "chip_smoke_trainer.log", state_io)
     finally:
         restore()
+    check(("Emergency checkpoint requested at optimizer step 1" in raw) == resume
+          and len(state_io.get("save", ())) == resume,
+          "the emergency save at optimizer step 1 did not happen as asked")
     losses = check_progress(raw, SDXL_PROGRESS, steps)
     check("preview sampling disabled" not in raw, "preview sampling was disabled")
     calls = SELF_ATTN_CALLS[64]
@@ -1634,6 +1723,10 @@ def trainer_phase(torch, work_dir: Path, steps: int):
     summary = step_summary(marks, steps, SDXL_FWD_FLOPS_1024, peak_gb, wall,
                            launches, losses, remat=remat or "off",
                            cache=cache, preview_s=previews)
+    if resume:
+        final.unlink()            # checked; the resumed runs write their own
+        summary["resume"] = sdxl_resume_phase(torch, work_dir, preset, raw, summary,
+                                              state_io, smi)
     return summary, launches
 
 
@@ -1972,7 +2065,7 @@ def anima_cache_phase(torch, preset_path: Path, work_dir: Path, config, smi: str
             "float64": f64, "card": smi}
 
 
-def anima_phase(torch, work_dir: Path, steps: int, smi: str):
+def anima_phase(torch, work_dir: Path, steps: int, smi: str, resume: bool):
     from aozora_sdxl_training_tpu_torch.cli import train_anima
     from aozora_sdxl_training_tpu_torch.train import anima_trainer
 
@@ -1982,10 +2075,17 @@ def anima_phase(torch, work_dir: Path, steps: int, smi: str):
                                          **inputs)
     cache = anima_cache_phase(torch, preset_path, work_dir, config, smi)
     phase("anima")
+    if resume:
+        check_disk(work_dir, RESUME_FREE_GB["anima"], smi)
+        (work_dir / "force_save.flag").write_text("")
+    state_io: dict = {"snapshot": resume}
     raw, marks, launches, peak_gb, wall = run_trainer_cli(
         torch, train_anima.main, preset_path, work_dir, anima_trainer,
-        ("make_anima_micro_step", "make_apply_step"), "chip_smoke_anima.log")
+        ("make_anima_micro_step", "make_apply_step"), "chip_smoke_anima.log", state_io)
     check("encoding" not in raw, "the trainer encoded the cache again")
+    check(("Emergency checkpoint requested at optimizer step 1" in raw) == resume
+          and len(state_io.get("save", ())) == resume,
+          "the emergency save at optimizer step 1 did not happen as asked")
     losses = check_progress(raw, ANIMA_PROGRESS, steps)
     calls = SELF_ATTN_CALLS[128]
     check_launches(launches, {"flash_fwd_d128": 2 * calls * steps,
@@ -2000,7 +2100,271 @@ def anima_phase(torch, work_dir: Path, steps: int, smi: str):
                            remat="full", forward_flops=fwd, cache=cache)
     check(peak_gb <= ANIMA_PEAK_GB + 0.5,
           f"peak {peak_gb:.2f} GB, above {ANIMA_PEAK_GB} GB (a synthetic cache's) + 0.5 GB")
+    if resume:
+        (work_dir / "out" / "smoke_anima.safetensors").unlink()
+        summary["resume"] = anima_resume_phase(
+            torch, work_dir, json.loads(preset_path.read_text()), raw, summary, state_io, smi)
     return summary, launches
+
+
+# --------------------------------------------------------------------------
+# 12 (within 7 and 8): resume, the training-state file and int8 moments at
+# full width
+# --------------------------------------------------------------------------
+
+# free disk each part needs at its peak, with room: SDXL the 6.94 GB random
+# checkpoint, a 6.94 GB merged model at optimizer step 1 beside its 9.1 GB
+# state, and a final model with its temporary copy; Anima 4.2 GB DiT
+# files and an 8.4 GB state
+RESUME_FREE_GB = {"sdxl": 40.0, "anima": 30.0}
+# The resumed run's masters are the model file's bf16 values, as in JAX and
+# the reference, and every loss of micro steps 5-8 is computed with them.
+# What must come back exactly comes back exactly (tickets, moments,
+# counters); the losses are held only against a wrong batch, ticket or
+# noise, which moves a loss by tens of percent (the unbroken run's micro
+# steps 5-8 span 0.33-0.89 at SDXL_BASE). The default preset's first
+# update (lr 8e-7) lies below half a bf16 ulp of most weights, so the
+# file drops most of it: the SDXL losses came back 0.5-1.2% above the
+# unbroken run's (the share of weights the file left unchanged is
+# printed).
+RESUME_LOSS_RTOL = 5e-2
+# Adam's step-2 update magnitude from the restored moments against the
+# unbroken run's; only the bf16-rounded weights' gradients differ
+RESUME_UPDATE_RTOL = 1e-2
+UPDATE_MAGNITUDE = re.compile(r"Update Magnitude\s*:\s*([\d.e+-]+)")
+
+
+def check_disk(work_dir: Path, need_gb: float, smi: str):
+    import shutil
+    free = shutil.disk_usage(work_dir).free / 1e9
+    print(f"  resume: [{smi}] {free:.1f} GB free at {work_dir} (needs {need_gb:.0f} GB)")
+    check(free >= need_gb, f"{free:.1f} GB free at {work_dir}: the resume phase "
+          f"writes up to {need_gb:.0f} GB there")
+
+
+def state_saved(label: str, state_io: dict, smi: str) -> dict:
+    ((save_s, nbytes),) = state_io["save"]
+    print(f"  [{smi}] {label}: training state {nbytes} B ({nbytes / 1e9:.3f} GB) "
+          f"saved in {save_s:.3f} s ({nbytes / 1e9 / save_s:.3f} GB/s)")
+    return {"state_bytes": nbytes, "save_s": save_s, "save_gb_per_s": nbytes / 1e9 / save_s}
+
+
+def unchanged_share(model: Path, base: Path, prefix: str) -> float:
+    """The share of the elements under ``prefix`` that the step-1 model
+    file holds unchanged from the base checkpoint."""
+    from aozora_sdxl_training_tpu_torch.ckpt.safetensors_io import read_header, read_tensor
+    import numpy as np
+    same = total = 0
+    for name in read_header(model):
+        if name.startswith(prefix):
+            a, b = read_tensor(model, name), read_tensor(base, name)
+            if a.dtype != b.dtype:
+                a, b = a.astype(np.float32), b.astype(np.float32)
+            same += int(np.count_nonzero(a == b))
+            total += a.size
+    return same / total
+
+
+def resume_from_step_1(torch, cli_main, module, step_names, preset: dict, mode: str,
+                       out_dir: Path, stem: str, work_dir: Path, name: str,
+                       base: Path | None = None, prefix: str = "", **overrides):
+    """The ``mode`` training CLI resumed from ``out_dir``'s files of
+    optimizer step 1 (``preset`` with the resume keys and ``overrides``);
+    checks that it resumes, restores the optimizer state and goes on at
+    optimizer step 2, then deletes the step-1 files (after measuring, with
+    ``base``, the share of ``prefix`` elements the model file left
+    unchanged). Returns (stdout, marks, launches, peak GB, wall s,
+    state_io with host copies of the restored moments, unchanged share)."""
+    import copy
+    model, state = (out_dir / f"{stem}{kind}_step_1.safetensors"
+                    for kind in ("", "_training_state"))
+    check(model.exists() and state.exists(), f"{name}: no step-1 files in {out_dir}")
+    resumed = copy.deepcopy(preset)
+    resumed[mode].update({f"{mode}_resume_training": True,
+                          f"{mode}_resume_model_path": str(model),
+                          f"{mode}_resume_state_path": str(state), **overrides})
+    path = work_dir / f"preset_{name}.json"
+    path.write_text(json.dumps(resumed, indent=1))
+    state_io = {"snapshot": True}
+    raw, marks, launches, peak_gb, wall = run_trainer_cli(
+        torch, cli_main, path, work_dir, module, step_names,
+        f"chip_smoke_{name}.log", state_io)
+    check("--- RESUMING TRAINING SESSION ---" in raw
+          and "INFO: Restored optimizer state from resume checkpoint." in raw,
+          f"{name}: the run did not resume and restore its optimizer state")
+    check(optimizer_steps(raw) == [2], f"{name}: optimizer steps {optimizer_steps(raw)}, not [2]")
+    share = unchanged_share(model, base, prefix) if base is not None else None
+    model.unlink()
+    state.unlink()
+    return raw, marks, launches, peak_gb, wall, state_io, share
+
+
+def lines(raw: str):
+    return [seg.strip() for chunk in raw.split("\n") for seg in chunk.split("\r")]
+
+
+def optimizer_steps(raw: str) -> list:
+    return [int(m.group(1)) for m in map(OPTIM_STEP.search, lines(raw)) if m]
+
+
+def progress_tickets(raw: str, pattern) -> dict:
+    """{micro step: its ticket} from the progress lines."""
+    return {int(m.group(1)): int(m.group(4)) for m in map(pattern.search, lines(raw)) if m}
+
+
+def same_moments(label: str, saved: dict, restored: dict) -> dict:
+    """Checks that the moments restored on the card equal the saved ones
+    bit for bit (host copies); returns the count of int8 and float moment
+    tensors."""
+    kinds = {"int8": 0, "float": 0}
+    for field, moments in saved.items():
+        for name, held in moments.items():
+            got = restored[field][name]
+            check(len(got) == len(held) and all(
+                a.dtype == b.dtype and a.shape == b.shape and bool((a == b).all())
+                for a, b in zip(got, held)),
+                f"{label}: the restored {field} of {name} differs from the saved one")
+            kinds["int8" if len(held) == 2 else "float"] += 1
+    return kinds
+
+
+def resumed_against_unbroken(label: str, raw: str, pattern, launches: dict, want: dict,
+                             unbroken_raw: str, unbroken: dict, peak_gb: float,
+                             saved_io: dict, state_io: dict, share, smi: str) -> dict:
+    """Holds a resumed run (micro steps 5-8) against the unbroken run:
+    the same tickets, the saved moments restored bit for bit, the step-2
+    update magnitude within RESUME_UPDATE_RTOL, the losses within
+    RESUME_LOSS_RTOL, the peak memory at most 0.5 GB above; prints them and
+    the load and restore times."""
+    losses = check_progress(raw, pattern, TRAIN_STEPS - GA)
+    check_launches(launches, want)
+    tickets, ref_tickets = progress_tickets(raw, pattern), progress_tickets(unbroken_raw, pattern)
+    check(tickets == {k: ref_tickets[k] for k in range(GA + 1, TRAIN_STEPS + 1)},
+          f"{label}: tickets {tickets} against the unbroken run's {ref_tickets}")
+    kinds = same_moments(label, saved_io["saved"], state_io["restored"])
+    update = float(UPDATE_MAGNITUDE.findall("\n".join(lines(raw)))[-1])
+    ref_update = float(UPDATE_MAGNITUDE.findall("\n".join(lines(unbroken_raw)))[-1])
+    update_rel = abs(update - ref_update) / ref_update
+    ref = unbroken["losses"][GA:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    print(f"  [{smi}] {label}: tickets of micro steps {GA + 1}-{TRAIN_STEPS} as the "
+          f"unbroken run's {list(tickets.values())}; {kinds['int8']} int8 and "
+          f"{kinds['float']} float moment tensors restored bit for bit")
+    print(f"  [{smi}] {label}: resumed losses (micro steps {GA + 1}-{TRAIN_STEPS}) {losses}")
+    print(f"  [{smi}] {label}: unbroken losses (micro steps {GA + 1}-{TRAIN_STEPS}) {ref}; "
+          f"largest relative difference {rel:.3e} (bar {RESUME_LOSS_RTOL}; the step-1 model "
+          f"file holds {share:.4%} of the model's elements, the frozen ones included, at "
+          f"the base checkpoint's values)")
+    print(f"  [{smi}] {label}: optimizer step 2 update magnitude {update:.4e} resumed, "
+          f"{ref_update:.4e} unbroken ({update_rel:.2e} apart, bar {RESUME_UPDATE_RTOL})")
+    print(f"  [{smi}] {label}: state loaded in {state_io['load']:.3f} s, restored to the "
+          f"card in {state_io['restore']:.3f} s; peak {peak_gb:.2f} GB resumed against "
+          f"{unbroken['max_memory_allocated_gb']:.2f} GB unbroken")
+    check(rel <= RESUME_LOSS_RTOL, f"{label}: resumed losses {losses} against {ref}")
+    check(update_rel <= RESUME_UPDATE_RTOL,
+          f"{label}: step-2 update magnitude {update} against {ref_update}")
+    check(peak_gb <= unbroken["max_memory_allocated_gb"] + 0.5,
+          f"{label}: resumed peak {peak_gb:.2f} GB, more than 0.5 GB above "
+          f"{unbroken['max_memory_allocated_gb']:.2f} GB")
+    return {"losses": losses, "unbroken_losses": ref, "max_rel_loss_diff": rel,
+            "update_magnitude": [update, ref_update], "moments": kinds,
+            "unchanged_share": share, "load_s": state_io["load"],
+            "restore_s": state_io["restore"], "max_memory_allocated_gb": peak_gb}
+
+
+def sdxl_resume_phase(torch, work_dir: Path, preset: dict, unbroken_raw: str,
+                      unbroken: dict, state_io: dict, smi: str) -> dict:
+    """SDXL_BASE resumed from the trainer phase's emergency save at optimizer
+    step 1 (bf16 moments) for micro steps 5-8; then paged_adamw_8bit (int8
+    moments): one optimizer step with a save, and a one-step resume that
+    must restore the saved codes and scales bit for bit."""
+    import copy
+    from aozora_sdxl_training_tpu_torch.cli import train_sdxl
+    from aozora_sdxl_training_tpu_torch.train import trainer as trainer_module
+    phase("resume")
+    steps = ("make_micro_step", "make_apply_step")
+    calls = SELF_ATTN_CALLS[64]
+    remat = trainer_module.sdxl_remat_mode()
+    # micro steps 5-8, and the preview at optimizer step 2
+    want = {"flash_fwd": calls * (2 if remat else 1) * (TRAIN_STEPS - GA) + calls * PREVIEW_STEPS,
+            "flash_bwd_dq": calls * (TRAIN_STEPS - GA),
+            "flash_bwd_dkv": calls * (TRAIN_STEPS - GA), "flash_fwd_f32_d512": 1}
+    base = Path(preset["sdxl"]["sdxl_base_model_path"])
+    out = {"sdxl_bf16": state_saved("SDXL_BASE, bf16 moments", state_io, smi)}
+    raw, _, launches, peak_gb, _, io, share = resume_from_step_1(
+        torch, train_sdxl.main, trainer_module, steps, preset, "sdxl", work_dir / "out",
+        "smoke", work_dir, "resume_sdxl", base=base, prefix="model.diffusion_model.")
+    out["sdxl_bf16"].update(resumed_against_unbroken(
+        "SDXL_BASE resumed", raw, SDXL_PROGRESS, launches, want, unbroken_raw, unbroken,
+        peak_gb, state_io, io, share, smi))
+    (work_dir / "out" / "smoke.safetensors").unlink()
+    del io, state_io
+
+    # paged_adamw_8bit: micro steps 1-4 and a save at optimizer step 1
+    int8 = copy.deepcopy(preset)
+    int8["sdxl"].update({"sdxl_optimizer_type": "paged_adamw_8bit",
+                         "sdxl_max_train_steps": GA,
+                         "sdxl_output_dir": str(work_dir / "out_int8")})
+    int8_path = work_dir / "preset_int8.json"
+    int8_path.write_text(json.dumps(int8, indent=1))
+    (work_dir / "force_save.flag").write_text("")
+    saved_io = {"snapshot": True}
+    raw, marks, _, peak_gb, _ = run_trainer_cli(
+        torch, train_sdxl.main, int8_path, work_dir, trainer_module, steps,
+        "chip_smoke_int8.log", saved_io)
+    check("Min 8-bit size" in raw and "Emergency checkpoint requested at optimizer step 1" in raw,
+          "the paged_adamw_8bit run did not take int8 moments and save at step 1")
+    losses = check_progress(raw, SDXL_PROGRESS, GA)
+    _, (apply_s,) = step_times(marks, skip=2)
+    row = state_saved("SDXL_BASE, paged_adamw_8bit (int8 moments)", saved_io, smi)
+    (work_dir / "out_int8" / "smoke.safetensors").unlink()
+    raw, marks, launches, peak2, _, io, _ = resume_from_step_1(
+        torch, train_sdxl.main, trainer_module, steps, int8, "sdxl", work_dir / "out_int8",
+        "smoke", work_dir, "resume_int8", sdxl_max_train_steps=TRAIN_STEPS)
+    resumed_losses = check_progress(raw, SDXL_PROGRESS, TRAIN_STEPS - GA)
+    check_launches(launches, want)
+    _, (apply2_s,) = step_times(marks, skip=2)
+    kinds = same_moments("SDXL_BASE, paged_adamw_8bit", saved_io["saved"], io["restored"])
+    check(kinds["int8"] > 0, "no int8 moment")
+    print(f"  [{smi}] SDXL_BASE, paged_adamw_8bit: restored codes and scales equal the "
+          f"saved ones bit for bit ({kinds['int8']} int8 and {kinds['float']} fp32 moment "
+          f"tensors); state loaded in {io['load']:.3f} s, restored to the card in "
+          f"{io['restore']:.3f} s")
+    bf16_apply = unbroken["mean_s_per_apply_step"]
+    print(f"  [{smi}] SDXL_BASE apply step (synced): int8 moments {apply_s:.4f} s (optimizer "
+          f"step 1), {apply2_s:.4f} s (step 2, resumed); bf16 moments {bf16_apply:.4f} s "
+          f"(mean of the trainer phase's two); peak {peak_gb:.2f} / {peak2:.2f} GB "
+          f"(bf16 moments: {unbroken['max_memory_allocated_gb']:.2f} GB); losses "
+          f"{losses} then {resumed_losses}")
+    (work_dir / "out_int8" / "smoke.safetensors").unlink()
+    out["sdxl_int8"] = {**row, "apply_s": [apply_s, apply2_s], "bf16_apply_s": bf16_apply,
+                        "losses": losses + resumed_losses, "moments": kinds,
+                        "max_memory_allocated_gb": [peak_gb, peak2],
+                        "load_s": io["load"], "restore_s": io["restore"]}
+    return out
+
+
+def anima_resume_phase(torch, work_dir: Path, preset: dict, unbroken_raw: str,
+                       unbroken: dict, state_io: dict, smi: str) -> dict:
+    """ANIMA_BASE resumed from the anima phase's emergency save at optimizer
+    step 1 (bf16 moments) for micro steps 5-8."""
+    from aozora_sdxl_training_tpu_torch.cli import train_anima
+    from aozora_sdxl_training_tpu_torch.train import anima_trainer
+    phase("resume (anima)")
+    calls = SELF_ATTN_CALLS[128]
+    n = TRAIN_STEPS - GA
+    out = state_saved("ANIMA_BASE, bf16 moments", state_io, smi)
+    raw, _, launches, peak_gb, _, io, share = resume_from_step_1(
+        torch, train_anima.main, anima_trainer, ("make_anima_micro_step", "make_apply_step"),
+        preset, "anima", work_dir / "out", "smoke_anima", work_dir, "resume_anima",
+        base=Path(preset["anima"]["anima_dit_model_path"]), prefix="pipe.dit.")
+    out.update(resumed_against_unbroken(
+        "ANIMA_BASE resumed", raw, ANIMA_PROGRESS, launches,
+        {"flash_fwd_d128": 2 * calls * n, "flash_bwd_dq_d128": calls * n,
+         "flash_bwd_dkv_d128": calls * n}, unbroken_raw, unbroken, peak_gb, state_io, io,
+        share, smi))
+    (work_dir / "out" / "smoke_anima.safetensors").unlink()
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -2098,7 +2462,8 @@ def anima_sp_rank(preset: str, out_dir: str) -> int:
 
 # --------------------------------------------------------------------------
 
-PHASES = ("kernels", "k5", "k6", "unet", "dit", "vae", "trainer", "anima", "anima_sp")
+PHASES = ("kernels", "k5", "k6", "unet", "dit", "vae", "trainer", "anima", "anima_sp",
+          "resume")
 USAGE = ("usage: chip_smoke.py [--only PHASE[,PHASE...]]   phases: " + ", ".join(PHASES)
          + "\n       chip_smoke.py --anima-sp-rank PRESET OUT_DIR   (one torchrun rank)")
 
@@ -2166,6 +2531,8 @@ def main(argv=None) -> int:
     elif args:
         print(USAGE, flush=True)
         return 2
+    if "resume" in only:          # resumes the trainer phases' runs
+        only |= {"trainer", "anima"}
     if not (REPO / PACKAGE / "csrc" / f"{SM90}.cu").exists():
         print(f"FAIL: {PACKAGE} not found beside chip_smoke.py; run it from "
               "the root of a checkout", flush=True)
@@ -2198,12 +2565,12 @@ def main(argv=None) -> int:
             summary["vae"], launches["vae"] = vae_phase(torch)
         if "trainer" in only:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-                summary["trainer"], launches["trainer"] = trainer_phase(torch, Path(tmp),
-                                                                        TRAIN_STEPS)
+                summary["trainer"], launches["trainer"] = trainer_phase(
+                    torch, Path(tmp), TRAIN_STEPS, smi, "resume" in only)
         if "anima" in only:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_anima_") as tmp:
-                summary["anima"], launches["anima"] = anima_phase(torch, Path(tmp),
-                                                                  TRAIN_STEPS, smi)
+                summary["anima"], launches["anima"] = anima_phase(
+                    torch, Path(tmp), TRAIN_STEPS, smi, "resume" in only)
         if "anima_sp" in only:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_anima_sp_") as tmp:
                 summary["anima_sp"] = anima_sp_phase(torch, Path(tmp), TRAIN_STEPS)

@@ -8,7 +8,9 @@
   with SP 1 (dp=2, ``BATCH_SIZE`` 1 per dp shard, so a global batch of 2).
   The SP run reproduces the one-process run at batch 1 and the dp run the
   one-process run at batch 2: per-step losses and the saved DiT. Only
-  global rank 0 prints the GUI lines and saves.
+  global rank 0 prints the GUI lines and saves; the dp run saves at each
+  optimizer step, the DiT and the training state (``schedule_global_batch``
+  2), and a trainer whose global rank is not 0 writes no file at all.
   ``tests/test_torch_port_anima_trainer.py`` holds the one-process run
   against the JAX trainer.
 * The port's ``resolve_mesh_layout`` against the JAX function under
@@ -37,6 +39,7 @@ import pytest
 
 from aozora_sdxl_training_tpu.parallel import sharding as jax_shard
 from aozora_sdxl_training_tpu_torch.ckpt.safetensors_io import load_all, read_header
+from aozora_sdxl_training_tpu_torch.ckpt.train_state import load_train_state
 from aozora_sdxl_training_tpu_torch.config import schema
 from aozora_sdxl_training_tpu_torch.config.runtime import RuntimeConfig
 from aozora_sdxl_training_tpu_torch.data.synthetic import (
@@ -45,6 +48,7 @@ from aozora_sdxl_training_tpu_torch.models.anima import dit as port_dit
 from aozora_sdxl_training_tpu_torch.parallel import sharding as port_shard
 
 from tests.test_torch_port_ranks import launch, run_task, world_env
+from tests.test_torch_port_trainer import one_thread
 
 CFG = replace(port_dit.TINY_ANIMA, in_channels=4, out_channels=4, adapter_vocab=128)
 STEPS, GA, LR = 4, 2, 1e-4
@@ -67,12 +71,14 @@ ANIMA_PROGRESS = re.compile(
     r'\s*Ticket:\s*(\d+),\s*Sigma:\s*([\d.e+-]+)\]')
 # name: (ranks, BATCH_SIZE, SEQUENCE_PARALLEL_SIZE)
 RUNS = {"one_b1": (1, 1, 1), "one_b2": (1, 2, 1), "sp2": (2, 1, 2), "dp2": (2, 1, 1)}
+SAVING = "dp2"      # the run that saves at each optimizer step
 
 
 def _flat(root: Path, name: str, batch: int, sp: int) -> dict:
     return {**FLAT, "DIT_PATH": str(root / "tiny_dit.safetensors"),
             "OUTPUT_DIR": str(root / name), "BATCH_SIZE": batch,
             "SEQUENCE_PARALLEL_SIZE": sp,
+            "SAVE_EVERY_N_STEPS": 1 if name == SAVING else 0,
             "INSTANCE_DATASETS": [{"path": str(root / "data"), "repeats": 1}]}
 
 
@@ -125,7 +131,16 @@ def test_only_global_rank_0_prints_and_saves(runs, name):
     assert "All tasks complete" in out[name][0]
     for other in out[name][1:]:
         assert _progress(other) == [] and other.strip() == ""
-    assert sorted(p.name for p in (root / name).glob("*.safetensors")) == ["anima_run.safetensors"]
+    saved = ["anima_run.safetensors"]
+    if name == SAVING:
+        saved += [f"anima_run{kind}_step_{n}.safetensors"
+                  for kind in ("", "_training_state") for n in (1, 2)]
+        for n in (1, 2):
+            meta, state = load_train_state(
+                root / name / f"anima_run_training_state_step_{n}.safetensors")
+            assert meta["global_step"] == state.step == n
+            assert meta["micro_step"] == n * GA and meta["schedule_global_batch"] == 2
+    assert sorted(p.name for p in (root / name).glob("*.safetensors")) == sorted(saved)
     if RUNS[name][2] > 1:
         assert "Sequence parallelism: DiT self-attention tokens shard over sp=2" in out[name][0]
 
@@ -222,3 +237,18 @@ def test_sdxl_trainer_refuses_more_than_one_process(monkeypatch):
     config = RuntimeConfig({**FLAT, "TRAINING_MODE": "SDXL"}, validate_resume_paths=False)
     with pytest.raises(NotImplementedError, match="WORLD_SIZE > 1"):
         trainer._refuse_unported(config)
+
+
+def test_a_rank_other_than_0_writes_no_file(runs, monkeypatch):
+    """The save guard itself: the trainer in one process, told its global
+    rank is 1, trains and writes neither a DiT nor a training state."""
+    from aozora_sdxl_training_tpu_torch.train import anima_trainer
+    root, _ = runs
+    monkeypatch.chdir(root)
+    monkeypatch.setenv("AOZORA_PLATFORM", "cpu")
+    monkeypatch.setattr(anima_trainer.shard, "global_rank", lambda: 1)
+    config = RuntimeConfig({**_flat(root, "rank1", 1, 1), "SAVE_EVERY_N_STEPS": 1},
+                           validate_resume_paths=False)
+    with one_thread():
+        anima_trainer.run_anima_training(config, device="cpu")
+    assert list((root / "rank1").iterdir()) == []

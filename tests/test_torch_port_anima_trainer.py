@@ -7,12 +7,17 @@
 * a short run: the JAX trainer and the port's CLI (on the CPU, with
   ``AOZORA_PLATFORM=cpu``) train one TINY DiT checkpoint on one cache for
   4 micro steps at GA 2, with one numpy noise table patched into both
-  packages' noise functions, and their losses and saved DiTs agree;
+  packages' noise functions, and their losses and saved DiTs agree; the
+  port saves at each optimizer step and, within the same patches, resumes
+  from optimizer step 1's files with the unbroken run's losses;
 * the CLI refuses to run without CUDA unless asked for the CPU, and every
   option the port does not have yet is refused by name.
 """
 
+import contextlib
+import io
 import json
+import re
 from pathlib import Path
 from unittest import mock
 
@@ -46,6 +51,7 @@ from aozora_sdxl_training_tpu_torch.train import anima_trainer as port_trainer
 from aozora_sdxl_training_tpu_torch.train import objectives as port_sdxl_obj
 
 from tests.test_torch_port_anima_dit import numpy_params
+from tests.test_torch_port_trainer import one_thread
 
 CFG = jax_dit.TINY_ANIMA
 LAT, LS, STEPS, GA = 8, 12, 4, 2
@@ -227,20 +233,50 @@ def runs(tmp_path_factory):
                            "check_if_anima_caching_needed", return_value=False):
             run_anima_training(JaxConfig(_flat(root, "out_jax"),
                                          validate_resume_paths=False))
-            preset = root / "preset.json"
-            preset.write_text(json.dumps(schema.nest_flat_config(
-                _flat(root, "out_port"), "anima")))
-            port_cli.main(["--config", str(preset)])
-    return root, np_params, jax_losses, port_losses
+            stdout = {}
+            for name, flat in (
+                    ("port", _flat(root, "out_port", SAVE_EVERY_N_STEPS=1)),
+                    ("resumed", _flat(
+                        root, "out_resumed", SAVE_EVERY_N_STEPS=1, RESUME_TRAINING=True,
+                        ANIMA_RESUME_MODEL_PATH=str(root / "out_port" / "anima_run_step_1.safetensors"),
+                        ANIMA_RESUME_STATE_PATH=str(
+                            root / "out_port" / "anima_run_training_state_step_1.safetensors")))):
+                preset = root / f"{name}.json"
+                preset.write_text(json.dumps(schema.nest_flat_config(flat, "anima")))
+                out = io.StringIO()
+                with one_thread(), contextlib.redirect_stdout(out):
+                    port_cli.main(["--config", str(preset)])
+                stdout[name] = out.getvalue()
+    return root, np_params, jax_losses, port_losses, stdout
 
 
 def test_losses_match_jax_trainer(runs):
     """Per-micro-step losses. Both compute the DiT in bf16, rounding at
     different places (XLA fusions vs eager ops): rtol 1e-2."""
-    _, _, jax_losses, port_losses = runs
-    assert len(port_losses) == len(jax_losses) == STEPS
+    _, _, jax_losses, port_losses, _ = runs
+    assert len(port_losses) == STEPS + STEPS - GA and len(jax_losses) == STEPS
     assert all(np.isfinite(port_losses))
-    np.testing.assert_allclose(port_losses, jax_losses, rtol=1e-2)
+    np.testing.assert_allclose(port_losses[:STEPS], jax_losses, rtol=1e-2)
+
+
+def test_resumed_run_reproduces_the_unbroken_run(runs):
+    """Resumed from optimizer step 1's DiT and training state, the port runs
+    micro steps 3-4 with the unbroken run's losses: rtol 1e-2 (the DiT file
+    holds bf16-rounded masters, 2^-9 of a weight at most, which moves a
+    TINY loss by well under 1%); the optimizer step counter goes on at 2,
+    and the step-2 files are written beside the final DiT."""
+    root, _, _, port_losses, stdout = runs
+    got, want = port_losses[STEPS:], port_losses[GA:STEPS]
+    print(f"first resumed step's loss {got[0]!r} against {want[0]!r} (relative "
+          f"difference {abs(got[0] - want[0]) / want[0]:.3e})")
+    np.testing.assert_allclose(got, want, rtol=1e-2)
+    out = stdout["resumed"]
+    assert "--- RESUMING TRAINING SESSION ---" in out
+    assert "INFO: Restored optimizer state from resume checkpoint." in out
+    assert [int(m) for m in re.findall(r"--- Optimizer Step: (\d+)", out)] == [2]
+    assert sorted(p.name for p in (root / "out_resumed").glob("*.safetensors")) == [
+        "anima_run.safetensors", "anima_run_step_2.safetensors",
+        "anima_run_training_state_step_2.safetensors"]
 
 
 def test_saved_dit_matches_jax_trainer(runs):
@@ -252,7 +288,7 @@ def test_saved_dit_matches_jax_trainer(runs):
     bf16 ulp from the save; the whole update has the same norm (within 1%)
     and direction (cosine >= 0.95). The frozen t_embedder tensors are
     bit-identical."""
-    root, np_params, _, _ = runs
+    root, np_params, _, _, _ = runs
     port = load_all(root / "out_port" / "anima_run.safetensors")
     ref = load_all(root / "out_jax" / "anima_run.safetensors")
     assert port.keys() == ref.keys() == {f"pipe.dit.{k}" for k in np_params}
@@ -278,7 +314,7 @@ def test_saved_dit_matches_jax_trainer(runs):
 
 
 def test_dit_config_read_off_the_checkpoint_matches_jax(runs):
-    root, _, _, _ = runs
+    root = runs[0]
     state, prefix = port_ckpt.load_dit_state(root / "tiny_dit.safetensors")
     assert prefix == "pipe.dit."
     got = port_trainer._dit_config_for_state(state)
@@ -371,7 +407,6 @@ def test_cli_raises_without_cuda_unless_cpu_is_asked_for(monkeypatch):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    ({"RESUME_TRAINING": True}, "resume"),
     ({"ANIMA_GRADIENT_CHECKPOINTING_MODE": "Conservative"}, "Conservative"),
     ({"ANIMA_PREVIEW_EVERY_N_STEPS": 2}, "preview"),
     # sequence parallelism is ported; combined with TP it is refused by TP
@@ -380,7 +415,6 @@ def test_cli_raises_without_cuda_unless_cpu_is_asked_for(monkeypatch):
     ({"TENSOR_PARALLEL_SIZE": 2}, "PARALLEL"),
     ({"ANIMA_REPAIR_LINEART_LOSS_ENABLED": True}, "line-art"),
     ({"ANIMA_VIDEO_FRAMES": 5}, "video"),
-    ({"OPTIMIZER_TYPE": "paged_adamw_8bit"}, "int8"),
 ])
 def test_unported_options_are_refused(tmp_path, overrides, match):
     _build_env(tmp_path)

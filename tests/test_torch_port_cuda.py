@@ -22,7 +22,9 @@ kernels a call; NCHW, one), in bf16 and fp32, at a ragged HW, at C=320
 (groups of 10 channels), at a width the 16-byte loads do not divide, at
 the widest SDXL_BASE site (whose fp32 slices outgrow shared memory) and at
 a large mean; two calls must agree bitwise, and the TINY UNet's fused_gn
-route must agree with its unfused one.
+route must agree with its unfused one. An optimizer state with bf16 and
+with int8 blockwise moments, updated on the card, goes through the
+training-state file and back onto the card bit for bit.
 
 Tolerances: the bf16 kernels multiply bf16 operands on the tensor cores
 with fp32 accumulation, so their outputs are held at 2e-2 of unit-scale
@@ -541,3 +543,44 @@ def test_anima_cache_encoders_match_the_cpu_on_card(cuda_device):
                     tile_stride=(3, 3)))))
     for want, got in zip(*outs):
         assert _rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("momentum", ["bfloat16", "int8_blockwise"])
+def test_train_state_round_trip_on_card(cuda_device, tmp_path, momentum):
+    """Moments made on the card by two AdamW steps (int8 codes in the JAX
+    layout, fp32 for the tensor under min_8bit_size) are saved with
+    save_train_state and restored onto the card by load_train_state and
+    restored_state: equal bit for bit, the metadata too."""
+    from aozora_sdxl_training_tpu_torch.ckpt.train_state import (
+        load_train_state, save_train_state)
+    from aozora_sdxl_training_tpu_torch.models.sdxl import conversion
+    from aozora_sdxl_training_tpu_torch.opt import adamw
+    layout = adamw.Layout(conversion.to_jax_layout, conversion.from_jax_layout)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    shapes = {"conv.weight": (40, 24, 3, 3), "proj.weight": (300, 70), "norm.weight": (77,)}
+    params = {n: torch.randn(s, generator=g, device=cuda_device) for n, s in shapes.items()}
+    cfg = adamw.AdamWConfig.from_params_dict({"momentum_dtype": momentum,
+                                              "min_8bit_size": 1000})
+    state = adamw.init_state(params, cfg, layout)
+    for _ in range(2):
+        grads = {n: torch.randn(p.shape, generator=g, device=cuda_device) * 0.1
+                 for n, p in params.items()}
+        adamw.apply_updates(params, grads, state, cfg, lr=1e-3)
+    meta = dict(global_step=2, micro_step=8, sampler_seed=5, sampler_epoch=0,
+                timestep_sampler_state={"pool_index": 8})
+    save_train_state(tmp_path / "state.safetensors", opt_state=state,
+                     extra={"schedule_global_batch": 1}, **meta)
+    got_meta, host = load_train_state(tmp_path / "state.safetensors", layout)
+    assert got_meta == {**meta, "schedule_global_batch": 1}
+    back = adamw.restored_state(host, params, cfg)
+    assert back.step == state.step == 2
+    for field in ("exp_avg", "exp_avg_sq"):
+        for name, want in getattr(state, field).items():
+            got = getattr(back, field)[name]
+            pairs = zip(got, want) if isinstance(want, tuple) else [(got, want)]
+            assert isinstance(want, tuple) == (momentum == "int8_blockwise"
+                                               and name != "norm.weight")
+            for a, b in pairs:
+                assert a.device.type == "cuda" and a.dtype == b.dtype
+                assert torch.equal(a, b), f"{field} {name}"

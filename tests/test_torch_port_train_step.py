@@ -132,11 +132,6 @@ def test_adamw_trajectory_matches_jax_on_mixed_tree():
                                    rtol=8e-3, atol=1e-9, err_msg=k)
 
 
-def test_int8_moments_are_refused():
-    with pytest.raises(NotImplementedError):
-        port_adamw.AdamWConfig.from_params_dict({"momentum_dtype": "int8_blockwise"})
-
-
 # --------------------------------------------------------------------------
 # Micro steps + apply step on the TINY UNet
 # --------------------------------------------------------------------------

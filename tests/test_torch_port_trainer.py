@@ -6,12 +6,19 @@ Both run on one TINY checkpoint (numpy weights written in SD keys with an
 into both packages' noise functions. The port runs through its CLI on the
 CPU (``AOZORA_PLATFORM=cpu``); the JAX trainer on one CPU device.
 
+Both save at each optimizer step (model + training state). Within the
+same patches the port's CLI then resumes twice from optimizer step 1: from
+its own files and from the JAX trainer's.
+
 Also here: the port's cache check accepts the synthetic dataset (as does
 the JAX package's), the CLI refuses to run without CUDA unless asked for
 the CPU, and no module of the port imports JAX.
 """
 
+import contextlib
+import io
 import json
+import re
 import subprocess
 import sys
 from dataclasses import asdict
@@ -32,7 +39,7 @@ from aozora_sdxl_training_tpu.models.sdxl.arch import TINY
 from aozora_sdxl_training_tpu.train import objectives as jax_obj
 from aozora_sdxl_training_tpu.train.trainer import run_sdxl_training
 from aozora_sdxl_training_tpu_torch.ckpt.safetensors_io import (
-    load_all, read_header, write_streaming)
+    load_all, read_header, read_metadata, write_streaming)
 from aozora_sdxl_training_tpu_torch.cli import train_sdxl as port_cli
 from aozora_sdxl_training_tpu_torch.config import schema
 from aozora_sdxl_training_tpu_torch.config.runtime import RuntimeConfig
@@ -98,11 +105,43 @@ def _build_env(root: Path):
     return ckpt
 
 
-def _flat(root: Path, out: str) -> dict:
+def _flat(root: Path, out: str, **overrides) -> dict:
     return {**FLAT,
             "SINGLE_FILE_CHECKPOINT_PATH": str(root / "base.safetensors"),
             "OUTPUT_DIR": str(root / out),
-            "INSTANCE_DATASETS": [{"path": str(root / "data"), "repeats": 1}]}
+            "INSTANCE_DATASETS": [{"path": str(root / "data"), "repeats": 1}],
+            **overrides}
+
+
+def _resume_flat(root: Path, out: str, source: str) -> dict:
+    """Resume from ``source``'s files of optimizer step 1, into ``out``."""
+    return _flat(root, out, RESUME_TRAINING=True,
+                 RESUME_MODEL_PATH=str(root / source / "run_step_1.safetensors"),
+                 RESUME_STATE_PATH=str(root / source / "run_training_state_step_1.safetensors"))
+
+
+@contextlib.contextmanager
+def one_thread():
+    """Torch's CPU kernels on one thread. A TINY port run is thousands of
+    small eager ops, and a suite of several workers, each with a thread a
+    core, oversubscribes the cores: one run took ~3 s on one thread and
+    ~650 s on eight with six runs at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _run_port_cli(root: Path, name: str, flat: dict) -> str:
+    """The port's SDXL CLI on ``flat`` (on one thread); returns its stdout."""
+    preset = root / f"{name}.json"
+    preset.write_text(json.dumps(schema.nest_flat_config(flat, "sdxl")))
+    out = io.StringIO()
+    with one_thread(), contextlib.redirect_stdout(out):
+        port_cli.main(["--config", str(preset)])
+    return out.getvalue()
 
 
 def _recording(reporter_cls, losses):
@@ -116,6 +155,10 @@ def _recording(reporter_cls, losses):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
+    """The JAX and port runs, then the port resumed from its own step-1 files
+    ("resumed") and from the JAX run's ("from_jax"). Returns (root, JAX
+    losses, port losses, {resumed run: stdout}); the port's losses are the
+    unbroken run's 4 micro steps, then each resumed run's 2."""
     root = tmp_path_factory.mktemp("port_trainer")
     _build_env(root)
     noise = np.random.default_rng(5).normal(
@@ -137,24 +180,23 @@ def runs(tmp_path_factory):
                         "check_if_caching_needed", return_value=False), \
                 mock.patch("aozora_sdxl_training_tpu_torch.train.trainer."
                            "check_if_caching_needed", return_value=False):
-            run_sdxl_training(JaxConfig(_flat(root, "out_jax"),
+            run_sdxl_training(JaxConfig(_flat(root, "out_jax", SAVE_EVERY_N_STEPS=1),
                                         validate_resume_paths=False),
                               unet_cfg=TINY)
-            preset = root / "preset.json"
-            preset.write_text(json.dumps(schema.nest_flat_config(
-                _flat(root, "out_port"), "sdxl")))
-            port_cli.main(["--config", str(preset)])
-    return root, jax_losses, port_losses
+            _run_port_cli(root, "preset", _flat(root, "out_port", SAVE_EVERY_N_STEPS=1))
+            resumed = {name: _run_port_cli(root, name, _resume_flat(root, f"out_{name}", source))
+                       for name, source in (("resumed", "out_port"), ("from_jax", "out_jax"))}
+    return root, jax_losses, port_losses, resumed
 
 
 def test_losses_match_jax_trainer(runs):
     """Per-micro-step losses. Both compute the UNet in bf16, rounding at
     different places (XLA fusions vs eager ops); over a TINY forward that
     moves the loss by well under 1%: rtol 1e-2."""
-    _, jax_losses, port_losses = runs
-    assert len(port_losses) == len(jax_losses) == STEPS
+    _, jax_losses, port_losses, _ = runs
+    assert len(port_losses) == STEPS + 2 * (STEPS - GA) and len(jax_losses) == STEPS
     assert all(np.isfinite(port_losses))
-    np.testing.assert_allclose(port_losses, jax_losses, rtol=1e-2)
+    np.testing.assert_allclose(port_losses[:STEPS], jax_losses, rtol=1e-2)
 
 
 def test_merged_checkpoint_matches_jax_trainer(runs):
@@ -171,7 +213,7 @@ def test_merged_checkpoint_matches_jax_trainer(runs):
     1%), and its direction differs only where gradients sit below the bf16
     compute noise (cosine >= 0.95). The frozen conv1/conv2 tensors are
     bit-identical."""
-    root, _, _ = runs
+    root, _, _, _ = runs
     port = load_all(root / "out_port" / "run.safetensors")
     ref = load_all(root / "out_jax" / "run.safetensors")
     base = load_all(root / "base.safetensors")
@@ -195,6 +237,53 @@ def test_merged_checkpoint_matches_jax_trainer(runs):
     norm_port, norm_ref = np.linalg.norm(upd_port), np.linalg.norm(upd_ref)
     assert norm_port == pytest.approx(norm_ref, rel=1e-2)
     assert upd_port @ upd_ref / (norm_port * norm_ref) >= 0.95
+
+
+@pytest.mark.parametrize("name,source", [("resumed", "port"), ("from_jax", "jax")])
+def test_resumed_run_reproduces_the_unbroken_run(runs, name, source):
+    """The port resumed from optimizer step 1's files (its own, or the JAX
+    trainer's) runs micro steps 3-4 and optimizer step 2 with the unbroken
+    run's losses: rtol 1e-2. The model file holds bf16-rounded masters (as
+    in JAX and the reference), so the resumed run starts from weights up to
+    2^-9 of their size away; over the TINY UNet that moves a loss by well
+    under 1%, as does the bf16 compute the tolerance already covers."""
+    _, jax_losses, port_losses, resumed = runs
+    unbroken = (port_losses if source == "port" else jax_losses)[GA:STEPS]
+    start = STEPS + (0 if name == "resumed" else STEPS - GA)
+    got = port_losses[start:start + STEPS - GA]
+    print(f"{name}: first resumed step's loss {got[0]!r} against {unbroken[0]!r} "
+          f"(relative difference {abs(got[0] - unbroken[0]) / unbroken[0]:.3e})")
+    np.testing.assert_allclose(got, unbroken, rtol=1e-2)
+    out = resumed[name]
+    assert "--- RESUMING TRAINING SESSION ---" in out
+    assert "INFO: Restored optimizer state from resume checkpoint." in out
+    steps = [int(m) for m in re.findall(r"--- Optimizer Step: (\d+)", out)]
+    assert steps == [2]
+
+
+def test_state_files_match_jax_trainer(runs):
+    """Both trainers' step-1 training states: the same tensors (bf16
+    moments in the JAX layout, ``opt.step``; the JAX file orders them by
+    name) and metadata, and moments that
+    point the same way (bf16 compute noise apart: cosine >= 0.99)."""
+    root = runs[0]
+    name = "run_training_state_step_1.safetensors"
+    port_file, jax_file = root / "out_port" / name, root / "out_jax" / name
+    specs = [{k: (v["dtype"], v["shape"]) for k, v in read_header(f).items()}
+             for f in (port_file, jax_file)]
+    assert specs[0] == specs[1]
+    meta = json.loads(read_metadata(port_file)["json"])
+    assert meta == json.loads(read_metadata(jax_file)["json"])
+    assert meta["global_step"] == 1 and meta["micro_step"] == GA
+    assert meta["schedule_global_batch"] == 1 and meta["sampler_seed"] == FLAT["SEED"]
+    port, ref = load_all(port_file), load_all(jax_file)
+    assert int(port["opt.step"]) == int(ref["opt.step"]) == 1
+    for prefix in ("m.", "v."):
+        keys = [k for k in ref if k.startswith(prefix)]
+        assert keys and all(ref[k].dtype == ml_dtypes.bfloat16 for k in keys)
+        a = np.concatenate([np.asarray(port[k], np.float32).ravel() for k in keys])
+        b = np.concatenate([np.asarray(ref[k], np.float32).ravel() for k in keys])
+        assert a @ b / (np.linalg.norm(a) * np.linalg.norm(b)) >= 0.99
 
 
 def test_cache_check_accepts_synthetic_dataset(tmp_path):
