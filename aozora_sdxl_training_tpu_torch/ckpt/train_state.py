@@ -11,6 +11,11 @@ so nothing else is needed to resume.
 Moments are stored in the JAX package's layout (conv HWIO, linear (in,
 out)): a float moment is viewed in it on the way out and back on the way
 in (the optimizer state's ``Layout``); int8 codes are held in it already.
+The file holds no master weight (those go in the model file), so bf16 and
+fp32 masters save and resume alike; a run whose memory plan downgraded its
+moments to int8 blockwise saves codes and scales, and resumes from them
+under the same plan (``opt.adamw.restored_state`` checks each moment's
+storage against the optimizer's).
 
 Filenames mirror the reference:
 ``{stem}_step_{N}.safetensors`` + ``{stem}_training_state_step_{N}.safetensors``.

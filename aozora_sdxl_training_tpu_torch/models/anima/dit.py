@@ -23,8 +23,13 @@ padded to 512 tokens.
   an ``SPRingConfig`` (sequence parallelism) the self-attention goes
   through ``ops.ring_attention.sp_ring_attention`` at any length, and the
   other sites take its ``base_impl`` locally.
-* ``remat`` True/"full" wraps each block in ``torch.utils.checkpoint``; the
-  JAX package's "conservative" policy is not ported yet.
+* ``remat`` True/"full" wraps each block in ``torch.utils.checkpoint``;
+  "conservative" (the reference's selective checkpointing, JAX's
+  ``make_block_fn``) keeps only the MLP down-projection ("mlp_down") and
+  the flash kernel's (out, lse) ("flash_out", "flash_lse"), through the
+  selective policy of ``ops/remat.py``, so that the backward recomputes the
+  rest of the block but neither the down-projection's GEMM nor the flash
+  forward. Under sequence parallelism the ring names nothing, as in JAX.
 """
 
 from __future__ import annotations
@@ -35,10 +40,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import attention
 from ...ops.ring_attention import SPRingConfig, sp_ring_attention
+from ...ops.remat import linear_kept, remat as remat_region
 
 Params = dict[str, torch.Tensor]
 
@@ -227,7 +232,11 @@ def dit_block(params: Params, prefix: str, x, emb, context, rope, adaln_lora,
     # MLP (GPT2FeedForward: linear -> exact GELU -> linear, no biases)
     shift, scale, gate = mod("adaln_modulation_mlp")
     hmid = F.gelu(_linear(params, f"{prefix}.mlp.layer1", norm_mod(x, shift, scale)))
-    out = _linear(params, f"{prefix}.mlp.layer2", hmid)
+    # named "mlp_down": the "conservative" policy keeps the wide->narrow
+    # down-projection (the reference's MUST_SAVE rule) and skips its GEMM
+    # in the recompute
+    out = linear_kept(hmid, params[f"{prefix}.mlp.layer2.weight"].to(hmid.dtype),
+                      "mlp_down")
     return x + gate.to(res_dtype) * out.to(res_dtype)
 
 
@@ -375,15 +384,17 @@ def dit_prologue(params: Params, latents, timesteps, context, *,
     return x, emb, context, rope, lora, orig
 
 
-def remat_enabled(mode) -> bool:
-    """False/None/"off" = no remat; True/"full" = recompute each block."""
+def block_remat_mode(mode):
+    """False/None/"off" = no remat; True/"full" = recompute each block;
+    "conservative" = keep mlp_down, flash_out and flash_lse."""
     if not mode or mode == "off":
         return False
     if mode is True or mode == "full":
         return True
-    raise NotImplementedError(
-        f"remat mode {mode!r} is not ported yet (only False and 'full'; the "
-        "'conservative' selective policy comes later)")
+    if mode == "conservative":
+        return mode
+    raise ValueError(f"DiT remat mode {mode!r}; expected False, True, 'full' "
+                     "or 'conservative'")
 
 
 def dit_epilogue(params: Params, x, emb, lora, orig, *, cfg: AnimaDiTConfig,
@@ -409,11 +420,10 @@ def dit_forward(params: Params, latents, timesteps, context, *,
     x, emb, context, rope, lora, orig = dit_prologue(
         params, latents, timesteps, context, cfg=cfg, t5_ids=t5_ids,
         attn_impl=attn_impl, compute_dtype=compute_dtype)
-    use_remat = remat_enabled(remat)
+    mode = block_remat_mode(remat)
     for i in range(cfg.num_blocks):
-        args = (params, f"blocks.{i}", x, emb, context, rope, lora, cfg, attn_impl)
-        x = (checkpoint(dit_block, *args, use_reentrant=False) if use_remat
-             else dit_block(*args))
+        x = remat_region(dit_block, mode, params, f"blocks.{i}", x, emb, context,
+                         rope, lora, cfg, attn_impl)
     return dit_epilogue(params, x, emb, lora, orig, cfg=cfg,
                         compute_dtype=compute_dtype)
 

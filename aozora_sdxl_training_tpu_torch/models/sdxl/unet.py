@@ -11,8 +11,14 @@ same graph and the same numerics choices:
   LayerNorm statistics are fp32, GroupNorm eps is 1e-5 in resnets and 1e-6
   in the transformer2d norm, the GEGLU uses the exact erf GELU, the time
   embedding is ``[cos | sin]``, and the up path concatenates ``[x, skip]``;
-* ``remat`` False or ``"full"``/True wraps each resnet and transformer unit
-  in ``torch.utils.checkpoint`` (the JAX ``_maybe_remat`` units);
+* ``remat`` wraps each resnet and transformer unit in
+  ``torch.utils.checkpoint`` (the JAX ``_maybe_remat`` units): True/"full"
+  recomputes it all; "dots", "dots_no_batch" and "dots_no_logits" keep
+  what the JAX policies of those names keep (``ops/remat.py``); a
+  ``_hires`` suffix applies the mode only to units at or above
+  ``AOZORA_REMAT_HIRES_TOKENS`` latent tokens (default 4160) and full
+  remat at or above ``AOZORA_REMAT_FULL_TOKENS``, or at the planner's
+  ``remat_thresholds`` (``unit_remat``);
 * ``fused_gn`` (False by default, as in JAX; no trainer sets it) sends the
   resnets' norm1/norm2 + SiLU through ``ops.groupnorm_silu``'s NCHW entry
   (K6 on the card, its plain version on the CPU), SiLU in fp32 and one cast;
@@ -23,13 +29,14 @@ same graph and the same numerics choices:
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import attention
 from ...ops.groupnorm_silu import group_norm_silu_nchw
+from ...ops.remat import remat as remat_region
 from .arch import UNetConfig, param_shapes
 
 Params = dict[str, torch.Tensor]
@@ -164,20 +171,36 @@ def transformer2d(params: Params, prefix: str, x, context, *, depth: int,
 # Full forward
 # --------------------------------------------------------------------------
 
-def _remat_enabled(mode) -> bool:
-    """False/None/"off" = no remat; True/"full" = recompute each unit."""
-    if not mode or mode == "off":
+def unit_remat(tokens: int, remat, remat_thresholds: tuple | None = None):
+    """The remat mode of a resnet or transformer unit at ``tokens`` latent
+    tokens (the JAX ``unet_forward``'s ``unit_remat``). Under a "<mode>_hires"
+    mode, units below the hires threshold (``AOZORA_REMAT_HIRES_TOKENS``,
+    default 4160: the 32x32 and 64x64 levels at 1024px) keep everything,
+    units at or above the full threshold (``AOZORA_REMAT_FULL_TOKENS``,
+    unset by default) recompute everything, the rest take <mode>;
+    ``remat_thresholds`` (hires, full) from the planner overrides both."""
+    if not remat or remat == "off":
         return False
-    if mode is True or mode == "full":
-        return True
-    raise NotImplementedError(
-        f"remat mode {mode!r} is not ported yet (only False and 'full')")
+    hires_only = isinstance(remat, str) and remat.endswith("_hires")
+    base = remat[: -len("_hires")] if hires_only else remat
+    hires_tokens = int(os.environ.get("AOZORA_REMAT_HIRES_TOKENS", "4160"))
+    full_env = os.environ.get("AOZORA_REMAT_FULL_TOKENS", "").strip()
+    full_tokens = int(full_env) if full_env else None
+    if remat_thresholds is not None:
+        hires_tokens, full_tokens = remat_thresholds
+    if hires_only:
+        if full_tokens is not None and tokens >= int(full_tokens):
+            return True
+        if tokens < hires_tokens:
+            return False
+    return base
 
 
 def unet_forward(params: Params, sample, timesteps, encoder_hidden_states,
                  pooled_text_embeds, time_ids, *, cfg: UNetConfig,
                  attn_impl: str = "xla", compute_dtype=torch.bfloat16,
-                 remat=False, fused_gn: bool = False):
+                 remat=False, remat_thresholds: tuple | None = None,
+                 fused_gn: bool = False):
     """SDXL UNet forward.
 
     sample: (B, H, W, C_in) NHWC latents.
@@ -204,20 +227,17 @@ def unet_forward(params: Params, sample, timesteps, encoder_hidden_states,
     add_emb = linear(params, "add_embedding.linear_2", F.silu(add_emb))
     temb = (temb + add_emb).to(compute_dtype)
 
-    use_remat = _remat_enabled(remat)
-
-    def unit(fn, *args, **kw):
-        if use_remat:
-            return checkpoint(fn, *args, use_reentrant=False, **kw)
-        return fn(*args, **kw)
+    def mode_of(h):
+        return unit_remat(h.shape[2] * h.shape[3], remat, remat_thresholds)
 
     def res_fn(prefix, h):
-        return unit(resnet_block, params, prefix, h, temb, groups=groups,
-                    fused_gn=fused_gn)
+        return remat_region(resnet_block, mode_of(h), params, prefix, h, temb,
+                            groups=groups, fused_gn=fused_gn)
 
     def tf2d_fn(prefix, h, depth, heads):
-        return unit(transformer2d, params, prefix, h, context, depth=depth,
-                    num_heads=heads, groups=groups, attn_impl=attn_impl)
+        return remat_region(transformer2d, mode_of(h), params, prefix, h, context,
+                            depth=depth, num_heads=heads, groups=groups,
+                            attn_impl=attn_impl)
 
     # -- down path --
     x = conv2d(params, "conv_in", x)

@@ -2,7 +2,14 @@
 
 Counterpart of ``aozora_sdxl_training_tpu/ops/flash_attention.py``. The
 Pallas kernels there become hand-written CUDA kernels, bound with
-``ctypes`` and wrapped in a ``torch.autograd.Function``. Which kernel a
+``ctypes``. The forward and the backward are dispatcher ops,
+``aozora::flash_fwd`` (q, k, v, scale) -> (out, lse) and
+``aozora::flash_bwd`` (q, k, v, out, lse, dout, scale) -> (dq, dk, dv),
+called from the forward and the backward of ``_Flash``, so that a
+selective remat policy (``ops/remat.py``) sees them: ``FlashAttention.apply``
+names the forward's outputs "flash_out" and "flash_lse" as the JAX
+package's ``_flash_core`` does, and a policy that saves those names keeps
+them, so the backward goes straight to the dQ and dK/dV kernels. Which kernel a
 call launches depends on the head dim, the dtype and the role (forward,
 dQ, dK/dV), as ``route`` decides::
 
@@ -38,9 +45,10 @@ No caller differentiates at head_dim 512, so the backward wrappers raise
 there on any device.
 
 ``flash_fwd_stats`` / ``flash_bwd_stats`` (K5) are the JAX package's
-stats-level entry points over the same kernels, for ring attention
+stats-level entry points over the same ops, for ring attention
 (``ops/ring_attention.py``): the forward returns the row logsumexp, the
-backward takes a global (out, lse) and a KV shard.
+backward takes a global (out, lse) and a KV shard. As in JAX, they name
+nothing.
 
 Layout: q (B, Sq, H, D), k and v (B, Skv, H, D), as the callers hold them;
 the kernels index that layout directly, so nothing is transposed or padded
@@ -61,6 +69,7 @@ import ctypes
 import torch
 
 from . import cuda_build
+from .remat import kept, producing
 
 ROLES = ("forward", "dq", "dkv")
 _SM90, _FP32 = "flash_attention_sm90", "flash_attention_fp32"
@@ -315,12 +324,37 @@ def flash_bwd(q, k, v, out, lse, dout, scale: float):
     return dq, dk, dv
 
 
-class FlashAttention(torch.autograd.Function):
-    """(out, lse) = attention(q, k, v); lse carries no gradient."""
+# --------------------------------------------------------------------------
+# Dispatcher ops (what autograd and the remat policies see)
+# --------------------------------------------------------------------------
+
+@torch.library.custom_op("aozora::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1 / K4a on CUDA tensors, the plain version on the CPU."""
+    return flash_fwd(q, k, v, scale)
+
+
+@torch.library.custom_op("aozora::flash_bwd", mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                  scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2/K3 / K4b on CUDA tensors, the plain version on the CPU."""
+    return flash_bwd(q, k, v, out, lse, dout, scale)
+
+
+class _Flash(torch.autograd.Function):
+    """(out, lse) = attention(q, k, v): the ``aozora::flash_fwd`` op, made
+    inside ``producing("flash_out", "flash_lse")``, or the ``cached`` pair
+    a Conservative region kept; lse carries no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
-        out, lse = flash_fwd(q, k, v, scale)
+    def forward(ctx, q, k, v, scale, cached):
+        if cached is None:
+            with producing("flash_out", "flash_lse"):
+                out, lse = torch.ops.aozora.flash_fwd(q, k, v, scale)
+        else:
+            out, lse = cached
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale = scale
         ctx.mark_non_differentiable(lse)
@@ -330,8 +364,21 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
         _require_backward(q.shape[-1])
-        dq, dk, dv = flash_bwd(q, k, v, out, lse, dout.contiguous(), ctx.scale)
-        return dq, dk, dv, None
+        dq, dk, dv = torch.ops.aozora.flash_bwd(q, k, v, out, lse,
+                                                dout.contiguous(), ctx.scale)
+        return dq, dk, dv, None, None
+
+
+class FlashAttention:
+    """The flash entry: (out, lse) = attention(q, k, v), its outputs named
+    "flash_out" and "flash_lse" (the JAX package's ``_flash_core``). A remat
+    region whose policy keeps the names keeps them (``ops/remat.py``), and
+    its recompute launches no forward kernel."""
+
+    @staticmethod
+    def apply(q, k, v, scale):
+        return kept(("flash_out", "flash_lse"),
+                    lambda cached: _Flash.apply(q, k, v, scale, cached))
 
 
 def flash_attention_lse(q, k, v, *, scale: float | None = None):
@@ -385,10 +432,9 @@ def flash_fwd_stats(q, k, v, *, scale: float | None = None):
     the log-sum-exp to merge KV-shard partials exactly."""
     b, sq, h, d = q.shape
     scale = (d ** -0.5) if scale is None else scale
-    if q.device.type == "cpu":
-        return flash_fwd_stats_reference(q, k, v, scale)
-    out, lse = flash_fwd(q, k, v, scale)
-    STATS_LAUNCHES["flash_fwd_stats"] += 1
+    out, lse = torch.ops.aozora.flash_fwd(q, k, v, scale)
+    if q.device.type != "cpu":
+        STATS_LAUNCHES["flash_fwd_stats"] += 1
     return out, _lse3(lse, b, h, sq)
 
 
@@ -403,8 +449,7 @@ def flash_bwd_stats(q, k, v, out, lse3, do, *, scale: float | None = None):
     _require_backward(q.shape[-1])
     scale = (q.shape[-1] ** -0.5) if scale is None else scale
     out, do = out.to(q.dtype).contiguous(), do.to(q.dtype).contiguous()
-    if q.device.type == "cpu":
-        return flash_bwd_stats_reference(q, k, v, out, lse3, do, scale)
-    grads = flash_bwd(q, k, v, out, _lse_rows(lse3), do, scale)
-    STATS_LAUNCHES["flash_bwd_stats"] += 1
+    grads = torch.ops.aozora.flash_bwd(q, k, v, out, _lse_rows(lse3), do, scale)
+    if q.device.type != "cpu":
+        STATS_LAUNCHES["flash_bwd_stats"] += 1
     return grads

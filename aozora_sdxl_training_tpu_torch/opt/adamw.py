@@ -201,8 +201,10 @@ def _step_scalars(cfg: AdamWConfig, step: int, lr: float):
 
 @torch.no_grad()
 def apply_updates(params: dict, grads: dict, state: AdamWState,
-                  cfg: AdamWConfig, *, lr: float):
-    """One in-place AdamW step with Raven debias semantics.
+                  cfg: AdamWConfig, *, lr: float, release: bool = False):
+    """One in-place AdamW step with Raven debias semantics. With
+    ``release``, each gradient leaves ``grads`` once its tensor is updated
+    (it is freed there when ``grads`` held its last reference).
 
     Returns (params, state, update_sq): ``update_sq`` is the squared global
     L2 norm of the fp32 parameter delta, as a 0-d fp32 tensor."""
@@ -212,7 +214,7 @@ def apply_updates(params: dict, grads: dict, state: AdamWState,
     update_sq = None
     to_jax, from_jax = state.layout
     for name, p in params.items():
-        g32 = grads[name].float()
+        g32 = (grads.pop(name) if release else grads[name]).float()
         m, v = state.exp_avg[name], state.exp_avg_sq[name]
         int8_here = cfg.int8_for(p.numel())
         if int8_here:

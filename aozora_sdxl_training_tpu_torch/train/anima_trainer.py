@@ -13,12 +13,20 @@ save under the detected prefix. Tickets map to flow-matching sigmas, the
 DiT is conditioned on sigma, loss weights are indexed by ticket, and the
 LLM adapter trains inside the DiT forward.
 
-The step runs eagerly on fp32 master weights: the micro step accumulates
+Before the DiT moves to the device, ``train/memory_policy.py`` plans the
+state for the card's memory as the JAX package does for the TPU: master
+and frozen weights in fp32 or bf16 (``MASTER_DTYPE``), the accumulator
+(``.grad`` in the masters' dtype; at GA 1, the plan's fused step, a micro
+step then the apply step, which frees each gradient once its tensor is
+updated), and the moments' dtype (downgraded to int8
+blockwise when the requested one does not fit); the trainer prints
+``describe_plan``. The step runs eagerly: the micro step accumulates
 gradients into ``.grad``, the apply step (shared with the SDXL trainer)
 scales them by 1/GA, clips their global norm and runs the Raven AdamW
-update. At GA 1 it runs micro + apply, which is the JAX package's fused
-step's arithmetic. ``ANIMA_GRADIENT_CHECKPOINTING_MODE`` "Full" (the
-default) recomputes each block in the backward, "Off" keeps everything.
+update. ``ANIMA_GRADIENT_CHECKPOINTING_MODE`` "Full" (the default)
+recomputes each block in the backward, "Conservative" keeps the MLP
+down-projections and the flash outputs (``models/anima/dit.py``), "Off"
+keeps everything.
 
 Under torchrun (``WORLD_SIZE`` > 1; the CLI starts the process group) the
 ranks form the JAX package's dp x sp layout (``parallel/sharding.py``):
@@ -40,10 +48,9 @@ then frees the encoders before the DiT loads; a multi-rank run asks for
 the cache CLI instead, so that no two ranks write one cache.
 
 Not ported yet, and refused with an error when the config asks for them:
-"Conservative" checkpointing, preview sampling, pipeline/tensor
-parallelism, the line-art loss and video mode. There is no memory planner:
-masters are fp32. ``AOZORA_PROFILE_DIR`` traces micro steps 3-8
-(``train/profiling.py``).
+preview sampling, pipeline/tensor parallelism, the line-art loss, video
+mode, and the plan's two-pass and host-moment rungs.
+``AOZORA_PROFILE_DIR`` traces micro steps 3-8 (``train/profiling.py``).
 """
 
 from __future__ import annotations
@@ -73,13 +80,13 @@ from ..models.anima import dit as dit_mod
 from ..ops.ring_attention import SPRingConfig
 from ..opt import adamw
 from ..parallel import sharding as shard
-from . import anima_objectives, curves, objectives
+from . import anima_objectives, curves, memory_policy, objectives
 from .profiling import StepProfiler
 from .reporter import MetricsReporter, optimizer_block
 from .train_step import make_apply_step, split_trainable
 from .trainer import (attention_impl, consume_force_save_flag, force_save_flag_path,
                       make_optimizer_config, print_optimizer_summary,
-                      refuse_unported_master_dtype)
+                      refuse_unported_rung)
 
 
 @dataclass(frozen=True)
@@ -89,7 +96,7 @@ class AnimaStepConfig:
     clip_grad_norm: float = 1.0
     attn_impl: str = "xla"
     compute_dtype: Any = torch.bfloat16
-    remat: Any = "full"                    # False | "full"
+    remat: Any = True                      # False | True | "conservative"
 
 
 def make_anima_loss_fn(cfg: AnimaStepConfig):
@@ -172,16 +179,12 @@ def _dit_config_for_state(state: dict) -> dit_mod.AnimaDiTConfig:
 
 
 def anima_remat_mode(config):
-    """ANIMA_GRADIENT_CHECKPOINTING_MODE: "Full" -> "full", "Off" -> False."""
+    """ANIMA_GRADIENT_CHECKPOINTING_MODE as the JAX trainer maps it: "Off"
+    -> False, "Conservative" -> "conservative", anything else (the default
+    "Full") -> True."""
     mode = str(getattr(config, "ANIMA_GRADIENT_CHECKPOINTING_MODE", "Full")).title()
-    if mode == "Off":
-        return False
-    if mode == "Full":
-        return "full"
-    raise NotImplementedError(
-        f"ANIMA_GRADIENT_CHECKPOINTING_MODE {mode!r} is not ported yet (the "
-        "selective policy that saves the MLP down-projections and the flash "
-        "outputs); use 'Full' or 'Off'")
+    return (False if mode == "Off"
+            else "conservative" if mode == "Conservative" else True)
 
 
 def _refuse_unported(config) -> None:
@@ -200,7 +203,7 @@ def _refuse_unported(config) -> None:
         if asked:
             raise NotImplementedError(
                 f"{what} is not ported to the PyTorch package yet")
-    refuse_unported_master_dtype(config)
+    refuse_unported_rung(config=config)
 
 
 def _mesh_for(layout):
@@ -311,8 +314,31 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
             "MIXED_PRECISION float16: the flash-attention kernels take "
             "bfloat16 (or float32) only; use bfloat16, or "
             "MEMORY_EFFICIENT_ATTENTION 'xla' for the einsum path")
-    print(f"INFO: Device {device}; attention {attn_impl}; gradient "
-          f"checkpointing {remat or 'off'}; fp32 master weights")
+    print(f"INFO: Device {device}; attention {attn_impl}")
+
+    # ---- memory plan: sized from the checkpoint's shapes before any
+    # tensor reaches the device. Every rank holds the whole state (no FSDP
+    # in the port), so the plan is for one device's worth ----
+    t_sizes, f_sizes = split_trainable(
+        {k: int(np.prod(np.shape(v))) for k, v in state.items()}, exclude)
+    ps = max(int(dit_cfg.patch_spatial), 1)
+    max_tokens = max(((w // 8 // ps) * (h // 8 // ps) for (w, h) in dataset.bucket_keys),
+                     default=64 * 64)
+    plan = memory_policy.plan_anima_training(
+        trainable_elems=sum(t_sizes.values()), frozen_elems=sum(f_sizes.values()),
+        batch_per_device=int(config.BATCH_SIZE), tokens=int(max_tokens),
+        ga_steps=int(config.GRADIENT_ACCUMULATION_STEPS), remat=remat,
+        requested_moment_dtype=opt_cfg.momentum_dtype,
+        budget_bytes=memory_policy.device_budget_bytes(device),
+        master_override=str(getattr(config, "MASTER_DTYPE", "auto")))
+    print(memory_policy.describe_plan(plan))
+    refuse_unported_rung(plan)
+    # the port reads AOZORA_FLASH_MIN_KV of the three knobs (a user's pin wins)
+    memory_policy.apply_fast_backward_knobs(plan)
+    if plan.moment_dtype != opt_cfg.momentum_dtype:
+        print("WARNING: moment storage downgraded to int8_blockwise to fit "
+              "the HBM budget (update math is unchanged — fp32 scratch).")
+        opt_cfg = replace(opt_cfg, momentum_dtype=plan.moment_dtype)
     if mesh is not None and layout.sp > 1:
         # the training step's attn_impl becomes an SPRingConfig (dit.py
         # dispatches on it)
@@ -323,7 +349,7 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
               f"over torch.distributed).")
 
     # ---- weights ----
-    params = dit_mod.params_from_torch_state(state, dit_cfg, dtype=torch.float32,
+    params = dit_mod.params_from_torch_state(state, dit_cfg, dtype=plan.master_dtype,
                                              device=device)
     del state
     # the reference's freeze rule (the JAX package's split_trainable_dit)
@@ -441,11 +467,11 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
             noise = objectives.noise_for_step(
                 seed, micro_step, (global_batch, *lat.shape[1:]), device)[rows]
         keep = 0.0 if (micro_step - 1) % ga == 0 else 1.0
-        loss_dev, sigma_dev = micro_fn(
-            trainable, frozen, batch["latents"], batch["prompt_emb"],
-            batch["t5xxl_ids"], torch.as_tensor(tickets[rows], device=device),
-            batch["sample_mask"], loss_weights, seed, micro_step, keep,
-            noise=noise, loss_scale=batch["loss_scale"])
+        step_inputs = (batch["latents"], batch["prompt_emb"], batch["t5xxl_ids"],
+                       torch.as_tensor(tickets[rows], device=device),
+                       batch["sample_mask"], loss_weights, seed, micro_step)
+        loss_dev, sigma_dev = micro_fn(trainable, frozen, *step_inputs, keep,
+                                       noise=noise, loss_scale=batch["loss_scale"])
         if mesh is not None:
             # the global batch's loss: the dp ranks' shares summed
             loss_dev = loss_dev.reshape(1)

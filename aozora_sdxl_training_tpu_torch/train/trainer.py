@@ -6,15 +6,24 @@ run_sdxl_training`` with the same phases and the same output: resume
 (re)build -> model load -> dataset, ticket sampler and schedule -> micro
 and apply steps -> progress lines and optimizer blocks -> scheduled /
 ``force_save.flag`` saves (model + training state) and preview PNGs ->
-final merged save. The step runs eagerly on fp32 master weights with
-moments in the configured dtype (bf16, fp32 or int8 blockwise) and
-gradients accumulated in ``.grad``. The training-state file is the JAX
-package's: a run resumes from either package's files.
+final merged save. The training-state file is the JAX package's: a run
+resumes from either package's files.
+
+Before the weights load, ``train/memory_policy.py`` plans the run for the
+card's memory as the JAX package plans it for the TPU's: the master
+weights' dtype (fp32, or bf16 under ``MASTER_DTYPE`` bfloat16 or a tight
+budget), the accumulator (``.grad`` in the masters' dtype; at GA 1, the
+plan's fused step, each gradient is freed once its tensor is updated), the
+moments' dtype (downgraded to int8 blockwise when
+the requested one does not fit), the attention route and the remat mode
+(``AOZORA_SDXL_REMAT`` pins it: off, full, dots, dots_no_batch,
+dots_no_logits and the ``_hires`` tiers). The step runs eagerly.
 
 Not ported yet, and refused with an error when the config asks for them:
-tensor-parallel meshes, more than one process. There is no memory planner:
-remat follows ``AOZORA_SDXL_REMAT`` (``off`` by default, or ``full``).
-``AOZORA_PROFILE_DIR`` traces micro steps 3-8 (``train/profiling.py``).
+tensor-parallel meshes, more than one process, and the plan's two-pass and
+host-moment rungs (``AOZORA_LOWMEM_RUNG`` forces them at GA 1; on an H100
+at 1024px and batch 1 no plan reaches them). ``AOZORA_PROFILE_DIR`` traces
+micro steps 3-8 (``train/profiling.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from __future__ import annotations
 import os
 import time
 from collections import deque
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -36,12 +46,12 @@ from ..data.cache_builder import check_if_caching_needed, precompute_and_cache
 from ..data.dataset import (BatchPrefetcher, CachedLatentDataset,
                             pack_sample_schedule, pad_batch_arrays)
 from ..data.schedule import TimestepTicketSampler, build_image_batch_schedule
-from ..models.sdxl.arch import SDXL_BASE, UNetConfig
+from ..models.sdxl.arch import SDXL_BASE, UNetConfig, param_shapes
 from ..models.sdxl import vae as vae_mod
 from ..models.sdxl.conversion import (from_jax_layout, params_from_sd_state,
                                       to_jax_layout)
 from ..opt import adamw
-from . import curves
+from . import curves, memory_policy
 from .profiling import StepProfiler
 from .reporter import MetricsReporter, optimizer_block
 from .sampler import PreviewRenderer
@@ -172,15 +182,21 @@ def print_param_stats(trainable: dict, frozen: dict) -> None:
 
 
 def sdxl_remat_mode():
-    """AOZORA_SDXL_REMAT: unset/auto/off -> False, full -> "full"; the JAX
-    package's partial policies are not ported."""
+    """Explicit rematerialization override for the SDXL UNet, or None when
+    unset (the memory planner then picks the fastest mode that fits):
+    AOZORA_SDXL_REMAT={full,dots,dots_no_batch,dots_no_logits,
+    dots_no_logits_hires,full_hires,off} pins the mode
+    (``models/sdxl/unet.unit_remat``), as in the JAX package: off is False,
+    any other value full remat (True)."""
     mode = os.environ.get("AOZORA_SDXL_REMAT", "").strip().lower()
-    if mode in ("", "auto", "off", "none", "0", "false"):
+    if not mode or mode == "auto":
+        return None
+    if mode in ("off", "none", "0", "false"):
         return False
-    if mode in ("full", "1", "true", "on"):
-        return "full"
-    raise NotImplementedError(f"AOZORA_SDXL_REMAT={mode!r} is not ported yet "
-                              "(only off and full)")
+    if mode in ("dots", "dots_no_batch", "dots_no_logits",
+                "dots_no_logits_hires", "full_hires"):
+        return mode
+    return True
 
 
 def attention_impl(config, device: torch.device) -> str:
@@ -193,19 +209,31 @@ def attention_impl(config, device: torch.device) -> str:
     return "flash"
 
 
-def refuse_unported_master_dtype(config) -> None:
-    """MASTER_DTYPE: the port keeps fp32 master weights, which is what "auto"
-    gives first in the JAX planner (``memory_policy._state_candidates``) and
-    what "float32" pins; any other value (bf16 masters) raises."""
-    master = str(getattr(config, "MASTER_DTYPE", "auto") or "auto")
-    if master not in ("auto", "float32"):
+UNPORTED_RUNGS = ("two_pass", "moments_host")
+
+
+def refuse_unported_rung(plan=None, config=None) -> None:
+    """The memory plan's two-pass and host-moment rungs have no step in the
+    port yet: raise, naming the rung, when ``plan`` picked one, or (before
+    anything loads) when ``AOZORA_LOWMEM_RUNG`` forces one at GA 1, where
+    the planner takes the forced rung alone."""
+    if plan is not None:
+        rung = ("two_pass" if plan.two_pass
+                else "moments_host" if plan.moments_host else None)
+        how = "the memory plan picked"
+    else:
+        forced = os.environ.get("AOZORA_LOWMEM_RUNG", "")
+        ga = int(getattr(config, "GRADIENT_ACCUMULATION_STEPS", 1) or 1)
+        rung = forced if forced in UNPORTED_RUNGS and ga == 1 else None
+        how = "AOZORA_LOWMEM_RUNG forces"
+    if rung:
         raise NotImplementedError(
-            f"MASTER_DTYPE={master!r}: bf16 master weights are not ported to "
-            "the PyTorch package yet; use 'auto' or 'float32' (fp32 masters)")
+            f"{how} the {rung!r} low-memory rung: its step is not ported to "
+            "the PyTorch package yet")
 
 
 def _refuse_unported(config) -> None:
-    refuse_unported_master_dtype(config)
+    refuse_unported_rung(config=config)
     if int(getattr(config, "TENSOR_PARALLEL_SIZE", 1) or 1) > 1:
         raise NotImplementedError(
             "TENSOR_PARALLEL_SIZE > 1: meshes are not ported yet")
@@ -284,20 +312,42 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
     packed_schedule = pack_sample_schedule(image_schedule, global_batch)
     print(f"INFO: Precomputed image batch schedule for {len(packed_schedule):,} step(s).")
 
+    # ---- memory plan (master/accum/moment dtypes, attn, remat) ----
     opt_cfg = make_optimizer_config(config)
-    attn_impl = attention_impl(config, device)
-    if attn_impl == "flash" and config.compute_dtype == torch.float16:
+    sizes = {n: int(np.prod(shape)) for n, (shape, _) in param_shapes(unet_cfg).items()}
+    t_sizes, _ = split_trainable(sizes, config.UNET_EXCLUDE_TARGETS)
+    trainable_elems = sum(t_sizes.values())
+    max_latpix = max(((w // 8) * (h // 8) for (w, h) in dataset.bucket_keys),
+                     default=128 * 128)
+    plan = memory_policy.plan_sdxl_training(
+        trainable_elems=trainable_elems,
+        frozen_elems=sum(sizes.values()) - trainable_elems,
+        batch_per_device=int(config.BATCH_SIZE),
+        max_latent_pixels=int(max_latpix),
+        ga_steps=int(config.GRADIENT_ACCUMULATION_STEPS),
+        attn_pref=attention_impl(config, device),
+        requested_moment_dtype=opt_cfg.momentum_dtype,
+        budget_bytes=memory_policy.device_budget_bytes(device),
+        remat_override=sdxl_remat_mode(),
+        master_override=str(getattr(config, "MASTER_DTYPE", "auto")))
+    print(f"INFO: Device {device}")
+    print(memory_policy.describe_plan(plan))
+    refuse_unported_rung(plan)
+    # the port reads AOZORA_FLASH_MIN_KV of the three knobs (a user's pin wins)
+    memory_policy.apply_fast_backward_knobs(plan)
+    if plan.moment_dtype != opt_cfg.momentum_dtype:
+        print("WARNING: moment storage downgraded to int8_blockwise to fit "
+              "the HBM budget (update math is unchanged — fp32 scratch).")
+        opt_cfg = replace(opt_cfg, momentum_dtype=plan.moment_dtype)
+    if plan.attn_impl == "flash" and config.compute_dtype == torch.float16:
         raise NotImplementedError(
             "MIXED_PRECISION float16: the flash-attention kernels take "
             "bfloat16 (or float32) only; use bfloat16, or "
             "MEMORY_EFFICIENT_ATTENTION 'xla' for the einsum path")
-    remat = sdxl_remat_mode()
-    print(f"INFO: Device {device}; attention {attn_impl}; remat "
-          f"{remat or 'off'}; fp32 master weights")
 
     # ---- model weights ----
     sd_tensors = load_sd_tensors(model_to_load)
-    params = params_from_sd_state(sd_tensors, unet_cfg, dtype=torch.float32,
+    params = params_from_sd_state(sd_tensors, unet_cfg, dtype=plan.master_dtype,
                                   device=device)
     # preview sampling: keep the VAE decoder half when
     # PREVIEW_EVERY_N_STEPS > 0 (train/sampler.py)
@@ -324,16 +374,22 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
         prediction_type=config.PREDICTION_TYPE,
         grad_accum_steps=config.GRADIENT_ACCUMULATION_STEPS,
         clip_grad_norm=float(config.CLIP_GRAD_NORM),
-        attn_impl=attn_impl,
+        attn_impl=plan.attn_impl,
         compute_dtype=config.compute_dtype,
-        remat=remat)
-    preview = PreviewRenderer(config, unet_cfg, attn_impl=attn_impl,
+        remat=plan.remat,
+        remat_thresholds=plan.remat_thresholds)
+    preview = PreviewRenderer(config, unet_cfg, attn_impl=plan.attn_impl,
                               compute_dtype=step_cfg.compute_dtype,
                               decoder_params=vae_decoder_params)
     if preview.enabled:
         print(f"INFO: preview sampling every {preview.every} optimizer "
               f"step(s) ({getattr(config, 'PREVIEW_SAMPLE_STEPS', 20)} "
               f"DDIM/Euler steps)")
+    # the accumulator is .grad, in the masters' dtype: the plan's accum dtype
+    # (fp32 with fp32 masters, bf16 with bf16 masters). At GA 1 (the plan's
+    # fused_apply) a micro step then the apply step is the JAX fused step:
+    # .grad is the only gradient tree, and each is freed once its tensor is
+    # updated
     micro_fn = make_micro_step(step_cfg)
     apply_fn = make_apply_step(step_cfg, opt_cfg)
     # restore or start fresh before any moment is on the device: the
@@ -427,11 +483,11 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
         tickets = ts_sampler.sample(real_n)
         ticket0 = int(tickets[0])
         keep = 0.0 if (micro_step - 1) % ga == 0 else 1.0
-        loss_dev, sigma_dev = micro_fn(
-            trainable, frozen, batch["latents"], batch["embeds"],
-            batch["pooled"], batch["time_ids"],
-            torch.as_tensor(np.asarray(tickets), device=device),
-            batch["sample_mask"], loss_weights, seed, micro_step, keep)
+        step_inputs = (batch["latents"], batch["embeds"], batch["pooled"],
+                       batch["time_ids"],
+                       torch.as_tensor(np.asarray(tickets), device=device),
+                       batch["sample_mask"], loss_weights, seed, micro_step)
+        loss_dev, sigma_dev = micro_fn(trainable, frozen, *step_inputs, keep)
 
         diag = None
         if micro_step % ga == 0:

@@ -36,7 +36,9 @@ Phases, each of which exits non-zero on failure:
    events, the fp32 ones at the unet and dit phases' shapes and at
    SDXL_BASE's widest head_dim-64 and ANIMA_BASE's head_dim-128 attention
    (at each shape first held at 1e-4 against the plain version), and at
-   the SD-VAE's.
+   the SD-VAE's; at the bf16 main shapes the dispatcher ops
+   (aozora::flash_fwd, aozora::flash_bwd) against the wrappers they call,
+   by CUDA events and by the host's time to issue a call.
 4. unet: a small UNet with head_dim 64 in fp32, flash path (the fp32
    kernels) against the einsum path, forward and parameter gradients, the
    launches counted.
@@ -122,10 +124,26 @@ Phases, each of which exits non-zero on failure:
    micro steps 5-8). The free disk is printed and checked first; every
    file goes once it has been used.
 
+13. plan: the memory planner on the card's budget (its total memory),
+   without the cache encoders (synthetic caches): each trainer's default
+   plan printed; ANIMA_BASE (random, 1024px, batch 1, GA 4) under Full
+   and under Conservative gradient checkpointing, 8 micro steps each in
+   this process: the plans, s per micro step, the peak beside the plan's
+   estimate, launches a micro step (K4a 56 under Full, 28 under
+   Conservative; K4b 28 of each) and equal losses; then SDXL_BASE under
+   its default plan (GA 4), with MASTER_DTYPE bfloat16 at GA 1 (the plan
+   must be bf16 masters with the fused step) and under
+   AOZORA_SDXL_REMAT=dots_no_logits_hires, 8 micro steps each, with the
+   same numbers (70 K1 a micro step in each) and, when the trainer phase
+   ran, its fp32-master peak beside the bf16 run's. CHIP_SMOKE_TRACE=1
+   traces micro steps 3-8 of each run, CHIP_SMOKE_TRACE=label,label of the
+   runs named (summary.json and kernels.txt under the log dir; a traced
+   run is not a timing run).
+
 `python3 chip_smoke.py --only anima_sp` runs the device, build and anima_sp
 phases alone (on a machine with several cards); `--only anima` runs the
 anima_cache and anima phases; `--only resume` runs the trainer and anima
-phases with their resume parts.
+phases with their resume parts; `--only plan` the plan phase.
 
 The second-to-last lines are the kernels JSON and the card's name and power
 limit; the last line is {"ok": true, "device": {...}}.
@@ -547,7 +565,7 @@ def kernel_phase(torch):
     check_deterministic(torch, fa)
     check_unaligned(torch, fa)
     return max_err, {**time_kernels(torch, fa), **time_fp32(torch, fa),
-                     **time_d512(torch, fa)}
+                     **time_d512(torch, fa), "dispatcher_ops": time_ops(torch, fa)}
 
 
 def check_against_float64(torch, label, q, k, v, scale, out, lse, bar=1e-5):
@@ -660,6 +678,78 @@ def time_kernels(torch, fa):
             del q, k, v, do, out, lse, delta
             torch.cuda.empty_cache()
     return timings
+
+
+def host_us(torch, fn, n: int = 50) -> float:
+    """The host's time to issue one call of ``fn`` (mean over ``n`` calls,
+    no sync between them), in microseconds."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
+def time_ops(torch, fa):
+    """At each bf16 main shape, the dispatcher ops (``aozora::flash_fwd``;
+    ``aozora::flash_bwd``, the dQ then the dK/dV kernel) against the
+    wrappers they call: CUDA events over 20 calls, and the host's time to
+    issue a call. Also the host's time to issue the forward of the flash
+    entry (``flash_attention`` on inputs that require gradients: the
+    autograd Function over the op) against an autograd Function that calls
+    the wrapper directly."""
+
+    class Direct(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, scale):
+            out, lse = fa.flash_fwd(q, k, v, scale)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+
+        @staticmethod
+        def backward(ctx, dout):
+            raise AssertionError("forward only")
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for d, shapes in MAIN_SHAPES.items():
+        for b, h, s, _ in shapes:
+            q, k, v, do = (torch.randn(b, s, h, d, device="cuda", dtype=torch.bfloat16,
+                                       generator=g) for _ in range(4))
+            scale = d ** -0.5
+            out, lse = fa.flash_fwd(q, k, v, scale)
+            pairs = {"forward": (lambda: fa.flash_fwd(q, k, v, scale),
+                                 lambda: torch.ops.aozora.flash_fwd(q, k, v, scale)),
+                     "backward": (lambda: fa.flash_bwd(q, k, v, out, lse, do, scale),
+                                  lambda: torch.ops.aozora.flash_bwd(q, k, v, out, lse,
+                                                                     do, scale))}
+            for role, (wrapper, op) in pairs.items():
+                row = {"shape": f"B*H={b * h} S={s} D={d} bf16", "role": role,
+                       "wrapper_events_ms": cuda_ms(torch, wrapper),
+                       "op_events_ms": cuda_ms(torch, op),
+                       "wrapper_host_us": host_us(torch, wrapper),
+                       "op_host_us": host_us(torch, op)}
+                rows.append(row)
+                print(f"  op {role:8s} {row['shape']}: events {row['op_events_ms']:.4f} ms "
+                      f"through the op, {row['wrapper_events_ms']:.4f} ms through the "
+                      f"wrapper; host {row['op_host_us']:.1f} us a call through the op, "
+                      f"{row['wrapper_host_us']:.1f} us through the wrapper")
+            qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+            row = {"shape": f"B*H={b * h} S={s} D={d} bf16", "role": "entry forward",
+                   "entry_host_us": host_us(
+                       torch, lambda: fa.flash_attention(qg, kg, vg, scale=scale)),
+                   "direct_host_us": host_us(
+                       torch, lambda: Direct.apply(qg, kg, vg, scale))}
+            rows.append(row)
+            print(f"  entry forward {row['shape']}: host {row['entry_host_us']:.1f} us a "
+                  f"call through flash_attention, {row['direct_host_us']:.1f} us through "
+                  f"an autograd Function over the wrapper")
+            del q, k, v, do, out, lse, qg, kg, vg
+            torch.cuda.empty_cache()
+    return rows
 
 
 def sdpa_ms(torch, F, q, k, v, do):
@@ -1332,9 +1422,9 @@ def vae_phase(torch):
 # --------------------------------------------------------------------------
 
 def timed_steps(torch, module, names, marks: list):
-    """Wraps the step factories ``names`` of ``module`` (one name with
-    "micro" in it, one with "apply") so that each step ends in
-    torch.cuda.synchronize() and appends (kind, host time) to ``marks``.
+    """Wraps the step factories ``names`` of ``module`` (names with "micro"
+    or "apply" in them) so that each step ends in torch.cuda.synchronize()
+    and appends (kind, host time) to ``marks``.
     The sync keeps the host from running ahead into the next step, so the
     times are the steps' own, host and device together. Returns a restore
     function."""
@@ -1353,7 +1443,7 @@ def timed_steps(torch, module, names, marks: list):
         return make_timed
 
     for name, make in originals.items():
-        setattr(module, name, wrap("micro" if "micro" in name else "apply", make))
+        setattr(module, name, wrap("apply" if "apply" in name else "micro", make))
     return lambda: [setattr(module, k, v) for k, v in originals.items()]
 
 
@@ -2108,6 +2198,217 @@ def anima_phase(torch, work_dir: Path, steps: int, smi: str, resume: bool):
 
 
 # --------------------------------------------------------------------------
+# 13: the memory plan on the card's budget
+# --------------------------------------------------------------------------
+
+PLAN_STEPS = 8                # two optimizer steps at GA 4, or 8 at GA 1
+PLAN_EST = re.compile(r"INFO: Memory plan \(budget ([\d.]+) GB, est peak ([\d.]+) GB\)")
+
+
+def plan_lines(raw: str) -> list:
+    """``describe_plan``'s lines in a trainer's output."""
+    out = lines(raw)
+    start = next(i for i, line in enumerate(out) if line.startswith("INFO: Memory plan"))
+    end = start + 1
+    while end < len(out) and out[end].startswith("INFO:   "):
+        end += 1
+    return out[start:end]
+
+
+def plan_run(torch, cli_main, module, step_names, preset: dict, mode: str,
+             work_dir: Path, label: str, pattern, env: dict | None = None) -> dict:
+    """One training CLI run of PLAN_STEPS micro steps on ``preset``: its
+    plan (printed), s per micro step after the first, peak memory beside
+    the plan's estimate, launches per micro step, losses."""
+    import numpy as np
+    preset_path = work_dir / f"{label}.json"
+    preset_path.write_text(json.dumps(preset, indent=1))
+    env = dict(env or {})
+    traced = os.environ.get("CHIP_SMOKE_TRACE", "")
+    traced = bool(traced) and (traced == "1" or label in traced.split(","))
+    if traced:
+        # micro steps 3-8 traced (train/profiling.py): not a timing run
+        env["AOZORA_PROFILE_DIR"] = str((LOG_DIR / f"trace_plan_{label}").resolve())
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        raw, marks, launches, peak_gb, wall = run_trainer_cli(
+            torch, cli_main, preset_path, work_dir, module, step_names,
+            f"chip_smoke_plan_{label}.log")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    plan = plan_lines(raw)
+    budget, est = (float(x) for x in PLAN_EST.search(plan[0]).groups())
+    segs = [seg.strip() for chunk in raw.split("\n") for seg in chunk.split("\r")]
+    losses = [float(m.group(3)) for m in map(pattern.search, segs) if m]
+    check(len(losses) == PLAN_STEPS and all(map(math.isfinite, losses)),
+          f"{label}: losses {losses}")
+    micro, apply_ = step_times(marks, skip=1)
+    per_step = {k: v / PLAN_STEPS for k, v in launches.items() if v}
+    out = {"plan": plan, "budget_gib": budget, "est_peak_gib": est,
+           "est_peak_gb": est * 2 ** 30 / 1e9, "max_memory_allocated_gb": peak_gb,
+           "s_per_micro_step": micro, "median_s_per_micro_step": float(np.median(micro)),
+           "s_per_apply_step": apply_, "launches_per_micro_step": per_step,
+           "losses": losses, "wall_s": wall}
+    if traced:
+        for trace in (LOG_DIR / f"trace_plan_{label}").resolve().glob("*/trace.json.gz"):
+            trace.unlink()        # too large to keep; summary.json and kernels.txt stay
+    print(f"  {label}: " + "\n    ".join(plan))
+    print(f"  {label}: {out['median_s_per_micro_step']:.4f} s/micro step (median of "
+          f"{len(micro)} after the first)"
+          + (f", {float(np.mean(apply_)):.4f} s/apply step" if apply_ else "")
+          + f"; peak {peak_gb:.2f} GB (max_memory_allocated) against the plan's "
+          f"estimate {est:.2f} GiB = {out['est_peak_gb']:.2f} GB; launches a micro "
+          f"step {per_step}")
+    return out
+
+
+def default_plans(torch) -> dict:
+    """Each trainer's plan for its default preset (1024px, batch 1, GA 4,
+    raven with bf16 moments, the default freeze lists) on this card's
+    budget, without a run."""
+    from aozora_sdxl_training_tpu_torch.models.anima import dit
+    from aozora_sdxl_training_tpu_torch.models.sdxl.arch import SDXL_BASE, param_shapes
+    from aozora_sdxl_training_tpu_torch.train import memory_policy as mp
+    from aozora_sdxl_training_tpu_torch.train.train_step import split_trainable
+    budget = mp.device_budget_bytes(torch.device("cuda", 0))
+    sizes = {n: math.prod(s) for n, (s, _) in param_shapes(SDXL_BASE).items()}
+    t = sum(split_trainable(sizes, ["conv1", "conv2"])[0].values())
+    sdxl = mp.plan_sdxl_training(
+        trainable_elems=t, frozen_elems=sum(sizes.values()) - t, batch_per_device=1,
+        max_latent_pixels=128 * 128, ga_steps=GA, budget_bytes=budget)
+    n = sum(math.prod(s) for s in dit.param_shapes(dit.ANIMA_BASE).values())
+    anima = mp.plan_anima_training(
+        trainable_elems=n, frozen_elems=0, batch_per_device=1, tokens=64 * 64,
+        ga_steps=GA, remat=True, budget_bytes=budget)
+    out = {}
+    for name, plan in (("sdxl", sdxl), ("anima", anima)):
+        text = mp.describe_plan(plan)
+        print(f"  default {name} plan on this card ({budget / 2 ** 30:.2f} GiB):\n    "
+              + text.replace("\n", "\n    "))
+        out[name] = {"describe_plan": text, "est_peak_gb": plan.est_bytes / 1e9,
+                     "budget_bytes": budget}
+    return out
+
+
+def plan_phase(torch, work_dir: Path, smi: str, fp32_peak_gb: float | None) -> dict:
+    """ANIMA_BASE under Conservative against Full; SDXL_BASE under its
+    default plan, with bf16 masters at GA 1 (the fused step) and under
+    AOZORA_SDXL_REMAT=dots_no_logits_hires; each trainer's default plan.
+    CHIP_SMOKE_TRACE traces micro steps 3-8 of all runs ("1") or of the
+    runs it names."""
+    phase("plan")
+    import numpy as np
+    from aozora_sdxl_training_tpu_torch.cli import train_anima, train_sdxl
+    from aozora_sdxl_training_tpu_torch.config import schema
+    from aozora_sdxl_training_tpu_torch.config.runtime import RuntimeConfig
+    from aozora_sdxl_training_tpu_torch.data.synthetic import (
+        write_random_sd_checkpoint, write_synthetic_dataset)
+    from aozora_sdxl_training_tpu_torch.models.sdxl.arch import SDXL_BASE
+    from aozora_sdxl_training_tpu_torch.train import anima_trainer
+    from aozora_sdxl_training_tpu_torch.train import trainer as trainer_module
+    print(f"  card: {smi}")
+    out = {"default": default_plans(torch)}
+
+    # ANIMA_BASE: Full, then Conservative, on one random checkpoint and cache
+    anima_dir = work_dir / "anima"
+    anima_dir.mkdir()
+    cfg, preset_path, _ = anima_env(torch, anima_dir, PLAN_STEPS)
+    preset = json.loads(preset_path.read_text())
+    calls = SELF_ATTN_CALLS[128]
+    steps = ("make_anima_micro_step", "make_apply_step")
+    for mode, fwd in (("Full", 2), ("Conservative", 1)):
+        preset["anima"]["anima_gradient_checkpointing_mode"] = mode
+        run = plan_run(torch, train_anima.main, anima_trainer, steps, preset, "anima",
+                       anima_dir, f"anima_{mode.lower()}", ANIMA_PROGRESS)
+        check(f"remat: {True if mode == 'Full' else 'conservative'}" in "\n".join(run["plan"]),
+              f"anima {mode}: the plan's remat")
+        check(run["launches_per_micro_step"] == {
+            "flash_fwd_d128": fwd * calls, "flash_bwd_dq_d128": calls,
+            "flash_bwd_dkv_d128": calls},
+            f"anima {mode}: launches a micro step {run['launches_per_micro_step']}")
+        out[f"anima_{mode.lower()}"] = run
+    full, cons = out["anima_full"]["losses"], out["anima_conservative"]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(cons, full))
+    print(f"  anima: Conservative's losses against Full's: largest relative "
+          f"difference {rel:.3e}")
+    check(rel <= 1e-3, f"Conservative's losses {cons} against Full's {full}")
+    out["anima_conservative"]["loss_rel_to_full"] = rel
+    shutil_rmtree(anima_dir)
+
+    # SDXL_BASE on a synthetic cache: bf16 masters at GA 1 (fused), then
+    # dots_no_logits_hires at GA 4
+    sdxl_dir = work_dir / "sdxl"
+    sdxl_dir.mkdir()
+    ckpt = sdxl_dir / "sdxl_random.safetensors"
+    write_random_sd_checkpoint(ckpt, seed=1234, device="cuda")
+    torch.cuda.empty_cache()
+    preset = json.loads((REPO / "configs" / "default_config.json").read_text())
+    preset["sdxl"].update({
+        "sdxl_base_model_path": str(ckpt), "sdxl_output_dir": str(sdxl_dir / "out"),
+        "sdxl_output_name": "plan", "sdxl_max_train_steps": PLAN_STEPS,
+        "sdxl_instance_datasets": [{"path": str(sdxl_dir / "data"), "repeats": 1}]})
+    config = RuntimeConfig(schema.flatten_preset(preset))
+    write_synthetic_dataset(sdxl_dir / "data", config, n_images=2,
+                            image_size=(1024, 1024), seq_len=77,
+                            embed_dim=SDXL_BASE.cross_attention_dim,
+                            pooled_dim=SDXL_BASE.pooled_projection_dim, seed=7)
+    calls = SELF_ATTN_CALLS[64]
+    steps = ("make_micro_step", "make_apply_step")
+    once = {"flash_fwd": calls, "flash_bwd_dq": calls, "flash_bwd_dkv": calls}
+    # the default preset's plan (fp32 masters, GA 4, no remat): the others'
+    # yardstick in this call
+    run = plan_run(torch, train_sdxl.main, trainer_module, steps, preset, "sdxl", sdxl_dir,
+                   "sdxl_default", SDXL_PROGRESS)
+    check("master weights: float32" in "\n".join(run["plan"])
+          and "remat: False" in "\n".join(run["plan"]), "SDXL: the default plan")
+    check(run["launches_per_micro_step"] == once,
+          f"SDXL default: launches {run['launches_per_micro_step']}")
+    out["sdxl_default"] = run
+    bf16 = {**preset, "sdxl": {**preset["sdxl"], "sdxl_master_dtype": "bfloat16",
+                               "sdxl_gradient_accumulation_steps": 1}}
+    run = plan_run(torch, train_sdxl.main, trainer_module, steps, bf16, "sdxl",
+                   sdxl_dir, "sdxl_bf16_ga1", SDXL_PROGRESS)
+    text = "\n".join(run["plan"])
+    check("master weights: bfloat16" in text and "fused into the train step" in text,
+          "SDXL bf16 GA 1: the plan is not bf16 masters with the fused step")
+    # GA 1: an apply step after every micro step; a step is the two
+    check(len(run["s_per_apply_step"]) == len(run["s_per_micro_step"]),
+          "SDXL bf16 GA 1: not one apply step a micro step")
+    run["median_s_per_step"] = float(np.median(
+        [a + b for a, b in zip(run["s_per_micro_step"], run["s_per_apply_step"])]))
+    print(f"  sdxl_bf16_ga1: {run['median_s_per_step']:.4f} s/step (micro + apply, median)")
+    check(run["launches_per_micro_step"] == once,
+          f"SDXL bf16: launches {run['launches_per_micro_step']}")
+    if fp32_peak_gb is not None:
+        run["fp32_ga4_peak_gb"] = fp32_peak_gb
+        print(f"  sdxl_bf16_ga1: peak {run['max_memory_allocated_gb']:.2f} GB against "
+              f"the trainer phase's fp32-master GA-4 run's {fp32_peak_gb:.2f} GB")
+    out["sdxl_bf16_ga1"] = run
+    run = plan_run(torch, train_sdxl.main, trainer_module, steps, preset, "sdxl", sdxl_dir,
+                   "sdxl_dots_no_logits_hires", SDXL_PROGRESS,
+                   env={"AOZORA_SDXL_REMAT": "dots_no_logits_hires"})
+    check("remat: dots_no_logits_hires" in "\n".join(run["plan"]),
+          "SDXL: the pinned remat mode is not the plan's")
+    # every attention unit of SDXL_BASE at 1024px sits below the default
+    # 4160-token tier: no flash forward runs again
+    check(run["launches_per_micro_step"] == once,
+          f"SDXL dots_no_logits_hires: launches {run['launches_per_micro_step']}")
+    out["sdxl_dots_no_logits_hires"] = run
+    shutil_rmtree(sdxl_dir)
+    return out
+
+
+def shutil_rmtree(path: Path):
+    import shutil
+    shutil.rmtree(path, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
 # 12 (within 7 and 8): resume, the training-state file and int8 moments at
 # full width
 # --------------------------------------------------------------------------
@@ -2463,7 +2764,7 @@ def anima_sp_rank(preset: str, out_dir: str) -> int:
 # --------------------------------------------------------------------------
 
 PHASES = ("kernels", "k5", "k6", "unet", "dit", "vae", "trainer", "anima", "anima_sp",
-          "resume")
+          "resume", "plan")
 USAGE = ("usage: chip_smoke.py [--only PHASE[,PHASE...]]   phases: " + ", ".join(PHASES)
          + "\n       chip_smoke.py --anima-sp-rank PRESET OUT_DIR   (one torchrun rank)")
 
@@ -2574,6 +2875,11 @@ def main(argv=None) -> int:
         if "anima_sp" in only:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_anima_sp_") as tmp:
                 summary["anima_sp"] = anima_sp_phase(torch, Path(tmp), TRAIN_STEPS)
+        if "plan" in only:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_plan_") as tmp:
+                summary["plan"] = plan_phase(
+                    torch, Path(tmp), smi,
+                    summary.get("trainer", {}).get("max_memory_allocated_gb"))
         LOG_DIR.mkdir(parents=True, exist_ok=True)
         (LOG_DIR / "chip_smoke_summary.json").write_text(json.dumps(summary, indent=1))
     except PhaseError as e:

@@ -53,10 +53,20 @@ from aozora_sdxl_training_tpu_torch.models.anima import qwen3 as port_qwen3
 from aozora_sdxl_training_tpu_torch.models.anima import wan_vae as port_wan
 
 from tests.test_torch_port_cache_preview import _configs, _snapshot
+from tests.test_torch_port_trainer import one_thread
 
 REPO = Path(__file__).resolve().parents[1]
 Q_CFG = jax_qwen3.TINY_QWEN3
 V_CFG = jax_wan.TINY_WAN_VAE
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_one_thread():
+    """The port's side of every test, module fixtures included, runs torch
+    on one CPU thread (``one_thread``: several workers at a thread a core
+    each oversubscribe the cores); the JAX side's threads are XLA's own."""
+    with one_thread():
+        yield
 
 
 def _close(got, want, rel=1e-4):
@@ -310,6 +320,8 @@ def test_caches_built_by_each_package_agree(encoder_files, tmp_path, mode):
 
 FIRST_RUN = """
 import sys
+import torch
+torch.set_num_threads(1)   # as one_thread() does in-process
 from aozora_sdxl_training_tpu_torch.cli import cache_datasets, train_anima
 preset = sys.argv[1]
 cache_datasets.main(["--config", preset])

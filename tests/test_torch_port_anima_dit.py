@@ -24,6 +24,8 @@ from aozora_sdxl_training_tpu.models.anima import dit as jax_dit
 from aozora_sdxl_training_tpu_torch.models.anima import dit as port_dit
 from aozora_sdxl_training_tpu_torch.ops import flash_attention as port_fa
 
+from tests.test_torch_port_trainer import one_thread
+
 CFG = replace(jax_dit.TINY_ANIMA, model_channels=256, num_heads=2,
               num_blocks=2)
 PORT_CFG = replace(port_dit.TINY_ANIMA, model_channels=256, num_heads=2,
@@ -31,6 +33,15 @@ PORT_CFG = replace(port_dit.TINY_ANIMA, model_channels=256, num_heads=2,
 # 15 x 14 latents: circular padding to 16 x 14, then 8 x 7 = 56 tokens
 B, H, W, LS = 2, 15, 14, 12
 TOKENS = 56
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_one_thread():
+    """The port's side of every test, module fixtures included, runs torch
+    on one CPU thread (``one_thread``: several workers at a thread a core
+    each oversubscribe the cores); the JAX side's threads are XLA's own."""
+    with one_thread():
+        yield
 
 
 def numpy_params(cfg, rng):

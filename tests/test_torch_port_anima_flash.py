@@ -26,6 +26,18 @@ from jax.experimental.pallas import tpu as pltpu
 from aozora_sdxl_training_tpu.ops.flash_attention import flash_attention as jax_flash
 from aozora_sdxl_training_tpu_torch.ops import flash_attention as port
 
+from tests.test_torch_port_trainer import one_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_one_thread():
+    """The port's side of every test, module fixtures included, runs torch
+    on one CPU thread (``one_thread``: several workers at a thread a core
+    each oversubscribe the cores); the JAX side's threads are XLA's own."""
+    with one_thread():
+        yield
+
+
 D = 128
 
 

@@ -407,7 +407,6 @@ def test_cli_raises_without_cuda_unless_cpu_is_asked_for(monkeypatch):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    ({"ANIMA_GRADIENT_CHECKPOINTING_MODE": "Conservative"}, "Conservative"),
     ({"ANIMA_PREVIEW_EVERY_N_STEPS": 2}, "preview"),
     # sequence parallelism is ported; combined with TP it is refused by TP
     ({"SEQUENCE_PARALLEL_SIZE": 2, "TENSOR_PARALLEL_SIZE": 2}, "PARALLEL"),
@@ -453,16 +452,23 @@ def test_rebuild_cache_builds_on_the_device_before_the_dit_loads(tmp_path):
 
 
 @pytest.mark.parametrize("master", ["bfloat16", "bf16"])
-def test_master_dtype_other_than_fp32_is_refused_before_loading(tmp_path, master):
-    """bf16 master weights are not ported: the trainer raises, naming the key
-    and the value, before it reads the cache or the DiT."""
-    config = RuntimeConfig(_flat(tmp_path, "out", MASTER_DTYPE=master),
+@pytest.mark.parametrize("rung", ["two_pass", "moments_host"])
+def test_forced_unported_rung_is_refused_before_loading(tmp_path, monkeypatch, rung,
+                                                        master):
+    """bf16 master weights and Conservative run (the memory plan, the remat
+    policy); the plan's two-pass and host-moment rungs, whose steps are not
+    ported, are refused: forced at GA 1 (``AOZORA_LOWMEM_RUNG``), the
+    trainer raises, naming the rung, before it reads the cache or the DiT."""
+    monkeypatch.setenv("AOZORA_LOWMEM_RUNG", rung)
+    config = RuntimeConfig(_flat(tmp_path, "out", MASTER_DTYPE=master,
+                                 GRADIENT_ACCUMULATION_STEPS=1,
+                                 ANIMA_GRADIENT_CHECKPOINTING_MODE="Conservative"),
                            validate_resume_paths=False)
     with mock.patch.object(port_trainer, "check_if_anima_caching_needed",
                            side_effect=AssertionError("cache checked")), \
             mock.patch.object(port_trainer, "load_dit_state",
                               side_effect=AssertionError("weights loaded")):
-        with pytest.raises(NotImplementedError, match=f"MASTER_DTYPE='{master}'.*bf16"):
+        with pytest.raises(NotImplementedError, match=f"'{rung}' low-memory rung"):
             port_trainer.run_anima_training(config, device="cpu")
 
 

@@ -47,6 +47,7 @@ from aozora_sdxl_training_tpu_torch.ops import flash_attention as port_flash
 from aozora_sdxl_training_tpu_torch.train import sampler as port_sampler
 
 from tests.test_clip_vae import _tiny_vae_sd_tensors
+from tests.test_torch_port_trainer import one_thread
 from tests.test_torch_port_unet import numpy_params
 
 # tiny text towers whose widths add up to TINY's cross-attention width (48)
@@ -55,6 +56,15 @@ from tests.test_torch_port_unet import numpy_params
 CLIP_L_TINY = ClipTextConfig(width=16, num_layers=2, num_heads=1)
 CLIP_G_TINY = ClipTextConfig(width=32, num_layers=2, num_heads=1,
                              activation="gelu", projection_dim=40)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_one_thread():
+    """The port's side of every test, module fixtures included, runs torch
+    on one CPU thread (``one_thread``: several workers at a thread a core
+    each oversubscribe the cores); the JAX side's threads are XLA's own."""
+    with one_thread():
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -584,3 +584,68 @@ def test_train_state_round_trip_on_card(cuda_device, tmp_path, momentum):
             for a, b in pairs:
                 assert a.device.type == "cuda" and a.dtype == b.dtype
                 assert torch.equal(a, b), f"{field} {name}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dispatcher_ops_launch_the_kernels_and_match_plain_versions(cuda_device, d, dtype):
+    """``aozora::flash_fwd`` and ``aozora::flash_bwd`` on the card launch
+    one kernel per role (never the plain version) and agree with the plain
+    versions at the tolerances above; ``FlashAttention.apply``'s autograd
+    goes through the backward op."""
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    q, k, v, do = (torch.randn(1, 700, 2, d, device=cuda_device, dtype=dtype, generator=g)
+                   for _ in range(4))
+    scale = d ** -0.5
+    fwd, dq, dkv = (port.route(d, dtype, role)[0] for role in port.ROLES)
+    before = dict(port.LAUNCHES)
+    out, lse = torch.ops.aozora.flash_fwd(q, k, v, scale)
+    grads = torch.ops.aozora.flash_bwd(q, k, v, out, lse, do, scale)
+    ref_out, ref_lse = port.flash_forward_reference(q, k, v, scale)
+    ref_grads = port.flash_bwd(*(t.cpu() for t in (q, k, v)), ref_out.cpu(),
+                               ref_lse.cpu(), do.cpu(), scale)
+    launched = {n: port.LAUNCHES[n] - before[n] for n in port.LAUNCHES}
+    assert launched == {n: int(n in (fwd, dq, dkv)) for n in port.LAUNCHES}
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4 * float(ref_out.abs().max())
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+    for got, want in zip(grads, ref_grads):
+        bar = 5 * tol if dtype == torch.bfloat16 else 1e-4 * float(want.abs().max())
+        torch.testing.assert_close(got.float().cpu(), want.float(), rtol=0, atol=bar)
+    qt, kt, vt = (t.clone().requires_grad_(True) for t in (q, k, v))
+    port.flash_attention(qt, kt, vt).backward(do)
+    for got, want in zip((qt.grad, kt.grad, vt.grad), grads):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_conservative_remat_skips_the_flash_forward_on_card(cuda_device, monkeypatch):
+    """A small bf16 DiT at head_dim 128 on the card: Conservative launches
+    the forward kernel once a block, Full twice, and both give the Off
+    gradients (the recompute repeats the same kernels: bit for bit)."""
+    from dataclasses import replace
+    from aozora_sdxl_training_tpu_torch.models.anima import dit
+    cfg = replace(dit.TINY_ANIMA, model_channels=256, num_heads=2, num_blocks=2)
+    monkeypatch.setenv("AOZORA_FLASH_MIN_KV", "1024")
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    params = dit.init_params(cfg, g)
+    lat = torch.randn(1, 1, 64, 64, cfg.in_channels, device=cuda_device, generator=g)
+    ctx = torch.randn(1, 12, cfg.adapter_source_dim, device=cuda_device, generator=g)
+    ids = torch.randint(1, cfg.adapter_vocab, (1, 12), device=cuda_device, generator=g)
+    t = torch.tensor([0.4], device=cuda_device)
+    grads, fwd = {}, {}
+    for remat in (False, True, "conservative"):
+        for p in params.values():
+            p.requires_grad_(True).grad = None
+        port.reset_launch_counts()
+        out = dit.dit_forward(params, lat, t, ctx, cfg=cfg, t5_ids=ids, attn_impl="flash",
+                              compute_dtype=torch.bfloat16, remat=remat)
+        out.float().square().mean().backward()
+        fwd[remat] = port.LAUNCHES["flash_fwd_d128"]
+        grads[remat] = {n: p.grad.clone() for n, p in params.items()}
+    assert fwd == {False: cfg.num_blocks, True: 2 * cfg.num_blocks,
+                   "conservative": cfg.num_blocks}
+    for remat in (True, "conservative"):
+        for n in params:
+            assert torch.equal(grads[remat][n], grads[False][n]), (remat, n)

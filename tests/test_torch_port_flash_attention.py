@@ -36,6 +36,17 @@ from aozora_sdxl_training_tpu_torch.ops import cuda_build
 from aozora_sdxl_training_tpu_torch.ops import flash_attention as port
 from aozora_sdxl_training_tpu_torch.ops.attention import attention
 
+from tests.test_torch_port_trainer import one_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_one_thread():
+    """The port's side of every test, module fixtures included, runs torch
+    on one CPU thread (``one_thread``: several workers at a thread a core
+    each oversubscribe the cores); the JAX side's threads are XLA's own."""
+    with one_thread():
+        yield
+
 
 def _inputs(seed, sq, skv, b=1, h=2, d=64):
     rng = np.random.default_rng(seed)

@@ -29,6 +29,18 @@ from aozora_sdxl_training_tpu.ops import groupnorm_silu as jax_gn
 from aozora_sdxl_training_tpu_torch.ops import groupnorm_silu as port_gn
 from aozora_sdxl_training_tpu_torch.tools.k6_probe import forward_sites
 
+from tests.test_torch_port_trainer import one_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_one_thread():
+    """The port's side of every test, module fixtures included, runs torch
+    on one CPU thread (``one_thread``: several workers at a thread a core
+    each oversubscribe the cores); the JAX side's threads are XLA's own."""
+    with one_thread():
+        yield
+
+
 # (B, H, W, C), groups
 SHAPES = [((2, 8, 8, 32), 8), ((1, 5, 7, 320), 32), ((2, 4, 4, 64), 32)]
 DTYPES = {"fp32": (np.float32, torch.float32, jnp.float32),

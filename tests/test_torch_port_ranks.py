@@ -102,11 +102,14 @@ def _ring(inputs, group, n):
 
 
 def _dit(inputs, group, n):
-    """A TINY DiT forward under SP (Full remat, so each block's recompute
-    runs the ring again) and the gradients of sum(out * tangent)."""
+    """A TINY DiT forward under SP (Full remat unless ``inputs["remat"]``
+    names another mode; under Full each block's recompute runs the ring
+    again) and the gradients of sum(out * tangent), with the number of
+    calls of the flash forward's CPU implementation."""
     import torch
     from dataclasses import replace
     from aozora_sdxl_training_tpu_torch.models.anima import dit
+    from aozora_sdxl_training_tpu_torch.ops import flash_attention as fa
     from aozora_sdxl_training_tpu_torch.ops.ring_attention import SPRingConfig
     cfg = replace(dit.TINY_ANIMA, **{k[4:]: int(inputs[k]) for k in inputs
                                      if k.startswith("cfg.")})
@@ -114,13 +117,16 @@ def _dit(inputs, group, n):
                                   if k.startswith("p.")})
     for p in params.values():
         p.requires_grad_(True)
+    calls = []
+    plain = fa.flash_forward_reference
+    fa.flash_forward_reference = lambda *a: calls.append(1) or plain(*a)
     out = dit.dit_forward(
         params, *(torch.from_numpy(inputs[x]) for x in ("latents", "t", "ctx")),
         cfg=cfg, t5_ids=torch.from_numpy(inputs["ids"]),
         attn_impl=SPRingConfig(group, n, "xla"), compute_dtype=torch.float32,
-        remat="full")
+        remat=str(inputs["remat"]) if "remat" in inputs else "full")
     (out * torch.from_numpy(inputs["tangent"])).sum().backward()
-    return {"out": out.detach().numpy(),
+    return {"out": out.detach().numpy(), "flash_fwd_calls": len(calls),
             **{f"g.{k}": p.grad.numpy() for k, p in params.items()}}
 
 

@@ -24,9 +24,18 @@ from aozora_sdxl_training_tpu_torch.opt import adamw
 import aozora_sdxl_training_tpu_torch.train.reporter as port_reporter
 
 from tests.test_torch_port_trainer import (GA, STEPS, _build_env, _flat, _recording,
-                                           _resume_flat, _run_port_cli)
+                                           _resume_flat, _run_port_cli, one_thread)
 
 INT8 = {"OPTIMIZER_TYPE": "paged_adamw_8bit", "SAVE_EVERY_N_STEPS": 1}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_one_thread():
+    """The port's side of every test, module fixtures included, runs torch
+    on one CPU thread (``one_thread``: several workers at a thread a core
+    each oversubscribe the cores); the JAX side's threads are XLA's own."""
+    with one_thread():
+        yield
 
 
 def test_int8_moments_save_and_resume(tmp_path):

@@ -38,6 +38,16 @@ from aozora_sdxl_training_tpu_torch.ops import ring_attention as port_ring
 
 from tests.test_torch_port_anima_dit import numpy_params
 from tests.test_torch_port_ranks import run_task
+from tests.test_torch_port_trainer import one_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_one_thread():
+    """The port's side of every test, module fixtures included, runs torch
+    on one CPU thread (``one_thread``: several workers at a thread a core
+    each oversubscribe the cores); the JAX side's threads are XLA's own."""
+    with one_thread():
+        yield
 
 
 def _rand(rng, *shape):

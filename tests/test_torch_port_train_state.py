@@ -34,6 +34,18 @@ from aozora_sdxl_training_tpu_torch.models.anima import dit as port_dit
 from aozora_sdxl_training_tpu_torch.models.sdxl import conversion as port_conv
 from aozora_sdxl_training_tpu_torch.opt import adamw as port_adamw
 
+from tests.test_torch_port_trainer import one_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_one_thread():
+    """The port's side of every test, module fixtures included, runs torch
+    on one CPU thread (``one_thread``: several workers at a thread a core
+    each oversubscribe the cores); the JAX side's threads are XLA's own."""
+    with one_thread():
+        yield
+
+
 LAYOUTS = {
     "sdxl": port_adamw.Layout(port_conv.to_jax_layout, port_conv.from_jax_layout),
     "anima": port_adamw.Layout(port_dit.to_jax_layout, port_dit.from_jax_layout),

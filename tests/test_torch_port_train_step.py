@@ -23,6 +23,16 @@ from aozora_sdxl_training_tpu_torch.train import objectives as port_obj
 from aozora_sdxl_training_tpu_torch.train import train_step as port_ts
 
 from tests.test_torch_port_unet import numpy_params
+from tests.test_torch_port_trainer import one_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_one_thread():
+    """The port's side of every test, module fixtures included, runs torch
+    on one CPU thread (``one_thread``: several workers at a thread a core
+    each oversubscribe the cores); the JAX side's threads are XLA's own."""
+    with one_thread():
+        yield
 
 
 # --------------------------------------------------------------------------

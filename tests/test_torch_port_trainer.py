@@ -350,16 +350,22 @@ def test_cli_raises_without_cuda_unless_cpu_is_asked_for(monkeypatch):
 
 
 @pytest.mark.parametrize("master", ["bfloat16", "bf16"])
-def test_master_dtype_other_than_fp32_is_refused_before_loading(tmp_path, master):
-    """bf16 master weights are not ported: the trainer raises, naming the key
-    and the value, before it reads the cache or the checkpoint."""
-    config = RuntimeConfig({**_flat(tmp_path, "out"), "MASTER_DTYPE": master},
+@pytest.mark.parametrize("rung", ["two_pass", "moments_host"])
+def test_forced_unported_rung_is_refused_before_loading(tmp_path, monkeypatch, rung,
+                                                        master):
+    """bf16 master weights run (the memory plan); the plan's two-pass and
+    host-moment rungs, whose steps are not ported, are refused: forced at
+    GA 1 (``AOZORA_LOWMEM_RUNG``), the trainer raises, naming the rung,
+    before it reads the cache or the checkpoint."""
+    monkeypatch.setenv("AOZORA_LOWMEM_RUNG", rung)
+    config = RuntimeConfig({**_flat(tmp_path, "out"), "MASTER_DTYPE": master,
+                            "GRADIENT_ACCUMULATION_STEPS": 1},
                            validate_resume_paths=False)
     with mock.patch.object(port_trainer, "check_if_caching_needed",
                            side_effect=AssertionError("cache checked")), \
             mock.patch.object(port_trainer, "load_sd_tensors",
                               side_effect=AssertionError("weights loaded")):
-        with pytest.raises(NotImplementedError, match=f"MASTER_DTYPE='{master}'.*bf16"):
+        with pytest.raises(NotImplementedError, match=f"'{rung}' low-memory rung"):
             port_trainer.run_sdxl_training(config, device="cpu")
 
 
@@ -368,7 +374,7 @@ def test_fp32_master_dtypes_pass_the_check(tmp_path, master):
     config = RuntimeConfig({**_flat(tmp_path, "out"), "MASTER_DTYPE": master},
                            validate_resume_paths=False)
     assert config.MASTER_DTYPE == master
-    port_trainer.refuse_unported_master_dtype(config)
+    port_trainer._refuse_unported(config)
 
 
 def test_port_imports_no_jax():

@@ -26,6 +26,17 @@ from aozora_sdxl_training_tpu_torch.models.sdxl.arch import TINY as PORT_TINY
 from aozora_sdxl_training_tpu_torch.models.sdxl.conversion import params_from_jax
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_one_thread():
+    """The port's side of every test, module fixtures included, runs torch
+    on one CPU thread (``tests.test_torch_port_trainer.one_thread``, imported
+    here when the fixture runs: that module imports this one); the JAX
+    side's threads are XLA's own."""
+    from tests.test_torch_port_trainer import one_thread
+    with one_thread():
+        yield
+
+
 @pytest.fixture(scope="module")
 def setup():
     rng = np.random.default_rng(123)

@@ -33,6 +33,16 @@ from aozora_sdxl_training_tpu_torch.ops import flash_attention as port_flash
 from aozora_sdxl_training_tpu_torch.train import sampler as port_sampler
 
 from tests.test_clip_vae import _openclip_like_sd_tensors, _tiny_vae_sd_tensors
+from tests.test_torch_port_trainer import one_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_one_thread():
+    """The port's side of every test, module fixtures included, runs torch
+    on one CPU thread (``one_thread``: several workers at a thread a core
+    each oversubscribe the cores); the JAX side's threads are XLA's own."""
+    with one_thread():
+        yield
 
 
 def _close(got, want, rel=1e-4):
