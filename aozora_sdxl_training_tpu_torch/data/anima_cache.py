@@ -10,11 +10,15 @@ same cache:
 * the two-phase build on one device: the text pass in batches of 8
   captions, then the tiled VAE pass image by image, then the null embeds
   and the index;
+* video mode (``ANIMA_VIDEO_FRAMES`` > 1, rounded down to 1 + 4k): each
+  item is a clip of that many frames (animated WEBP, or a still repeated),
+  encoded whole by the Wan VAE's ``encode_video`` into (T', H/8, W/8, z)
+  latents, T' = 1 + k, under the ``video_frames`` cache option;
 * dataset-side conditioning: dual Qwen/T5 null dropout and deterministic
   per-caption T5 token dropout, ids padded to 512.
 
-Video clips (``ANIMA_VIDEO_FRAMES`` > 1) and the line-art loss masks are not
-ported yet: the build refuses them before any weight loads.
+The line-art loss masks are not ported yet: the build refuses them before
+any weight loads.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ from .buckets import (get_multi_bucket_resolutions, make_bucket_variant_metadata
                       max_bucket_resolution_for_config)
 from .captions import CAPTION_JSON_TYPES, caption_source_type, caption_weights_from_config
 from .dataset import unpack_sample_index
-from .image_prep import load_and_resize_for_bucket, validate_images_parallel
+from .image_prep import (clip_frame_count, load_and_resize_for_bucket,
+                         load_clip_for_bucket, validate_images_parallel)
 from ..train.anima_objectives import apply_t5_token_dropout
 
 ANIMA_CACHE_VERSION = 6
@@ -41,12 +46,6 @@ CONTEXT_TOKENS = 512
 def anima_cache_dir_name(config) -> str:
     return str(getattr(config, "ANIMA_CACHE_FOLDER_NAME",
                        ".precomputed_anima_dit_cache"))
-
-
-def clip_frame_count(requested: int) -> int:
-    """Round a frame request down to the causal VAE's 1 + 4k contract."""
-    requested = max(1, int(requested))
-    return 1 + (requested - 1) // 4 * 4
 
 
 def clip_frames_for_config(config) -> int:
@@ -143,11 +142,14 @@ def check_if_anima_caching_needed(config) -> bool:
 
 class AnimaCacheEncoders:
     """encode_prompt(captions) -> (prompt_emb list, t5_ids list);
-    encode_image(pixels HWC) -> latents (H/8, W/8, z). numpy in and out."""
+    encode_image(pixels HWC) -> latents (H/8, W/8, z);
+    encode_clip(frames THWC) -> latents (1+(T-1)/4, H/8, W/8, z). numpy in
+    and out."""
 
-    def __init__(self, *, encode_prompt, encode_image):
+    def __init__(self, *, encode_prompt, encode_image, encode_clip=None):
         self.encode_prompt = encode_prompt
         self.encode_image = encode_image
+        self.encode_clip = encode_clip
 
     @classmethod
     def from_config(cls, config, device=None):
@@ -206,7 +208,15 @@ class AnimaCacheEncoders:
                 out = encode_tile(px)
             return out[0]
 
-        return cls(encode_prompt=encode_prompt, encode_image=encode_image)
+        @torch.inference_mode()
+        def encode_clip(frames_thwc: np.ndarray) -> np.ndarray:
+            # the whole clip at once (no spatial tiling), as in JAX
+            out = wan_vae.encode_video(
+                vae_params, torch.as_tensor(frames_thwc, device=device)[None], cfg=v_cfg)
+            return out[0].float().cpu().numpy()
+
+        return cls(encode_prompt=encode_prompt, encode_image=encode_image,
+                   encode_clip=encode_clip)
 
 
 def _load_hf_tokenizer(path):
@@ -228,16 +238,10 @@ def _load_hf_tokenizer(path):
 
 
 def _refuse_unported(config) -> None:
-    refused = (
-        (clip_frames_for_config(config) > 1,
-         "ANIMA_VIDEO_FRAMES > 1: the video clips' cache (the Wan VAE's video encode)"),
-        (bool(getattr(config, "ANIMA_REPAIR_LINEART_LOSS_ENABLED", False)),
-         "ANIMA_REPAIR_LINEART_LOSS_ENABLED: the line-art loss masks"),
-    )
-    for asked, what in refused:
-        if asked:
-            raise NotImplementedError(
-                f"{what} is not ported to the PyTorch package yet")
+    if bool(getattr(config, "ANIMA_REPAIR_LINEART_LOSS_ENABLED", False)):
+        raise NotImplementedError(
+            "ANIMA_REPAIR_LINEART_LOSS_ENABLED: the line-art loss masks are not "
+            "ported to the PyTorch package yet")
 
 
 def precompute_and_cache_anima(config, encoders: AnimaCacheEncoders | None = None,
@@ -341,9 +345,13 @@ def precompute_and_cache_anima(config, encoders: AnimaCacheEncoders | None = Non
         if lat_jobs:
             print(f"INFO: Anima cache phase 2/2: encoding {len(lat_jobs)} latents "
                   f"(tiled={options['vae_caching_tiled']})")
+            n_frames = int(options.get("video_frames", 1) or 1)
             for meta, lat_path in lat_jobs:
                 try:
-                    latents = encoders.encode_image(load_and_resize_for_bucket(meta))
+                    if n_frames > 1:
+                        latents = encoders.encode_clip(load_clip_for_bucket(meta, n_frames))
+                    else:
+                        latents = encoders.encode_image(load_and_resize_for_bucket(meta))
                     cs.save_payload(lat_path, {
                         "latents": np.asarray(latents, np.float32).astype(vae_dtype)},
                         _meta(root, meta, options, caption_mode))

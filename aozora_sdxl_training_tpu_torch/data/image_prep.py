@@ -115,3 +115,29 @@ def load_and_resize_for_bucket(meta: dict) -> np.ndarray:
         img = fix_alpha_channel(img)
         tw, th = meta["target_resolution"]
         return image_to_array(smart_resize(img, tw, th))
+
+
+def clip_frame_count(requested: int) -> int:
+    """Round a frame request down to the causal VAE's 1 + 4k contract."""
+    requested = max(1, int(requested))
+    return 1 + (requested - 1) // 4 * 4
+
+
+def load_clip_for_bucket(meta: dict, frames: int) -> np.ndarray:
+    """(T, H, W, 3) [-1,1] clip from an animated GIF/WEBP (or a still).
+
+    Decodes up to ``frames`` (a 1+4k count) frames via PIL ``seek``; files
+    with fewer frames loop cyclically so every clip in a run has the same
+    temporal length (uniform (B, T, H, W, C) batches).
+    """
+    frames = clip_frame_count(frames)
+    tw, th = meta["target_resolution"]
+    decoded: list[np.ndarray] = []
+    with Image.open(meta["ip"]) as img:
+        n = int(getattr(img, "n_frames", 1) or 1)
+        for i in range(min(n, frames)):
+            img.seek(i)
+            frame = fix_alpha_channel(img.copy())
+            decoded.append(image_to_array(smart_resize(frame, tw, th)))
+    idx = np.arange(frames) % len(decoded)
+    return np.stack([decoded[i] for i in idx])

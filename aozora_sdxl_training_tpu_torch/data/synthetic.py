@@ -13,7 +13,9 @@ builder to encode; ``write_random_sd_checkpoint`` writes a random SD
 single-file checkpoint (UNet, CLIP-L, bigG and the SD-VAE) under the key
 names the loaders read; ``write_random_dit_checkpoint`` a random Anima DiT,
 ``write_random_qwen3_checkpoint`` and ``write_random_wan_vae_checkpoint``
-the Anima cache's text encoder and VAE encoder.
+the Anima cache's text encoder and Wan VAE (the encoder, or with
+``decoder=True`` a full file, the decoder too); ``write_clip_dataset``
+writes captioned animated-WEBP clips for Anima's video mode.
 """
 
 from __future__ import annotations
@@ -166,15 +168,23 @@ def write_random_qwen3_checkpoint(path, cfg, *, seed: int, device="cpu") -> int:
         cfg, torch.Generator(device=device).manual_seed(seed), dtype=torch.bfloat16))
 
 
-def write_random_wan_vae_checkpoint(path, cfg, *, seed: int, device="cpu") -> int:
+def write_random_wan_vae_checkpoint(path, cfg, *, seed: int, device="cpu",
+                                    decoder: bool = False) -> int:
     """The encoder half of a Wan VAE of ``cfg`` from
     ``models.anima.wan_vae.init_params`` (a torch generator on ``device``
     seeded with ``seed``) in bf16, in a Wan file's layout (5-D causal
     kernels, the temporal downsamples' ``time_conv``, gammas with their
-    broadcast dims), no key prefix. Returns the parameter count."""
-    from ..models.anima.wan_vae import init_params
-    return _write_bf16(path, init_params(
-        cfg, torch.Generator(device=device).manual_seed(seed), dtype=torch.bfloat16))
+    broadcast dims), no key prefix. With ``decoder`` a full Wan file: the
+    decoder with its temporal upsamples' ``time_conv`` too
+    (``init_decoder_params(..., video=True)``, drawn after the encoder from
+    the same generator, so the encoder's tensors are those of the
+    encoder-only file of the same seed). Returns the parameter count."""
+    from ..models.anima.wan_vae import init_decoder_params, init_params
+    g = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(cfg, g, dtype=torch.bfloat16)
+    if decoder:
+        params.update(init_decoder_params(cfg, g, dtype=torch.bfloat16, video=True))
+    return _write_bf16(path, params)
 
 
 def write_image_dataset(root, *, n_images: int, image_size: tuple[int, int],
@@ -197,6 +207,36 @@ def write_image_dataset(root, *, n_images: int, image_size: tuple[int, int],
         Image.fromarray(arr).save(path)
         path.with_suffix(".txt").write_text(
             f"synthetic image {i}, a colourful noisy gradient", encoding="utf-8")
+        paths.append(path)
+    return paths
+
+
+def write_clip_dataset(root, *, n_clips: int, frames: int, image_size: tuple[int, int],
+                       seed: int = 0) -> list[Path]:
+    """Clips ``clip{i}.webp`` of ``frames`` frames of ``image_size`` (w, h),
+    animated WEBP (lossless): a random colour gradient that drifts a few
+    pixels a frame, with colour noise, each with a ``.txt`` caption, and no
+    cache."""
+    from PIL import Image
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    w, h = image_size
+    paths = []
+    for i in range(n_clips):
+        base = rng.uniform(0, 255, size=(1, 1, 3))
+        images = []
+        for f in range(frames):
+            ramp = (np.arange(w, dtype=np.float32)[None, :, None] + 8 * f) % w / w
+            noise = rng.normal(0, 20, size=(h, w, 3))
+            arr = np.clip(base * ramp + 64 + noise, 0, 255).astype(np.uint8)
+            images.append(Image.fromarray(arr))
+        path = root / f"clip{i}.webp"
+        images[0].save(path, save_all=True, append_images=images[1:], lossless=True,
+                       duration=100, loop=0)
+        path.with_suffix(".txt").write_text(
+            f"synthetic clip {i}, a drifting colourful gradient", encoding="utf-8")
         paths.append(path)
     return paths
 

@@ -46,20 +46,23 @@ def flowmatch_noise_and_target(latents, noise, sigmas):
 def weighted_flowmatch_mse(pred, target, weights, sample_mask=None,
                            spatial_mask=None, spatial_strength: float = 0.5):
     """Flow-matching MSE x per-sample ticket weight, then mean, for NHWC
-    ``pred``/``target`` (video's NTHWC comes with video mode).
+    (image) or NTHWC (video) ``pred``/``target``.
 
     ``spatial_mask`` (B, H, W) in [0, 1] boosts the per-pixel loss by
     ``1 + mask * strength`` (resized bilinearly to the error map's H, W when
-    they differ). ``sample_mask`` (B,) zeroes padded samples; the mean then
-    divides by the real count.
+    they differ; a clip's one mask holds for each of its frames).
+    ``sample_mask`` (B,) zeroes padded samples; the mean then divides by
+    the real count.
     """
     sq = (pred.float() - target.float()) ** 2
     if spatial_mask is not None and spatial_strength > 0.0:
         m = torch.clamp(spatial_mask.float(), 0.0, 1.0)
-        hw = tuple(sq.shape[1:3])            # NHWC error map
+        hw = tuple(sq.shape[-3:-1])          # NHWC or NTHWC error map
         if tuple(m.shape[-2:]) != hw:
             m = F.interpolate(m[:, None], size=hw, mode="bilinear",
                               align_corners=False, antialias=True)[:, 0]
+        if sq.dim() == 5:                    # video: broadcast over T
+            m = m[:, None]
         sq = sq * (1.0 + m[..., None] * spatial_strength)
     per_sample = sq.reshape(sq.shape[0], -1).mean(dim=1)
     weighted = per_sample * weights.float()

@@ -11,7 +11,11 @@ apply steps -> progress lines (Ticket + Sigma) and optimizer blocks ->
 scheduled / ``force_save.flag`` saves (DiT + training state) -> final DiT
 save under the detected prefix. Tickets map to flow-matching sigmas, the
 DiT is conditioned on sigma, loss weights are indexed by ticket, and the
-LLM adapter trains inside the DiT forward.
+LLM adapter trains inside the DiT forward. In video mode
+(``ANIMA_VIDEO_FRAMES`` > 1) the cache holds (T', H, W, C) clip latents and
+the DiT takes them whole; ``ANIMA_PREVIEW_EVERY_N_STEPS`` renders a preview
+after the optimizer steps it names (``train/anima_sampler.py``: Euler over
+the DiT, then the Wan decoder of ``DIT_VAE_PATH`` when the file has one).
 
 Before the DiT moves to the device, ``train/memory_policy.py`` plans the
 state for the card's memory as the JAX package does for the TPU: master
@@ -48,8 +52,8 @@ then frees the encoders before the DiT loads; a multi-rank run asks for
 the cache CLI instead, so that no two ranks write one cache.
 
 Not ported yet, and refused with an error when the config asks for them:
-preview sampling, pipeline/tensor parallelism, the line-art loss, video
-mode, and the plan's two-pass and host-moment rungs.
+pipeline/tensor parallelism, the line-art loss, video mode under sequence
+parallelism, and the plan's two-pass and host-moment rungs.
 ``AOZORA_PROFILE_DIR`` traces micro steps 3-8 (``train/profiling.py``).
 """
 
@@ -81,6 +85,7 @@ from ..ops.ring_attention import SPRingConfig
 from ..opt import adamw
 from ..parallel import sharding as shard
 from . import anima_objectives, curves, memory_policy, objectives
+from .anima_sampler import AnimaPreviewRenderer, load_decoder_for_preview
 from .profiling import StepProfiler
 from .reporter import MetricsReporter, optimizer_block
 from .train_step import make_apply_step, split_trainable
@@ -103,8 +108,9 @@ def make_anima_loss_fn(cfg: AnimaStepConfig):
     def loss_fn(trainable, frozen, latents, prompt_emb, t5_ids, tickets,
                 sample_mask, loss_weights, seed: int, micro_step: int,
                 noise=None):
-        """latents (B, H, W, C) -> (loss, sigma of sample 0). ``noise``
-        defaults to the step-keyed stream of ``objectives``."""
+        """latents (B, H, W, C), or a clip's (B, T, H, W, C) -> (loss, sigma
+        of sample 0). ``noise`` defaults to the step-keyed stream of
+        ``objectives``."""
         sigmas, timesteps = anima_objectives.ticket_to_sigma_timestep(tickets)
         if noise is None:
             noise = objectives.noise_for_step(seed, micro_step, latents.shape,
@@ -112,10 +118,14 @@ def make_anima_loss_fn(cfg: AnimaStepConfig):
         noisy, target = anima_objectives.flowmatch_noise_and_target(
             latents, noise, sigmas)
         cd = cfg.compute_dtype
+        # image mode: (B, H, W, C) -> (B, T=1, H, W, C); a clip goes straight
+        # through
+        video = noisy.dim() == 5
         pred = dit_mod.dit_forward(
-            {**frozen, **trainable}, noisy[:, None].to(cd), timesteps / 1000.0,
-            prompt_emb.to(cd), cfg=cfg.dit, t5_ids=t5_ids,
-            attn_impl=cfg.attn_impl, compute_dtype=cd, remat=cfg.remat)[:, 0]
+            {**frozen, **trainable}, (noisy if video else noisy[:, None]).to(cd),
+            timesteps / 1000.0, prompt_emb.to(cd), cfg=cfg.dit, t5_ids=t5_ids,
+            attn_impl=cfg.attn_impl, compute_dtype=cd, remat=cfg.remat)
+        pred = pred if video else pred[:, 0]
         weights = loss_weights[torch.clamp(tickets.long(), 0, loss_weights.shape[0] - 1)]
         loss = anima_objectives.weighted_flowmatch_mse(pred, target, weights,
                                                        sample_mask=sample_mask)
@@ -189,15 +199,15 @@ def anima_remat_mode(config):
 
 def _refuse_unported(config) -> None:
     refused = (
-        (int(getattr(config, "ANIMA_PREVIEW_EVERY_N_STEPS", 0) or 0) > 0,
-         "ANIMA_PREVIEW_EVERY_N_STEPS: preview sampling"),
         (any(int(getattr(config, key, 1) or 1) > 1 for key in (
             "PIPELINE_PARALLEL_SIZE", "TENSOR_PARALLEL_SIZE")),
          "PIPELINE/TENSOR_PARALLEL_SIZE > 1: pipeline and tensor parallelism"),
         (bool(getattr(config, "ANIMA_REPAIR_LINEART_LOSS_ENABLED", False)),
          "ANIMA_REPAIR_LINEART_LOSS_ENABLED: the line-art loss"),
-        (int(getattr(config, "ANIMA_VIDEO_FRAMES", 1) or 1) > 1,
-         "ANIMA_VIDEO_FRAMES > 1: video mode"),
+        (int(getattr(config, "ANIMA_VIDEO_FRAMES", 1) or 1) > 1
+         and int(getattr(config, "SEQUENCE_PARALLEL_SIZE", 1) or 1) > 1,
+         "ANIMA_VIDEO_FRAMES > 1 with SEQUENCE_PARALLEL_SIZE > 1: video mode under "
+         "sequence parallelism"),
     )
     for asked, what in refused:
         if asked:
@@ -324,6 +334,9 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
     ps = max(int(dit_cfg.patch_spatial), 1)
     max_tokens = max(((w // 8 // ps) * (h // 8 // ps) for (w, h) in dataset.bucket_keys),
                      default=64 * 64)
+    clip_frames = int(getattr(config, "ANIMA_VIDEO_FRAMES", 0) or 0)
+    if clip_frames > 1:           # a clip's latent frames: 1 + (T - 1) // 4
+        max_tokens *= 1 + (clip_frames - 1) // 4
     plan = memory_policy.plan_anima_training(
         trainable_elems=sum(t_sizes.values()), frozen_elems=sum(f_sizes.values()),
         batch_per_device=int(config.BATCH_SIZE), tokens=int(max_tokens),
@@ -339,6 +352,7 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
         print("WARNING: moment storage downgraded to int8_blockwise to fit "
               "the HBM budget (update math is unchanged — fp32 scratch).")
         opt_cfg = replace(opt_cfg, momentum_dtype=plan.moment_dtype)
+    base_attn_impl = attn_impl
     if mesh is not None and layout.sp > 1:
         # the training step's attn_impl becomes an SPRingConfig (dit.py
         # dispatches on it)
@@ -382,6 +396,19 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
     seed = int(config.SEED or 42)
     print_optimizer_summary(config, opt_cfg, trainable, lr_curve.initial_lr,
                             device)
+
+    # previews take the single-device attention (not the SP ring); global
+    # rank 0 alone renders them
+    preview_decoder = None
+    if is_main and int(getattr(config, "ANIMA_PREVIEW_EVERY_N_STEPS", 0) or 0) > 0:
+        preview_decoder = load_decoder_for_preview(config, device=device)
+    preview = AnimaPreviewRenderer(config, dit_cfg, attn_impl=base_attn_impl,
+                                   compute_dtype=config.compute_dtype,
+                                   decoder=preview_decoder)
+    if preview.enabled:
+        kind = "decoded pixels" if preview_decoder else "latent-RGB"
+        print(f"INFO: preview sampling ({kind}) every {preview.every} "
+              f"optimizer step(s)")
 
     # ---- loop ----
     reporter = MetricsReporter(total_steps=config.MAX_TRAIN_STEPS)
@@ -467,6 +494,8 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
             noise = objectives.noise_for_step(
                 seed, micro_step, (global_batch, *lat.shape[1:]), device)[rows]
         keep = 0.0 if (micro_step - 1) % ga == 0 else 1.0
+        preview.capture_conditioning(batch["latents"], batch["prompt_emb"],
+                                     batch["t5xxl_ids"])
         step_inputs = (batch["latents"], batch["prompt_emb"], batch["t5xxl_ids"],
                        torch.as_tensor(tickets[rows], device=device),
                        batch["sample_mask"], loss_weights, seed, micro_step)
@@ -500,6 +529,8 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
                 reporter.log_message(
                     f"\n--- {reason} at optimizer step {optimizer_step} ---")
                 save_checkpoint(optimizer_step)
+            if is_main:
+                preview.maybe_render(optimizer_step, {**frozen, **trainable}, output_dir)
 
         message = profiler.after_step(micro_step)
         if message:

@@ -21,7 +21,8 @@ Phases, each of which exits non-zero on failure:
    checked").
 3. kernels: each flash-attention kernel against its plain PyTorch version:
    K1 forward, K2 dQ, K3 dK/dV (head_dim 64) at the SDXL shapes, K4a forward
-   and K4b dQ, dK/dV (head_dim 128) at the Anima shape, K4a forward at
+   and K4b dQ, dK/dV (head_dim 128) at the Anima shapes (4096 tokens, and a
+   video's 12288, timed too), K4a forward at
    head_dim 512 at the SD-VAE mid-attention shape (one head, 16384 tokens),
    with ragged and unequal lengths and lengths around one tile; the fp32
    kernels (csrc/flash_attention_fp32.cu: all three at head_dim 64 and 128,
@@ -58,7 +59,8 @@ Phases, each of which exits non-zero on failure:
    per micro step under full remat), the 1024x1024 preview PNG and the
    merged checkpoint.
 8. anima: first the anima_cache phase, the Anima user's first run: random
-   full-width Qwen3-0.6B and Wan VAE encoder files (bf16, from seeds) and 2
+   full-width Qwen3-0.6B and full Wan VAE files (encoder and decoder; bf16,
+   from seeds) and 2
    captioned 1024px images; the port's cache_datasets CLI in Anima mode
    builds the cache (Qwen3 over 512 tokens, the Wan VAE over 4 tiles of
    96x96 latents an image; no flash launch), checked for 2 text and 2
@@ -71,11 +73,16 @@ Phases, each of which exits non-zero on failure:
    beside the card's name and power limit. Then the port's Anima training
    CLI at ANIMA_BASE width and depth, 1024px, batch 1, GA 4, Full gradient
    checkpointing, 8 micro steps, on a random DiT checkpoint and that cache
-   (its hash T5 ids run past the DiT's 32128-row vocabulary); checks the
-   GUI grammar, finite losses, the flash launch counts (per micro step 56
-   K4a: 28 forward + 28 recompute, 28 of each K4b kernel, no K1-K3), the
-   peak memory (at most 0.5 GB above the 27.8 GB of a synthetic cache) and
-   the saved bf16 DiT under the detected key prefix.
+   (its hash T5 ids run past the DiT's 32128-row vocabulary), with a
+   preview after each optimizer step (16 Euler steps over the DiT, then
+   the Wan decoder's decode_image in fp32; timed and left out of the step
+   times); checks the GUI grammar, finite losses, the flash launch counts
+   (per micro step 56 K4a: 28 forward + 28 recompute, 28 of each K4b
+   kernel, no K1-K3; 448 K4a a preview), the decoded 1024x1024 preview PNGs
+   (no latent-RGB fallback, no preview that disabled itself), the training
+   peak memory (at most 0.5 GB above the 27.8 GB of a synthetic cache; a
+   preview's peak is printed beside it) and the saved bf16 DiT under the
+   detected key prefix.
 9. k5: the stats-level entry points (flash_fwd_stats, flash_bwd_stats over
    the head_dim-128 kernels) against their plain versions at the Anima
    ring hop shape (B=1, H=16, D=128, 2048 and 1024 tokens a shard, bf16);
@@ -124,6 +131,21 @@ Phases, each of which exits non-zero on failure:
    micro steps 5-8). The free disk is printed and checked first; every
    file goes once it has been used.
 
+14. anima_video (after anima): Anima video mode at ANIMA_BASE. The same
+   random Qwen3-0.6B and full Wan VAE files and 2 captioned 1024px
+   animated-WEBP clips of 9 frames; the cache CLI with ANIMA_VIDEO_FRAMES 9
+   (each clip whole through encode_video: latents (3, 128, 128, 16) bf16),
+   s a clip and the peak printed; encode_video, decode_video and
+   decode_image in fp32 against float64 on a 5-frame 256px clip at 1e-4 of
+   the largest magnitude; then the Anima CLI on the clips' cache, 8 micro
+   steps (12288 tokens a sample) with a preview after each optimizer step
+   (16 Euler steps, then decode_video of the sampled clip: a filmstrip of 5
+   of its 9 frames); checks finite losses, the launch counts (K4a 56 a
+   micro step and 448 a preview, K4b 28 + 28 a micro step), the filmstrip
+   PNGs and the saved DiT, and prints the plan's estimate beside the
+   training peak, s per micro and optimizer step, s per preview and the
+   model TFLOP/s at 12288 tokens.
+
 13. plan: the memory planner on the card's budget (its total memory),
    without the cache encoders (synthetic caches): each trainer's default
    plan printed; ANIMA_BASE (random, 1024px, batch 1, GA 4) under Full
@@ -142,8 +164,9 @@ Phases, each of which exits non-zero on failure:
 
 `python3 chip_smoke.py --only anima_sp` runs the device, build and anima_sp
 phases alone (on a machine with several cards); `--only anima` runs the
-anima_cache and anima phases; `--only resume` runs the trainer and anima
-phases with their resume parts; `--only plan` the plan phase.
+anima_cache and anima phases; `--only anima_video` the video phase;
+`--only resume` runs the trainer and anima phases with their resume parts;
+`--only plan` the plan phase.
 
 The second-to-last lines are the kernels JSON and the card's name and power
 limit; the last line is {"ok": true, "device": {...}}.
@@ -223,6 +246,18 @@ MAIN_SHAPES = {64: ((1, 10, 4096, 10), (1, 20, 1024, 60)),
 # 4096 tokens) and of ANIMA_BASE (head_dim 128), held and timed only
 FP32_SHAPES = {64: ((2, 2, 1024), (1, 10, 4096)), 128: ((2, 2, 1024), (1, 16, 4096))}
 SELF_ATTN_CALLS = {d: sum(c for *_, c in shapes) for d, shapes in MAIN_SHAPES.items()}
+# Anima video mode at 1024px: a 9-frame clip is 3 latent frames of 64 x 64
+# patches; the DiT's self-attention then runs at 12288 tokens (K4a/K4b)
+VIDEO_FRAMES = 9
+VIDEO_TOKENS = 3 * 64 * 64
+VIDEO_SHAPE = (1, 16, VIDEO_TOKENS, SELF_ATTN_CALLS[128])
+# the bf16 kernels' timed shapes: the main ones and, at head_dim 128, the
+# video one
+TIMED_SHAPES = {64: MAIN_SHAPES[64], 128: MAIN_SHAPES[128] + (VIDEO_SHAPE,)}
+# the Anima runs' previews: Euler steps of the DiT without remat, one K4a
+# launch a block a step
+ANIMA_PREVIEW_STEPS = 16
+ANIMA_PREVIEW_K4A = SELF_ATTN_CALLS[128] * ANIMA_PREVIEW_STEPS
 # the SD-VAE mid-attention at 1024px: one head of 512 over 128 x 128 tokens,
 # fp32 in the preview decoder, bf16 in the encoder's flash route
 VAE_TOKENS = 128 * 128
@@ -505,6 +540,7 @@ def kernel_phase(torch):
              ("S=64 B=2 H=3 D=128", 2, 3, 64, 64, 128, bf16),
              ("S=65 B=2 H=3 D=128", 2, 3, 65, 65, 128, bf16),
              ("S=129 B=2 H=3 D=128", 2, 3, 129, 129, 128, bf16),
+             ("S=12288 B*H=16 D=128 (video)", 1, 16, VIDEO_TOKENS, VIDEO_TOKENS, 128, bf16),
              ("S=16384 B*H=1 D=512 bf16", 1, 1, VAE_TOKENS, VAE_TOKENS, 512, bf16),
              ("ragged S=16000 B*H=1 D=512", 1, 1, 16000, 16000, 512, bf16),
              ("fp32 S=1024 B=2 H=2 D=64", 2, 2, 1024, 1024, 64, f32),
@@ -522,7 +558,7 @@ def kernel_phase(torch):
     # another order); lse in absolute terms, bf16 1e-3, fp32 1e-4
     rel_tol = {bf16: 2e-2, f32: 1e-4}
     lse_tol = {bf16: 1e-3, f32: 1e-4}
-    main = ("S=4096", "S=1024", "S=16384", "fp32 S=1024", "fp32 S=16384")
+    main = ("S=4096", "S=1024", "S=12288", "S=16384", "fp32 S=1024", "fp32 S=16384")
     g = torch.Generator(device="cuda").manual_seed(0)
     max_err = dict.fromkeys(KERNELS, 0.0)
     for label, b, h, sq, skv, d, dtype in cases:
@@ -641,15 +677,16 @@ def check_unaligned(torch, fa):
 
 
 def time_kernels(torch, fa):
-    """The bf16 kernels at the main shapes: device time (torch.profiler;
-    ``ms``) and CUDA events over 20 launches (``events_ms``, which read the
-    host's issue time where a launch takes longer to issue than to run)
-    beside the bound, the plain version and scaled_dot_product_attention's
-    device time."""
+    """The bf16 kernels at the main shapes and the video shape (head_dim
+    128, 12288 tokens): device time (torch.profiler; ``ms``) and CUDA
+    events over 20 launches (``events_ms``, which read the host's time to
+    enqueue where a launch takes longer to enqueue than to run) beside the
+    bound, the plain version and scaled_dot_product_attention's device
+    time."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(1)
     timings = {}
-    for d, shapes in MAIN_SHAPES.items():
+    for d, shapes in TIMED_SHAPES.items():
         kf, kdq, kdkv = kernel_names(fa, d, torch.bfloat16)
         for b, h, s, calls in shapes:
             q, k, v, do = (torch.randn(b, s, h, d, device="cuda", dtype=torch.bfloat16,
@@ -1453,10 +1490,11 @@ def step_times(marks: list, skip: int):
     steps among them. A micro step runs from the end of the step before it
     (micro or apply) to its own end, so it holds the host's work between
     steps too; a checkpoint save (a "save" mark of ``timed_state_io`` at its
-    end) is left out of every step."""
+    end) and a preview (a "preview" mark of ``timed_previews``) are left
+    out of every step."""
     micro, apply_, n_micro, t_prev = [], [], 0, None
     for kind, t in marks:
-        if kind == "save":
+        if kind in ("save", "preview"):
             t_prev = t
             continue
         n_micro += kind == "micro"
@@ -1535,18 +1573,20 @@ def timed_state_io(torch, module, marks: list, record: dict):
 
 
 def run_trainer_cli(torch, cli_main, preset_path: Path, work_dir: Path, module,
-                    step_names, log_name: str, state_io: dict | None = None):
+                    step_names, log_name: str, state_io: dict | None = None,
+                    marks: list | None = None):
     """Runs a training CLI in ``work_dir`` with the flash launch counts set
-    to 0 just before and read just after, its steps timed, its training
-    state's saves and loads timed into ``state_io`` (``timed_state_io``) and
-    its stdout kept. Returns (stdout, marks, launches, peak GB, wall s)."""
+    to 0 just before and read just after, its steps timed into ``marks``
+    (a new list by default), its training state's saves and loads timed
+    into ``state_io`` (``timed_state_io``) and its stdout kept. Returns
+    (stdout, marks, launches, peak GB, wall s)."""
     import gc
     from aozora_sdxl_training_tpu_torch.ops import flash_attention as fa
     gc.collect()                  # an earlier trainer's weights, held in cycles
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     log = io.StringIO()
-    marks = []
+    marks = [] if marks is None else marks
     restore = timed_steps(torch, module, step_names, marks)
     restore_io = timed_state_io(torch, module, marks, {} if state_io is None else state_io)
     fa.reset_launch_counts()
@@ -1704,20 +1744,35 @@ def cache_phase(torch, preset_path: Path, work_dir: Path, config):
             "latents": n_lat, "captions": n_text, "cli_wall_s": wall}
 
 
-def timed_previews(torch, sampler_module, record: list):
-    """Wraps ``PreviewRenderer.maybe_render`` so that each call that writes a
-    PNG is synced and its host time appended to ``record``."""
-    cls = sampler_module.PreviewRenderer
+def timed_previews(torch, cls, record: list, marks: list | None = None,
+                   peaks: dict | None = None):
+    """Wraps the renderer ``cls``'s ``maybe_render`` (``PreviewRenderer`` of
+    SDXL, ``AnimaPreviewRenderer``) so that each call that renders is
+    synced, its host time appended to ``record`` and a "preview" mark at its
+    end to ``marks`` (``step_times`` then leaves it out of the steps). With
+    ``peaks``, the peak memory before each preview (since the run's start
+    or the last preview) goes to peaks["train"] and the preview's own to
+    peaks["preview"]: the peak statistics are reset around each preview,
+    so the run's last reading covers only what came after the last one."""
     original = cls.maybe_render
 
     def maybe_render(self, optimizer_step, *args, **kwargs):
         rendering = (self.enabled and self._cond is not None
                      and optimizer_step % self.every == 0)
+        torch.cuda.synchronize()
+        if rendering and peaks is not None:
+            peaks.setdefault("train", []).append(torch.cuda.max_memory_allocated() / 1e9)
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = original(self, optimizer_step, *args, **kwargs)
         torch.cuda.synchronize()
         if rendering:
             record.append(time.perf_counter() - t0)
+            if marks is not None:
+                marks.append(("preview", time.perf_counter()))
+            if peaks is not None:
+                peaks.setdefault("preview", []).append(torch.cuda.max_memory_allocated() / 1e9)
+                torch.cuda.reset_peak_memory_stats()
         return out
 
     cls.maybe_render = maybe_render
@@ -1774,7 +1829,7 @@ def trainer_phase(torch, work_dir: Path, steps: int, smi: str, resume: bool):
         (work_dir / "force_save.flag").write_text("")
     previews: list = []
     state_io: dict = {"snapshot": resume}
-    restore = timed_previews(torch, sampler_module, previews)
+    restore = timed_previews(torch, sampler_module.PreviewRenderer, previews)
     try:
         raw, marks, launches, peak_gb, wall = run_trainer_cli(
             torch, train_sdxl.main, preset_path, work_dir, trainer_module,
@@ -1914,22 +1969,31 @@ def check_saved_dit(final: Path, cfg):
 ANIMA_PEAK_GB = 27.8          # the anima phase's peak on a synthetic cache (PERF.md §5)
 
 
-def anima_cache_inputs(torch, work_dir: Path) -> dict:
-    """Random full-width Qwen3-0.6B (seed 2468) and Wan VAE (seed 1357)
-    files in bf16 and 2 captioned 1024px images. Returns the preset's keys
-    for them."""
+def anima_cache_inputs(torch, work_dir: Path, clips: bool = False) -> dict:
+    """Random full-width Qwen3-0.6B (seed 2468) and full Wan VAE (encoder
+    and decoder, seed 1357) files in bf16, and 2 captioned 1024px images
+    or, with ``clips``, 2 captioned 1024px animated-WEBP clips of
+    VIDEO_FRAMES frames. Returns the preset's keys for the files."""
     from aozora_sdxl_training_tpu_torch.data.synthetic import (
-        write_image_dataset, write_random_qwen3_checkpoint, write_random_wan_vae_checkpoint)
+        write_clip_dataset, write_image_dataset, write_random_qwen3_checkpoint,
+        write_random_wan_vae_checkpoint)
     from aozora_sdxl_training_tpu_torch.models.anima import qwen3, wan_vae
 
     t0 = time.perf_counter()
     te, vae = work_dir / "qwen3_random.safetensors", work_dir / "wan_vae_random.safetensors"
     n_te = write_random_qwen3_checkpoint(te, qwen3.QWEN3_0_6B, seed=2468, device="cuda")
-    n_vae = write_random_wan_vae_checkpoint(vae, wan_vae.WAN_VAE, seed=1357, device="cuda")
+    n_vae = write_random_wan_vae_checkpoint(vae, wan_vae.WAN_VAE, seed=1357, device="cuda",
+                                            decoder=True)
     torch.cuda.empty_cache()
-    write_image_dataset(work_dir / "data", n_images=2, image_size=(1024, 1024), seed=3)
-    print(f"  wrote {te.name}: {n_te:,} parameters, {vae.name}: {n_vae:,} (bf16), 2 "
-          f"captioned 1024x1024 images in {time.perf_counter() - t0:.1f} s")
+    if clips:
+        write_clip_dataset(work_dir / "data", n_clips=2, frames=VIDEO_FRAMES,
+                           image_size=(1024, 1024), seed=3)
+        what = f"clips of {VIDEO_FRAMES} frames"
+    else:
+        write_image_dataset(work_dir / "data", n_images=2, image_size=(1024, 1024), seed=3)
+        what = "images"
+    print(f"  wrote {te.name}: {n_te:,} parameters, {vae.name}: {n_vae:,} (bf16, encoder "
+          f"and decoder), 2 captioned 1024x1024 {what} in {time.perf_counter() - t0:.1f} s")
     check(5.9e8 < n_te < 6.0e8, f"Qwen3-0.6B has {n_te} parameters")
     return {"anima_text_encoder_path": str(te), "anima_vae_path": str(vae)}
 
@@ -1937,8 +2001,9 @@ def anima_cache_inputs(torch, work_dir: Path) -> dict:
 def timed_anima_encoders(torch, anima_cache, record: dict):
     """Wraps ``AnimaCacheEncoders.from_config`` so that each encoder call
     ends in torch.cuda.synchronize() and adds (host s, calls, items) to
-    ``record`` ("text": caption batches, "latents": images), and the most
-    it allocated above what was held before it to "<kind>_peak_gb"; "peak_gb"
+    ``record`` ("text": caption batches, "latents": images, "clips":
+    clips), and the most it allocated above what was held before it to
+    "<kind>_peak_gb"; "peak_gb"
     is the largest allocation at any call's peak and "loads" counts the
     encoder loads. Returns a restore function."""
     cls = anima_cache.AnimaCacheEncoders
@@ -1965,6 +2030,7 @@ def timed_anima_encoders(torch, anima_cache, record: dict):
         enc = original(*args, **kwargs)
         enc.encode_prompt = timed("text", enc.encode_prompt, len)
         enc.encode_image = timed("latents", enc.encode_image, lambda px: 1)
+        enc.encode_clip = timed("clips", enc.encode_clip, lambda px: 1)
         return enc
 
     cls.from_config = from_config
@@ -2079,11 +2145,14 @@ def anima_encoders_against_float64(torch, config, work_dir: Path) -> dict:
             f"kernels {smallest}": top}
 
 
-def anima_cache_phase(torch, preset_path: Path, work_dir: Path, config, smi: str):
+def anima_cache_phase(torch, preset_path: Path, work_dir: Path, config, smi: str,
+                      video: bool = False):
     """The port's cache_datasets CLI in Anima mode on the images: builds the
     cache (Qwen3-0.6B in batches of 8 captions, then the Wan VAE over 4
     tiles an image), then a second run finds it current and loads no
-    encoder. Returns the cache pass's numbers."""
+    encoder. With ``video`` the data are clips of VIDEO_FRAMES frames, each
+    encoded whole by ``encode_video`` into 3 latent frames. Returns the
+    cache pass's numbers."""
     import numpy as np
     from aozora_sdxl_training_tpu_torch.cli import cache_datasets
     from aozora_sdxl_training_tpu_torch.data import anima_cache
@@ -2111,7 +2180,8 @@ def anima_cache_phase(torch, preset_path: Path, work_dir: Path, config, smi: str
         restore()
     (first, wall, launches, peak_gb, loads), (second, _, _, _, loads2) = logs
     LOG_DIR.mkdir(parents=True, exist_ok=True)
-    (LOG_DIR / "chip_smoke_anima_cache.log").write_text(first + second)
+    (LOG_DIR / f"chip_smoke_anima{'_video' if video else ''}_cache.log").write_text(
+        first + second)
     check(launches == {}, f"the Anima cache pass launched flash kernels: {launches}")
     check("phase 1/2: encoding 2 captions" in first and "phase 2/2: encoding 2 latents" in first,
           "the first cache run did not encode 2 captions and 2 latents")
@@ -2124,6 +2194,8 @@ def anima_cache_phase(torch, preset_path: Path, work_dir: Path, config, smi: str
           "the cache check rejects the cache the CLI built")
     index = cs.load_index(work_dir / "data" / anima_cache.anima_cache_dir_name(config))
     check(len(index["files"]) == 2, f"{len(index['files'])} items in the index")
+    kind, latent_shape = (("clips", (1 + (VIDEO_FRAMES - 1) // 4, 128, 128, 16)) if video
+                          else ("latents", (128, 128, 16)))
     max_id = 0
     for item in index["files"]:
         te, _ = cs.load_payload(item["te_path"])
@@ -2132,68 +2204,210 @@ def anima_cache_phase(torch, preset_path: Path, work_dir: Path, config, smi: str
                   for k, v in {**te, **lat}.items()}
         check(shapes == {"prompt_emb": ((512, 1024), "bfloat16"),
                          "t5xxl_ids": ((), "int32"),
-                         "latents": ((128, 128, 16), "bfloat16")},
+                         "latents": (latent_shape, "bfloat16")},
               f"payload shapes {shapes}")
         check(all(np.isfinite(np.asarray(v, np.float32)).all()
                   for v in (te["prompt_emb"], lat["latents"])), "non-finite payload")
         max_id = max(max_id, int(te["t5xxl_ids"].max()))
-    (t_text, n_batches, n_text), (t_lat, _, n_lat) = record["text"], record["latents"]
+    (t_text, n_batches, n_text), (t_lat, _, n_lat) = record["text"], record[kind]
+    what = (f"clips of {VIDEO_FRAMES} frames at 1024x1024 (untiled encode_video), "
+            f"{t_lat / n_lat:.4f} s a clip" if video else
+            f"latents at 1024x1024 (4 tiles each), {t_lat / n_lat:.4f} s a latent")
     print(f"  cache pass ({smi}): {n_text} captions in {n_batches} batch(es), "
-          f"{t_text / n_batches:.4f} s a caption batch; {n_lat} latents at "
-          f"1024x1024 (4 tiles each), {t_lat / n_lat:.4f} s a latent; peak "
+          f"{t_text / n_batches:.4f} s a caption batch; {n_lat} {what}; peak "
           f"{peak_gb:.2f} GB allocated (above what was held before the call: "
           f"{record['text_peak_gb']:.3f} GB in a caption batch, "
-          f"{record['latents_peak_gb']:.3f} GB in a latent); CLI {wall:.1f} s "
+          f"{record[kind + '_peak_gb']:.3f} GB in a {kind[:-1]}); CLI {wall:.1f} s "
           "(encoder load included); "
           f"T5 ids up to {max_id} (the DiT's vocabulary: 32128); the second run "
           "loaded no encoder and encoded nothing")
-    f64 = anima_encoders_against_float64(torch, config, work_dir)
+    f64 = (wan_video_against_float64(torch, config, work_dir) if video
+           else anima_encoders_against_float64(torch, config, work_dir))
     return {"s_per_caption_batch": t_text / n_batches, "caption_batches": n_batches,
-            "captions": n_text, "s_per_latent_1024": t_lat / n_lat, "latents": n_lat,
+            "captions": n_text, f"s_per_{kind[:-1]}_1024": t_lat / n_lat, kind: n_lat,
             "max_memory_allocated_gb": peak_gb, "cli_wall_s": wall, "max_t5_id": max_id,
-            "peak_above_held_gb": {k: record[f"{k}_peak_gb"] for k in ("text", "latents")},
+            "peak_above_held_gb": {k: record[f"{k}_peak_gb"] for k in ("text", kind)},
             "float64": f64, "card": smi}
 
 
-def anima_phase(torch, work_dir: Path, steps: int, smi: str, resume: bool):
-    from aozora_sdxl_training_tpu_torch.cli import train_anima
-    from aozora_sdxl_training_tpu_torch.train import anima_trainer
+def check_anima_previews(raw: str, out_dir: Path, n_previews: int, previews: list,
+                         size: tuple, what: str):
+    """The Anima run rendered a decoded preview of ``size`` (w, h) after
+    each optimizer step, with the decoder of the run's full Wan file: no
+    latent-RGB fallback and no preview that disabled itself."""
+    from PIL import Image
+    check("INFO: preview sampling (decoded pixels) every 1 optimizer step(s)" in raw,
+          "the Anima run did not preview decoded pixels every optimizer step")
+    check("latent-RGB" not in raw and not list(out_dir.glob("*_latent.png")),
+          "the preview fell back to latent-RGB with a decoder in the Wan file")
+    check("preview sampling disabled" not in raw, "preview sampling was disabled")
+    check(len(previews) == n_previews, f"{len(previews)} previews rendered, not {n_previews}")
+    for step in range(1, n_previews + 1):
+        png = out_dir / f"step_{step}.png"
+        check(png.exists(), f"no preview {png.name}")
+        with Image.open(png) as im:
+            check(im.size == size and im.mode == "RGB", f"preview {png.name}: {im.size} {im.mode}")
+    print(f"  previews ({ANIMA_PREVIEW_STEPS} Euler steps, then the fp32 Wan decoder; {what} "
+          f"{size[0]}x{size[1]}): {', '.join(f'{t:.4f}' for t in previews)} s")
 
+
+def run_anima_cli(torch, preset_path: Path, work_dir: Path, log_name: str,
+                  state_io: dict | None = None):
+    """The Anima CLI through ``run_trainer_cli`` with its previews timed and
+    left out of the steps. Returns (stdout, marks, launches, training peak
+    GB, preview peak GB, wall s, previews' s)."""
+    from aozora_sdxl_training_tpu_torch.cli import train_anima
+    from aozora_sdxl_training_tpu_torch.train import anima_sampler, anima_trainer
+    previews, marks, peaks = [], [], {}
+    restore = timed_previews(torch, anima_sampler.AnimaPreviewRenderer, previews, marks,
+                             peaks)
+    try:
+        raw, marks, launches, last_gb, wall = run_trainer_cli(
+            torch, train_anima.main, preset_path, work_dir, anima_trainer,
+            ("make_anima_micro_step", "make_apply_step"), log_name, state_io, marks)
+    finally:
+        restore()
+    return (raw, marks, launches, max([last_gb, *peaks.get("train", ())]),
+            max(peaks.get("preview", [0.0])), wall, previews)
+
+
+def anima_phase(torch, work_dir: Path, steps: int, smi: str, resume: bool):
     phase("anima_cache")
     inputs = anima_cache_inputs(torch, work_dir)
-    cfg, preset_path, config = anima_env(torch, work_dir, steps, synthetic_cache=False,
-                                         **inputs)
+    cfg, preset_path, config = anima_env(
+        torch, work_dir, steps, synthetic_cache=False, anima_preview_every_n_steps=1,
+        anima_preview_sample_steps=ANIMA_PREVIEW_STEPS, **inputs)
+    check(config.ANIMA_PREVIEW_EVERY_N_STEPS == 1
+          and config.ANIMA_PREVIEW_SAMPLE_STEPS == ANIMA_PREVIEW_STEPS,
+          "the preset's preview keys did not reach the config")
     cache = anima_cache_phase(torch, preset_path, work_dir, config, smi)
     phase("anima")
     if resume:
         check_disk(work_dir, RESUME_FREE_GB["anima"], smi)
         (work_dir / "force_save.flag").write_text("")
     state_io: dict = {"snapshot": resume}
-    raw, marks, launches, peak_gb, wall = run_trainer_cli(
-        torch, train_anima.main, preset_path, work_dir, anima_trainer,
-        ("make_anima_micro_step", "make_apply_step"), "chip_smoke_anima.log", state_io)
+    raw, marks, launches, peak_gb, preview_gb, wall, previews = run_anima_cli(
+        torch, preset_path, work_dir, "chip_smoke_anima.log", state_io)
     check("encoding" not in raw, "the trainer encoded the cache again")
     check(("Emergency checkpoint requested at optimizer step 1" in raw) == resume
           and len(state_io.get("save", ())) == resume,
           "the emergency save at optimizer step 1 did not happen as asked")
     losses = check_progress(raw, ANIMA_PROGRESS, steps)
     calls = SELF_ATTN_CALLS[128]
-    check_launches(launches, {"flash_fwd_d128": 2 * calls * steps,
+    n_previews = steps // GA
+    check_launches(launches, {"flash_fwd_d128": 2 * calls * steps + ANIMA_PREVIEW_K4A * n_previews,
                               "flash_bwd_dq_d128": calls * steps,
                               "flash_bwd_dkv_d128": calls * steps})
+    check_anima_previews(raw, work_dir / "out" / "previews", n_previews, previews,
+                         (1024, 1024), "decode_image of the first latent frame,")
     check_saved_dit(work_dir / "out" / "smoke_anima.safetensors", cfg)
     tokens = (1024 // 8 // cfg.patch_spatial) ** 2
     fwd = anima_forward_flops(cfg, tokens)
     print(f"  analytic forward at {tokens} tokens: {fwd:.4e} flop; a micro step "
           f"counts 3x (forward + backward; the Full recompute is not counted)")
-    summary = step_summary(marks, steps, fwd, peak_gb, wall, launches, losses,
-                           remat="full", forward_flops=fwd, cache=cache)
+    summary = step_summary(marks, steps, fwd, max(peak_gb, preview_gb), wall, launches,
+                           losses, remat="full", forward_flops=fwd, cache=cache,
+                           preview_s=previews, train_peak_gb=peak_gb,
+                           preview_peak_gb=preview_gb)
+    print(f"  peak in training {peak_gb:.2f} GB, in a preview {preview_gb:.2f} GB")
     check(peak_gb <= ANIMA_PEAK_GB + 0.5,
           f"peak {peak_gb:.2f} GB, above {ANIMA_PEAK_GB} GB (a synthetic cache's) + 0.5 GB")
     if resume:
         (work_dir / "out" / "smoke_anima.safetensors").unlink()
         summary["resume"] = anima_resume_phase(
             torch, work_dir, json.loads(preset_path.read_text()), raw, summary, state_io, smi)
+    return summary, launches
+
+
+def wan_video_against_float64(torch, config, work_dir: Path) -> dict:
+    """The full Wan file's ``encode_video`` on a 5-frame 256 px clip (the
+    top-left corner of the first clip's first 5 frames), then
+    ``decode_video`` and ``decode_image`` (its first latent frame) of the
+    float64 latents, each in fp32 (timed, warm) against float64 on the
+    card, held at 1e-4 of the largest magnitude as the image encoder is."""
+    import numpy as np
+    from PIL import Image
+    from aozora_sdxl_training_tpu_torch.ckpt.safetensors_io import load_all
+    from aozora_sdxl_training_tpu_torch.models.anima import wan_vae
+
+    with Image.open(work_dir / "data" / "clip0.webp") as im:
+        frames = []
+        for i in range(5):
+            im.seek(i)
+            frames.append(np.asarray(im.convert("RGB"), np.float32)[:256, :256])
+    clip = torch.from_numpy(np.stack(frames)[None] / 127.5 - 1.0).cuda()
+    state = load_all(config.DIT_VAE_PATH)
+    f32, f64 = torch.float32, torch.float64
+    params = {dtype: wan_vae.params_from_torch_state(state, dtype=dtype, device="cuda",
+                                                     include_decoder=True)
+              for dtype in (f64, f32)}
+    v_cfg = wan_vae.detect_config(params[f32])
+    errs, times, shapes = {}, {}, {}
+    with torch.inference_mode():
+        lat64 = wan_vae.encode_video(params[f64], clip, cfg=v_cfg, compute_dtype=f64)
+        calls = {"encode_video": lambda p, dt: wan_vae.encode_video(
+                     p, clip, cfg=v_cfg, compute_dtype=dt),
+                 "decode_video": lambda p, dt: wan_vae.decode_video(
+                     p, lat64, cfg=v_cfg, compute_dtype=dt),
+                 "decode_image": lambda p, dt: wan_vae.decode_image(
+                     p, lat64[:, 0], cfg=v_cfg, compute_dtype=dt)}
+        for name, fn in calls.items():
+            want = lat64 if name == "encode_video" else fn(params[f64], f64)
+            fn(params[f32], f32)                   # warm-up (cuDNN plans)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(params[f32], f32)
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t0
+            errs[name], shapes[name] = rel_err(got, want), tuple(got.shape)
+    del params
+    check(shapes == {"encode_video": (1, 2, 32, 32, 16), "decode_video": (1, 5, 256, 256, 3),
+                     "decode_image": (1, 256, 256, 3)}, f"Wan video shapes {shapes}")
+    print("  Wan VAE fp32 against float64 on the card, a 5-frame 256 px clip: "
+          + ", ".join(f"{name} {errs[name]:.3e} ({times[name]:.4f} s warm)" for name in errs)
+          + " of the largest magnitude (bar 1e-4)")
+    check(all(e <= 1e-4 for e in errs.values()), f"Wan video fp32 against float64: {errs}")
+    return {"max_abs_err_of_max": errs, "warm_s": times}
+
+
+def anima_video_phase(torch, work_dir: Path, steps: int, smi: str):
+    """Anima video mode at ANIMA_BASE: 2 captioned 1024px clips of
+    VIDEO_FRAMES frames through the cache CLI (``encode_video``: 3 latent
+    frames of 128 x 128 a clip), the Wan VAE's video encode and decode
+    against float64, then the Anima CLI on the clips' cache (12288 tokens a
+    sample) with a decoded filmstrip preview every optimizer step."""
+    phase("anima_video")
+    inputs = anima_cache_inputs(torch, work_dir, clips=True)
+    cfg, preset_path, config = anima_env(
+        torch, work_dir, steps, synthetic_cache=False, anima_video_frames=VIDEO_FRAMES,
+        anima_preview_every_n_steps=1, anima_preview_sample_steps=ANIMA_PREVIEW_STEPS,
+        **inputs)
+    check(config.ANIMA_VIDEO_FRAMES == VIDEO_FRAMES, "the preset's video frames did not "
+          "reach the config")
+    cache = anima_cache_phase(torch, preset_path, work_dir, config, smi, video=True)
+    raw, marks, launches, peak_gb, preview_gb, wall, previews = run_anima_cli(
+        torch, preset_path, work_dir, "chip_smoke_anima_video.log")
+    check("encoding" not in raw, "the trainer encoded the cache again")
+    losses = check_progress(raw, ANIMA_PROGRESS, steps)
+    calls = SELF_ATTN_CALLS[128]
+    n_previews = steps // GA
+    check_launches(launches, {"flash_fwd_d128": 2 * calls * steps + ANIMA_PREVIEW_K4A * n_previews,
+                              "flash_bwd_dq_d128": calls * steps,
+                              "flash_bwd_dkv_d128": calls * steps})
+    check_anima_previews(raw, work_dir / "out" / "previews", n_previews, previews,
+                         (5 * 1024, 1024), "decode_video of the clip, a filmstrip of 5 frames,")
+    check_saved_dit(work_dir / "out" / "smoke_anima.safetensors", cfg)
+    plan = PLAN_EST.search(raw)
+    check(plan is not None, "no memory plan line")
+    estimate = float(plan.group(2))
+    fwd = anima_forward_flops(cfg, VIDEO_TOKENS)
+    print(f"  analytic forward at {VIDEO_TOKENS} tokens: {fwd:.4e} flop")
+    summary = step_summary(marks, steps, fwd, max(peak_gb, preview_gb), wall, launches,
+                           losses, remat="full", forward_flops=fwd, cache=cache,
+                           preview_s=previews, train_peak_gb=peak_gb,
+                           preview_peak_gb=preview_gb, plan_estimate_gb=estimate)
+    print(f"  [{smi}] plan estimate {estimate:.2f} GB (as describe_plan prints it) against "
+          f"the measured training peak {peak_gb:.2f} GB; peak in a preview {preview_gb:.2f} GB")
     return summary, launches
 
 
@@ -2659,9 +2873,10 @@ def anima_resume_phase(torch, work_dir: Path, preset: dict, unbroken_raw: str,
         torch, train_anima.main, anima_trainer, ("make_anima_micro_step", "make_apply_step"),
         preset, "anima", work_dir / "out", "smoke_anima", work_dir, "resume_anima",
         base=Path(preset["anima"]["anima_dit_model_path"]), prefix="pipe.dit.")
+    # micro steps 5-8, and the preview at optimizer step 2
     out.update(resumed_against_unbroken(
         "ANIMA_BASE resumed", raw, ANIMA_PROGRESS, launches,
-        {"flash_fwd_d128": 2 * calls * n, "flash_bwd_dq_d128": calls * n,
+        {"flash_fwd_d128": 2 * calls * n + ANIMA_PREVIEW_K4A, "flash_bwd_dq_d128": calls * n,
          "flash_bwd_dkv_d128": calls * n}, unbroken_raw, unbroken, peak_gb, state_io, io,
         share, smi))
     (work_dir / "out" / "smoke_anima.safetensors").unlink()
@@ -2763,8 +2978,8 @@ def anima_sp_rank(preset: str, out_dir: str) -> int:
 
 # --------------------------------------------------------------------------
 
-PHASES = ("kernels", "k5", "k6", "unet", "dit", "vae", "trainer", "anima", "anima_sp",
-          "resume", "plan")
+PHASES = ("kernels", "k5", "k6", "unet", "dit", "vae", "trainer", "anima", "anima_video",
+          "anima_sp", "resume", "plan")
 USAGE = ("usage: chip_smoke.py [--only PHASE[,PHASE...]]   phases: " + ", ".join(PHASES)
          + "\n       chip_smoke.py --anima-sp-rank PRESET OUT_DIR   (one torchrun rank)")
 
@@ -2790,7 +3005,9 @@ def kernels_json(timings, max_err, launches, k5, k6, sm90):
             "max_abs_err": max_err[kname], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "shapes": timings[kname], **build})
+            "shapes": timings[kname], **build,
+            **({"launches_anima_video": launches["anima_video"].get(kname, 0)}
+               if ph == "anima" else {})})
     k5_err, k5_timings, k5_launches, ring_ms = k5
     for kname, line, kernel_names in (
             ("flash_fwd_stats", 503, "flash_fwd_d128"),
@@ -2872,6 +3089,10 @@ def main(argv=None) -> int:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_anima_") as tmp:
                 summary["anima"], launches["anima"] = anima_phase(
                     torch, Path(tmp), TRAIN_STEPS, smi, "resume" in only)
+        if "anima_video" in only:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_anima_video_") as tmp:
+                summary["anima_video"], launches["anima_video"] = anima_video_phase(
+                    torch, Path(tmp), TRAIN_STEPS, smi)
         if "anima_sp" in only:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_anima_sp_") as tmp:
                 summary["anima_sp"] = anima_sp_phase(torch, Path(tmp), TRAIN_STEPS)

@@ -94,13 +94,17 @@ def test_sigma_table_and_flowmatch_targets_match_jax():
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-7)
 
 
-@pytest.mark.parametrize("mask_hw", [None, (6, 8), (3, 4)])
-def test_weighted_flowmatch_mse_matches_jax(mask_hw):
+@pytest.mark.parametrize("mask_hw,frames", [
+    (None, 0), ((6, 8), 0), ((3, 4), 0), (None, 3), ((3, 4), 3)],
+    ids=["None", "mask_hw1", "mask_hw2", "video-None", "video-mask_hw2"])
+def test_weighted_flowmatch_mse_matches_jax(mask_hw, frames):
     """Sample mask always; spatial mask absent, at the error map's size, and
-    at half of it (resized bilinearly in both). fp32 sums in another
-    order: rtol 1e-5."""
+    at half of it (resized bilinearly in both); NHWC maps, and NTHWC ones of
+    3 frames (video mode: one mask a clip, over every frame). fp32 sums in
+    another order: rtol 1e-5."""
     rng = np.random.default_rng(4)
-    pred, target = (rng.normal(size=(3, 6, 8, 4)).astype(np.float32) for _ in range(2))
+    shape = (3,) + ((frames,) if frames else ()) + (6, 8, 4)
+    pred, target = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
     weights = np.asarray([1.0, 0.5, 2.0], np.float32)
     sample_mask = np.asarray([1.0, 1.0, 0.0], np.float32)
     spatial = (None if mask_hw is None else
@@ -385,10 +389,8 @@ def test_dataset_batches_match_jax_from_one_synthetic_cache(tmp_path):
     assert calls == ["edited caption"]
     assert port_cache.check_if_anima_caching_needed(config) is False
     assert jax_cache.check_if_anima_caching_needed(jax_config) is False
-    for key, match in (("ANIMA_VIDEO_FRAMES", "video"),
-                       ("ANIMA_REPAIR_LINEART_LOSS_ENABLED", "line-art")):
-        refused = RuntimeConfig({**flat, key: 5 if key == "ANIMA_VIDEO_FRAMES" else True},
-                                validate_resume_paths=False)
+    for key, match in (("ANIMA_REPAIR_LINEART_LOSS_ENABLED", "line-art"),):
+        refused = RuntimeConfig({**flat, key: True}, validate_resume_paths=False)
         with mock.patch.object(port_cache.AnimaCacheEncoders, "from_config",
                                side_effect=AssertionError("encoders loaded")):
             with pytest.raises(NotImplementedError, match=match):
@@ -407,13 +409,13 @@ def test_cli_raises_without_cuda_unless_cpu_is_asked_for(monkeypatch):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    ({"ANIMA_PREVIEW_EVERY_N_STEPS": 2}, "preview"),
     # sequence parallelism is ported; combined with TP it is refused by TP
     ({"SEQUENCE_PARALLEL_SIZE": 2, "TENSOR_PARALLEL_SIZE": 2}, "PARALLEL"),
     ({"PIPELINE_PARALLEL_SIZE": 2}, "PARALLEL"),
     ({"TENSOR_PARALLEL_SIZE": 2}, "PARALLEL"),
     ({"ANIMA_REPAIR_LINEART_LOSS_ENABLED": True}, "line-art"),
-    ({"ANIMA_VIDEO_FRAMES": 5}, "video"),
+    # video mode is ported; under sequence parallelism it is not
+    ({"ANIMA_VIDEO_FRAMES": 5, "SEQUENCE_PARALLEL_SIZE": 2}, "video mode under sequence"),
 ])
 def test_unported_options_are_refused(tmp_path, overrides, match):
     _build_env(tmp_path)
