@@ -14,11 +14,13 @@ same cache:
   item is a clip of that many frames (animated WEBP, or a still repeated),
   encoded whole by the Wan VAE's ``encode_video`` into (T', H/8, W/8, z)
   latents, T' = 1 + k, under the ``video_frames`` cache option;
+* the QAT repair trainer's line-art loss (``ANIMA_REPAIR_LINEART_LOSS_
+  ENABLED``): each latent payload carries a ``lineart_mask`` at latent
+  resolution (``tools/semantic_maps.py``, without cv2), from the image or
+  from a clip's first frame, under the cache options
+  ``repair_lineart_loss_enabled`` / ``repair_lineart_mask_version``;
 * dataset-side conditioning: dual Qwen/T5 null dropout and deterministic
   per-caption T5 token dropout, ids padded to 512.
-
-The line-art loss masks are not ported yet: the build refuses them before
-any weight loads.
 """
 
 from __future__ import annotations
@@ -237,13 +239,6 @@ def _load_hf_tokenizer(path):
     return HashTokenizer(model_max_length=CONTEXT_TOKENS)
 
 
-def _refuse_unported(config) -> None:
-    if bool(getattr(config, "ANIMA_REPAIR_LINEART_LOSS_ENABLED", False)):
-        raise NotImplementedError(
-            "ANIMA_REPAIR_LINEART_LOSS_ENABLED: the line-art loss masks are not "
-            "ported to the PyTorch package yet")
-
-
 def precompute_and_cache_anima(config, encoders: AnimaCacheEncoders | None = None,
                                *, force: bool = False, device=None) -> None:
     """Build or refresh the cache of every dataset root; the encoders load
@@ -254,7 +249,6 @@ def precompute_and_cache_anima(config, encoders: AnimaCacheEncoders | None = Non
         print("\n" + "=" * 60 + "\nINFO: Anima datasets already cached.\n"
               + "=" * 60 + "\n")
         return
-    _refuse_unported(config)
     if encoders is None:
         encoders = AnimaCacheEncoders.from_config(config, device=device)
 
@@ -345,16 +339,24 @@ def precompute_and_cache_anima(config, encoders: AnimaCacheEncoders | None = Non
         if lat_jobs:
             print(f"INFO: Anima cache phase 2/2: encoding {len(lat_jobs)} latents "
                   f"(tiled={options['vae_caching_tiled']})")
+            lineart_on = bool(options.get("repair_lineart_loss_enabled"))
             n_frames = int(options.get("video_frames", 1) or 1)
             for meta, lat_path in lat_jobs:
                 try:
                     if n_frames > 1:
-                        latents = encoders.encode_clip(load_clip_for_bucket(meta, n_frames))
+                        frames = load_clip_for_bucket(meta, n_frames)
+                        pixels = frames[0]
+                        latents = encoders.encode_clip(frames)
                     else:
-                        latents = encoders.encode_image(load_and_resize_for_bucket(meta))
-                    cs.save_payload(lat_path, {
-                        "latents": np.asarray(latents, np.float32).astype(vae_dtype)},
-                        _meta(root, meta, options, caption_mode))
+                        pixels = load_and_resize_for_bucket(meta)
+                        latents = encoders.encode_image(pixels)
+                    payload = {"latents": np.asarray(latents, np.float32).astype(vae_dtype)}
+                    if lineart_on:
+                        # at latent resolution, from the 4x oversampled map;
+                        # a clip's mask is its first frame's
+                        payload["lineart_mask"] = _lineart_mask_for(
+                            pixels, int(latents.shape[-3]), int(latents.shape[-2]))
+                    cs.save_payload(lat_path, payload, _meta(root, meta, options, caption_mode))
                 except Exception as e:  # noqa: BLE001
                     print(f"[SKIP ANIMA VAE] {meta['ip'].name}: {e}")
 
@@ -407,6 +409,18 @@ def cache_complete_message(n_files: int, cache_dir) -> str:
     the lowercase substring "anima dit items", so the wording is part of
     the wire format."""
     return f"INFO: Cached {n_files} Anima DiT items to {cache_dir}"
+
+
+def _lineart_mask_for(pixels_hwc: np.ndarray, lat_h: int, lat_w: int) -> np.ndarray:
+    """(lat_h, lat_w) fp32 line-art detail mask in [0, 1] from the already
+    bucket-resized [-1, 1] pixels: the detail map area-reduced onto the 4x
+    oversampled latent grid, then onto the latent grid."""
+    from PIL import Image
+
+    from ..tools.semantic_maps import area_reduce, generate_lineart_loss_map
+    u8 = np.clip((np.asarray(pixels_hwc, np.float32) + 1.0) * 127.5, 0, 255).astype(np.uint8)
+    over = generate_lineart_loss_map(Image.fromarray(u8), lat_h, lat_w)
+    return area_reduce(over[0], lat_h, lat_w)
 
 
 def _meta(root, meta, options, caption_mode, caption=None, caption_type=None):

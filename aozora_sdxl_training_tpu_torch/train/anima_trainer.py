@@ -51,9 +51,19 @@ device (``data/anima_cache.py``: the Qwen3 text encoder and the Wan VAE),
 then frees the encoders before the DiT loads; a multi-rank run asks for
 the cache CLI instead, so that no two ranks write one cache.
 
+The QAT repair trainer (``cli/train_anima_repair.py``) runs this loop
+with two additions, as the JAX trainer has them: the line-art loss
+(``ANIMA_REPAIR_LINEART_LOSS_ENABLED``: the cache's per-latent
+``lineart_mask`` boosts each pixel's error by ``1 + mask *
+ANIMA_REPAIR_LINEART_LOSS_STRENGTH``; under sequence parallelism every
+rank holds the whole token grid, so the mask goes whole as in JAX), and a
+``device_projector`` (``train/qat_project.py``) that projects the
+controlled weights onto their quantized grid after every optimizer step,
+with error-feedback residuals on the device.
+
 Not ported yet, and refused with an error when the config asks for them:
-pipeline/tensor parallelism, the line-art loss, video mode under sequence
-parallelism, and the plan's two-pass and host-moment rungs.
+pipeline/tensor parallelism, video mode under sequence parallelism, and the
+plan's two-pass and host-moment rungs.
 ``AOZORA_PROFILE_DIR`` traces micro steps 3-8 (``train/profiling.py``).
 """
 
@@ -102,15 +112,17 @@ class AnimaStepConfig:
     attn_impl: str = "xla"
     compute_dtype: Any = torch.bfloat16
     remat: Any = True                      # False | True | "conservative"
+    spatial_strength: float = 0.0          # > 0: the line-art-masked loss
 
 
 def make_anima_loss_fn(cfg: AnimaStepConfig):
     def loss_fn(trainable, frozen, latents, prompt_emb, t5_ids, tickets,
                 sample_mask, loss_weights, seed: int, micro_step: int,
-                noise=None):
+                noise=None, spatial_mask=None):
         """latents (B, H, W, C), or a clip's (B, T, H, W, C) -> (loss, sigma
         of sample 0). ``noise`` defaults to the step-keyed stream of
-        ``objectives``."""
+        ``objectives``; ``spatial_mask`` (B, h, w), the line-art mask, is
+        used when ``cfg.spatial_strength`` > 0."""
         sigmas, timesteps = anima_objectives.ticket_to_sigma_timestep(tickets)
         if noise is None:
             noise = objectives.noise_for_step(seed, micro_step, latents.shape,
@@ -127,8 +139,9 @@ def make_anima_loss_fn(cfg: AnimaStepConfig):
             attn_impl=cfg.attn_impl, compute_dtype=cd, remat=cfg.remat)
         pred = pred if video else pred[:, 0]
         weights = loss_weights[torch.clamp(tickets.long(), 0, loss_weights.shape[0] - 1)]
-        loss = anima_objectives.weighted_flowmatch_mse(pred, target, weights,
-                                                       sample_mask=sample_mask)
+        loss = anima_objectives.weighted_flowmatch_mse(
+            pred, target, weights, sample_mask=sample_mask, spatial_mask=spatial_mask,
+            spatial_strength=cfg.spatial_strength)
         return loss, sigmas[0]
 
     return loss_fn
@@ -141,7 +154,8 @@ def make_anima_micro_step(cfg: AnimaStepConfig):
 
     def micro_step(trainable, frozen, latents, prompt_emb, t5_ids, tickets,
                    sample_mask, loss_weights, seed, micro_step_idx,
-                   keep: float, noise=None, loss_scale: float = 1.0):
+                   keep: float, noise=None, loss_scale: float = 1.0,
+                   spatial_mask=None):
         """``loss_scale`` turns a dp rank's loss into its share of the global
         batch's (1 on one device)."""
         if keep == 0.0:
@@ -149,7 +163,7 @@ def make_anima_micro_step(cfg: AnimaStepConfig):
                 p.grad = None
         loss, sigma = loss_fn(trainable, frozen, latents, prompt_emb, t5_ids,
                               tickets, sample_mask, loss_weights, seed,
-                              micro_step_idx, noise)
+                              micro_step_idx, noise, spatial_mask)
         loss = loss * loss_scale
         loss.backward()
         return loss.detach(), sigma
@@ -202,8 +216,6 @@ def _refuse_unported(config) -> None:
         (any(int(getattr(config, key, 1) or 1) > 1 for key in (
             "PIPELINE_PARALLEL_SIZE", "TENSOR_PARALLEL_SIZE")),
          "PIPELINE/TENSOR_PARALLEL_SIZE > 1: pipeline and tensor parallelism"),
-        (bool(getattr(config, "ANIMA_REPAIR_LINEART_LOSS_ENABLED", False)),
-         "ANIMA_REPAIR_LINEART_LOSS_ENABLED: the line-art loss"),
         (int(getattr(config, "ANIMA_VIDEO_FRAMES", 1) or 1) > 1
          and int(getattr(config, "SEQUENCE_PARALLEL_SIZE", 1) or 1) > 1,
          "ANIMA_VIDEO_FRAMES > 1 with SEQUENCE_PARALLEL_SIZE > 1: video mode under "
@@ -233,11 +245,32 @@ def _mesh_for(layout):
     return shard.make_mesh(layout.devices, dp=layout.dp, tp=layout.tp, sp=layout.sp)
 
 
-def run_anima_training(config, *, device: torch.device | None = None) -> None:
-    """``device`` defaults to ``core.platform.resolve_device()``. Under
+def run_anima_training(config, *, device: torch.device | None = None,
+                       device_projector=None,
+                       dit_state: tuple[dict, str] | None = None) -> dict:
+    """Returns {"trainable": ..., "qat_residuals": ...}: the trained
+    parameters and the projector's residuals (None without one), on the
+    device in the torch layout.
+
+    ``device`` defaults to ``core.platform.resolve_device()``. Under
     torchrun the CLI silences the stdout of every rank but global rank 0,
-    so the GUI reads one set of lines."""
+    so the GUI reads one set of lines.
+
+    ``device_projector``: an ``(init_residuals, project)`` pair from
+    ``train.qat_project.make_device_projector``. The residuals are made
+    once the trainable parameters are on the device, and ``project`` runs
+    right after every optimizer step's update, before the save, the
+    preview and the optimizer block (the QAT repair path).
+
+    ``dit_state``: (torch-layout state, key prefix), trained instead of
+    ``DIT_PATH``'s tensors (the repair CLI's dequantized weights); a resumed
+    run still loads ``ANIMA_RESUME_MODEL_PATH``."""
     device = resolve_device() if device is None else torch.device(device)
+    if device_projector is not None and int(getattr(config, "PIPELINE_PARALLEL_SIZE", 1)
+                                            or 1) > 1:
+        # the projector's format map is keyed by flat tensor names
+        raise SystemExit("PIPELINE_PARALLEL_SIZE is not supported by the QAT repair "
+                         "trainer (flat-name projector)")
     _refuse_unported(config)
     is_main = shard.global_rank() == 0
     remat = anima_remat_mode(config)
@@ -282,7 +315,10 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
 
     # ---- model ----
     print("\n--- Loading Anima DiT ---")
-    state, detected_prefix = load_dit_state(model_to_load)
+    if dit_state is not None and not config.RESUME_TRAINING:
+        state, detected_prefix = dit_state
+    else:
+        state, detected_prefix = load_dit_state(model_to_load)
     dit_cfg = _dit_config_for_state(state)
     save_prefix = resolve_save_prefix(config, detected_prefix)
     print(f"INFO: DiT key prefix: detected='{detected_prefix}' save='{save_prefix}'")
@@ -375,11 +411,18 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
     n_f = sum(p.numel() for p in frozen.values())
     print(f"INFO: DiT Parameters: total={n_t + n_f:,} trainable={n_t:,} "
           f"frozen={n_f:,}")
+    lineart = bool(getattr(config, "ANIMA_REPAIR_LINEART_LOSS_ENABLED", False))
+    lineart_strength = max(0.0, float(getattr(
+        config, "ANIMA_REPAIR_LINEART_LOSS_STRENGTH", 0.5)))
+    if lineart:
+        print(f"INFO: Cached line-art loss: enabled=True, "
+              f"max_weight={1.0 + lineart_strength:g}x")
 
     step_cfg = AnimaStepConfig(
         dit=dit_cfg, grad_accum_steps=config.GRADIENT_ACCUMULATION_STEPS,
         clip_grad_norm=float(config.CLIP_GRAD_NORM), attn_impl=attn_impl,
-        compute_dtype=config.compute_dtype, remat=remat)
+        compute_dtype=config.compute_dtype, remat=remat,
+        spatial_strength=lineart_strength if lineart else 0.0)
     micro_fn = make_anima_micro_step(step_cfg)
     apply_fn = make_apply_step(step_cfg, opt_cfg)
     # the restored moments are host tensors: they reach the device once,
@@ -393,6 +436,12 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
                   "trainable set; starting with fresh moments.")
         opt_state = adamw.init_state(trainable, opt_cfg, dit_layout)
     del resume_opt_state
+    qat_residuals, project = None, None
+    if device_projector is not None:
+        init_residuals, project = device_projector
+        qat_residuals = init_residuals(trainable)
+        print(f"INFO: on-device QAT projection active on {len(qat_residuals)} "
+              "tensor(s) (residuals on the device, no host round trip)")
     seed = int(config.SEED or 42)
     print_optimizer_summary(config, opt_cfg, trainable, lr_curve.initial_lr,
                             device)
@@ -425,7 +474,9 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
         # count): its mean over its rows times this
         out["loss_scale"] = (max(float(np.sum(out["sample_mask"][rows])), 1.0)
                              / max(float(np.sum(out["sample_mask"])), 1.0))
-        for key in ("latents", "prompt_emb", "t5xxl_ids", "sample_mask"):
+        keys = ("latents", "prompt_emb", "t5xxl_ids", "sample_mask") + (
+            ("lineart_mask",) if lineart and "lineart_mask" in out else ())
+        for key in keys:
             out[key] = torch.as_tensor(out[key][rows], device=device)
         return out
 
@@ -500,7 +551,8 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
                        torch.as_tensor(tickets[rows], device=device),
                        batch["sample_mask"], loss_weights, seed, micro_step)
         loss_dev, sigma_dev = micro_fn(trainable, frozen, *step_inputs, keep,
-                                       noise=noise, loss_scale=batch["loss_scale"])
+                                       noise=noise, loss_scale=batch["loss_scale"],
+                                       spatial_mask=batch.get("lineart_mask"))
         if mesh is not None:
             # the global batch's loss: the dp ranks' shares summed
             loss_dev = loss_dev.reshape(1)
@@ -514,6 +566,8 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
                 shard.all_reduce_grads(trainable, layout.sp)
             raw_norm, update_norm = apply_fn(trainable, opt_state, lr)
             optimizer_step += 1
+            if project is not None:
+                project(trainable, qat_residuals)
             optim_dt = time.time() - last_optim_time
             optim_times.append(optim_dt)
             last_optim_time = time.time()
@@ -551,3 +605,4 @@ def run_anima_training(config, *, device: torch.device | None = None) -> None:
     if is_main:
         save_model(output_dir / f"{output_model_stem(config, config.DIT_PATH)}.safetensors")
     print("All tasks complete. Final model saved.")
+    return {"trainable": trainable, "qat_residuals": qat_residuals}

@@ -146,6 +146,31 @@ Phases, each of which exits non-zero on failure:
    training peak, s per micro and optimizer step, s per preview and the
    model TFLOP/s at 12288 tokens.
 
+15. repair (after anima_video): the QAT repair flow at ANIMA_BASE. First
+   the device projection (train/qat_project.py) of a random full-width
+   blocks.0.mlp.layer1.weight (8192 x 2048) in e4m3, e5m2, int8, nvfp4 and
+   ternary against the numpy quantizer's round trip, bit for bit, each
+   timed on the card and on the host. Then the random ANIMA_BASE (seed
+   4321) quantized by the port's convert_quants CLI (e4m3, target preset);
+   the anima phase's random Qwen3-0.6B and Wan VAE files and 2 captioned
+   1024px images, cached by the cache CLI with line-art masks (lineart_mask
+   (128, 128) float32 in [0, 1] in each latent payload); then the repair
+   CLI (cli/train_anima_repair.py) on them, 1024px, batch 1, GA 4, Full
+   remat, 8 micro steps: the "QAT repair: N quantized tensors" line, the
+   line-art loss on, finite losses, the launches (K4a 56, K4b 28 + 28 a
+   micro step), the projection's ms an optimizer step (synced, left out
+   of the steps) and its fp16 residuals' GB, the host's s to dequantize at
+   load and to pack at save, s per micro and optimizer step, the peak
+   beside the plan's estimate; repaired_quantized.safetensors reloads in
+   the port's controller with every controlled key's format and shape
+   unchanged, for four sampled tensors its dequantized values equal the
+   card's projection of the trained (final + residual) bit for bit and lie
+   within half an e4m3 step of it, and the share of codes that changed
+   from the input is printed. Last, tools/profile_quants --mode dynamic on
+   the random ANIMA_BASE (int8 trials of 8 layers, synthetic calibration at
+   --latent-hw 64, 1024 tokens): 9 fp32 forwards, each timed, 28
+   flash_fwd_f32_d128 launches each.
+
 13. plan: the memory planner on the card's budget (its total memory),
    without the cache encoders (synthetic caches): each trainer's default
    plan printed; ANIMA_BASE (random, 1024px, batch 1, GA 4) under Full
@@ -166,7 +191,7 @@ Phases, each of which exits non-zero on failure:
 phases alone (on a machine with several cards); `--only anima` runs the
 anima_cache and anima phases; `--only anima_video` the video phase;
 `--only resume` runs the trainer and anima phases with their resume parts;
-`--only plan` the plan phase.
+`--only plan` the plan phase; `--only repair` the repair phase.
 
 The second-to-last lines are the kernels JSON and the card's name and power
 limit; the last line is {"ok": true, "device": {...}}.
@@ -1490,11 +1515,12 @@ def step_times(marks: list, skip: int):
     steps among them. A micro step runs from the end of the step before it
     (micro or apply) to its own end, so it holds the host's work between
     steps too; a checkpoint save (a "save" mark of ``timed_state_io`` at its
-    end) and a preview (a "preview" mark of ``timed_previews``) are left
-    out of every step."""
+    end), a preview (a "preview" mark of ``timed_previews``) and the QAT
+    projection after an apply step (a "project" mark of the repair phase)
+    are left out of every step."""
     micro, apply_, n_micro, t_prev = [], [], 0, None
     for kind, t in marks:
-        if kind in ("save", "preview"):
+        if kind in ("save", "preview", "project"):
             t_prev = t
             continue
         n_micro += kind == "micro"
@@ -2146,12 +2172,14 @@ def anima_encoders_against_float64(torch, config, work_dir: Path) -> dict:
 
 
 def anima_cache_phase(torch, preset_path: Path, work_dir: Path, config, smi: str,
-                      video: bool = False):
+                      video: bool = False, lineart: bool = False):
     """The port's cache_datasets CLI in Anima mode on the images: builds the
     cache (Qwen3-0.6B in batches of 8 captions, then the Wan VAE over 4
     tiles an image), then a second run finds it current and loads no
     encoder. With ``video`` the data are clips of VIDEO_FRAMES frames, each
-    encoded whole by ``encode_video`` into 3 latent frames. Returns the
+    encoded whole by ``encode_video`` into 3 latent frames. With
+    ``lineart`` (the repair phase) each latent payload carries its line-art
+    mask and the float64 checks are left to the anima phase. Returns the
     cache pass's numbers."""
     import numpy as np
     from aozora_sdxl_training_tpu_torch.cli import cache_datasets
@@ -2180,8 +2208,8 @@ def anima_cache_phase(torch, preset_path: Path, work_dir: Path, config, smi: str
         restore()
     (first, wall, launches, peak_gb, loads), (second, _, _, _, loads2) = logs
     LOG_DIR.mkdir(parents=True, exist_ok=True)
-    (LOG_DIR / f"chip_smoke_anima{'_video' if video else ''}_cache.log").write_text(
-        first + second)
+    tag = "_video" if video else "_repair" if lineart else ""
+    (LOG_DIR / f"chip_smoke_anima{tag}_cache.log").write_text(first + second)
     check(launches == {}, f"the Anima cache pass launched flash kernels: {launches}")
     check("phase 1/2: encoding 2 captions" in first and "phase 2/2: encoding 2 latents" in first,
           "the first cache run did not encode 2 captions and 2 latents")
@@ -2204,8 +2232,13 @@ def anima_cache_phase(torch, preset_path: Path, work_dir: Path, config, smi: str
                   for k, v in {**te, **lat}.items()}
         check(shapes == {"prompt_emb": ((512, 1024), "bfloat16"),
                          "t5xxl_ids": ((), "int32"),
-                         "latents": (latent_shape, "bfloat16")},
+                         "latents": (latent_shape, "bfloat16"),
+                         **({"lineart_mask": ((128, 128), "float32")} if lineart else {})},
               f"payload shapes {shapes}")
+        if lineart:
+            mask = lat["lineart_mask"]
+            check(0.0 <= mask.min() and mask.max() <= 1.0 and mask.max() > 0.0,
+                  f"line-art mask in [{mask.min()}, {mask.max()}]")
         check(all(np.isfinite(np.asarray(v, np.float32)).all()
                   for v in (te["prompt_emb"], lat["latents"])), "non-finite payload")
         max_id = max(max_id, int(te["t5xxl_ids"].max()))
@@ -2221,7 +2254,7 @@ def anima_cache_phase(torch, preset_path: Path, work_dir: Path, config, smi: str
           "(encoder load included); "
           f"T5 ids up to {max_id} (the DiT's vocabulary: 32128); the second run "
           "loaded no encoder and encoded nothing")
-    f64 = (wan_video_against_float64(torch, config, work_dir) if video
+    f64 = (None if lineart else wan_video_against_float64(torch, config, work_dir) if video
            else anima_encoders_against_float64(torch, config, work_dir))
     return {"s_per_caption_batch": t_text / n_batches, "caption_batches": n_batches,
             "captions": n_text, f"s_per_{kind[:-1]}_1024": t_lat / n_lat, kind: n_lat,
@@ -2409,6 +2442,312 @@ def anima_video_phase(torch, work_dir: Path, steps: int, smi: str):
     print(f"  [{smi}] plan estimate {estimate:.2f} GB (as describe_plan prints it) against "
           f"the measured training peak {peak_gb:.2f} GB; peak in a preview {preview_gb:.2f} GB")
     return summary, launches
+
+
+# --------------------------------------------------------------------------
+# 15: the QAT repair trainer and the quant tools
+# --------------------------------------------------------------------------
+
+QUANT_FORMATS = ("float8_e4m3fn", "float8_e5m2", "int8_tensorwise", "nvfp4", "ternary_1_58")
+# ANIMA_BASE's MLP up-projection (8192 x 2048): the full-width tensor each
+# format is projected at on the card and on the host
+PROJECTED_KEY = "blocks.0.mlp.layer1.weight"
+PROFILE_LATENT_HW = 64        # 1024 tokens: the smallest the flash kernels take
+PROFILE_LAYERS = 8
+
+
+def projection_against_host(torch, smi: str) -> dict:
+    """A random full-width ``PROJECTED_KEY`` (rows at very different scales,
+    a zero row, -0.0 entries) projected on the card in each format
+    (``train/qat_project.project_weight``), against the numpy quantizer's
+    round trip (quantize, then dequantize) bit for bit; device ms (CUDA
+    events, warm) and the host's s for the round trip."""
+    import numpy as np
+    from aozora_sdxl_training_tpu_torch.tools import quantize as q
+    from aozora_sdxl_training_tpu_torch.train import qat_project
+    rng = np.random.default_rng(15)
+    w = (rng.normal(size=(8192, 2048)) * rng.uniform(0.01, 2.0, size=(8192, 1))
+         ).astype(np.float32) * 0.02
+    w[::7] *= 1e-4
+    w[1] = 0.0
+    w[2, :3] = -0.0
+    dev = torch.from_numpy(w).cuda()
+    out = {}
+    for fmt in QUANT_FORMATS:
+        t0 = time.perf_counter()
+        records = dict(q.quant_records_for_weight(PROJECTED_KEY, w, fmt))
+        want = np.asarray(q.dequantize_records(PROJECTED_KEY, records, out_shape=w.shape),
+                          np.float32)
+        host_s = time.perf_counter() - t0
+        got = qat_project.project_weight(fmt, dev).cpu().numpy()
+        differ = int(np.sum(got.view(np.int32) != want.view(np.int32)))
+        ms = cuda_ms(torch, lambda: qat_project.project_weight(fmt, dev), iters=5, warmup=1)
+        out[fmt] = {"bits_differing": differ, "device_ms": ms, "host_round_trip_s": host_s}
+        print(f"  projection of {PROJECTED_KEY} (8192 x 2048) in {fmt} on the card: "
+              f"{differ} of {w.size} values differ from the numpy round trip bit for bit; "
+              f"{ms:.3f} ms on the card [{smi}], {host_s:.3f} s on the host")
+    bad = {f: r["bits_differing"] for f, r in out.items() if r["bits_differing"]}
+    check(not bad, f"device projection differs from the numpy quantizer: {bad}")
+    return out
+
+
+def e4m3_step(x, scale):
+    """One step of the scaled e4m3 grid at each |x|: scale * 2^(e - 3) with e
+    the exponent of |x| / scale, floored at e4m3's smallest normal exponent,
+    -6 (its subnormals' step)."""
+    import numpy as np
+    return scale * np.exp2(np.floor(np.log2(np.maximum(np.abs(x) / scale, 2.0 ** -6))) - 3)
+
+
+def timed_repair(torch, record: dict, marks: list):
+    """Wraps the repair path for the phase: the device projector's
+    ``project`` synced and timed (ms into record["project_ms"], a "project"
+    mark at its end so the steps leave it out), its residuals' bytes, the
+    controller's host passes (``dequantized_params`` at load,
+    ``project`` at save, s), and ``run_anima_training``'s result: host fp32
+    copies of the final weights and residuals of ``record["sample"]``'s
+    keys. Returns a restore function."""
+    from aozora_sdxl_training_tpu_torch.train import anima_trainer, qat_project, qat_repair
+    make, run = qat_project.make_device_projector, anima_trainer.run_anima_training
+    ctl = qat_repair.ProjectedQuantController
+    dequantized, project_host = ctl.dequantized_params, ctl.project
+
+    def make_timed(*args, **kwargs):
+        init, project = make(*args, **kwargs)
+
+        def init_timed(trainable):
+            res = init(trainable)
+            record["residual_gb"] = sum(r.numel() * r.element_size() for r in res.values()) / 1e9
+            return res
+
+        def project_timed(trainable, residuals):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            project(trainable, residuals)
+            torch.cuda.synchronize()
+            record.setdefault("project_ms", []).append((time.perf_counter() - t0) * 1e3)
+            marks.append(("project", time.perf_counter()))
+        return init_timed, project_timed
+
+    def run_kept(*args, **kwargs):
+        result = run(*args, **kwargs)
+        record["final"], record["residual"], record["device_projected"] = {}, {}, {}
+        for k in record["sample"]:
+            final = result["trainable"][k].detach().float()
+            residual = result["qat_residuals"][k].float()
+            record["final"][k] = final.cpu().numpy()
+            record["residual"][k] = residual.cpu().numpy()
+            # the trained effective weight projected on the card, to hold
+            # against the file the host packs from the same values
+            record["device_projected"][k] = qat_project.project_weight(
+                record["formats"][k], final + residual).cpu().numpy()
+        return result
+
+    def dequantized_kept(self, *args):
+        record["formats"] = dict(self.formats)
+        return dequantized(self, *args)
+
+    def host_timed(name, fn):
+        def timed(self, *args):
+            t0 = time.perf_counter()
+            out = fn(self, *args)
+            record[name] = time.perf_counter() - t0
+            return out
+        return timed
+
+    qat_project.make_device_projector = make_timed
+    anima_trainer.run_anima_training = run_kept
+    ctl.dequantized_params = host_timed("dequantize_s", dequantized_kept)
+    ctl.project = host_timed("pack_s", project_host)
+
+    def restore():
+        qat_project.make_device_projector, anima_trainer.run_anima_training = make, run
+        ctl.dequantized_params, ctl.project = dequantized, project_host
+    return restore
+
+
+def check_repaired(work_dir: Path, quant_ckpt: Path, record: dict, smi: str) -> dict:
+    """The packed file: every controlled key reloads in the port's
+    controller with its format, and its codes' shape and dtype, unchanged;
+    the share of codes that changed from the input (reported); for the
+    sampled keys, the dequantized file bit for bit the card's projection of
+    the trained (final + residual), and within half an e4m3 step of it."""
+    import numpy as np
+    from aozora_sdxl_training_tpu_torch.ckpt.anima_checkpoint import DIT_PREFIXES, strip_prefix
+    from aozora_sdxl_training_tpu_torch.ckpt.safetensors_io import load_all
+    from aozora_sdxl_training_tpu_torch.tools import quantize as q
+    from aozora_sdxl_training_tpu_torch.train.qat_repair import ProjectedQuantController
+    packed_path = work_dir / "out" / "repaired_quantized.safetensors"
+    check(packed_path.exists(), "no repaired_quantized.safetensors")
+    packed, prefix = strip_prefix(load_all(packed_path), DIT_PREFIXES)
+    inp, in_prefix = strip_prefix(load_all(quant_ckpt), DIT_PREFIXES)
+    check(prefix == in_prefix == "pipe.dit.", f"prefixes {prefix!r}, {in_prefix!r}")
+    ctl, ctl_in = ProjectedQuantController(packed), ProjectedQuantController(inp)
+    check(ctl.formats == ctl_in.formats, "the packed file's formats differ from the input's")
+    changed, total = 0, 0
+    for key in ctl.formats:
+        a, b = packed[key], inp[key]
+        check(a.shape == b.shape and a.dtype == b.dtype, f"{key}: {a.shape} {a.dtype} "
+              f"against the input's {b.shape} {b.dtype}")
+        changed += int(np.sum(a.view(np.uint8) != b.view(np.uint8)))
+        total += a.size
+    worst, differ = {}, {}
+    for key in record["sample"]:
+        check(ctl.formats[key] == "float8_e4m3fn", f"{key} is {ctl.formats[key]}")
+        eff = (record["final"][key] + record["residual"][key]).astype(np.float64)
+        deq = np.asarray(q.dequantize_records(key, packed), np.float32)
+        differ[key] = int(np.sum(deq.view(np.int32)
+                                 != record["device_projected"][key].view(np.int32)))
+        scale = float(np.asarray(packed[q.comfy_scale_key(key)]))
+        err = np.abs(deq.astype(np.float64) - eff) / e4m3_step(eff, scale)
+        worst[key] = float(err.max())
+    print(f"  packed file [{smi}]: {len(ctl.formats)} controlled tensors, formats and shapes "
+          f"unchanged; {changed / total:.4%} of {total:,} codes changed from the input; "
+          "values differing bit for bit from the card's projection of final + residual: "
+          + ", ".join(f"{k} {v}" for k, v in differ.items())
+          + "; dequantized against final + residual, in e4m3 steps at each value: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()))
+    check(not any(differ.values()),
+          f"the packed file differs from the card's projection of final + residual: {differ}")
+    # round to nearest: half a step, up to the fp32 rounding of the scale's
+    # quotient and product (about 2^-21 of a step)
+    check(all(v <= 0.5 + 1e-5 for v in worst.values()),
+          f"the packed file is more than half an e4m3 step from final + residual: {worst}")
+    return {"controlled": len(ctl.formats), "codes_changed_share": changed / total,
+            "codes": total, "max_err_in_steps": worst, "bits_differing_from_card": differ}
+
+
+def profile_quants_on_card(torch, ckpt: Path, work_dir: Path, smi: str) -> tuple[dict, dict]:
+    """``tools/profile_quants --mode dynamic`` on ANIMA_BASE at the card:
+    int8 trials of PROFILE_LAYERS layers at --latent-hw PROFILE_LATENT_HW
+    (synthetic calibration), its forwards (fp32, no remat) timed and its
+    flash launches counted (flash_fwd_f32_d128, one a block a forward).
+    Returns (summary, launches)."""
+    from aozora_sdxl_training_tpu_torch.ops import flash_attention as fa
+    from aozora_sdxl_training_tpu_torch.tools import profile_quants
+    build, forwards = profile_quants.build_forward_fn, []
+
+    def build_timed(*args, **kwargs):
+        fwd = build(*args, **kwargs)
+
+        def timed(state):
+            t0 = time.perf_counter()
+            out = fwd(state)          # returns host numpy: synced
+            forwards.append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    out_path = work_dir / "anima_profiled.safetensors"
+    log = io.StringIO()
+    profile_quants.build_forward_fn = build_timed
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(Tee(sys.stdout, log)):
+            profile_quants.main([str(ckpt), str(out_path), "--mode", "dynamic",
+                                 "--format", "int8", "--preset", "target",
+                                 "--max-layers", str(PROFILE_LAYERS),
+                                 "--latent-hw", str(PROFILE_LATENT_HW)])
+    finally:
+        profile_quants.build_forward_fn = build
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in fa.LAUNCHES.items() if v}
+    report = json.loads(log.getvalue()[log.getvalue().index("{"):])
+    check(sum(report["assignment_counts"].values()) == PROFILE_LAYERS,
+          f"profile_quants assigned {report['assignment_counts']}")
+    check(len(forwards) == PROFILE_LAYERS + 1, f"{len(forwards)} forwards")
+    check_launches(launches, {"flash_fwd_f32_d128": SELF_ATTN_CALLS[128] * (PROFILE_LAYERS + 1)})
+    out_path.unlink()
+    print(f"  profile_quants --mode dynamic [{smi}]: {len(forwards)} fp32 forwards at "
+          f"{(PROFILE_LATENT_HW // 2) ** 2} tokens, {forwards[0]:.3f} s the first (the "
+          f"state's upload), then {min(forwards[1:]):.3f}-{max(forwards[1:]):.3f} s; "
+          f"CLI {wall:.1f} s")
+    return ({"forward_s": forwards, "wall_s": wall, "report": report,
+             "launches": launches}, launches)
+
+
+def repair_phase(torch, work_dir: Path, steps: int, smi: str):
+    """The QAT repair flow at ANIMA_BASE: the device projection against the
+    host in five formats; the random ANIMA_BASE quantized by the port's
+    convert_quants CLI (e4m3, target preset); random Qwen3 and Wan VAE
+    files and 2 captioned 1024px images cached with line-art masks; the
+    repair CLI (1024px, batch 1, GA 4, Full remat, 8 micro steps) with its
+    projection, host passes, steps and peak timed; the packed file checked;
+    then profile_quants' dynamic mode on the card."""
+    phase("repair")
+    from aozora_sdxl_training_tpu_torch.cli import train_anima_repair
+    from aozora_sdxl_training_tpu_torch.tools import convert_quants
+    from aozora_sdxl_training_tpu_torch.train import anima_trainer
+    projection = projection_against_host(torch, smi)
+
+    inputs = anima_cache_inputs(torch, work_dir)
+    cfg, preset_path, config = anima_env(torch, work_dir, steps, synthetic_cache=False,
+                                         anima_repair_lineart_loss_enabled=True, **inputs)
+    check(config.ANIMA_REPAIR_LINEART_LOSS_ENABLED, "the preset's line-art key did not "
+          "reach the config")
+    base = work_dir / "anima_random.safetensors"
+    quant = work_dir / "anima_e4m3.safetensors"
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(Tee(sys.stdout, log)):
+        convert_quants.main([str(base), str(quant), "--format", "e4m3", "--preset", "target"])
+    convert_s = time.perf_counter() - t0
+    report = json.loads(log.getvalue())
+    print(f"  convert_quants e4m3 target [{smi}]: {report['quantized']} tensors quantized, "
+          f"{report['kept']} kept, {quant.stat().st_size / 1e9:.2f} GB in {convert_s:.1f} s")
+    preset = json.loads(preset_path.read_text())
+    preset["anima"]["anima_dit_model_path"] = str(quant)
+    preset_path.write_text(json.dumps(preset, indent=1))
+    cache = anima_cache_phase(torch, preset_path, work_dir, config, smi, lineart=True)
+
+    record: dict = {"sample": [PROJECTED_KEY, "blocks.27.self_attn.q_proj.weight",
+                               "blocks.13.mlp.layer2.weight",
+                               "llm_adapter.blocks.5.cross_attn.k_proj.weight"]}
+    marks: list = []
+    restore = timed_repair(torch, record, marks)
+    try:
+        raw, marks, launches, peak_gb, wall = run_trainer_cli(
+            torch, train_anima_repair.main, preset_path, work_dir, anima_trainer,
+            ("make_anima_micro_step", "make_apply_step"), "chip_smoke_repair.log",
+            marks=marks)
+    finally:
+        restore()
+    check(f"INFO: QAT repair: {report['quantized']} quantized tensors under prefix "
+          "'pipe.dit.'" in raw, "no 'QAT repair: N quantized tensors' line")
+    check("INFO: Cached line-art loss: enabled=True" in raw, "the line-art loss is off")
+    check("encoding" not in raw, "the trainer encoded the cache again")
+    losses = check_progress(raw, ANIMA_PROGRESS, steps)
+    calls = SELF_ATTN_CALLS[128]
+    check_launches(launches, {"flash_fwd_d128": 2 * calls * steps,
+                              "flash_bwd_dq_d128": calls * steps,
+                              "flash_bwd_dkv_d128": calls * steps})
+    check(len(record.get("project_ms", ())) == steps // GA,
+          f"{len(record.get('project_ms', ()))} projections in {steps // GA} optimizer steps")
+    plan = PLAN_EST.search(raw)
+    check(plan is not None, "no memory plan line")
+    packed = check_repaired(work_dir, quant, record, smi)
+    tokens = (1024 // 8 // cfg.patch_spatial) ** 2
+    fwd = anima_forward_flops(cfg, tokens)
+    summary = step_summary(marks, steps, fwd, peak_gb, wall, launches, losses, remat="full",
+                           forward_flops=fwd, cache=cache, plan_estimate_gb=float(plan.group(2)))
+    project_ms = record["project_ms"]
+    s_optim = summary["s_per_optimizer_step_ga4"] + sum(project_ms) / len(project_ms) / 1e3
+    print(f"  [{smi}] projection {', '.join(f'{x:.1f}' for x in project_ms)} ms an optimizer "
+          f"step (synced), residuals {record['residual_gb']:.3f} GB (fp16); host: dequantize "
+          f"at load {record['dequantize_s']:.1f} s, pack at save {record['pack_s']:.1f} s; "
+          f"{s_optim:.4f} s an optimizer step with the projection; peak {peak_gb:.2f} GB "
+          f"against the plan's estimate {float(plan.group(2)):.2f} GB (which leaves out "
+          "the residuals)")
+    for path in (quant, work_dir / "out" / "smoke_anima.safetensors",
+                 work_dir / "out" / "repaired_quantized.safetensors"):
+        path.unlink()
+    profile, profile_launches = profile_quants_on_card(torch, base, work_dir, smi)
+    summary.update(projection=projection, convert_s=convert_s, convert_report=report,
+                   project_ms=project_ms, residual_gb=record["residual_gb"],
+                   dequantize_s=record["dequantize_s"], pack_s=record["pack_s"],
+                   s_per_optimizer_step_with_projection=s_optim, packed=packed,
+                   profile_quants=profile)
+    return summary, launches, profile_launches
 
 
 # --------------------------------------------------------------------------
@@ -2979,7 +3318,7 @@ def anima_sp_rank(preset: str, out_dir: str) -> int:
 # --------------------------------------------------------------------------
 
 PHASES = ("kernels", "k5", "k6", "unet", "dit", "vae", "trainer", "anima", "anima_video",
-          "anima_sp", "resume", "plan")
+          "repair", "anima_sp", "resume", "plan")
 USAGE = ("usage: chip_smoke.py [--only PHASE[,PHASE...]]   phases: " + ", ".join(PHASES)
          + "\n       chip_smoke.py --anima-sp-rank PRESET OUT_DIR   (one torchrun rank)")
 
@@ -3006,8 +3345,11 @@ def kernels_json(timings, max_err, launches, k5, k6, sm90):
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shapes": timings[kname], **build,
-            **({"launches_anima_video": launches["anima_video"].get(kname, 0)}
-               if ph == "anima" else {})})
+            **({"launches_anima_video": launches["anima_video"].get(kname, 0),
+                "launches_repair": launches["repair"].get(kname, 0)}
+               if ph == "anima" else {}),
+            **({"launches_profile_quants": launches["profile_quants"].get(kname, 0)}
+               if kname == "flash_fwd_f32_d128" else {})})
     k5_err, k5_timings, k5_launches, ring_ms = k5
     for kname, line, kernel_names in (
             ("flash_fwd_stats", 503, "flash_fwd_d128"),
@@ -3093,6 +3435,10 @@ def main(argv=None) -> int:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_anima_video_") as tmp:
                 summary["anima_video"], launches["anima_video"] = anima_video_phase(
                     torch, Path(tmp), TRAIN_STEPS, smi)
+        if "repair" in only:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_repair_") as tmp:
+                (summary["repair"], launches["repair"],
+                 launches["profile_quants"]) = repair_phase(torch, Path(tmp), TRAIN_STEPS, smi)
         if "anima_sp" in only:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_anima_sp_") as tmp:
                 summary["anima_sp"] = anima_sp_phase(torch, Path(tmp), TRAIN_STEPS)

@@ -371,8 +371,8 @@ def test_dataset_batches_match_jax_from_one_synthetic_cache(tmp_path):
     assert port_cache.check_if_anima_caching_needed(config) is True
     assert jax_cache.check_if_anima_caching_needed(jax_config) is True
     # the port rebuilds it: the edited caption alone is encoded, and both
-    # checks accept the cache again; the unported cache options are refused
-    # before any encoder loads
+    # checks accept the cache again; the line-art option makes both ask for
+    # a rebuild (its masks ride the latent payloads)
     calls = []
 
     def encode_prompt(captions):
@@ -389,12 +389,11 @@ def test_dataset_batches_match_jax_from_one_synthetic_cache(tmp_path):
     assert calls == ["edited caption"]
     assert port_cache.check_if_anima_caching_needed(config) is False
     assert jax_cache.check_if_anima_caching_needed(jax_config) is False
-    for key, match in (("ANIMA_REPAIR_LINEART_LOSS_ENABLED", "line-art"),):
-        refused = RuntimeConfig({**flat, key: True}, validate_resume_paths=False)
-        with mock.patch.object(port_cache.AnimaCacheEncoders, "from_config",
-                               side_effect=AssertionError("encoders loaded")):
-            with pytest.raises(NotImplementedError, match=match):
-                port_cache.precompute_and_cache_anima(refused)
+    lineart = {**flat, "ANIMA_REPAIR_LINEART_LOSS_ENABLED": True}
+    assert port_cache.check_if_anima_caching_needed(
+        RuntimeConfig(lineart, validate_resume_paths=False)) is True
+    assert jax_cache.check_if_anima_caching_needed(
+        JaxConfig(lineart, validate_resume_paths=False)) is True
 
 
 # --------------------------------------------------------------------------
@@ -413,7 +412,8 @@ def test_cli_raises_without_cuda_unless_cpu_is_asked_for(monkeypatch):
     ({"SEQUENCE_PARALLEL_SIZE": 2, "TENSOR_PARALLEL_SIZE": 2}, "PARALLEL"),
     ({"PIPELINE_PARALLEL_SIZE": 2}, "PARALLEL"),
     ({"TENSOR_PARALLEL_SIZE": 2}, "PARALLEL"),
-    ({"ANIMA_REPAIR_LINEART_LOSS_ENABLED": True}, "line-art"),
+    # the line-art loss is ported; pipeline parallelism beside it is not
+    ({"ANIMA_REPAIR_LINEART_LOSS_ENABLED": True, "PIPELINE_PARALLEL_SIZE": 2}, "PARALLEL"),
     # video mode is ported; under sequence parallelism it is not
     ({"ANIMA_VIDEO_FRAMES": 5, "SEQUENCE_PARALLEL_SIZE": 2}, "video mode under sequence"),
 ])

@@ -24,7 +24,10 @@ the widest SDXL_BASE site (whose fp32 slices outgrow shared memory) and at
 a large mean; two calls must agree bitwise, and the TINY UNet's fused_gn
 route must agree with its unfused one. An optimizer state with bf16 and
 with int8 blockwise moments, updated on the card, goes through the
-training-state file and back onto the card bit for bit.
+training-state file and back onto the card bit for bit. The QAT repair
+trainer's device projection (train/qat_project.py, plain torch on the
+card) equals the numpy quantizers' round trip bit for bit in all five
+formats, and its error feedback equals the CPU's.
 
 Tolerances: the bf16 kernels multiply bf16 operands on the tensor cores
 with fp32 accumulation, so their outputs are held at 2e-2 of unit-scale
@@ -649,3 +652,52 @@ def test_conservative_remat_skips_the_flash_forward_on_card(cuda_device, monkeyp
     for remat in (True, "conservative"):
         for n in params:
             assert torch.equal(grads[remat][n], grads[False][n]), (remat, n)
+
+
+def _qat_weight(shape, seed):
+    """A weight with rows at very different scales, a zero row, -0.0
+    entries, and values on the fp8 and int8 grids' midpoints."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    w = (rng.normal(size=shape) * rng.uniform(0.01, 2.0, size=(shape[0], 1))).astype(np.float32)
+    w[::5] *= 1e-4
+    w[1] = 0.0
+    w[2, :3] = -0.0
+    w[3, :8] = np.float32([448.0, 0.5, 1.5, 2.5, -3.5, 13.0, 0.0078125, 448.0 / 3])
+    return w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["float8_e4m3fn", "float8_e5m2", "int8_tensorwise", "nvfp4",
+                                 "ternary_1_58"])
+def test_qat_projection_on_card_matches_the_numpy_quantizer(cuda_device, fmt):
+    """The device projection of the QAT repair trainer on the card, bit for
+    bit the numpy quantizer's round trip (quantize, then dequantize), at
+    1024 x 2048 and at a row width past 8192 elements (where numpy versions
+    sum the ternary row mean in two orders); then
+    three steps of error feedback on the card against the same steps on
+    the CPU, parameters and fp16 residuals bit for bit."""
+    import numpy as np
+    from aozora_sdxl_training_tpu_torch.tools import quantize as q
+    from aozora_sdxl_training_tpu_torch.train import qat_project
+    for shape in ((1024, 2048), (64, 8208)):
+        w = _qat_weight(shape, sum(shape))
+        records = dict(q.quant_records_for_weight("w.weight", w, fmt))
+        want = np.asarray(q.dequantize_records("w.weight", records, out_shape=shape), np.float32)
+        got = qat_project.project_weight(fmt, torch.from_numpy(w).to(cuda_device))
+        assert got.dtype == torch.float32
+        assert np.array_equal(got.cpu().numpy().view(np.int32), want.view(np.int32)), shape
+    w = _qat_weight((256, 512), 9)
+    init, project = qat_project.make_device_projector({"w.weight": fmt}, {"w.weight": 0.9})
+    runs = []
+    for device in ("cpu", cuda_device):
+        params = {"w.weight": torch.from_numpy(w.copy()).to(device)}
+        res = init(params)
+        for step in range(3):
+            params["w.weight"] += 0.01 * (step + 1)
+            project(params, res)
+        runs.append((params["w.weight"].cpu(), res["w.weight"].cpu()))
+    (p_cpu, r_cpu), (p_dev, r_dev) = runs
+    assert r_dev.dtype == torch.float16
+    assert torch.equal(p_dev.view(torch.int32), p_cpu.view(torch.int32))
+    assert torch.equal(r_dev.view(torch.int16), r_cpu.view(torch.int16))

@@ -379,17 +379,21 @@ def test_fp32_master_dtypes_pass_the_check(tmp_path, master):
 
 def test_port_imports_no_jax():
     """Every module of the port and chip_smoke.py, imported in a fresh
-    interpreter, leave jax and the JAX package out of sys.modules."""
+    interpreter, leave jax, the JAX package, cv2 and PyQt out of
+    sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import aozora_sdxl_training_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names + ['chip_smoke']: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m.split('.')[0] == 'aozora_sdxl_training_tpu')\n"
+        "             or m.split('.')[0] in ('aozora_sdxl_training_tpu', 'cv2', 'PyQt5',\n"
+        "                                    'PyQt6'))\n"
         "new = {p.__name__ + '.' + n for n in ('ops.ring_attention', "
         "'ops.groupnorm_silu', 'parallel', 'parallel.sharding', "
-        "'models.anima.qwen3', 'models.anima.wan_vae', 'models.anima.pipeline')}\n"
+        "'models.anima.qwen3', 'models.anima.wan_vae', 'models.anima.pipeline', "
+        "'train.qat_project', 'train.qat_repair', 'cli.train_anima_repair', "
+        "'tools.quantize', 'tools.semantic_maps', 'tools.profile_quants')}\n"
         "print(len(names), bad, sorted(new - set(names)))\n"
         "sys.exit(1 if bad or len(names) < 20 or not new <= set(names) else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
