@@ -78,7 +78,11 @@ def save_train_state(path, *, global_step: int, micro_step: int,
                      sampler_epoch: int, timestep_sampler_state: dict | None,
                      extra: dict | None = None) -> None:
     """Streams the moments to ``path`` one tensor at a time (each copied to
-    the host when its turn comes), in the JAX package's layout."""
+    the host when its turn comes), in the JAX package's layout. Host
+    moments (the ``moments_host`` rung) are written from their pinned
+    tensors, once the last step's copies into them are done."""
+    if opt_state.host is not None:
+        opt_state.host.synchronize()
     to_jax = opt_state.layout.to_jax
     tensors = {"opt.step": np.asarray(opt_state.step, np.int32)}
 

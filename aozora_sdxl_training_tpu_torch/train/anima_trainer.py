@@ -27,7 +27,11 @@ blockwise when the requested one does not fit); the trainer prints
 ``describe_plan``. The step runs eagerly: the micro step accumulates
 gradients into ``.grad``, the apply step (shared with the SDXL trainer)
 scales them by 1/GA, clips their global norm and runs the Raven AdamW
-update. ``ANIMA_GRADIENT_CHECKPOINTING_MODE`` "Full" (the default)
+update. The plan's low-memory rungs at GA 1 run as in the SDXL trainer
+(``train/trainer.py``): ``two_pass`` the two-pass step over this trainer's
+loss, ``moments_host`` the moments in pinned host memory; as in JAX only
+on one device (the dp x sp ranks take the fused step with the moments on
+the card). ``ANIMA_GRADIENT_CHECKPOINTING_MODE`` "Full" (the default)
 recomputes each block in the backward, "Conservative" keeps the MLP
 down-projections and the flash outputs (``models/anima/dit.py``), "Off"
 keeps everything.
@@ -62,8 +66,7 @@ controlled weights onto their quantized grid after every optimizer step,
 with error-feedback residuals on the device.
 
 Not ported yet, and refused with an error when the config asks for them:
-pipeline/tensor parallelism, video mode under sequence parallelism, and the
-plan's two-pass and host-moment rungs.
+pipeline/tensor parallelism and video mode under sequence parallelism.
 ``AOZORA_PROFILE_DIR`` traces micro steps 3-8 (``train/profiling.py``).
 """
 
@@ -98,10 +101,10 @@ from . import anima_objectives, curves, memory_policy, objectives
 from .anima_sampler import AnimaPreviewRenderer, load_decoder_for_preview
 from .profiling import StepProfiler
 from .reporter import MetricsReporter, optimizer_block
-from .train_step import make_apply_step, split_trainable
-from .trainer import (attention_impl, consume_force_save_flag, force_save_flag_path,
-                      make_optimizer_config, print_optimizer_summary,
-                      refuse_unported_rung)
+from .train_step import make_apply_step, make_two_pass_step, split_trainable
+from .trainer import (HOST_MOMENT_WINDOW, attention_impl, consume_force_save_flag,
+                      force_save_flag_path, make_optimizer_config,
+                      print_optimizer_summary)
 
 
 @dataclass(frozen=True)
@@ -225,7 +228,6 @@ def _refuse_unported(config) -> None:
         if asked:
             raise NotImplementedError(
                 f"{what} is not ported to the PyTorch package yet")
-    refuse_unported_rung(config=config)
 
 
 def _mesh_for(layout):
@@ -381,7 +383,13 @@ def run_anima_training(config, *, device: torch.device | None = None,
         budget_bytes=memory_policy.device_budget_bytes(device),
         master_override=str(getattr(config, "MASTER_DTYPE", "auto")))
     print(memory_policy.describe_plan(plan))
-    refuse_unported_rung(plan)
+    # the low-memory rungs run on one device only, as in JAX: the ranks of
+    # a torchrun world take the fused step with the moments on the card
+    two_pass = plan.two_pass and mesh is None
+    moments_host = plan.moments_host and mesh is None
+    if mesh is not None and (plan.two_pass or plan.moments_host):
+        print("INFO: the low-memory rung runs on one device only; the "
+              f"{shard.world_size()} ranks take the fused step")
     # the port reads AOZORA_FLASH_MIN_KV of the three knobs (a user's pin wins)
     memory_policy.apply_fast_backward_knobs(plan)
     if plan.moment_dtype != opt_cfg.momentum_dtype:
@@ -425,16 +433,23 @@ def run_anima_training(config, *, device: torch.device | None = None,
         spatial_strength=lineart_strength if lineart else 0.0)
     micro_fn = make_anima_micro_step(step_cfg)
     apply_fn = make_apply_step(step_cfg, opt_cfg)
-    # the restored moments are host tensors: they reach the device once,
-    # and no zero state is made beside them
+    # the two-pass rung: one step in place of the micro and apply steps
+    two_pass_fn = (make_two_pass_step(make_anima_loss_fn(step_cfg), opt_cfg,
+                                      step_cfg.clip_grad_norm)
+                   if two_pass else None)
+    host_window = HOST_MOMENT_WINDOW if moments_host else None
+    # the restored moments are host tensors: they reach the device (or
+    # pinned host memory) once, and no zero state is made beside them
     if resume_opt_state is not None and set(trainable) <= set(resume_opt_state.exp_avg):
-        opt_state = adamw.restored_state(resume_opt_state, trainable, opt_cfg)
+        opt_state = adamw.restored_state(resume_opt_state, trainable, opt_cfg,
+                                         host_window=host_window)
         print("INFO: Restored optimizer state from resume checkpoint.")
     else:
         if resume_opt_state is not None:
             print("WARNING: resumed optimizer state keys do not match the "
                   "trainable set; starting with fresh moments.")
-        opt_state = adamw.init_state(trainable, opt_cfg, dit_layout)
+        opt_state = adamw.init_state(trainable, opt_cfg, dit_layout,
+                                     host_window=host_window)
     del resume_opt_state
     qat_residuals, project = None, None
     if device_projector is not None:
@@ -444,7 +459,7 @@ def run_anima_training(config, *, device: torch.device | None = None,
               "tensor(s) (residuals on the device, no host round trip)")
     seed = int(config.SEED or 42)
     print_optimizer_summary(config, opt_cfg, trainable, lr_curve.initial_lr,
-                            device)
+                            device, moments_host=moments_host)
 
     # previews take the single-device attention (not the SP ring); global
     # rank 0 alone renders them
@@ -550,9 +565,15 @@ def run_anima_training(config, *, device: torch.device | None = None,
         step_inputs = (batch["latents"], batch["prompt_emb"], batch["t5xxl_ids"],
                        torch.as_tensor(tickets[rows], device=device),
                        batch["sample_mask"], loss_weights, seed, micro_step)
-        loss_dev, sigma_dev = micro_fn(trainable, frozen, *step_inputs, keep,
-                                       noise=noise, loss_scale=batch["loss_scale"],
-                                       spatial_mask=batch.get("lineart_mask"))
+        if two_pass_fn is not None:
+            lr = lr_curve.lr_at(micro_step)
+            loss_dev, sigma_dev, raw_norm, update_norm = two_pass_fn(
+                trainable, frozen, opt_state, *step_inputs, lr=lr, noise=noise,
+                spatial_mask=batch.get("lineart_mask"))
+        else:
+            loss_dev, sigma_dev = micro_fn(trainable, frozen, *step_inputs, keep,
+                                           noise=noise, loss_scale=batch["loss_scale"],
+                                           spatial_mask=batch.get("lineart_mask"))
         if mesh is not None:
             # the global batch's loss: the dp ranks' shares summed
             loss_dev = loss_dev.reshape(1)
@@ -564,7 +585,8 @@ def run_anima_training(config, *, device: torch.device | None = None,
             lr = lr_curve.lr_at(micro_step)
             if mesh is not None:
                 shard.all_reduce_grads(trainable, layout.sp)
-            raw_norm, update_norm = apply_fn(trainable, opt_state, lr)
+            if two_pass_fn is None:
+                raw_norm, update_norm = apply_fn(trainable, opt_state, lr)
             optimizer_step += 1
             if project is not None:
                 project(trainable, qat_residuals)

@@ -269,8 +269,8 @@ def _state_candidates(ga_steps: int, master_override,
     layouts.
 
     The single-device GA=1 rungs after the plain fused candidates
-    (``allow_moments_host`` gates both), whose steps the port does not
-    have yet (the trainers refuse a plan that picks one):
+    (``allow_moments_host`` gates both; their steps are
+    ``train_step.make_two_pass_step`` and ``opt/adamw.HostMoments``):
 
     * **two-pass**: a norm pass, then a recompute-and-update pass; the
       gradient tree never materializes (~2x backward compute).

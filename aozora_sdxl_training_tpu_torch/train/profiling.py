@@ -12,6 +12,13 @@ and CUDA activity. Into ``<dir>/<trainer>/`` it writes:
   by device time.
 
 Tracing slows the host, so the steps it covers are not timing runs.
+
+``AOZORA_STEP_LOG=/path/steps.jsonl`` appends one JSON line after every
+micro step (the device synchronised first): the micro step, the host
+clock (``time.perf_counter``), ``torch.cuda.max_memory_allocated`` and the
+flash kernels' launch counts so far. It reads a run launched in a process
+of its own, as the GUI launches the trainers; the sync costs each step
+its host lead, so the step log's runs time each step whole.
 """
 
 from __future__ import annotations
@@ -27,15 +34,18 @@ WINDOW = (3, 8)   # first and last micro step traced, as the JAX package
 
 
 class StepProfiler:
-    def __init__(self, directory: str | os.PathLike | None):
+    def __init__(self, directory: str | os.PathLike | None,
+                 step_log: str | os.PathLike | None = None):
         self.dir = Path(directory) if directory else None
+        self.step_log = Path(step_log) if step_log else None
         self._prof = None
         self._t0 = 0.0
 
     @classmethod
     def from_env(cls, trainer: str) -> "StepProfiler":
         root = os.environ.get("AOZORA_PROFILE_DIR")
-        return cls(Path(root) / trainer if root else None)
+        return cls(Path(root) / trainer if root else None,
+                   os.environ.get("AOZORA_STEP_LOG") or None)
 
     def _sync(self) -> None:
         if torch.cuda.is_available() and torch.cuda.is_initialized():
@@ -52,9 +62,21 @@ class StepProfiler:
         self._prof.start()
         self._t0 = time.perf_counter()
 
+    def _log_step(self, micro_step: int) -> None:
+        from ..ops import flash_attention
+        self._sync()
+        cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+        entry = {"micro_step": micro_step, "t": time.perf_counter(),
+                 "max_memory_allocated": torch.cuda.max_memory_allocated() if cuda else 0,
+                 "flash_launches": {k: v for k, v in flash_attention.LAUNCHES.items() if v}}
+        with open(self.step_log, "a", encoding="utf-8") as f:
+            f.write(json.dumps(entry) + "\n")
+
     def after_step(self, micro_step: int) -> str | None:
-        """Ends the trace after the window's last step; returns the message
-        to log then, else None."""
+        """Appends the step log's line; ends the trace after the window's
+        last step and returns the message to log then, else None."""
+        if self.step_log is not None:
+            self._log_step(micro_step)
         if self._prof is None or micro_step != WINDOW[1]:
             return None
         self._sync()

@@ -132,3 +132,70 @@ def make_apply_step(cfg: TrainStepConfig, opt_cfg: adamw.AdamWConfig):
         return raw_norm, torch.sqrt(update_sq)
 
     return apply_step
+
+
+def make_two_pass_step(loss_fn, opt_cfg: adamw.AdamWConfig, clip_grad_norm: float):
+    """The two-pass GA=1 step over ``loss_fn(trainable, frozen, *batch,
+    **kw) -> (loss, aux)`` (``make_loss_fn``, or the Anima trainer's
+    ``make_anima_loss_fn``):
+
+    ``step(trainable, frozen, opt_state, *batch, lr, **kw) -> (loss, aux0,
+    raw_norm, update_norm)``, updating ``trainable`` and ``opt_state`` in
+    place (moments held on the device). ``raw_norm`` is the gradients'
+    global norm before the clip (pass 1's), ``update_norm`` the norm of the
+    parameters' fp32 delta. The hooks are removed after each pass, so no
+    other step sees them."""
+    clip = clip_grad_norm is not None and float(clip_grad_norm) > 0
+
+    def run_pass(trainable, on_grad, frozen, batch, kw):
+        """fwd + bwd with ``on_grad(name, grad)`` at each tensor's complete
+        gradient, which is dropped from ``.grad`` first."""
+        def hook(name):
+            def at_grad(p):
+                g, p.grad = p.grad, None
+                on_grad(name, g)
+            return at_grad
+
+        handles = [p.register_post_accumulate_grad_hook(hook(name))
+                   for name, p in trainable.items()]
+        try:
+            loss, aux = loss_fn(trainable, frozen, *batch, **kw)
+            loss.backward()
+        finally:
+            for h in handles:
+                h.remove()
+        return loss.detach(), aux.detach().reshape(-1)[0]
+
+    def step(trainable, frozen, opt_state, *batch, lr, **kw):
+        if opt_state.host is not None:
+            raise ValueError("the two-pass step keeps the moments on the device")
+        for p in trainable.values():
+            p.grad = None
+        device = next(iter(trainable.values())).device
+        norm_sq = torch.zeros((), dtype=torch.float32, device=device)
+        update_sq = torch.zeros((), dtype=torch.float32, device=device)
+        scale = None
+
+        def add_square(name, g):
+            norm_sq.add_((g.float() ** 2).sum())
+
+        def update(name, g):
+            if clip:
+                adamw.clip_tensor_(g, scale)
+            else:                       # one pass: its norm is the raw norm
+                add_square(name, g)
+            update_sq.add_(adamw.update_tensor(
+                name, trainable[name], g, opt_state.exp_avg[name],
+                opt_state.exp_avg_sq[name], opt_cfg, scalars, opt_state.layout))
+
+        if clip:
+            loss, aux0 = run_pass(trainable, add_square, frozen, batch, kw)
+            scale = adamw.clip_scale(torch.sqrt(norm_sq), float(clip_grad_norm))
+        opt_state.step += 1
+        scalars = adamw.step_scalars(opt_cfg, opt_state.step, lr)
+        out = run_pass(trainable, update, frozen, batch, kw)
+        if not clip:
+            loss, aux0 = out
+        return loss, aux0, torch.sqrt(norm_sq), torch.sqrt(update_sq)
+
+    return step

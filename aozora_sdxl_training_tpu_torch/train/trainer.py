@@ -17,13 +17,17 @@ plan's fused step, each gradient is freed once its tensor is updated), the
 moments' dtype (downgraded to int8 blockwise when
 the requested one does not fit), the attention route and the remat mode
 (``AOZORA_SDXL_REMAT`` pins it: off, full, dots, dots_no_batch,
-dots_no_logits and the ``_hires`` tiers). The step runs eagerly.
+dots_no_logits and the ``_hires`` tiers). The step runs eagerly. The plan's
+two low-memory rungs at GA 1 take their own steps, as in JAX: ``two_pass``
+the two-pass step (``train_step.make_two_pass_step``: no gradient tree),
+``moments_host`` the fused step with the moments in pinned host memory,
+streamed through a 0.5 GB window on the card (``opt/adamw.HostMoments``).
+``AOZORA_LOWMEM_RUNG`` forces either at GA 1; on an H100 at 1024px and
+batch 1 no plan reaches them on its own.
 
 Not ported yet, and refused with an error when the config asks for them:
-tensor-parallel meshes, more than one process, and the plan's two-pass and
-host-moment rungs (``AOZORA_LOWMEM_RUNG`` forces them at GA 1; on an H100
-at 1024px and batch 1 no plan reaches them). ``AOZORA_PROFILE_DIR`` traces
-micro steps 3-8 (``train/profiling.py``).
+tensor-parallel meshes and more than one process. ``AOZORA_PROFILE_DIR``
+traces micro steps 3-8 (``train/profiling.py``).
 """
 
 from __future__ import annotations
@@ -55,8 +59,12 @@ from . import curves, memory_policy
 from .profiling import StepProfiler
 from .reporter import MetricsReporter, optimizer_block
 from .sampler import PreviewRenderer
-from .train_step import (TrainStepConfig, make_apply_step, make_micro_step,
-                         split_trainable)
+from .train_step import (TrainStepConfig, make_apply_step, make_loss_fn,
+                         make_micro_step, make_two_pass_step, split_trainable)
+
+# bytes of the card's staging window for host moments (the memory plan
+# counts 0.5 GB for it: ``memory_policy.state_bytes``)
+HOST_MOMENT_WINDOW = int(0.5 * memory_policy.GB)
 
 
 def force_save_flag_path() -> Path:
@@ -117,7 +125,7 @@ def make_optimizer_config(config) -> adamw.AdamWConfig:
 
 
 def print_optimizer_summary(config, opt_cfg: adamw.AdamWConfig, trainable,
-                            initial_lr: float, device) -> None:
+                            initial_lr: float, device, moments_host: bool = False) -> None:
     names = {"raven": "RavenAdamW", "titan": "TitanAdamW",
              "paged_adamw_8bit": "PagedAdamW8bit"}
     key = str(config.OPTIMIZER_TYPE).lower()
@@ -135,7 +143,9 @@ def print_optimizer_summary(config, opt_cfg: adamw.AdamWConfig, trainable,
     print(f"  - Epsilon:             {opt_cfg.eps:.8g}")
     print(f"  - Weight decay:        {opt_cfg.weight_decay:.8g}")
     print(f"  - Debias strength:     {opt_cfg.debias_strength:.8g}")
-    print(f"  - Momentum state:      {device.type} {dtype_name}")
+    where = ((("pinned " if device.type == "cuda" else "") + "host memory")
+             if moments_host else device.type)
+    print(f"  - Momentum state:      {where} {dtype_name}")
     if opt_cfg.int8_state:
         n_exempt = sum(1 for p in trainable.values()
                        if p.numel() < opt_cfg.min_8bit_size)
@@ -209,31 +219,7 @@ def attention_impl(config, device: torch.device) -> str:
     return "flash"
 
 
-UNPORTED_RUNGS = ("two_pass", "moments_host")
-
-
-def refuse_unported_rung(plan=None, config=None) -> None:
-    """The memory plan's two-pass and host-moment rungs have no step in the
-    port yet: raise, naming the rung, when ``plan`` picked one, or (before
-    anything loads) when ``AOZORA_LOWMEM_RUNG`` forces one at GA 1, where
-    the planner takes the forced rung alone."""
-    if plan is not None:
-        rung = ("two_pass" if plan.two_pass
-                else "moments_host" if plan.moments_host else None)
-        how = "the memory plan picked"
-    else:
-        forced = os.environ.get("AOZORA_LOWMEM_RUNG", "")
-        ga = int(getattr(config, "GRADIENT_ACCUMULATION_STEPS", 1) or 1)
-        rung = forced if forced in UNPORTED_RUNGS and ga == 1 else None
-        how = "AOZORA_LOWMEM_RUNG forces"
-    if rung:
-        raise NotImplementedError(
-            f"{how} the {rung!r} low-memory rung: its step is not ported to "
-            "the PyTorch package yet")
-
-
 def _refuse_unported(config) -> None:
-    refuse_unported_rung(config=config)
     if int(getattr(config, "TENSOR_PARALLEL_SIZE", 1) or 1) > 1:
         raise NotImplementedError(
             "TENSOR_PARALLEL_SIZE > 1: meshes are not ported yet")
@@ -332,7 +318,6 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
         master_override=str(getattr(config, "MASTER_DTYPE", "auto")))
     print(f"INFO: Device {device}")
     print(memory_policy.describe_plan(plan))
-    refuse_unported_rung(plan)
     # the port reads AOZORA_FLASH_MIN_KV of the three knobs (a user's pin wins)
     memory_policy.apply_fast_backward_knobs(plan)
     if plan.moment_dtype != opt_cfg.momentum_dtype:
@@ -392,6 +377,11 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
     # updated
     micro_fn = make_micro_step(step_cfg)
     apply_fn = make_apply_step(step_cfg, opt_cfg)
+    # the two-pass rung: one step in place of the micro and apply steps
+    two_pass_fn = (make_two_pass_step(make_loss_fn(step_cfg), opt_cfg,
+                                      step_cfg.clip_grad_norm)
+                   if plan.two_pass else None)
+    host_window = HOST_MOMENT_WINDOW if plan.moments_host else None
     # restore or start fresh before any moment is on the device: the
     # restored moments are host tensors, and a zero state made first would
     # sit beside them
@@ -399,17 +389,18 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
     if resume_opt_state is not None:
         # moments of tensors that are not trainable now are left out
         if set(trainable) <= set(resume_opt_state.exp_avg):
-            opt_state = adamw.restored_state(resume_opt_state, trainable, opt_cfg)
+            opt_state = adamw.restored_state(resume_opt_state, trainable, opt_cfg,
+                                             host_window=host_window)
             print("INFO: Restored optimizer state from resume checkpoint.")
         else:
             print("WARNING: Resume optimizer state does not match trainable set; "
                   "starting moments fresh.")
     if opt_state is None:
-        opt_state = adamw.init_state(trainable, opt_cfg, layout)
+        opt_state = adamw.init_state(trainable, opt_cfg, layout, host_window=host_window)
     del resume_opt_state
     seed = int(config.SEED or 42)
     print_optimizer_summary(config, opt_cfg, trainable, lr_curve.initial_lr,
-                            device)
+                            device, moments_host=plan.moments_host)
 
     # ---- loop ----
     reporter = MetricsReporter(total_steps=config.MAX_TRAIN_STEPS)
@@ -487,12 +478,18 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
                        batch["time_ids"],
                        torch.as_tensor(np.asarray(tickets), device=device),
                        batch["sample_mask"], loss_weights, seed, micro_step)
-        loss_dev, sigma_dev = micro_fn(trainable, frozen, *step_inputs, keep)
+        if two_pass_fn is not None:
+            lr = lr_curve.lr_at(micro_step)
+            loss_dev, sigma_dev, raw_norm, update_norm = two_pass_fn(
+                trainable, frozen, opt_state, *step_inputs, lr=lr)
+        else:
+            loss_dev, sigma_dev = micro_fn(trainable, frozen, *step_inputs, keep)
 
         diag = None
         if micro_step % ga == 0:
             lr = lr_curve.lr_at(micro_step)
-            raw_norm, update_norm = apply_fn(trainable, opt_state, lr)
+            if two_pass_fn is None:
+                raw_norm, update_norm = apply_fn(trainable, opt_state, lr)
             optimizer_step += 1
             optim_dt = time.time() - last_optim_time
             optim_times.append(optim_dt)

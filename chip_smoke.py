@@ -214,7 +214,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 PACKAGE = "aozora_sdxl_training_tpu_torch"
 # the trainer's full output and a JSON summary go here
-LOG_DIR = Path(os.environ.get("CHIP_SMOKE_LOG_DIR", REPO / "chip_smoke_out"))
+LOG_DIR = Path(os.environ.get("CHIP_SMOKE_LOG_DIR", REPO / "chip_smoke_out")).resolve()
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak, H100 SXM
 H100_FP32_FLOPS = 67e12       # fp32 outside the tensor cores, H100 SXM
 H100_TF32_FLOPS = 495e12      # dense TF32 tensor-core peak, H100 SXM
@@ -257,6 +257,7 @@ KERNELS = {
     "flash_fwd_f32_d512": (f"{FA}:302", 512, "trainer", F32_D512_KERNEL),
 }
 TRAIN_STEPS = 8               # two optimizer steps at the presets' GA 4
+SHORT_STEPS = 4               # one: the anima_video and repair phases
 GA = 4
 # one SDXL_BASE forward at 128x128 latents, batch 1, as bench.py counts it;
 # a training micro step does three times this work (forward + backward)
@@ -1580,9 +1581,9 @@ def timed_state_io(torch, module, marks: list, record: dict):
         record["load"] = time.perf_counter() - t0
         return out
 
-    def restored_state(*args):
+    def restored_state(*args, **kwargs):
         t0 = time.perf_counter()
-        state = restored(*args)
+        state = restored(*args, **kwargs)
         torch.cuda.synchronize()
         record["restore"] = time.perf_counter() - t0
         if record.get("snapshot"):
@@ -2671,7 +2672,7 @@ def repair_phase(torch, work_dir: Path, steps: int, smi: str):
     host in five formats; the random ANIMA_BASE quantized by the port's
     convert_quants CLI (e4m3, target preset); random Qwen3 and Wan VAE
     files and 2 captioned 1024px images cached with line-art masks; the
-    repair CLI (1024px, batch 1, GA 4, Full remat, 8 micro steps) with its
+    repair CLI (1024px, batch 1, GA 4, Full remat, SHORT_STEPS micro steps) with its
     projection, host passes, steps and peak timed; the packed file checked;
     then profile_quants' dynamic mode on the card."""
     phase("repair")
@@ -2754,7 +2755,9 @@ def repair_phase(torch, work_dir: Path, steps: int, smi: str):
 # 13: the memory plan on the card's budget
 # --------------------------------------------------------------------------
 
-PLAN_STEPS = 8                # two optimizer steps at GA 4, or 8 at GA 1
+PLAN_STEPS = 4                # one optimizer step at GA 4, or 4 at GA 1
+RUNG_STEPS = 4                # optimizer steps of a low-memory rung's run (GA 1)
+GUI_TIMEOUT_S = 420           # the GUI launch's trainer process, then killed
 PLAN_EST = re.compile(r"INFO: Memory plan \(budget ([\d.]+) GB, est peak ([\d.]+) GB\)")
 
 
@@ -2769,11 +2772,14 @@ def plan_lines(raw: str) -> list:
 
 
 def plan_run(torch, cli_main, module, step_names, preset: dict, mode: str,
-             work_dir: Path, label: str, pattern, env: dict | None = None) -> dict:
-    """One training CLI run of PLAN_STEPS micro steps on ``preset``: its
-    plan (printed), s per micro step after the first, peak memory beside
-    the plan's estimate, launches per micro step, losses."""
+             work_dir: Path, label: str, pattern, env: dict | None = None,
+             steps: int = PLAN_STEPS) -> dict:
+    """One training CLI run of ``steps`` micro steps on ``preset`` (its
+    max_train_steps): its plan (printed), s per micro step after the first,
+    peak memory beside the plan's estimate, launches per micro step,
+    losses."""
     import numpy as np
+    preset = {**preset, mode: {**preset[mode], f"{mode}_max_train_steps": steps}}
     preset_path = work_dir / f"{label}.json"
     preset_path.write_text(json.dumps(preset, indent=1))
     env = dict(env or {})
@@ -2798,10 +2804,10 @@ def plan_run(torch, cli_main, module, step_names, preset: dict, mode: str,
     budget, est = (float(x) for x in PLAN_EST.search(plan[0]).groups())
     segs = [seg.strip() for chunk in raw.split("\n") for seg in chunk.split("\r")]
     losses = [float(m.group(3)) for m in map(pattern.search, segs) if m]
-    check(len(losses) == PLAN_STEPS and all(map(math.isfinite, losses)),
+    check(len(losses) == steps and all(map(math.isfinite, losses)),
           f"{label}: losses {losses}")
     micro, apply_ = step_times(marks, skip=1)
-    per_step = {k: v / PLAN_STEPS for k, v in launches.items() if v}
+    per_step = {k: v / steps for k, v in launches.items() if v}
     out = {"plan": plan, "budget_gib": budget, "est_peak_gib": est,
            "est_peak_gb": est * 2 ** 30 / 1e9, "max_memory_allocated_gb": peak_gb,
            "s_per_micro_step": micro, "median_s_per_micro_step": float(np.median(micro)),
@@ -2817,6 +2823,271 @@ def plan_run(torch, cli_main, module, step_names, preset: dict, mode: str,
           + f"; peak {peak_gb:.2f} GB (max_memory_allocated) against the plan's "
           f"estimate {est:.2f} GiB = {out['est_peak_gb']:.2f} GB; launches a micro "
           f"step {per_step}")
+    return out
+
+
+def copy_overlap(prof, path: Path) -> dict:
+    """The host-moment copies of a traced apply step, by direction (HtoD,
+    DtoH): count, bytes, busy ms, GB/s while busy, and the share of their
+    time that a kernel runs beside them (any stream); the window from the
+    first device event to the last, and the kernels' busy ms (their
+    union)."""
+    import bisect
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy") and "dur" in e]
+    merged = []
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in device
+                       if e["cat"] == "kernel"):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    starts = [a for a, _ in merged]
+
+    def covered(a, b):
+        i, total = max(bisect.bisect_right(starts, a) - 1, 0), 0.0
+        while i < len(merged) and merged[i][0] < b:
+            total += max(0.0, min(b, merged[i][1]) - max(a, merged[i][0]))
+            i += 1
+        return total
+
+    out = {}
+    for direction in ("HtoD", "DtoH"):
+        copies = [e for e in device if e["cat"] == "gpu_memcpy" and direction in e["name"]]
+        busy = sum(e["dur"] for e in copies)
+        nbytes = sum(int(e.get("args", {}).get("bytes", 0)) for e in copies)
+        over = sum(covered(e["ts"], e["ts"] + e["dur"]) for e in copies)
+        out[direction] = {"copies": len(copies), "bytes": nbytes, "busy_ms": busy / 1e3,
+                          "gb_per_s": nbytes / busy / 1e3 if busy else 0.0,
+                          "overlap_share": over / busy if busy else 0.0}
+    if device:
+        out["window_ms"] = (max(e["ts"] + e["dur"] for e in device)
+                            - min(e["ts"] for e in device)) / 1e3
+    out["kernel_busy_ms"] = sum(b - a for a, b in merged) / 1e3
+    return out
+
+
+def traced_host_apply(torch, record: dict, traced_call: int):
+    """Wraps ``opt.adamw.apply_updates`` for a run whose moments live on
+    the host: each call's bytes each way go into record["bytes"], the
+    ``traced_call``-th call runs under torch.profiler (``copy_overlap``
+    into record["trace"], its synced ms into record["traced_ms"]), and
+    record["pinned"] says whether every moment is still pinned after it.
+    Returns a restore function."""
+    from aozora_sdxl_training_tpu_torch.opt import adamw
+    real = adamw.apply_updates
+
+    def apply_updates(params, grads, state, cfg, **kw):
+        host = state.host
+        check(host is not None, "moments_host: the optimizer's moments are on the card")
+        record["calls"] = record.get("calls", 0) + 1
+        record["chunks"] = len(host.chunks)
+        before = (host.bytes_h2d, host.bytes_d2h)
+        if record["calls"] != traced_call:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(params, grads, state, cfg, **kw)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            # the host's time to issue the step, and the step's to end
+            record.setdefault("issue_done_ms", []).append(
+                ((t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3))
+        else:
+            torch.cuda.synchronize()
+            # device activity only: a host-op trace of ~50,000 launches
+            # takes tens of seconds to export
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = real(params, grads, state, cfg, **kw)
+                host.synchronize()
+                torch.cuda.synchronize()
+                record["traced_ms"] = (time.perf_counter() - t0) * 1e3
+            record["trace"] = copy_overlap(prof, LOG_DIR / "host_apply_trace.json")
+            record["pinned"] = all(
+                t.device.type == "cpu" and t.is_pinned()
+                for field in (state.exp_avg, state.exp_avg_sq) for m in field.values()
+                for t in (m if isinstance(m, tuple) else (m,)))
+        record.setdefault("bytes", []).append(
+            (host.bytes_h2d - before[0], host.bytes_d2h - before[1]))
+        return out
+
+    LOG_DIR.mkdir(parents=True, exist_ok=True)
+    adamw.apply_updates = apply_updates
+    return lambda: setattr(adamw, "apply_updates", real)
+
+
+def rung_run(torch, cli_main, module, micro_name: str, rung: str, preset: dict,
+             mode: str, work_dir: Path, label: str, pattern, fused_launches: dict) -> dict:
+    """A ``plan_run`` at GA 1 with AOZORA_LOWMEM_RUNG=``rung``: RUNG_STEPS
+    optimizer steps (moments_host one more, whose apply step is traced:
+    ``traced_host_apply``). Checks the plan's lines for the rung, bf16
+    masters and int8 moments, and the flash launches an optimizer step:
+    twice ``fused_launches`` (the fused step's at the same remat mode) for
+    the two-pass step, once for the host moments. Adds the s per optimizer
+    step of steps 2-4 and their median."""
+    import numpy as np
+    two_pass = rung == "two_pass"
+    steps = RUNG_STEPS + (not two_pass)
+    record: dict = {}
+    restore = (lambda: None) if two_pass else traced_host_apply(torch, record, steps)
+    try:
+        run = plan_run(torch, cli_main, module,
+                       ("make_two_pass_step",) if two_pass else (micro_name, "make_apply_step"),
+                       preset, mode, work_dir, label, pattern,
+                       env={"AOZORA_LOWMEM_RUNG": rung}, steps=steps)
+    finally:
+        restore()
+    text = "\n".join(run["plan"])
+    check(("two-pass step" in text) if two_pass else ("OFFLOADED to pinned host memory" in text),
+          f"{label}: the plan does not name the {rung} rung")
+    check("master weights: bfloat16" in text and "moments: int8_blockwise" in text,
+          f"{label}: the forced rung's plan is not bf16 masters with int8 moments")
+    per_step = (run["s_per_micro_step"] if two_pass else
+                [a + b for a, b in zip(run["s_per_micro_step"], run["s_per_apply_step"])])
+    run["s_per_optimizer_step"] = per_step[:RUNG_STEPS - 1]
+    run["median_s_per_optimizer_step"] = float(np.median(run["s_per_optimizer_step"]))
+    want = {k: v * (2 if two_pass else 1) for k, v in fused_launches.items()}
+    check(run["launches_per_micro_step"] == want,
+          f"{label}: flash launches an optimizer step {run['launches_per_micro_step']}, "
+          f"expected {want}")
+    print(f"  {label}: {run['median_s_per_optimizer_step']:.4f} s/optimizer step (median "
+          f"of steps 2-{RUNG_STEPS}: {run['s_per_optimizer_step']}); flash launches an "
+          f"optimizer step {run['launches_per_micro_step']} = "
+          f"{2 if two_pass else 1} x the fused step's")
+    if not two_pass:
+        check(record.get("pinned") is True, f"{label}: a moment is not pinned after a step")
+        trace = record["trace"]
+        h2d, d2h = record["bytes"][-1]
+        run.update(host_bytes_per_step={"h2d": h2d, "d2h": d2h}, host_apply_trace=trace,
+                   traced_apply_ms=record["traced_ms"], host_chunks=record["chunks"])
+        check(all(b == (h2d, d2h) for b in record["bytes"]) and h2d == d2h > 0,
+              f"{label}: bytes each way by step {record['bytes']}")
+        # the trace keeps most copy records but not always all (it has lost
+        # the first few H2D chunks of a step): GB/s and overlap are those
+        # of the copies it holds
+        check(0.75 * h2d <= trace["HtoD"]["bytes"] <= h2d
+              and 0.75 * d2h <= trace["DtoH"]["bytes"] <= d2h,
+              f"{label}: the trace's copies {trace} against {h2d} / {d2h} B issued")
+        run["apply_issue_done_ms"] = record.get("issue_done_ms", [])
+        print(f"  {label}: apply steps, host issue / done ms: {run['apply_issue_done_ms']}")
+        print(f"  {label}: {h2d / 1e9:.3f} GB in and {d2h / 1e9:.3f} GB out a step, "
+              f"{record['chunks']} chunks; the trace holds {trace['HtoD']['copies']} "
+              f"H2D and {trace['DtoH']['copies']} D2H copies, {trace['HtoD']['bytes'] / 1e9:.3f} "
+              f"and {trace['DtoH']['bytes'] / 1e9:.3f} GB; traced "
+              f"apply step {record['traced_ms']:.1f} ms (device window "
+              f"{trace.get('window_ms', 0):.1f} ms, kernels busy "
+              f"{trace['kernel_busy_ms']:.1f} ms); H2D {trace['HtoD']['gb_per_s']:.2f} GB/s "
+              f"over {trace['HtoD']['busy_ms']:.1f} ms, {trace['HtoD']['overlap_share']:.1%} "
+              f"beside a kernel; D2H {trace['DtoH']['gb_per_s']:.2f} GB/s over "
+              f"{trace['DtoH']['busy_ms']:.1f} ms, {trace['DtoH']['overlap_share']:.1%} "
+              f"beside a kernel")
+    return run
+
+
+def gui_launch_run(torch, preset: dict, work_dir: Path, fused_launches: dict) -> dict:
+    """The GUI's launch of the SDXL CLI, headless: the port's
+    ``gui.process_runner.launch_trainer`` starts the app's command
+    (``gui.app.trainer_command``: ``python -u -m ...cli.train_sdxl --config
+    <preset>``) on ``preset`` with AOZORA_LOWMEM_RUNG=two_pass, for
+    RUNG_STEPS optimizer steps at GA 1, and its stdout goes line by line
+    into the port's ``LiveMetrics``; ``request_force_save`` drops the flag
+    once the first optimizer block is read. Checks the exit code, one
+    finite loss per optimizer step in the parsed series, the plan's two-pass
+    line, the emergency checkpoint, and (from the trainer's step log,
+    AOZORA_STEP_LOG) twice the fused step's flash launches an optimizer
+    step. Returns s per optimizer step (steps 2-4, synced; their median),
+    the peak memory and the launches."""
+    import gc
+    import threading
+
+    import numpy as np
+    from aozora_sdxl_training_tpu_torch.gui.app import trainer_command, trainer_module
+    from aozora_sdxl_training_tpu_torch.gui.metrics import LiveMetrics
+    from aozora_sdxl_training_tpu_torch.gui.process_runner import (launch_trainer,
+                                                                  request_force_save)
+    out_dir = work_dir / "out_gui"
+    preset = {**preset, "sdxl": {**preset["sdxl"], "sdxl_output_dir": str(out_dir),
+                                 "sdxl_output_name": "gui",
+                                 "sdxl_max_train_steps": RUNG_STEPS}}
+    preset_path = work_dir / "gui_two_pass.json"
+    preset_path.write_text(json.dumps(preset, indent=1))
+    step_log = work_dir / "gui_steps.jsonl"
+    env = {k: v for k, v in os.environ.items() if k != "AOZORA_PROFILE_DIR"}
+    env.update(AOZORA_LOWMEM_RUNG="two_pass", AOZORA_STEP_LOG=str(step_log))
+    metrics, kept, flags = LiveMetrics(), [], []
+    exited, codes = threading.Event(), []
+
+    def on_line(line):
+        kept.append(line)
+        metrics.parse_line(line)
+        if not flags and OPTIM_STEP.search(line):
+            flags.append(request_force_save(work_dir))
+
+    def on_exit(code):
+        codes.append(code)
+        exited.set()
+
+    gc.collect()                  # the parent's cached blocks go back to the card
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runner = launch_trainer(trainer_module("SDXL"), preset_path, module=True,
+                            cwd=work_dir, env=env, on_line=on_line,
+                            on_progress=metrics.parse_line, on_exit=on_exit)
+    print(f"  gui launch: {' '.join(runner.args)} (cwd {work_dir})", flush=True)
+    if not exited.wait(GUI_TIMEOUT_S):
+        runner.stop()
+        raise PhaseError(f"gui launch: the trainer ran past {GUI_TIMEOUT_S} s; its "
+                         "process group was killed")
+    wall = time.perf_counter() - t0
+    LOG_DIR.mkdir(parents=True, exist_ok=True)
+    (LOG_DIR / "chip_smoke_gui_launch.log").write_text("\n".join(kept))
+    check(codes == [0], f"gui launch: the trainer exited {codes}")
+    check(runner.args == trainer_command("SDXL", preset_path)
+          and runner.args[2:4] == ["-m", f"{PACKAGE}.cli.train_sdxl"],
+          f"gui launch: the command {runner.args}")
+    optim = list(zip(metrics.optim_loss.xs, metrics.optim_loss.ys))
+    check([s for s, _ in optim] == list(range(1, RUNG_STEPS + 1))
+          and all(math.isfinite(x) for _, x in optim)
+          and len(metrics.step_loss.xs) == RUNG_STEPS,
+          f"gui launch: parsed optimizer steps {optim}, progress steps "
+          f"{list(metrics.step_loss.xs)}")
+    check(not metrics.failures, f"gui launch: failure lines {metrics.failures}")
+    plan = plan_lines("\n".join(kept))
+    check(any("two-pass step" in line for line in plan),
+          f"gui launch: the plan {plan} does not name the two-pass rung")
+    saved = [int(m.group(1)) for m in map(
+        re.compile(r"Emergency checkpoint requested at optimizer step (\d+)").search, kept) if m]
+    check(flags and len(saved) == 1, f"gui launch: emergency checkpoints {saved}")
+    files = [out_dir / f"gui_step_{saved[0]}.safetensors",
+             out_dir / f"gui_training_state_step_{saved[0]}.safetensors"]
+    check(all(f.exists() and f.stat().st_size > 0 for f in files),
+          f"gui launch: no checkpoint at optimizer step {saved[0]}")
+    for f in files:
+        f.unlink()                # disk room for the final save of later runs
+    log = [json.loads(line) for line in step_log.read_text().splitlines()]
+    check([e["micro_step"] for e in log] == list(range(1, RUNG_STEPS + 1)),
+          f"gui launch: step log {log}")
+    times = [b["t"] - a["t"] for a, b in zip(log, log[1:])]
+    launches = {k: v / RUNG_STEPS for k, v in log[-1]["flash_launches"].items()}
+    want = {k: 2 * v for k, v in fused_launches.items()}
+    check(launches == want, f"gui launch: flash launches an optimizer step {launches}, "
+          f"expected {want}")
+    est = float(PLAN_EST.search(plan[0]).group(2))
+    out = {"command": runner.args, "plan": plan, "exit_code": codes[0],
+           "optimizer_losses": [x for _, x in optim], "checkpoint_step": saved[0],
+           "s_per_optimizer_step": times, "median_s_per_optimizer_step": float(np.median(times)),
+           "max_memory_allocated_gb": max(e["max_memory_allocated"] for e in log) / 1e9,
+           "est_peak_gib": est, "est_peak_gb": est * 2 ** 30 / 1e9,
+           "launches_per_optimizer_step": launches, "wall_s": wall}
+    print(f"  gui launch: exit 0 in {wall:.1f} s; optimizer losses {out['optimizer_losses']}; "
+          f"emergency checkpoint at step {saved[0]}; {out['median_s_per_optimizer_step']:.4f} "
+          f"s/optimizer step (median of steps 2-{RUNG_STEPS}: {times}); peak "
+          f"{out['max_memory_allocated_gb']:.2f} GB against the plan's {est:.2f} GiB = "
+          f"{out['est_peak_gb']:.2f} GB; flash launches an optimizer step {launches} = "
+          f"2 x the fused step's")
     return out
 
 
@@ -2849,11 +3120,15 @@ def default_plans(torch) -> dict:
 
 
 def plan_phase(torch, work_dir: Path, smi: str, fp32_peak_gb: float | None) -> dict:
-    """ANIMA_BASE under Conservative against Full; SDXL_BASE under its
-    default plan, with bf16 masters at GA 1 (the fused step) and under
-    AOZORA_SDXL_REMAT=dots_no_logits_hires; each trainer's default plan.
-    CHIP_SMOKE_TRACE traces micro steps 3-8 of all runs ("1") or of the
-    runs it names."""
+    """ANIMA_BASE under Conservative against Full; SDXL_BASE with bf16
+    masters at GA 1 (the fused step) and under
+    AOZORA_SDXL_REMAT=dots_no_logits_hires (PLAN_STEPS micro steps each;
+    the default plan's run is the trainer phase's); each trainer's default
+    plan. Then the low-memory rungs, forced at GA 1
+    (RUNG_STEPS optimizer steps each): ANIMA_BASE (Full) under two_pass and
+    moments_host, SDXL_BASE under moments_host, and SDXL_BASE under
+    two_pass as the GUI launches it (``gui_launch_run``). CHIP_SMOKE_TRACE
+    traces micro steps 3-8 of all runs ("1") or of the runs it names."""
     phase("plan")
     import numpy as np
     from aozora_sdxl_training_tpu_torch.cli import train_anima, train_sdxl
@@ -2891,6 +3166,14 @@ def plan_phase(torch, work_dir: Path, smi: str, fp32_peak_gb: float | None) -> d
           f"difference {rel:.3e}")
     check(rel <= 1e-3, f"Conservative's losses {cons} against Full's {full}")
     out["anima_conservative"]["loss_rel_to_full"] = rel
+    # the low-memory rungs, forced at GA 1 under Full remat
+    preset["anima"].update(anima_gradient_checkpointing_mode="Full",
+                           anima_gradient_accumulation_steps=1)
+    for rung in ("two_pass", "moments_host"):
+        out[f"anima_{rung}"] = rung_run(
+            torch, train_anima.main, anima_trainer, "make_anima_micro_step", rung, preset,
+            "anima", anima_dir, f"anima_{rung}", ANIMA_PROGRESS,
+            out["anima_full"]["launches_per_micro_step"])
     shutil_rmtree(anima_dir)
 
     # SDXL_BASE on a synthetic cache: bf16 masters at GA 1 (fused), then
@@ -2913,15 +3196,8 @@ def plan_phase(torch, work_dir: Path, smi: str, fp32_peak_gb: float | None) -> d
     calls = SELF_ATTN_CALLS[64]
     steps = ("make_micro_step", "make_apply_step")
     once = {"flash_fwd": calls, "flash_bwd_dq": calls, "flash_bwd_dkv": calls}
-    # the default preset's plan (fp32 masters, GA 4, no remat): the others'
-    # yardstick in this call
-    run = plan_run(torch, train_sdxl.main, trainer_module, steps, preset, "sdxl", sdxl_dir,
-                   "sdxl_default", SDXL_PROGRESS)
-    check("master weights: float32" in "\n".join(run["plan"])
-          and "remat: False" in "\n".join(run["plan"]), "SDXL: the default plan")
-    check(run["launches_per_micro_step"] == once,
-          f"SDXL default: launches {run['launches_per_micro_step']}")
-    out["sdxl_default"] = run
+    # the default preset's plan (fp32 masters, GA 4, no remat) is the
+    # trainer phase's run; the plan phase runs the others
     bf16 = {**preset, "sdxl": {**preset["sdxl"], "sdxl_master_dtype": "bfloat16",
                                "sdxl_gradient_accumulation_steps": 1}}
     run = plan_run(torch, train_sdxl.main, trainer_module, steps, bf16, "sdxl",
@@ -2952,6 +3228,17 @@ def plan_phase(torch, work_dir: Path, smi: str, fp32_peak_gb: float | None) -> d
     check(run["launches_per_micro_step"] == once,
           f"SDXL dots_no_logits_hires: launches {run['launches_per_micro_step']}")
     out["sdxl_dots_no_logits_hires"] = run
+    # the low-memory rungs at GA 1: the host moments in this process, the
+    # two-pass step through the GUI's launch of the CLI
+    out["sdxl_moments_host"] = rung_run(
+        torch, train_sdxl.main, trainer_module, "make_micro_step", "moments_host", bf16,
+        "sdxl", sdxl_dir, "sdxl_moments_host", SDXL_PROGRESS, once)
+    out["sdxl_two_pass_gui"] = gui_launch_run(torch, bf16, sdxl_dir, once)
+    for rung in ("sdxl_moments_host", "sdxl_two_pass_gui"):
+        print(f"  {rung}: {out[rung]['median_s_per_optimizer_step']:.4f} s/optimizer step "
+              f"against the fused step's {out['sdxl_bf16_ga1']['median_s_per_step']:.4f} "
+              f"(sdxl_bf16_ga1); peak {out[rung]['max_memory_allocated_gb']:.2f} GB against "
+              f"its {out['sdxl_bf16_ga1']['max_memory_allocated_gb']:.2f} GB")
     shutil_rmtree(sdxl_dir)
     return out
 
@@ -3434,11 +3721,11 @@ def main(argv=None) -> int:
         if "anima_video" in only:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_anima_video_") as tmp:
                 summary["anima_video"], launches["anima_video"] = anima_video_phase(
-                    torch, Path(tmp), TRAIN_STEPS, smi)
+                    torch, Path(tmp), SHORT_STEPS, smi)
         if "repair" in only:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_repair_") as tmp:
                 (summary["repair"], launches["repair"],
-                 launches["profile_quants"]) = repair_phase(torch, Path(tmp), TRAIN_STEPS, smi)
+                 launches["profile_quants"]) = repair_phase(torch, Path(tmp), SHORT_STEPS, smi)
         if "anima_sp" in only:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_anima_sp_") as tmp:
                 summary["anima_sp"] = anima_sp_phase(torch, Path(tmp), TRAIN_STEPS)

@@ -6,6 +6,8 @@
   one process at ``BATCH_SIZE`` 1 and 2, two ranks with
   ``SEQUENCE_PARALLEL_SIZE`` 2 (ring attention, Full remat) and two ranks
   with SP 1 (dp=2, ``BATCH_SIZE`` 1 per dp shard, so a global batch of 2).
+  A fifth run, two SP ranks with ``AOZORA_LOWMEM_RUNG=two_pass`` at GA 1,
+  takes the fused step, as the JAX trainer does under a mesh.
   The SP run reproduces the one-process run at batch 1 and the dp run the
   one-process run at batch 2: per-step losses and the saved DiT. Only
   global rank 0 prints the GUI lines and saves; the dp run saves at each
@@ -70,14 +72,17 @@ ANIMA_PROGRESS = re.compile(
     r'Training\s*\|.*\|\s*(\d+)/(\d+)\s*\[.*?\]\s*\[Loss:\s*([\d.e+-]+),'
     r'\s*Ticket:\s*(\d+),\s*Sigma:\s*([\d.e+-]+)\]')
 # name: (ranks, BATCH_SIZE, SEQUENCE_PARALLEL_SIZE)
-RUNS = {"one_b1": (1, 1, 1), "one_b2": (1, 2, 1), "sp2": (2, 1, 2), "dp2": (2, 1, 1)}
+RUNS = {"one_b1": (1, 1, 1), "one_b2": (1, 2, 1), "sp2": (2, 1, 2), "dp2": (2, 1, 1),
+        "sp2_rung": (2, 1, 2)}
 SAVING = "dp2"      # the run that saves at each optimizer step
+RUNG = "sp2_rung"   # the run with AOZORA_LOWMEM_RUNG=two_pass at GA 1
 
 
 def _flat(root: Path, name: str, batch: int, sp: int) -> dict:
     return {**FLAT, "DIT_PATH": str(root / "tiny_dit.safetensors"),
             "OUTPUT_DIR": str(root / name), "BATCH_SIZE": batch,
             "SEQUENCE_PARALLEL_SIZE": sp,
+            "GRADIENT_ACCUMULATION_STEPS": 1 if name == RUNG else GA,
             "SAVE_EVERY_N_STEPS": 1 if name == SAVING else 0,
             "INSTANCE_DATASETS": [{"path": str(root / "data"), "repeats": 1}]}
 
@@ -112,6 +117,8 @@ def runs(tmp_path_factory):
                "--config", str(preset)]
         rank_envs = world_env(ranks, root / f"{name}_store") if ranks > 1 else [{}]
         for env in rank_envs:
+            if name == RUNG:
+                env["AOZORA_LOWMEM_RUNG"] = "two_pass"
             commands.append(cmd)
             envs.append(env)
             owners.append(name)
@@ -143,6 +150,23 @@ def test_only_global_rank_0_prints_and_saves(runs, name):
     assert sorted(p.name for p in (root / name).glob("*.safetensors")) == sorted(saved)
     if RUNS[name][2] > 1:
         assert "Sequence parallelism: DiT self-attention tokens shard over sp=2" in out[name][0]
+
+
+def test_forced_rung_under_torchrun_takes_the_fused_step(runs):
+    """``AOZORA_LOWMEM_RUNG=two_pass`` at GA 1 on two SP ranks: as in JAX,
+    the planner (sp only: no dp sharding) plans the rung, and the ranks
+    take the fused step with the moments on the device, saying so; the
+    run ends with finite losses, and its first loss (bf16 masters: the
+    checkpoint's weights rounded) is the one-process run's to 1e-2."""
+    _, out = runs
+    text = out[RUNG][0]
+    assert "two-pass step (GA=1" in text and "moments: int8_blockwise" in text
+    assert "INFO: the low-memory rung runs on one device only; the 2 ranks take the fused step" in text
+    got, want = _losses(text), _losses(out["one_b1"][0])
+    assert len(got) == STEPS and all(np.isfinite(got))
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-2, atol=2e-3)
+    assert [int(m) for m in re.findall(r"--- Optimizer Step: (\d+)", text)] == list(
+        range(1, STEPS + 1))
 
 
 def _losses(stdout):

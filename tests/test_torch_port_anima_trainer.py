@@ -10,8 +10,9 @@
   packages' noise functions, and their losses and saved DiTs agree; the
   port saves at each optimizer step and, within the same patches, resumes
   from optimizer step 1's files with the unbroken run's losses;
-* the CLI refuses to run without CUDA unless asked for the CPU, and every
-  option the port does not have yet is refused by name.
+* the CLI refuses to run without CUDA unless asked for the CPU, every
+  option the port does not have yet is refused by name, and each forced
+  low-memory rung runs, saves and prints the JAX planner's lines.
 """
 
 import contextlib
@@ -453,25 +454,38 @@ def test_rebuild_cache_builds_on_the_device_before_the_dit_loads(tmp_path):
                 port_trainer.run_anima_training(config, device="cpu")
 
 
-@pytest.mark.parametrize("master", ["bfloat16", "bf16"])
 @pytest.mark.parametrize("rung", ["two_pass", "moments_host"])
-def test_forced_unported_rung_is_refused_before_loading(tmp_path, monkeypatch, rung,
-                                                        master):
-    """bf16 master weights and Conservative run (the memory plan, the remat
-    policy); the plan's two-pass and host-moment rungs, whose steps are not
-    ported, are refused: forced at GA 1 (``AOZORA_LOWMEM_RUNG``), the
-    trainer raises, naming the rung, before it reads the cache or the DiT."""
+def test_forced_rung_runs_saves_and_prints_the_jax_plan(tmp_path, monkeypatch, rung):
+    """``AOZORA_LOWMEM_RUNG`` at GA 1 under Conservative: the CLI runs the
+    rung's step for two optimizer steps with finite losses, saves the DiT
+    and the training state at each, and prints the JAX planner's lines for
+    that rung on the same inputs."""
+    from tests.test_torch_port_fused_step import _plan_lines
+    from tests.test_torch_port_memory_policy import jax_plan_lines, recorded_plans
+    _build_env(tmp_path)
     monkeypatch.setenv("AOZORA_LOWMEM_RUNG", rung)
-    config = RuntimeConfig(_flat(tmp_path, "out", MASTER_DTYPE=master,
-                                 GRADIENT_ACCUMULATION_STEPS=1,
-                                 ANIMA_GRADIENT_CHECKPOINTING_MODE="Conservative"),
-                           validate_resume_paths=False)
-    with mock.patch.object(port_trainer, "check_if_anima_caching_needed",
-                           side_effect=AssertionError("cache checked")), \
-            mock.patch.object(port_trainer, "load_dit_state",
-                              side_effect=AssertionError("weights loaded")):
-        with pytest.raises(NotImplementedError, match=f"'{rung}' low-memory rung"):
-            port_trainer.run_anima_training(config, device="cpu")
+    monkeypatch.setenv("AOZORA_PLATFORM", "cpu")
+    monkeypatch.setenv("AOZORA_DEVICES", "1")
+    preset = tmp_path / "rung.json"
+    preset.write_text(json.dumps(schema.nest_flat_config(_flat(
+        tmp_path, "out", GRADIENT_ACCUMULATION_STEPS=1, MAX_TRAIN_STEPS=2,
+        SAVE_EVERY_N_STEPS=1, ANIMA_GRADIENT_CHECKPOINTING_MODE="Conservative"), "anima")))
+    out = io.StringIO()
+    with recorded_plans() as plans, one_thread(), contextlib.redirect_stdout(out), \
+            mock.patch.object(port_trainer, "check_if_anima_caching_needed",
+                              return_value=False):
+        port_cli.main(["--config", str(preset)])
+    out = out.getvalue()
+    lines = _plan_lines(out)
+    assert lines == jax_plan_lines("anima", plans["anima"][0])
+    assert ("two-pass step" in lines[2]) == (rung == "two_pass")
+    assert ("OFFLOADED to pinned host memory" in lines[3]) == (rung == "moments_host")
+    assert "remat: conservative" in lines[4]
+    losses = [float(m) for m in re.findall(r"--- Optimizer Step: \d+\s*\| Loss: ([\d.]+)", out)]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert all((tmp_path / "out" / f"anima_run{kind}_step_{n}.safetensors").exists()
+               for kind in ("", "_training_state") for n in (1, 2))
+    assert (tmp_path / "out" / "anima_run.safetensors").exists()
 
 
 @pytest.mark.parametrize("master", ["auto", "float32"])

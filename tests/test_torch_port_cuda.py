@@ -27,7 +27,11 @@ with int8 blockwise moments, updated on the card, goes through the
 training-state file and back onto the card bit for bit. The QAT repair
 trainer's device projection (train/qat_project.py, plain torch on the
 card) equals the numpy quantizers' round trip bit for bit in all five
-formats, and its error feedback equals the CPU's.
+formats, and its error feedback equals the CPU's. The host-moment apply
+step (moments in pinned host memory, streamed through a window on the
+card) equals the apply step with the moments on the card bit for bit,
+leaves the moments pinned and holds the card to the window; the two-pass
+step on SDXL_BASE at 1024px updates the UNet as the fused step does.
 
 Tolerances: the bf16 kernels multiply bf16 operands on the tensor cores
 with fp32 accumulation, so their outputs are held at 2e-2 of unit-scale
@@ -45,6 +49,7 @@ it (fp32 statistics summed in another order), and 1e-3 against a float64
 reference where the mean is 100 times the spread.
 """
 
+import gc
 import re
 
 import pytest
@@ -701,3 +706,182 @@ def test_qat_projection_on_card_matches_the_numpy_quantizer(cuda_device, fmt):
     assert r_dev.dtype == torch.float16
     assert torch.equal(p_dev.view(torch.int32), p_cpu.view(torch.int32))
     assert torch.equal(r_dev.view(torch.int16), r_cpu.view(torch.int16))
+
+
+ROUNDING = 2 << 20
+
+
+def _moment_tensors(state):
+    for field in ("exp_avg", "exp_avg_sq"):
+        for name, m in getattr(state, field).items():
+            yield from ((f"{field} {name}", t) for t in (m if isinstance(m, tuple) else (m,)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", ["below_largest", "above_largest"])
+@pytest.mark.parametrize("momentum", ["int8_blockwise", "bfloat16"])
+def test_streamed_host_moments_match_the_card_bit_for_bit(cuda_device, momentum, window):
+    """From the same bf16 parameters, gradients and state, two apply steps
+    with the moments in pinned host memory (streamed through a window
+    smaller than the largest tensor's moments, or larger) give the
+    parameters and moments (int8 codes and scales, or bf16) of two apply
+    steps with the moments on the card, bit for bit; the moments are still
+    pinned afterwards. ``max_memory_allocated`` during the streamed steps
+    stays within what the card held before them (the window and the spill
+    buffer, where a tensor larger than the window is staged, included) and
+    their gradients, plus the scratch the on-card apply needs above what it
+    holds (one tensor's fp32 update), plus 2 MiB for the caching
+    allocator's rounding (a large block can count up to 1 MiB over its
+    request)."""
+    from aozora_sdxl_training_tpu_torch.opt import adamw
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    shapes = {f"w{i}": ((1024, 1024) if i % 3 else (320, 64, 3, 3)) for i in range(96)}
+    shapes.update({"norm": (640,), "small": (40, 24)})
+    params = {n: torch.randn(s, generator=g, device=cuda_device).to(torch.bfloat16)
+              for n, s in shapes.items()}
+    grads = [{n: torch.randn(p.shape, generator=g, device=cuda_device).to(torch.bfloat16)
+              for n, p in params.items()} for _ in range(2)]
+    cfg = adamw.AdamWConfig.from_params_dict({"momentum_dtype": momentum})
+    probe = adamw.init_state(params, cfg)
+    largest = max(sum(t.numel() * t.element_size()
+                      for m in (probe.exp_avg[n], probe.exp_avg_sq[n])
+                      for t in (m if isinstance(m, tuple) else (m,)))
+                  for n in params)
+    del probe
+    window_bytes = largest // 2 if window == "below_largest" else 8 * largest
+    runs = {}
+    for kind in ("card", "host"):
+        gc.collect()            # an earlier test's tensors must not go mid-run
+        torch.cuda.empty_cache()
+        trainable = {n: p.clone() for n, p in params.items()}
+        state = adamw.init_state(trainable, cfg,
+                                 host_window=window_bytes if kind == "host" else None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        for step, grad in enumerate(grads):
+            adamw.apply_updates(trainable, {n: t.clone() for n, t in grad.items()}, state,
+                                cfg, lr=1e-3 * (step + 1))
+        if kind == "host":
+            state.host.synchronize()
+        torch.cuda.synchronize()
+        runs[kind] = (trainable, state, held, torch.cuda.max_memory_allocated())
+    (p_card, s_card, held_card, peak_card), (p_host, s_host, held_host, peak_host) = (
+        runs["card"], runs["host"])
+    for name in params:
+        assert torch.equal(p_host[name], p_card[name]), name
+    for (what, a), (_, b) in zip(_moment_tensors(s_host), _moment_tensors(s_card)):
+        assert a.device.type == "cpu" and a.is_pinned(), what
+        assert torch.equal(a, b.cpu()), what
+    grad_bytes = sum(t.numel() * t.element_size() for t in grads[0].values())
+    scratch = max(peak_card - held_card - grad_bytes, 0)
+    moments_card = sum(t.numel() * t.element_size() for _, t in _moment_tensors(s_card))
+    bound = held_host + grad_bytes + scratch + ROUNDING
+    print(f"{momentum}, window {window_bytes} B: peak {peak_host} B against {bound} B "
+          f"(held {held_host}, gradients {grad_bytes}, scratch {scratch}, the moments "
+          f"{moments_card} B on the card); {s_host.host.bytes_h2d} B in, "
+          f"{s_host.host.bytes_d2h} B out")
+    assert peak_host <= bound
+    moved = 2 * sum(c["size"] for c in s_host.host.chunks)
+    assert s_host.host.bytes_h2d == s_host.host.bytes_d2h == moved >= 2 * moments_card
+
+
+@pytest.mark.cuda
+def test_two_pass_step_matches_the_fused_step_on_sdxl_base(cuda_device):
+    """One optimizer step of SDXL_BASE at 1024px (random weights, bf16
+    masters, int8 moments, clip 1.0, flash attention) through the two-pass
+    step and through the fused step (micro step + apply step) from the
+    same weights. The raw gradient norms agree to 1e-3 relative, and the
+    updates (new minus old weights) to 5e-2 of the fused update's L2 norm:
+    the convolutions' backward on the card need not give the same bits
+    twice, and Adam's first step moves a weight by about 3.63 lr times the
+    sign of its gradient, so a gradient near zero that flips sign moves its
+    weight by twice that. Prints the largest difference."""
+    from aozora_sdxl_training_tpu_torch.models.sdxl.arch import SDXL_BASE
+    from aozora_sdxl_training_tpu_torch.models.sdxl.unet import init_params
+    from aozora_sdxl_training_tpu_torch.opt import adamw
+    from aozora_sdxl_training_tpu_torch.train import train_step as ts
+    g = torch.Generator(device=cuda_device).manual_seed(1234)
+    base = init_params(SDXL_BASE, g, dtype=torch.bfloat16)
+    cfg = ts.TrainStepConfig(unet=SDXL_BASE, grad_accum_steps=1, clip_grad_norm=1.0,
+                             attn_impl="flash", compute_dtype=torch.bfloat16)
+    opt_cfg = adamw.AdamWConfig.from_params_dict({"momentum_dtype": "int8_blockwise",
+                                                  "debias_strength": 0.3})
+    batch = (torch.randn(1, 128, 128, 4, generator=g, device=cuda_device),
+             torch.randn(1, 77, SDXL_BASE.cross_attention_dim, generator=g,
+                         device=cuda_device),
+             torch.randn(1, SDXL_BASE.pooled_projection_dim, generator=g, device=cuda_device),
+             torch.tensor([[1024.0, 1024.0, 0.0, 0.0, 1024.0, 1024.0]], device=cuda_device),
+             torch.tensor([500], device=cuda_device), torch.ones(1, device=cuda_device),
+             torch.ones(1000, device=cuda_device))
+    lr = 1e-3
+    results = {}
+    for kind in ("fused", "two_pass"):
+        trainable = {n: p.clone().requires_grad_(True) for n, p in base.items()}
+        state = adamw.init_state(trainable, opt_cfg)
+        if kind == "fused":
+            loss, _ = ts.make_micro_step(cfg)(trainable, {}, *batch, 7, 1, 0.0)
+            raw, _ = ts.make_apply_step(cfg, opt_cfg)(trainable, state, lr)
+        else:
+            loss, _, raw, _ = ts.make_two_pass_step(ts.make_loss_fn(cfg), opt_cfg, 1.0)(
+                trainable, {}, state, *batch, 7, 1, lr=lr)
+        results[kind] = ({n: p.detach() for n, p in trainable.items()}, float(loss),
+                         float(raw))
+        del trainable, state
+    (fused, loss_f, raw_f), (two, loss_t, raw_t) = results["fused"], results["two_pass"]
+    diff_sq = upd_sq = 0.0
+    largest, n_diff = 0.0, 0
+    for name, p0 in base.items():
+        upd = fused[name].float() - p0.float()
+        diff = two[name].float() - fused[name].float()
+        diff_sq += float((diff ** 2).sum())
+        upd_sq += float((upd ** 2).sum())
+        largest = max(largest, float(diff.abs().max()))
+        n_diff += int((diff != 0).sum())
+    rel = (diff_sq / upd_sq) ** 0.5
+    n = sum(p.numel() for p in base.values())
+    print(f"two-pass against fused on SDXL_BASE: loss {loss_t} / {loss_f}, raw norm "
+          f"{raw_t} / {raw_f}; update difference {rel:.3e} of the fused update's norm, "
+          f"largest {largest:.3e}, {n_diff} of {n} weights differ")
+    assert loss_t == pytest.approx(loss_f, rel=1e-3)
+    assert raw_t == pytest.approx(raw_f, rel=1e-3)
+    assert rel <= 5e-2
+
+
+@pytest.mark.cuda
+def test_host_moments_save_and_resume_through_pinned_memory(cuda_device, tmp_path):
+    """A state whose moments live in pinned host memory saves from those
+    tensors (once the last step's copies into them are done) and resumes
+    into pinned host memory: every moment pinned, on the host, bit for bit
+    the saved one, and the restore leaves the card's allocation as it was
+    but for the staging window."""
+    from aozora_sdxl_training_tpu_torch.ckpt.train_state import (
+        load_train_state, save_train_state)
+    from aozora_sdxl_training_tpu_torch.models.sdxl import conversion
+    from aozora_sdxl_training_tpu_torch.opt import adamw
+    layout = adamw.Layout(conversion.to_jax_layout, conversion.from_jax_layout)
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    shapes = {"conv.weight": (64, 32, 3, 3), "proj.weight": (640, 320), "norm.weight": (77,)}
+    params = {n: torch.randn(s, generator=g, device=cuda_device).to(torch.bfloat16)
+              for n, s in shapes.items()}
+    cfg = adamw.AdamWConfig.from_params_dict({"momentum_dtype": "int8_blockwise",
+                                              "min_8bit_size": 1000})
+    window = 1 << 20
+    state = adamw.init_state(params, cfg, layout, host_window=window)
+    for step in range(2):
+        grads = {n: torch.randn(p.shape, generator=g, device=cuda_device).to(torch.bfloat16)
+                 for n, p in params.items()}
+        adamw.apply_updates(params, grads, state, cfg, lr=1e-3 * (step + 1))
+    save_train_state(tmp_path / "state.safetensors", opt_state=state, global_step=2,
+                     micro_step=2, sampler_seed=5, sampler_epoch=0,
+                     timestep_sampler_state=None)
+    _, host = load_train_state(tmp_path / "state.safetensors", layout)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    back = adamw.restored_state(host, params, cfg, host_window=window)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - held == window
+    assert back.host is not None and back.step == 2
+    for (what, a), (_, b) in zip(_moment_tensors(back), _moment_tensors(state)):
+        assert a.device.type == "cpu" and a.is_pinned(), what
+        assert torch.equal(a, b), what

@@ -12,6 +12,13 @@ fused step) and the memory plan in both trainers.
   the masters are bf16 too) and so do their saved DiTs (that file's
   bound: two Adam steps' reach where a rounding flips a tiny gradient,
   plus one bf16 step for the masters' own rounding and one for the save).
+* The same run under each forced low-memory rung: the JAX planner's lines
+  for that rung (on the run's planner arguments), losses within the JAX
+  run's 1e-2; against the int8 run above (the same masters, moments and
+  gradients: GA 1 fills ``.grad`` afresh either way) the host-moment run
+  repeats the losses and the saved DiT bit for bit, and the two-pass run
+  the losses to 1e-6 and the DiT to one bf16 step (its clip factor comes
+  from a norm summed in another order).
 * The same run under a budget at which the plan keeps bf16 masters but
   downgrades the moments to int8 blockwise (and takes the bf16
   accumulator): it saves the int8 state in the JAX package's format and
@@ -52,6 +59,7 @@ from aozora_sdxl_training_tpu_torch.train import train_step as port_ts
 from tests.test_torch_port_anima_dit import numpy_params as dit_numpy_params
 from tests.test_torch_port_anima_trainer import CFG as DIT_CFG
 from tests.test_torch_port_anima_trainer import LAT, LR, _build_env, _flat, _recording
+from tests.test_torch_port_memory_policy import jax_plan_lines, recorded_plans
 from tests.test_torch_port_trainer import one_thread
 from tests.test_torch_port_unet import numpy_params as unet_numpy_params
 
@@ -143,7 +151,10 @@ STEPS = 2
 def bf16_runs(tmp_path_factory):
     """JAX and port runs, MASTER_DTYPE bfloat16, GA 1, 2 steps; then the
     port under the int8-downgrading budget, saving at step 1, and resumed
-    from those files."""
+    from those files; then the port under each forced low-memory rung
+    (``AOZORA_LOWMEM_RUNG``: bf16 masters and int8 moments, as the int8
+    run). ``stdout`` also holds, for each port run, the JAX planner's lines
+    on that run's planner arguments."""
     root = tmp_path_factory.mktemp("bf16_masters")
     np_params = _build_env(root)
     noise = np.random.default_rng(6).normal(
@@ -181,15 +192,20 @@ def bf16_runs(tmp_path_factory):
                     ("resumed", {"RESUME_TRAINING": True,
                                  "ANIMA_RESUME_MODEL_PATH": str(
                                      root / "out_int8" / "anima_run_step_1.safetensors"),
-                                 "ANIMA_RESUME_STATE_PATH": str(state)}, budget)):
+                                 "ANIMA_RESUME_STATE_PATH": str(state)}, budget),
+                    ("two_pass", {}, None), ("moments_host", {}, None)):
                 mp.setattr(port_mp, "device_budget_bytes", lambda device, b=budget_bytes: b)
+                if name in ("two_pass", "moments_host"):
+                    mp.setenv("AOZORA_LOWMEM_RUNG", name)
                 preset = root / f"{name}.json"
                 preset.write_text(json.dumps(schema.nest_flat_config(
                     _flat(root, f"out_{name}", **flat, **extra), "anima")))
                 out = io.StringIO()
-                with contextlib.redirect_stdout(out):
+                with recorded_plans() as plans, contextlib.redirect_stdout(out):
                     port_cli.main(["--config", str(preset)])
                 stdout[name] = out.getvalue()
+                # the JAX planner reads AOZORA_LOWMEM_RUNG too: plan while it is set
+                stdout[f"{name}_jax_plan"] = jax_plan_lines("anima", plans["anima"][0])
     return root, np_params, jax_losses, port_losses, stdout
 
 
@@ -255,8 +271,36 @@ def test_downgraded_int8_moments_resume_with_bf16_masters(bf16_runs):
     resumed = stdout["resumed"]
     assert "INFO: Restored optimizer state from resume checkpoint." in resumed
     assert [int(m) for m in re.findall(r"--- Optimizer Step: (\d+)", resumed)] == [2]
-    # losses: port run 2, int8 run 2, resumed run 1 (its step 2)
-    assert len(port_losses) == 2 * STEPS + 1
-    print(f"resumed step 2's loss {port_losses[-1]!r} against "
+    # losses: port run 2, int8 run 2, resumed run 1 (its step 2), then the
+    # two forced-rung runs 2 each
+    assert len(port_losses) == 4 * STEPS + 1
+    print(f"resumed step 2's loss {port_losses[2 * STEPS]!r} against "
           f"{port_losses[2 * STEPS - 1]!r}")
-    assert port_losses[-1] == port_losses[2 * STEPS - 1]
+    assert port_losses[2 * STEPS] == port_losses[2 * STEPS - 1]
+
+
+@pytest.mark.parametrize("rung", ["two_pass", "moments_host"])
+def test_forced_rung_runs_match_the_int8_run_and_jax(bf16_runs, rung):
+    root, _, jax_losses, port_losses, stdout = bf16_runs
+    out = stdout[rung]
+    assert _plan_lines(out) == stdout[f"{rung}_jax_plan"]
+    assert ("two-pass step" in out) == (rung == "two_pass")
+    assert ("OFFLOADED to pinned host memory" in out) == (rung == "moments_host")
+    # losses: port 2, int8 2, resumed 1, two_pass 2, moments_host 2
+    start = 2 * STEPS + 1 + (0 if rung == "two_pass" else STEPS)
+    got, int8 = port_losses[start:start + STEPS], port_losses[STEPS:2 * STEPS]
+    print(f"{rung}: losses {got} against the int8 run's {int8} and JAX's {jax_losses}")
+    np.testing.assert_allclose(got, jax_losses, rtol=1e-2)
+    if rung == "moments_host":
+        assert got == int8
+    else:
+        np.testing.assert_allclose(got, int8, rtol=1e-6)
+    mine = load_all(root / f"out_{rung}" / "anima_run.safetensors")
+    ref = load_all(root / "out_int8" / "anima_run.safetensors")
+    assert mine.keys() == ref.keys()
+    for key in ref:
+        a, b = (np.asarray(x[key], np.float32) for x in (mine, ref))
+        if rung == "moments_host":
+            np.testing.assert_array_equal(a, b, err_msg=key)
+        else:
+            np.testing.assert_allclose(a, b, rtol=2.0 ** -7, atol=0, err_msg=key)

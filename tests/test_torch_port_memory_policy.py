@@ -142,3 +142,32 @@ def test_fast_backward_knobs_follow_jax(monkeypatch):
     monkeypatch.setenv("AOZORA_FLASH_MIN_KV", "4096")
     port_mp.apply_fast_backward_knobs(plans[1])
     assert os.environ["AOZORA_FLASH_MIN_KV"] == "4096"
+
+
+@contextlib.contextmanager
+def recorded_plans():
+    """While open, the port's two planners record the keyword arguments of
+    each call (``{"sdxl" | "anima": [kwargs, ...]}``); ``jax_plan_lines``
+    makes the JAX planner's ``describe_plan`` lines from them."""
+    calls = {"sdxl": [], "anima": []}
+    real = {name: getattr(port_mp, f"plan_{name}_training") for name in calls}
+
+    def recording(name):
+        def plan(**kwargs):
+            calls[name].append(kwargs)
+            return real[name](**kwargs)
+        return plan
+
+    with pytest.MonkeyPatch.context() as mp:
+        for name in calls:
+            mp.setattr(port_mp, f"plan_{name}_training", recording(name))
+        yield calls
+
+
+def jax_plan_lines(name: str, kwargs: dict) -> list[str]:
+    """The JAX planner's ``describe_plan`` lines for a port planner call's
+    arguments (torch dtypes as the jnp dtypes of the same names)."""
+    conv = {k: (jnp.dtype(str(v).replace("torch.", "")) if isinstance(v, torch.dtype) else v)
+            for k, v in kwargs.items()}
+    plan = getattr(jax_mp, f"plan_{name}_training")(**conv)
+    return jax_mp.describe_plan(plan).splitlines()

@@ -10,9 +10,12 @@ Both save at each optimizer step (model + training state). Within the
 same patches the port's CLI then resumes twice from optimizer step 1: from
 its own files and from the JAX trainer's.
 
-Also here: the port's cache check accepts the synthetic dataset (as does
-the JAX package's), the CLI refuses to run without CUDA unless asked for
-the CPU, and no module of the port imports JAX.
+Also here: the CLI's stdout passes the reference GUI's grammar, the
+port's cache check accepts the synthetic dataset (as does the JAX
+package's), the CLI refuses to run without CUDA unless asked for the CPU,
+each forced low-memory rung runs, saves and prints the JAX planner's
+lines (the host moments also resume), and no module of the port imports
+JAX.
 """
 
 import contextlib
@@ -286,6 +289,20 @@ def test_state_files_match_jax_trainer(runs):
         assert a @ b / (np.linalg.norm(a) * np.linalg.norm(b)) >= 0.99
 
 
+def test_cli_stdout_matches_gui_grammar(runs):
+    """The port SDXL CLI's stdout (the run resumed from its own step-1
+    files) through every channel of the reference GUI
+    (``tests/test_gui_grammar.py::_audit``): progress with Timestep, the
+    optimizer block, grad norms, the parameter-info line; no error
+    keyword; no line parses as Anima progress."""
+    from tests.test_gui_grammar import ANIMA_PROGRESS, SDXL_PROGRESS, _audit, _gui_lines
+    lines = _gui_lines(runs[3]["resumed"])
+    hits = _audit(lines, SDXL_PROGRESS, expect_sigma=False)
+    assert hits["progress"] >= STEPS - GA and hits["optim"] >= 1 and hits["grad"] >= 1, hits
+    assert hits["param_info"] == 1 and hits["error"] == 0, hits
+    assert all(not ANIMA_PROGRESS.search(line) for line in lines)
+
+
 def test_cache_check_accepts_synthetic_dataset(tmp_path):
     """The synthetic dataset + cache pass the real cache check of both
     packages (same index, payload metadata and signatures); after a caption
@@ -349,24 +366,47 @@ def test_cli_raises_without_cuda_unless_cpu_is_asked_for(monkeypatch):
         port_cli.main(["--config", "missing.json"])
 
 
-@pytest.mark.parametrize("master", ["bfloat16", "bf16"])
 @pytest.mark.parametrize("rung", ["two_pass", "moments_host"])
-def test_forced_unported_rung_is_refused_before_loading(tmp_path, monkeypatch, rung,
-                                                        master):
-    """bf16 master weights run (the memory plan); the plan's two-pass and
-    host-moment rungs, whose steps are not ported, are refused: forced at
-    GA 1 (``AOZORA_LOWMEM_RUNG``), the trainer raises, naming the rung,
-    before it reads the cache or the checkpoint."""
+def test_forced_rung_runs_saves_and_prints_the_jax_plan(tmp_path, monkeypatch, rung):
+    """``AOZORA_LOWMEM_RUNG`` at GA 1: the CLI runs the rung's step (the
+    two-pass step; the fused step with the moments in host memory) for two
+    optimizer steps with finite losses, saves the model and the training
+    state at each, and prints the JAX planner's lines for that rung on the
+    same inputs. Under ``moments_host`` a run resumed from step 1's files
+    (its state restored into host memory) repeats the unbroken run's step
+    2 exactly: the bf16 masters are in the model file as they are, the
+    int8 codes and scales come back bit for bit, and the tickets and noise
+    are the step's."""
+    from tests.test_torch_port_fused_step import _plan_lines
+    from tests.test_torch_port_memory_policy import jax_plan_lines, recorded_plans
+    _build_env(tmp_path)
+    losses = []
     monkeypatch.setenv("AOZORA_LOWMEM_RUNG", rung)
-    config = RuntimeConfig({**_flat(tmp_path, "out"), "MASTER_DTYPE": master,
-                            "GRADIENT_ACCUMULATION_STEPS": 1},
-                           validate_resume_paths=False)
-    with mock.patch.object(port_trainer, "check_if_caching_needed",
-                           side_effect=AssertionError("cache checked")), \
-            mock.patch.object(port_trainer, "load_sd_tensors",
-                              side_effect=AssertionError("weights loaded")):
-        with pytest.raises(NotImplementedError, match=f"'{rung}' low-memory rung"):
-            port_trainer.run_sdxl_training(config, device="cpu")
+    monkeypatch.setenv("AOZORA_PLATFORM", "cpu")
+    monkeypatch.setenv("AOZORA_DEVICES", "1")
+    monkeypatch.setattr(port_reporter.MetricsReporter, "log_step",
+                        _recording(port_reporter.MetricsReporter, losses))
+    flat = dict(GRADIENT_ACCUMULATION_STEPS=1, MAX_TRAIN_STEPS=2, SAVE_EVERY_N_STEPS=1)
+    with recorded_plans() as plans, mock.patch.object(
+            port_trainer, "check_if_caching_needed", return_value=False):
+        out = _run_port_cli(tmp_path, "rung", _flat(tmp_path, "out", **flat))
+        if rung == "moments_host":
+            resumed = _run_port_cli(tmp_path, "resumed", {
+                **_resume_flat(tmp_path, "out_resumed", "out"), **flat})
+    lines = _plan_lines(out)
+    assert lines == jax_plan_lines("sdxl", plans["sdxl"][0])
+    assert ("two-pass step" in lines[2]) == (rung == "two_pass")
+    assert ("OFFLOADED to pinned host memory" in lines[3]) == (rung == "moments_host")
+    assert len(losses) >= 2 and all(np.isfinite(losses))
+    assert [int(m) for m in re.findall(r"--- Optimizer Step: (\d+)", out)] == [1, 2]
+    assert all((tmp_path / "out" / f"run{kind}_step_{n}.safetensors").exists()
+               for kind in ("", "_training_state") for n in (1, 2))
+    assert (tmp_path / "out" / "run.safetensors").exists()
+    if rung == "moments_host":
+        assert "INFO: Restored optimizer state from resume checkpoint." in resumed
+        assert "Momentum state:      host memory int8_blockwise" in resumed
+        assert _plan_lines(resumed) == lines
+        assert losses[2:] == losses[1:2]
 
 
 @pytest.mark.parametrize("master", ["auto", "float32"])
@@ -393,7 +433,10 @@ def test_port_imports_no_jax():
         "'ops.groupnorm_silu', 'parallel', 'parallel.sharding', "
         "'models.anima.qwen3', 'models.anima.wan_vae', 'models.anima.pipeline', "
         "'train.qat_project', 'train.qat_repair', 'cli.train_anima_repair', "
-        "'tools.quantize', 'tools.semantic_maps', 'tools.profile_quants')}\n"
+        "'tools.quantize', 'tools.semantic_maps', 'tools.profile_quants', "
+        "'train.timestep_presets', 'gui.__main__', 'gui.app', 'gui.charts', "
+        "'gui.curve_editor', 'gui.curve_models', 'gui.datasets_model', 'gui.log_buffer', "
+        "'gui.metrics', 'gui.process_runner', 'gui.theme')}\n"
         "print(len(names), bad, sorted(new - set(names)))\n"
         "sys.exit(1 if bad or len(names) < 20 or not new <= set(names) else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
