@@ -1,18 +1,27 @@
-// Flash attention for Hopper (sm_90a), built on wgmma: every bf16 kernel.
-// At head_dim 64 (the SDXL UNet) the forward K1 and the backward's dQ and
-// dK/dV kernels K2/K3; at 128 (the Anima DiT) the forward K4a and the
-// backward K4b; at 512 (the SD-VAE mid-attention) the forward K4a.
+// Flash attention for Hopper (sm_90a), built on wgmma: every bf16 and fp16
+// kernel. At head_dim 64 (the SDXL UNet) the forward K1 and the backward's
+// dQ and dK/dV kernels K2/K3; at 128 (the Anima DiT) the forward K4a and the
+// backward K4b; at 512 (the SD-VAE mid-attention) the forward K4a (bf16
+// only: no fp16 path reaches head_dim 512).
 //
 // They replace the Pallas TPU kernels of
 // aozora_sdxl_training_tpu/ops/flash_attention.py:
 //
-//   flash_fwd_sm90_kernel<64>       <- _flash_forward (body _fwd_kernel)
-//   flash_bwd_dq_sm90_kernel<64>    <- _flash_backward, dq pallas_call (_bwd_dq_kernel)
-//   flash_bwd_dkv_sm90_kernel<64>   <- _flash_backward, dk/dv pallas_call (_bwd_dkv_kernel)
-//   flash_fwd_sm90_kernel<128>      <- _flash_forward_folded (body _fwd_kernel)
-//   flash_bwd_dq_sm90_kernel<128>   <- _flash_backward_folded, dq pallas_call
-//   flash_bwd_dkv_sm90_kernel<128>  <- _flash_backward_folded, dk/dv pallas_call
-//   flash_fwd_d512_sm90_kernel      <- _flash_forward_folded at head_dim 512
+//   flash_fwd_sm90_kernel<T, 64>       <- _flash_forward (body _fwd_kernel)
+//   flash_bwd_dq_sm90_kernel<T, 64>    <- _flash_backward, dq pallas_call (_bwd_dq_kernel)
+//   flash_bwd_dkv_sm90_kernel<T, 64>   <- _flash_backward, dk/dv pallas_call (_bwd_dkv_kernel)
+//   flash_fwd_sm90_kernel<T, 128>      <- _flash_forward_folded (body _fwd_kernel)
+//   flash_bwd_dq_sm90_kernel<T, 128>   <- _flash_backward_folded, dq pallas_call
+//   flash_bwd_dkv_sm90_kernel<T, 128>  <- _flash_backward_folded, dk/dv pallas_call
+//   flash_fwd_d512_sm90_kernel         <- _flash_forward_folded at head_dim 512
+//
+// T is the element type, bf16 or fp16 (sm90::Elem): each template is built
+// for both, with the same tiles, warpgroups and shared memory. The Pallas
+// kernels are generic in the dtype the same way: the scores, statistics and
+// accumulators in fp32, P and dS rounded to the input dtype before each
+// product. In fp16 that rounding keeps 11 significant bits against bf16's
+// 8, and takes dS below fp16's subnormal range (6e-8) to 0, as the Pallas
+// kernels' casts do; an output past 65504 becomes inf, as theirs does.
 //
 // and compute what those compute: exact attention with an online softmax
 // over KV tiles, fp32 statistics and accumulators, keys >= Skv masked to
@@ -25,9 +34,9 @@
 // to run.
 //
 // Layout (the callers'): q, o, dout, dq are (B, Sq, H, D); k, v, dk, dv
-// are (B, Skv, H, D), all contiguous bf16, row stride H * D; lse and delta
-// are contiguous fp32 (B * H, Sq). fp32 inputs never come here: they go to
-// the fp32 kernels of flash_attention_fp32.cu.
+// are (B, Skv, H, D), all contiguous bf16 or all fp16, row stride H * D;
+// lse and delta are contiguous fp32 (B * H, Sq). fp32 inputs never come
+// here: they go to the fp32 kernels of flash_attention_fp32.cu.
 //
 // What bounds them: at the SDXL shapes (B * H = 10, S = 4096 and
 // B * H = 20, S = 1024, D = 64), the Anima shape (B * H = 16, S = 4096,
@@ -38,7 +47,7 @@
 // stationary rows (the head_dim-512 forward has its own kernel, below: a
 // 64-row fp32 O does not fit one warpgroup's registers there):
 //
-// * Every product is a wgmma on a 64-row tile in bf16 with fp32
+// * Every product is a wgmma on a 64-row tile in T with fp32
 //   accumulation: S = Q K^T and O += P V (forward); S, dP = dO V^T and
 //   dQ += dS K (dQ); S^T = K Q^T, dP^T = V dO^T, dV += P^T dO and
 //   dK += dS^T Q (dK/dV). The score products read both operands from
@@ -63,7 +72,7 @@
 //
 // Occupancy. At head_dim 128, 128 stationary rows per block (two
 // warpgroups), so the Anima shape has 16 * 4096 / 128 = 512 blocks for 132
-// SMs, one block (8 warps) a SM: the registers (ptxas for sm_90a: about 155
+// SMs, one block (8 warps) a SM: the registers (ptxas for sm_90a, bf16: about 155
 // forward, 162 dQ, 232 dK/dV a thread, no spill; chip_smoke.py prints them)
 // allow no second block. At head_dim 64 the accumulators are half as large
 // (O and dQ 32 fp32 registers a thread, dK and dV 64) and the score
@@ -82,10 +91,10 @@
 // that ask for 128 registers a thread (dK/dV spills and is 13-81% slower),
 // and 128-key tiles in the dQ kernel (201 registers, 2 blocks a SM; 5%
 // slower at S = 4096, 11% at 1024). Shared memory with the 1 KB alignment
-// slack, at D = 128 / 64: forward 99,328 / 41,984 bytes (Q x WG, K and V x
+// slack, at D = 128 / 64 (either T): forward 99,328 / 41,984 bytes (Q x WG, K and V x
 // 2 stages), dQ 133,120 / 50,688 (Q, dO x WG, K and V x 2 stages, lse and
 // delta), dK/dV 133,120 / 51,200 (K, V x WG, Q and dO x 2 stages, lse and
-// delta). The dK/dV kernel holds dK and dV and keeps P as bf16 (the A
+// delta). The dK/dV kernel holds dK and dV and keeps P as T (the A
 // fragment of dV += P^T dO), from which it also forms dS, so that its
 // scores fit beside them. Tried at D = 128 on the H100 and not kept, being
 // no faster beyond the run-to-run spread: rings of 3 and 4 stages, issuing
@@ -98,6 +107,7 @@
 // and bound with ctypes through the plain C functions at the end.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -106,6 +116,8 @@
 namespace {
 
 using sm90::bf16;
+using sm90::f16;
+using sm90::Elem;
 using sm90::aligned16;
 using sm90::allow_smem;
 using sm90::attributes;
@@ -148,26 +160,28 @@ struct Smem {
   }
 };
 
-__device__ __forceinline__ void load8f(const bf16* p, float (&f)[8]) {
+// 8 elements of T (16 bytes) as fp32
+template <typename T>
+__device__ __forceinline__ void load8f(const T* p, float (&f)[8]) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(h[i]);
+    const float2 x = Elem<T>::unpack(w[i]);
     f[2 * i] = x.x;
     f[2 * i + 1] = x.y;
   }
 }
 
 // Writes a warpgroup's 64 x D fp32 accumulator, row i-half scaled by
-// mul[i], as rows [row0, row0 + 64) of one head of a (B, S, H, D) bf16
+// mul[i], as rows [row0, row0 + 64) of one head of a (B, S, H, D) T
 // output: through `stage` (64 * D * 2 bytes of shared memory this
 // warpgroup alone uses, rows of D * 2 bytes with 16-byte chunks swizzled by
 // row), then 16-byte stores. t: thread in the warpgroup; bar: its named
 // barrier.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void store_rows(const float (&acc)[D / 2], const float (&mul)[2],
-                                           unsigned char* stage, bf16* head, int row0, int S,
+                                           unsigned char* stage, T* head, int row0, int S,
                                            int rs, int t, int bar) {
   constexpr int ROW_BYTES = D * 2, CH = D / 8;
   const int w = t / 32, g = (t % 32) / 4, c4 = t % 4;
@@ -177,10 +191,9 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2], const floa
     for (int i = 0; i < 2; ++i) {
       const int row = 16 * w + g + 8 * i;
       const int byte = (8 * j + 2 * c4) * 2;
-      bf16* p = reinterpret_cast<bf16*>(stage + row * ROW_BYTES +
-                                        (((byte >> 4) ^ (row & 7)) << 4) + (byte & 15));
-      *reinterpret_cast<__nv_bfloat162*>(p) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * i] * mul[i], acc[4 * j + 2 * i + 1] * mul[i]);
+      uint32_t* p = reinterpret_cast<uint32_t*>(stage + row * ROW_BYTES +
+                                                (((byte >> 4) ^ (row & 7)) << 4) + (byte & 15));
+      *p = Elem<T>::pack(acc[4 * j + 2 * i] * mul[i], acc[4 * j + 2 * i + 1] * mul[i]);
     }
   }
   sm90::named_barrier(bar, 128);
@@ -200,10 +213,10 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2], const floa
 // K1 / K4a: forward. Grid (ceil(Sq / (64 WG)), B * H); warpgroup w owns
 // query rows [q0 + 64 w, q0 + 64 w + 64).
 // ---------------------------------------------------------------------------
-template <int D, int WG>
+template <typename T, int D, int WG>
 __global__ void __launch_bounds__(WG * 128, 1)
-flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+flash_fwd_sm90_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                       int H, int Sq, int Skv, float scale) {
   constexpr int THREADS = WG * 128, ROWS = WG * BM, TILE = Geo<D, WG>::TILE;
   extern __shared__ unsigned char smem_raw[];
@@ -213,8 +226,8 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * ROWS;
   const int rs = H * D;
-  const bf16* kh = k + (size_t)b * Skv * rs + h * D;
-  const bf16* vh = v + (size_t)b * Skv * rs + h * D;
+  const T* kh = k + (size_t)b * Skv * rs + h * D;
+  const T* vh = v + (size_t)b * Skv * rs + h * D;
   // tiles: Q of each warpgroup, then K stage 0 and 1, then V stage 0 and 1
   const uint32_t sQ = sm.addr + wg * TILE;
   const uint32_t sK = sm.addr + WG * TILE;
@@ -254,7 +267,7 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      sm90::mma_ss(s, sm90::kmajor_desc<BM>(sQ, kk), sm90::kmajor_desc<BN>(sK + st * TILE, kk),
+      sm90::mma_ss<T>(s, sm90::kmajor_desc<BM>(sQ, kk), sm90::kmajor_desc<BN>(sK + st * TILE, kk),
                    kk > 0);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
@@ -287,7 +300,7 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int x = 0; x < D / 2; ++x) acc[x] *= alpha[(x / 2) % 2];
     uint32_t pa[16];
-    sm90::pack_a(p, pa);
+    sm90::pack_a<T>(p, pa);
 
     // O += P V
     sm90::fence_regs(acc);
@@ -295,7 +308,7 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
-      sm90::mma_rs(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+      sm90::mma_rs<T>(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
                    sm90::mnmajor_desc<BN>(sV + st * TILE, kk));
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
@@ -313,20 +326,20 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = q0 + wg * BM + 16 * w + g + 8 * i;
     if (c4 == 0 && row < Sq) lse[(size_t)bh * Sq + row] = m[i] * LN2 + logf(safe_l);
   }
-  store_rows<D>(acc, inv, sm.ptr + wg * TILE, o + (size_t)b * Sq * rs + h * D, q0 + wg * BM,
-                Sq, rs, t, 1 + wg);
+  store_rows<T, D>(acc, inv, sm.ptr + wg * TILE, o + (size_t)b * Sq * rs + h * D,
+                   q0 + wg * BM, Sq, rs, t, 1 + wg);
 }
 
 // ---------------------------------------------------------------------------
 // K2 / K4b dQ: dQ, and delta = rowsum(dO * O) for the dK/dV kernel. Grid
 // (ceil(Sq / (64 WG)), B * H); the key loop is inside the block.
 // ---------------------------------------------------------------------------
-template <int D, int WG>
+template <typename T, int D, int WG>
 __global__ void __launch_bounds__(WG * 128, 1)
-flash_bwd_dq_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ o,
-                         const bf16* __restrict__ dout, const float* __restrict__ lse,
-                         float* __restrict__ delta, bf16* __restrict__ dq, int H, int Sq,
+flash_bwd_dq_sm90_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ o,
+                         const T* __restrict__ dout, const float* __restrict__ lse,
+                         float* __restrict__ delta, T* __restrict__ dq, int H, int Sq,
                          int Skv, float scale) {
   constexpr int THREADS = WG * 128, ROWS = WG * BM, TILE = Geo<D, WG>::TILE;
   extern __shared__ unsigned char smem_raw[];
@@ -337,8 +350,8 @@ flash_bwd_dq_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = blockIdx.x * ROWS;
   const int rs = H * D;
   const size_t qoff = (size_t)b * Sq * rs + h * D;
-  const bf16* kh = k + (size_t)b * Skv * rs + h * D;
-  const bf16* vh = v + (size_t)b * Skv * rs + h * D;
+  const T* kh = k + (size_t)b * Skv * rs + h * D;
+  const T* vh = v + (size_t)b * Skv * rs + h * D;
   // tiles: Q x WG warpgroups, dO x WG, K x 2 stages, V x 2 stages (of BN
   // keys); then lse and delta of the block's rows
   const uint32_t sQ = sm.addr + wg * TILE;
@@ -374,10 +387,10 @@ flash_bwd_dq_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 8; ++e) fo[e] = fd[e] = 0.f;
       }
       uint4 packed;
-      packed.x = sm90::pack_bf16(fd[0], fd[1]);
-      packed.y = sm90::pack_bf16(fd[2], fd[3]);
-      packed.z = sm90::pack_bf16(fd[4], fd[5]);
-      packed.w = sm90::pack_bf16(fd[6], fd[7]);
+      packed.x = Elem<T>::pack(fd[0], fd[1]);
+      packed.y = Elem<T>::pack(fd[2], fd[3]);
+      packed.z = Elem<T>::pack(fd[4], fd[5]);
+      packed.w = Elem<T>::pack(fd[6], fd[7]);
       *reinterpret_cast<uint4*>(tile + sm90::Tile<BM, D>::chunk(r % BM, ch)) = packed;
 #pragma unroll
       for (int e = 0; e < 8; ++e) dl += fd[e] * fo[e];
@@ -423,12 +436,12 @@ flash_bwd_dq_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      sm90::mma_ss(s, sm90::kmajor_desc<BM>(sQ, kk), sm90::kmajor_desc<BN>(sK + st * TILE, kk),
+      sm90::mma_ss<T>(s, sm90::kmajor_desc<BM>(sQ, kk), sm90::kmajor_desc<BN>(sK + st * TILE, kk),
                    kk > 0);
     sm90::wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      sm90::mma_ss(dp, sm90::kmajor_desc<BM>(sDO, kk), sm90::kmajor_desc<BN>(sV + st * TILE, kk),
+      sm90::mma_ss<T>(dp, sm90::kmajor_desc<BM>(sDO, kk), sm90::kmajor_desc<BN>(sV + st * TILE, kk),
                    kk > 0);
     sm90::wgmma_commit();
     sm90::wgmma_wait<1>();            // S is done; dP may still run
@@ -446,14 +459,14 @@ flash_bwd_dq_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int x = 0; x < BN / 4; ++x) {
       const int i = x % 2;            // elements 2x, 2x + 1: row half x % 2
-      da[x] = sm90::pack_bf16(p[2 * x] * (dp[2 * x] - dl[i]) * scale,
+      da[x] = Elem<T>::pack(p[2 * x] * (dp[2 * x] - dl[i]) * scale,
                               p[2 * x + 1] * (dp[2 * x + 1] - dl[i]) * scale);
     }
     sm90::fence_regs(da);
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
-      sm90::mma_rs(acc, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
+      sm90::mma_rs<T>(acc, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
                    sm90::mnmajor_desc<BN>(sK + st * TILE, kk));
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
@@ -462,7 +475,7 @@ flash_bwd_dq_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   const float one[2] = {1.f, 1.f};
-  store_rows<D>(acc, one, sm.ptr + wg * TILE, dq + qoff, q0 + wg * BM, Sq, rs, t, 1 + wg);
+  store_rows<T, D>(acc, one, sm.ptr + wg * TILE, dq + qoff, q0 + wg * BM, Sq, rs, t, 1 + wg);
 }
 
 // ---------------------------------------------------------------------------
@@ -471,12 +484,12 @@ flash_bwd_dq_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // +64); the query loop is inside the block. Works on transposed scores
 // (rows = keys, columns = queries), so P^T and dS^T are the A operands.
 // ---------------------------------------------------------------------------
-template <int D, int WG>
+template <typename T, int D, int WG>
 __global__ void __launch_bounds__(WG * 128, 1)
-flash_bwd_dkv_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+flash_bwd_dkv_sm90_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Sq, int Skv,
+                          T* __restrict__ dk, T* __restrict__ dv, int H, int Sq, int Skv,
                           float scale) {
   constexpr int THREADS = WG * 128, ROWS = WG * BM, TILE = Geo<D, WG>::TILE;
   extern __shared__ unsigned char smem_raw[];
@@ -487,8 +500,8 @@ flash_bwd_dkv_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const int kv0 = blockIdx.x * ROWS;
   const int rs = H * D;
   const size_t kvoff = (size_t)b * Skv * rs + h * D;
-  const bf16* qh = q + (size_t)b * Sq * rs + h * D;
-  const bf16* doh = dout + (size_t)b * Sq * rs + h * D;
+  const T* qh = q + (size_t)b * Sq * rs + h * D;
+  const T* doh = dout + (size_t)b * Sq * rs + h * D;
   const float* lse_h = lse + (size_t)bh * Sq;
   const float* delta_h = delta + (size_t)bh * Sq;
   // tiles: K x WG warpgroups, V x WG, Q x 2 stages, dO x 2 stages; then lse
@@ -543,19 +556,19 @@ flash_bwd_dkv_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      sm90::mma_ss(s, sm90::kmajor_desc<BM>(sK, kk), sm90::kmajor_desc<BN>(sQ + st * TILE, kk),
+      sm90::mma_ss<T>(s, sm90::kmajor_desc<BM>(sK, kk), sm90::kmajor_desc<BN>(sQ + st * TILE, kk),
                    kk > 0);
     sm90::wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      sm90::mma_ss(dp, sm90::kmajor_desc<BM>(sV, kk), sm90::kmajor_desc<BN>(sDO + st * TILE, kk),
+      sm90::mma_ss<T>(dp, sm90::kmajor_desc<BM>(sV, kk), sm90::kmajor_desc<BN>(sDO + st * TILE, kk),
                    kk > 0);
     sm90::wgmma_commit();
     sm90::wgmma_wait<1>();
     sm90::fence_regs(s);
 
     // P^T, forced to 0 for queries >= Sq (their Q rows and lse are zeros);
-    // kept as the bf16 A fragments of dV += P^T dO
+    // kept as the T A fragments of dV += P^T dO
     const float* sl = fStats + st * 2 * BN;
     uint32_t pa[16];
 #pragma unroll
@@ -566,19 +579,19 @@ flash_bwd_dkv_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         const int qc = 8 * (x / 2) + 2 * c4 + c;   // the column of element 2x + c
         p[c] = (j * BN + qc < Sq) ? exp2f(s[2 * x + c] * sl2 - sl[qc] * LOG2E) : 0.f;
       }
-      pa[x] = sm90::pack_bf16(p[0], p[1]);
+      pa[x] = Elem<T>::pack(p[0], p[1]);
     }
     sm90::wgmma_wait<0>();
     sm90::fence_regs(dp);
 
-    // dS^T = P^T (dP^T - delta) scale, from the bf16 P^T (no wgmma reads
+    // dS^T = P^T (dP^T - delta) scale, from the T P^T (no wgmma reads
     // pa yet)
     uint32_t da[16];
 #pragma unroll
     for (int x = 0; x < 16; ++x) {
-      const float2 p = sm90::unpack_bf16(pa[x]);
+      const float2 p = Elem<T>::unpack(pa[x]);
       const int qc = 8 * (x / 2) + 2 * c4;
-      da[x] = sm90::pack_bf16(p.x * (dp[2 * x] - sl[BN + qc]) * scale,
+      da[x] = Elem<T>::pack(p.x * (dp[2 * x] - sl[BN + qc]) * scale,
                               p.y * (dp[2 * x + 1] - sl[BN + qc + 1]) * scale);
     }
 
@@ -588,11 +601,11 @@ flash_bwd_dkv_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
-      sm90::mma_rs(acc_dv, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+      sm90::mma_rs<T>(acc_dv, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
                    sm90::mnmajor_desc<BN>(sDO + st * TILE, kk));
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
-      sm90::mma_rs(acc_dk, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
+      sm90::mma_rs<T>(acc_dk, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
                    sm90::mnmajor_desc<BN>(sQ + st * TILE, kk));
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
@@ -603,10 +616,10 @@ flash_bwd_dkv_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   }
 
   const float one[2] = {1.f, 1.f};
-  store_rows<D>(acc_dk, one, sm.ptr + wg * TILE, dk + kvoff, kv0 + wg * BM, Skv, rs, t,
-                1 + wg);
-  store_rows<D>(acc_dv, one, sm.ptr + (WG + wg) * TILE, dv + kvoff, kv0 + wg * BM, Skv, rs,
-                t, 1 + wg);
+  store_rows<T, D>(acc_dk, one, sm.ptr + wg * TILE, dk + kvoff, kv0 + wg * BM, Skv, rs, t,
+                   1 + wg);
+  store_rows<T, D>(acc_dv, one, sm.ptr + (WG + wg) * TILE, dv + kvoff, kv0 + wg * BM, Skv,
+                   rs, t, 1 + wg);
 }
 
 // ---------------------------------------------------------------------------
@@ -677,7 +690,7 @@ flash_fwd_d512_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
-      sm90::mma_ss(s, sm90::kmajor_desc<BM>(sQ, k0 + kk), sm90::kmajor_desc<BN>(sK, k0 + kk),
+      sm90::mma_ss<bf16>(s, sm90::kmajor_desc<BM>(sQ, k0 + kk), sm90::kmajor_desc<BN>(sK, k0 + kk),
                    kk > 0);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
@@ -721,7 +734,7 @@ flash_fwd_d512_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
       o1[x] *= alpha[(x / 2) % 2];
     }
     uint32_t pa[16];
-    sm90::pack_a(p, pa);
+    sm90::pack_a<bf16>(p, pa);
 
     sm90::cp_async_wait<1>();         // V_j landed (K_{j+1} may still be in flight)
     sm90::fence_async_smem();
@@ -733,9 +746,9 @@ flash_fwd_d512_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
-      sm90::mma_rs(o0, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+      sm90::mma_rs<bf16>(o0, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
                    sm90::mnmajor_desc<BN>(sV + 4 * wg * HALF, kk));
-      sm90::mma_rs(o1, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+      sm90::mma_rs<bf16>(o1, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
                    sm90::mnmajor_desc<BN>(sV + (4 * wg + 2) * HALF, kk));
     }
     sm90::wgmma_commit();
@@ -758,25 +771,26 @@ flash_fwd_d512_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   // no thread reads Q after the last barrier above: each warpgroup stages
   // its two 64 x 128 quarters of O in its 32 KB of the Q tile
   bf16* oh = o + (size_t)b * Sq * rs + h * D + 256 * wg;
-  store_rows<128>(o0, inv, sm.ptr + wg * 2 * 16384, oh, q0, Sq, rs, t, 1 + wg);
-  store_rows<128>(o1, inv, sm.ptr + (wg * 2 + 1) * 16384, oh + 128, q0, Sq, rs, t, 1 + wg);
+  store_rows<bf16, 128>(o0, inv, sm.ptr + wg * 2 * 16384, oh, q0, Sq, rs, t, 1 + wg);
+  store_rows<bf16, 128>(o1, inv, sm.ptr + (wg * 2 + 1) * 16384, oh + 128, q0, Sq, rs, t,
+                        1 + wg);
 }
 
-template <int D, int WG = warpgroups(D)>
+template <typename T, int D, int WG = warpgroups(D)>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Sq,
         int Skv, float scale, cudaStream_t stream) {
   if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o)))
     return (int)cudaErrorInvalidValue;
   using G = Geo<D, WG>;
-  cudaError_t e = allow_smem(flash_fwd_sm90_kernel<D, WG>, G::FWD_SMEM);
+  cudaError_t e = allow_smem(flash_fwd_sm90_kernel<T, D, WG>, G::FWD_SMEM);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((Sq + G::ROWS - 1) / G::ROWS, B * H);
-  flash_fwd_sm90_kernel<D, WG><<<grid, G::THREADS, G::FWD_SMEM, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, H, Sq, Skv, scale);
+  flash_fwd_sm90_kernel<T, D, WG><<<grid, G::THREADS, G::FWD_SMEM, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, H, Sq, Skv, scale);
   return (int)cudaGetLastError();
 }
 
-template <int D, int WG = warpgroups(D)>
+template <typename T, int D, int WG = warpgroups(D)>
 int bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
            const float* lse, float* delta, void* dq, int B, int H, int Sq, int Skv,
            float scale, cudaStream_t stream) {
@@ -784,16 +798,16 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* o, const voi
         aligned16(dq)))
     return (int)cudaErrorInvalidValue;
   using G = Geo<D, WG>;
-  cudaError_t e = allow_smem(flash_bwd_dq_sm90_kernel<D, WG>, G::DQ_SMEM);
+  cudaError_t e = allow_smem(flash_bwd_dq_sm90_kernel<T, D, WG>, G::DQ_SMEM);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((Sq + G::ROWS - 1) / G::ROWS, B * H);
-  flash_bwd_dq_sm90_kernel<D, WG><<<grid, G::THREADS, G::DQ_SMEM, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o, (const bf16*)dout, lse,
-      delta, (bf16*)dq, H, Sq, Skv, scale);
+  flash_bwd_dq_sm90_kernel<T, D, WG><<<grid, G::THREADS, G::DQ_SMEM, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout, lse, delta, (T*)dq,
+      H, Sq, Skv, scale);
   return (int)cudaGetLastError();
 }
 
-template <int D, int WG = warpgroups(D)>
+template <typename T, int D, int WG = warpgroups(D)>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
             const float* delta, void* dk, void* dv, int B, int H, int Sq, int Skv, float scale,
             cudaStream_t stream) {
@@ -801,12 +815,12 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
         aligned16(dv)))
     return (int)cudaErrorInvalidValue;
   using G = Geo<D, WG>;
-  cudaError_t e = allow_smem(flash_bwd_dkv_sm90_kernel<D, WG>, G::DKV_SMEM);
+  cudaError_t e = allow_smem(flash_bwd_dkv_sm90_kernel<T, D, WG>, G::DKV_SMEM);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((Skv + G::ROWS - 1) / G::ROWS, B * H);
-  flash_bwd_dkv_sm90_kernel<D, WG><<<grid, G::THREADS, G::DKV_SMEM, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta, (bf16*)dk,
-      (bf16*)dv, H, Sq, Skv, scale);
+  flash_bwd_dkv_sm90_kernel<T, D, WG><<<grid, G::THREADS, G::DKV_SMEM, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, (T*)dv, H, Sq,
+      Skv, scale);
   return (int)cudaGetLastError();
 }
 
@@ -822,68 +836,108 @@ int fwd_d512(const void* q, const void* k, const void* v, void* o, float* lse, i
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 int attributes_of(int kernel, int* out) {
   using G = Geo<D, warpgroups(D)>;
   if (kernel == 0)
-    return attributes(flash_fwd_sm90_kernel<D, warpgroups(D)>, G::THREADS, G::FWD_SMEM, out);
+    return attributes(flash_fwd_sm90_kernel<T, D, warpgroups(D)>, G::THREADS, G::FWD_SMEM, out);
   if (kernel == 1)
-    return attributes(flash_bwd_dq_sm90_kernel<D, warpgroups(D)>, G::THREADS, G::DQ_SMEM, out);
+    return attributes(flash_bwd_dq_sm90_kernel<T, D, warpgroups(D)>, G::THREADS, G::DQ_SMEM,
+                      out);
   if (kernel == 2)
-    return attributes(flash_bwd_dkv_sm90_kernel<D, warpgroups(D)>, G::THREADS, G::DKV_SMEM,
+    return attributes(flash_bwd_dkv_sm90_kernel<T, D, warpgroups(D)>, G::THREADS, G::DKV_SMEM,
                       out);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Plain C interface, one entry point per kernel and head dim (no suffix:
-// head_dim 64, K1-K3; _d128: head_dim 128, K4a/K4b; _d512: the head_dim-512
-// forward). Each returns the
-// cudaError_t of its launch; cudaErrorInvalidValue for a pointer the
-// 16-byte loads cannot take.
+// Plain C interface, one entry point per kernel, head dim and element type
+// (no suffix: bf16 at head_dim 64, K1-K3; _d128: bf16 at 128, K4a/K4b;
+// _d512: the bf16 head_dim-512 forward; _f16 and _f16_d128: the same
+// kernels on fp16 at 64 and 128). Each returns the cudaError_t of its
+// launch; cudaErrorInvalidValue for a pointer the 16-byte loads cannot
+// take.
 extern "C" {
 
 const char* aozora_flash_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-int aozora_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                     int H, int Sq, int Skv, float scale, void* stream) {
-  return fwd<64>(q, k, v, o, lse, B, H, Sq, Skv, scale, (cudaStream_t)stream);
-}
-
-int aozora_flash_fwd_d128(const void* q, const void* k, const void* v, void* o, float* lse,
-                          int B, int H, int Sq, int Skv, float scale, void* stream) {
-  return fwd<128>(q, k, v, o, lse, B, H, Sq, Skv, scale, (cudaStream_t)stream);
+int aozora_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                     int B, int H, int Sq, int Skv, float scale, void* stream) {
+  return fwd<bf16, 64>(q, k, v, o, lse, B, H, Sq, Skv, scale, (cudaStream_t)stream);
 }
 
 int aozora_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                         const void* dout, const float* lse, float* delta, void* dq, int B,
                         int H, int Sq, int Skv, float scale, void* stream) {
-  return bwd_dq<64>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Skv, scale,
-                    (cudaStream_t)stream);
+  return bwd_dq<bf16, 64>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Skv, scale,
+                         (cudaStream_t)stream);
 }
 
 int aozora_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                          const float* lse, const float* delta, void* dk, void* dv, int B,
                          int H, int Sq, int Skv, float scale, void* stream) {
-  return bwd_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv, scale,
-                     (cudaStream_t)stream);
+  return bwd_dkv<bf16, 64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv, scale,
+                          (cudaStream_t)stream);
+}
+
+int aozora_flash_fwd_d128(const void* q, const void* k, const void* v, void* o, float* lse,
+                          int B, int H, int Sq, int Skv, float scale, void* stream) {
+  return fwd<bf16, 128>(q, k, v, o, lse, B, H, Sq, Skv, scale, (cudaStream_t)stream);
 }
 
 int aozora_flash_bwd_dq_d128(const void* q, const void* k, const void* v, const void* o,
                              const void* dout, const float* lse, float* delta, void* dq, int B,
                              int H, int Sq, int Skv, float scale, void* stream) {
-  return bwd_dq<128>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Skv, scale,
-                     (cudaStream_t)stream);
+  return bwd_dq<bf16, 128>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Skv, scale,
+                         (cudaStream_t)stream);
 }
 
 int aozora_flash_bwd_dkv_d128(const void* q, const void* k, const void* v, const void* dout,
                               const float* lse, const float* delta, void* dk, void* dv, int B,
                               int H, int Sq, int Skv, float scale, void* stream) {
-  return bwd_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv, scale,
-                      (cudaStream_t)stream);
+  return bwd_dkv<bf16, 128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv, scale,
+                          (cudaStream_t)stream);
+}
+
+int aozora_flash_fwd_f16(const void* q, const void* k, const void* v, void* o, float* lse,
+                         int B, int H, int Sq, int Skv, float scale, void* stream) {
+  return fwd<f16, 64>(q, k, v, o, lse, B, H, Sq, Skv, scale, (cudaStream_t)stream);
+}
+
+int aozora_flash_bwd_dq_f16(const void* q, const void* k, const void* v, const void* o,
+                            const void* dout, const float* lse, float* delta, void* dq, int B,
+                            int H, int Sq, int Skv, float scale, void* stream) {
+  return bwd_dq<f16, 64>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Skv, scale,
+                         (cudaStream_t)stream);
+}
+
+int aozora_flash_bwd_dkv_f16(const void* q, const void* k, const void* v, const void* dout,
+                             const float* lse, const float* delta, void* dk, void* dv, int B,
+                             int H, int Sq, int Skv, float scale, void* stream) {
+  return bwd_dkv<f16, 64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv, scale,
+                          (cudaStream_t)stream);
+}
+
+int aozora_flash_fwd_f16_d128(const void* q, const void* k, const void* v, void* o, float* lse,
+                              int B, int H, int Sq, int Skv, float scale, void* stream) {
+  return fwd<f16, 128>(q, k, v, o, lse, B, H, Sq, Skv, scale, (cudaStream_t)stream);
+}
+
+int aozora_flash_bwd_dq_f16_d128(const void* q, const void* k, const void* v, const void* o,
+                                 const void* dout, const float* lse, float* delta, void* dq, int B,
+                                 int H, int Sq, int Skv, float scale, void* stream) {
+  return bwd_dq<f16, 128>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Skv, scale,
+                         (cudaStream_t)stream);
+}
+
+int aozora_flash_bwd_dkv_f16_d128(const void* q, const void* k, const void* v, const void* dout,
+                                  const float* lse, const float* delta, void* dk, void* dv, int B,
+                                  int H, int Sq, int Skv, float scale, void* stream) {
+  return bwd_dkv<f16, 128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv, scale,
+                          (cudaStream_t)stream);
 }
 
 int aozora_flash_fwd_d512(const void* q, const void* k, const void* v, void* o, float* lse,
@@ -891,11 +945,14 @@ int aozora_flash_fwd_d512(const void* q, const void* k, const void* v, void* o, 
   return fwd_d512(q, k, v, o, lse, B, H, Sq, Skv, scale, (cudaStream_t)stream);
 }
 
-// kernel: 0 forward, 1 dQ, 2 dK/dV; head_dim 64 or 128 (512: the forward
-// only); out: 5 ints (see attributes() in sm90_wgmma.cuh).
+// kernel: 0 forward, 1 dQ, 2 dK/dV on bf16, 3, 4, 5 the same on fp16; head_dim
+// 64 or 128 (512: the bf16 forward only); out: 5 ints (see attributes() in
+// sm90_wgmma.cuh).
 int aozora_flash_sm90_attributes(int kernel, int head_dim, int* out) {
-  if (head_dim == 64) return attributes_of<64>(kernel, out);
-  if (head_dim == 128) return attributes_of<128>(kernel, out);
+  if (head_dim == 64) return kernel < 3 ? attributes_of<bf16, 64>(kernel, out)
+                                        : attributes_of<f16, 64>(kernel - 3, out);
+  if (head_dim == 128) return kernel < 3 ? attributes_of<bf16, 128>(kernel, out)
+                                         : attributes_of<f16, 128>(kernel - 3, out);
   if (head_dim == 512 && kernel == 0)
     return attributes(flash_fwd_d512_sm90_kernel, d512::THREADS, d512::SMEM, out);
   return (int)cudaErrorInvalidValue;

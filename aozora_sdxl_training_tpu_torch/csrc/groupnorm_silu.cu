@@ -6,10 +6,10 @@
 //
 //   mean, var  over the HW * (C / groups) elements of each (batch, group), fp32
 //   y   = (x - mean) * rsqrt(var + eps) * scale + bias
-//   out = y * sigmoid(y), in x's dtype (bfloat16 or float32).
+//   out = y * sigmoid(y), in x's dtype (bfloat16, float16 or float32).
 //
 // What bounds it: memory. It does ~10 flop per element against 2 bytes read
-// and 2 written (bf16), far below the card's 295 flop/byte, so the least
+// and 2 written (bf16 or fp16), far below the card's 295 flop/byte, so the least
 // time is x read once and out written once at device bandwidth. The SiLU
 // uses the special-function unit twice an element (__expf, __fdividef):
 // 16 a clock per SM, which keeps the arithmetic of the apply pass under
@@ -79,6 +79,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -87,6 +88,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr int THREADS = 256;            // NHWC kernels
 constexpr int NCHW_THREADS = 512;
@@ -126,6 +128,27 @@ struct Vec<bf16, 8> {
 };
 
 template <>
+struct Vec<f16, 8> {
+  __device__ static void load(const f16* p, float (&out)[8]) {
+    uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __half2* h = reinterpret_cast<const __half2*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float2 f = __half22float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+  __device__ static void store(f16* p, const float (&in)[8]) {
+    uint4 raw;
+    __half2* h = reinterpret_cast<__half2*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2half2_rn(in[2 * i], in[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = raw;
+  }
+};
+
+template <>
 struct Vec<float, 4> {
   __device__ static void load(const float* p, float (&out)[4]) {
     float4 f = *reinterpret_cast<const float4*>(p);
@@ -143,12 +166,19 @@ struct Vec<bf16, 1> {
 };
 
 template <>
+struct Vec<f16, 1> {
+  __device__ static void load(const f16* p, float (&out)[1]) { out[0] = __half2float(*p); }
+  __device__ static void store(f16* p, const float (&in)[1]) { *p = __float2half_rn(in[0]); }
+};
+
+template <>
 struct Vec<float, 1> {
   __device__ static void load(const float* p, float (&out)[1]) { out[0] = *p; }
   __device__ static void store(float* p, const float (&in)[1]) { *p = in[0]; }
 };
 
 __device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(f16 v) { return __half2float(v); }
 __device__ __forceinline__ float to_float(float v) { return v; }
 
 __device__ __forceinline__ float silu(float z) { return __fdividef(z, 1.f + __expf(-z)); }
@@ -725,7 +755,7 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 }  // namespace
 
 // Plain C interface. Returns the cudaError_t of the first launch that
-// failed, or 0. `dtype`: 0 = bfloat16, 1 = float32; scale and bias
+// failed, or 0. `dtype`: 0 = bfloat16, 1 = float32, 2 = float16; scale and bias
 // contiguous (C,) fp32.
 extern "C" {
 
@@ -758,6 +788,13 @@ int aozora_group_norm_silu(int dtype, const void* x, const float* scale, const f
     return run_nhwc<float, 1>(x, scale, bias, y, partial, gstat, B, HW, C, G, rows_per_chunk,
                               eps, s);
   }
+  if (dtype == 2) {
+    if (vec && C % 8 == 0)
+      return run_nhwc<f16, 8>(x, scale, bias, y, partial, gstat, B, HW, C, G, rows_per_chunk,
+                              eps, s);
+    return run_nhwc<f16, 1>(x, scale, bias, y, partial, gstat, B, HW, C, G, rows_per_chunk, eps,
+                            s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -776,7 +813,7 @@ int aozora_group_norm_silu_nchw(int dtype, int vec, const void* x, const float* 
       (long long)slice * csize < span)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int V = dtype == 0 ? 8 : 4;
+  const int V = dtype == 1 ? 4 : 8;
   if (vec && (!aligned16(x) || !aligned16(y) || span % V || slice % V || cached % V))
     return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
@@ -788,6 +825,11 @@ int aozora_group_norm_silu_nchw(int dtype, int vec, const void* x, const float* 
     if (vec)
       return run_nchw<float, 4>(x, scale, bias, y, B, C, HW, G, csize, slice, cached, eps, s);
     return run_nchw<float, 1>(x, scale, bias, y, B, C, HW, G, csize, slice, cached, eps, s);
+  }
+  if (dtype == 2) {
+    if (vec)
+      return run_nchw<f16, 8>(x, scale, bias, y, B, C, HW, G, csize, slice, cached, eps, s);
+    return run_nchw<f16, 1>(x, scale, bias, y, B, C, HW, G, csize, slice, cached, eps, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -807,6 +849,10 @@ int aozora_group_norm_silu_nchw_max_clusters(int dtype, int vec, int C, int G, i
   if (dtype == 1) {
     const size_t smem = nchw_smem((size_t)cached * sizeof(float), cpg);
     return vec ? nchw_max_clusters<float, 4>(csize, smem) : nchw_max_clusters<float, 1>(csize, smem);
+  }
+  if (dtype == 2) {
+    const size_t smem = nchw_smem((size_t)cached * sizeof(f16), cpg);
+    return vec ? nchw_max_clusters<f16, 8>(csize, smem) : nchw_max_clusters<f16, 1>(csize, smem);
   }
   return -(int)cudaErrorInvalidValue;
 }

@@ -13,15 +13,22 @@ them, so the backward goes straight to the dQ and dK/dV kernels. Which kernel a
 call launches depends on the head dim, the dtype and the role (forward,
 dQ, dK/dV), as ``route`` decides::
 
-  route name              CUDA kernel (csrc/)                 replaces (Pallas)
+  route name              CUDA kernel (csrc/)                       replaces (Pallas)
   bf16, flash_attention_sm90.cu: wgmma, fp32 accumulators in registers
-    flash_fwd             flash_fwd_sm90_kernel<64, 1>        K1  _flash_forward (_fwd_kernel)
-    flash_bwd_dq          flash_bwd_dq_sm90_kernel<64, 1>     K2  _flash_backward, dq call
-    flash_bwd_dkv         flash_bwd_dkv_sm90_kernel<64, 1>    K3  _flash_backward, dk/dv call
-    flash_fwd_d128        flash_fwd_sm90_kernel<128, 2>       K4a _flash_forward_folded
-    flash_bwd_dq_d128     flash_bwd_dq_sm90_kernel<128, 2>    K4b _flash_backward_folded, dq
-    flash_bwd_dkv_d128    flash_bwd_dkv_sm90_kernel<128, 2>   K4b _flash_backward_folded, dk/dv
-    flash_fwd_d512        flash_fwd_d512_sm90_kernel          K4a at head_dim 512
+    flash_fwd             flash_fwd_sm90_kernel<bf16, 64, 1>        K1  _flash_forward
+    flash_bwd_dq          flash_bwd_dq_sm90_kernel<bf16, 64, 1>     K2  _flash_backward, dq
+    flash_bwd_dkv         flash_bwd_dkv_sm90_kernel<bf16, 64, 1>    K3  _flash_backward, dk/dv
+    flash_fwd_d128        flash_fwd_sm90_kernel<bf16, 128, 2>       K4a _flash_forward_folded
+    flash_bwd_dq_d128     flash_bwd_dq_sm90_kernel<bf16, 128, 2>    K4b ..._folded, dq
+    flash_bwd_dkv_d128    flash_bwd_dkv_sm90_kernel<bf16, 128, 2>   K4b ..._folded, dk/dv
+    flash_fwd_d512        flash_fwd_d512_sm90_kernel                K4a at head_dim 512
+  fp16, flash_attention_sm90.cu: the same templates on fp16 (wgmma .f16)
+    flash_fwd_f16         flash_fwd_sm90_kernel<f16, 64, 1>         K1 on fp16 inputs
+    flash_bwd_dq_f16      flash_bwd_dq_sm90_kernel<f16, 64, 1>      K2 on fp16 inputs
+    flash_bwd_dkv_f16     flash_bwd_dkv_sm90_kernel<f16, 64, 1>     K3 on fp16 inputs
+    flash_fwd_f16_d128      flash_fwd_sm90_kernel<f16, 128, 2>      K4a on fp16 inputs
+    flash_bwd_dq_f16_d128   flash_bwd_dq_sm90_kernel<f16, 128, 2>   K4b dq on fp16 inputs
+    flash_bwd_dkv_f16_d128  flash_bwd_dkv_sm90_kernel<f16, 128, 2>  K4b dk/dv on fp16 inputs
   fp32, flash_attention_fp32.cu: 3xTF32 on mma.sync (no operand rounded to bf16)
     flash_fwd_f32_d64     flash_fwd_3xtf32_kernel<64>         K1 on fp32 inputs
     flash_bwd_dq_f32_d64  flash_bwd_dq_3xtf32_kernel<64>      K2 on fp32 inputs
@@ -33,11 +40,13 @@ dQ, dK/dV), as ``route`` decides::
 
 Head_dim 64 is the SDXL UNet's (K1-K3 run on every SDXL micro step and
 DDIM step), 128 the Anima DiT's, 512 the SD-VAE mid-attention's (bf16 in
-the encoder's flash route, fp32 in the preview's decoder). Every fp32
+the encoder's flash route, fp32 in the preview's decoder). The trainers
+compute in bf16, or in fp16 under ``MIXED_PRECISION`` float16 (the fp16
+rows); no fp16 path reaches head_dim 512, which has no fp16 kernel. Every fp32
 kernel runs on the tensor cores in 3xTF32 (each operand split into two
 TF32 parts, three TF32 products with fp32 accumulation), to fp32
 accuracy; of the trainers only the preview's fp32 decoder reaches one
-(the forward at 512): both compute in bf16. Each source's
+(the forward at 512). Each source's
 header says what bounds its kernels, what their design does about it and
 what was tried and not kept; ``PERF.md`` §6 has their times.
 
@@ -82,6 +91,10 @@ ROUTES = {
     (128, torch.bfloat16): (("flash_fwd_d128", _SM90), ("flash_bwd_dq_d128", _SM90),
                             ("flash_bwd_dkv_d128", _SM90)),                         # K4a/K4b
     (512, torch.bfloat16): (("flash_fwd_d512", _SM90), None, None),                 # K4a
+    (64, torch.float16): (("flash_fwd_f16", _SM90), ("flash_bwd_dq_f16", _SM90),
+                          ("flash_bwd_dkv_f16", _SM90)),
+    (128, torch.float16): (("flash_fwd_f16_d128", _SM90), ("flash_bwd_dq_f16_d128", _SM90),
+                           ("flash_bwd_dkv_f16_d128", _SM90)),
     (64, torch.float32): (("flash_fwd_f32_d64", _FP32), ("flash_bwd_dq_f32_d64", _FP32),
                           ("flash_bwd_dkv_f32_d64", _FP32)),
     (128, torch.float32): (("flash_fwd_f32_d128", _FP32), ("flash_bwd_dq_f32_d128", _FP32),
@@ -89,6 +102,7 @@ ROUTES = {
     (512, torch.float32): (("flash_fwd_f32_d512", _FP32), None, None),
 }
 HEAD_DIMS = (64, 128, 512)
+DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 SOURCES = dict(kernel for kernels in ROUTES.values() for kernel in kernels if kernel)
 _ROLE_OF = {kernel[0]: i for kernels in ROUTES.values()
             for i, kernel in enumerate(kernels) if kernel}
@@ -112,14 +126,19 @@ def route(head_dim: int, dtype: torch.dtype, role: str) -> tuple[str, str]:
     """(kernel name, CUDA source) that a wrapper launches for ``role``
     ("forward", "dq" or "dkv") on CUDA tensors of ``head_dim`` and
     ``dtype``. Raises ValueError for a head dim with no kernels, TypeError
-    for a dtype other than bfloat16 and float32, and NotImplementedError for
-    the backward at head_dim 512."""
+    for a dtype other than bfloat16, float16 and float32 and for float16 at
+    head_dim 512 (not ported: no fp16 path reaches it), and
+    NotImplementedError for the backward at head_dim 512."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"flash attention: head_dim {head_dim}; expected one "
                          f"of {list(HEAD_DIMS)}")
-    if (head_dim, dtype) not in ROUTES:
+    if dtype not in DTYPES:
         raise TypeError(f"flash attention: dtype {dtype}; the kernels take "
-                        "bfloat16 or float32")
+                        "bfloat16, float16 or float32")
+    if (head_dim, dtype) not in ROUTES:
+        raise TypeError(f"flash attention: {dtype} at head_dim {head_dim} is not "
+                        "ported (no kernel; the SD-VAE's head_dim-512 attention "
+                        "runs in bfloat16 or float32)")
     kernel = ROUTES[head_dim, dtype][ROLES.index(role)]
     if kernel is None:
         _require_backward(head_dim)
@@ -173,9 +192,9 @@ def _check_cuda_inputs(q, k, v, role: str) -> str:
         if t.device.type != "cuda":
             raise ValueError(f"flash attention: {name} is on {t.device}, "
                              "expected the CUDA device of q")
-        if t.dtype not in (torch.bfloat16, torch.float32):
+        if t.dtype not in DTYPES:
             raise TypeError(f"flash attention: {name} has dtype {t.dtype}; "
-                            "the kernels take bfloat16 or float32")
+                            "the kernels take bfloat16, float16 or float32")
         if not t.is_contiguous():
             raise ValueError(f"flash attention: {name} must be contiguous")
         _check_aligned(name, t)

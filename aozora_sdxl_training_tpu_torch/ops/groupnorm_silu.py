@@ -31,7 +31,7 @@ import torch
 from . import cuda_build
 
 LAUNCHES = {"group_norm_silu": 0, "group_norm_silu_nchw": 0}
-_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 # NHWC statistics blocks per batch element, at most: enough to spread any
 # site over the card's 132 SMs, few enough for the last block to fold
 # their partials quickly
@@ -218,7 +218,7 @@ def _check_cuda_inputs(x, scale, bias, groups: int, layout: str = "nhwc") -> Non
         raise ValueError(f"{name}: {c} channels in {groups} groups")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: x has dtype {x.dtype}; the kernel "
-                        "takes bfloat16 or float32")
+                        "takes bfloat16, float16 or float32")
     if not x.is_contiguous():
         raise ValueError(f"{name}: x must be contiguous")
     if x.numel() == 0:

@@ -357,11 +357,6 @@ def run_anima_training(config, *, device: torch.device | None = None,
     lr_curve = curves.LRCurve(config.LR_CUSTOM_CURVE, config.MAX_TRAIN_STEPS,
                               fallback_lr=getattr(config, 'LEARNING_RATE', None))
     attn_impl = attention_impl(config, device)
-    if attn_impl == "flash" and config.compute_dtype == torch.float16:
-        raise NotImplementedError(
-            "MIXED_PRECISION float16: the flash-attention kernels take "
-            "bfloat16 (or float32) only; use bfloat16, or "
-            "MEMORY_EFFICIENT_ATTENTION 'xla' for the einsum path")
     print(f"INFO: Device {device}; attention {attn_impl}")
 
     # ---- memory plan: sized from the checkpoint's shapes before any

@@ -324,11 +324,6 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
         print("WARNING: moment storage downgraded to int8_blockwise to fit "
               "the HBM budget (update math is unchanged — fp32 scratch).")
         opt_cfg = replace(opt_cfg, momentum_dtype=plan.moment_dtype)
-    if plan.attn_impl == "flash" and config.compute_dtype == torch.float16:
-        raise NotImplementedError(
-            "MIXED_PRECISION float16: the flash-attention kernels take "
-            "bfloat16 (or float32) only; use bfloat16, or "
-            "MEMORY_EFFICIENT_ATTENTION 'xla' for the einsum path")
 
     # ---- model weights ----
     sd_tensors = load_sd_tensors(model_to_load)

@@ -8,8 +8,9 @@ without JAX it runs apart from tests/conftest.py:
 
 All three head dims of the flash kernels are covered: 64 (K1-K3, the
 SDXL UNet), 128 (K4a/K4b, the Anima DiT) and 512 (K4a forward, the SD-VAE
-mid-attention), in bf16 (the wgmma kernels of csrc/flash_attention_sm90.cu)
-and, through the fp32 kernels of csrc/flash_attention_fp32.cu (every one
+mid-attention), in bf16 and, at 64 and 128, in fp16 (the wgmma kernels of
+csrc/flash_attention_sm90.cu, one template per kernel built for both) and,
+through the fp32 kernels of csrc/flash_attention_fp32.cu (every one
 3xTF32 on the tensor cores), in fp32;
 with ragged lengths, unequal query and key lengths, lengths below, at and
 one past a tile, two launches that must agree bitwise, and an input the
@@ -18,7 +19,7 @@ K5 (the stats-level entry points over those kernels) is held against its
 plain versions on a KV shard, and the ring's hop schedule composed on one
 card at sp 2 against full attention. K6 (the fused GroupNorm + SiLU
 forward) is held against its plain version in both layouts (NHWC, two
-kernels a call; NCHW, one), in bf16 and fp32, at a ragged HW, at C=320
+kernels a call; NCHW, one), in bf16, fp16 and fp32, at a ragged HW, at C=320
 (groups of 10 channels), at a width the 16-byte loads do not divide, at
 the widest SDXL_BASE site (whose fp32 slices outgrow shared memory) and at
 a large mean; two calls must agree bitwise, and the TINY UNet's fused_gn
@@ -31,12 +32,15 @@ formats, and its error feedback equals the CPU's. The host-moment apply
 step (moments in pinned host memory, streamed through a window on the
 card) equals the apply step with the moments on the card bit for bit,
 leaves the moments pinned and holds the card to the window; the two-pass
-step on SDXL_BASE at 1024px updates the UNet as the fused step does.
+step on SDXL_BASE at 1024px updates the UNet as the fused step does. One
+fp16 micro step of a small UNet (head_dim 64) and of a small DiT (head_dim
+128) through the fp16 kernels agrees with the same step through the einsum
+route in fp16.
 
-Tolerances: the bf16 kernels multiply bf16 operands on the tensor cores
-with fp32 accumulation, so their outputs are held at 2e-2 of unit-scale
-values, gradients at five times that, and lse at 1e-3 (exact bf16
-products). The fp32 kernels multiply to fp32 accuracy (3xTF32), so
+Tolerances: the bf16 and fp16 kernels multiply 16-bit operands on the
+tensor cores with fp32 accumulation, so their outputs are held at 2e-2 of
+unit-scale values, gradients at five times that, and lse at 1e-3 (exact
+16-bit products). The fp32 kernels multiply to fp32 accuracy (3xTF32), so
 outputs and gradients are held at 1e-4 of the plain fp32 version's largest
 magnitude (the sums run in another order; with one key, where dq and dk
 are zero but for rounding, at 1e-4 of the unit-scale inputs) and lse at
@@ -44,9 +48,13 @@ are zero but for rounding, at 1e-4 of the unit-scale inputs) and lse at
 (their products keep ~2^-22 of each term). K5
 and the one-card ring: 2e-2 of the largest magnitude (bf16 kernels; the
 ring's merges are fp32). K6: bf16 2e-2
-of the largest magnitude (one bf16 rounding of the output), fp32 1e-4 of
-it (fp32 statistics summed in another order), and 1e-3 against a float64
-reference where the mean is 100 times the spread.
+of the largest magnitude (one bf16 rounding of the output), fp16 5e-3 (one
+fp16 rounding, 2^-11, with room), fp32 1e-4 of it (fp32 statistics summed
+in another order), and 1e-3 against a float64 reference where the mean is
+100 times the spread. The fp16 micro steps: the loss within 1e-3 of the
+einsum route's, relative, and the gradient of every parameter, as one
+vector, at a cosine of at least 0.999 with it (the UNet's 0.997: see the
+test).
 """
 
 import gc
@@ -72,9 +80,13 @@ LENGTHS = [(300, 300), (333, 1000), (1000, 333), (1, 1), (63, 63), (64, 64), (65
            (129, 129), (3952, 3952)]
 
 
+DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+DTYPE_IDS = ["bf16", "fp16", "fp32"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,sq,skv", [(d, sq, skv) for d in (64, 128) for sq, skv in LENGTHS])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 def test_kernels_match_plain_version_on_card(cuda_device, dtype, d, sq, skv):
     g = torch.Generator(device=cuda_device).manual_seed(d + sq + skv)
     q, do = (torch.randn(2, sq, 3, d, device=cuda_device, dtype=dtype,
@@ -88,7 +100,7 @@ def test_kernels_match_plain_version_on_card(cuda_device, dtype, d, sq, skv):
     got = port.flash_bwd(q, k, v, out, lse, do, scale)
     ref_dq, ref_delta = port.flash_bwd_dq_reference(q, k, v, out, lse, do, scale)
     want = (ref_dq, *port.flash_bwd_dkv_reference(q, k, v, do, lse, ref_delta, scale))
-    if dtype == torch.bfloat16:
+    if dtype != torch.float32:
         torch.testing.assert_close(out.float(), ref_out.float(), rtol=2e-2, atol=2e-2)
         torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
@@ -111,10 +123,10 @@ def test_kernels_match_plain_version_on_card(cuda_device, dtype, d, sq, skv):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 def test_kernels_are_deterministic_on_card(cuda_device, d, dtype):
-    """No atomics: two launches of each kernel at head_dim 64 and 128, bf16
-    and fp32, give bitwise equal out, lse, dq, dk and dv."""
+    """No atomics: two launches of each kernel at head_dim 64 and 128, bf16,
+    fp16 and fp32, give bitwise equal out, lse, dq, dk and dv."""
     g = torch.Generator(device=cuda_device).manual_seed(5)
     q, k, v, do = (torch.randn(2, 1000, 3, d, device=cuda_device,
                                dtype=dtype, generator=g) for _ in range(4))
@@ -129,7 +141,7 @@ def test_kernels_are_deterministic_on_card(cuda_device, d, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 def test_wrappers_raise_on_an_unaligned_input(cuda_device, d, dtype):
     """A contiguous view one element into its storage does not start on a
     16-byte boundary: every wrapper raises before a launch."""
@@ -161,7 +173,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="expected"):
         port.flash_fwd(ok[..., :32].contiguous(), ok, ok, 1.0)
     with pytest.raises(TypeError, match="dtype"):
-        port.flash_fwd(ok.half(), ok.half(), ok.half(), 1.0)
+        port.flash_fwd(ok.double(), ok.double(), ok.double(), 1.0)
+    with pytest.raises(TypeError, match="dtypes differ"):
+        port.flash_fwd(ok, ok.half(), ok.half(), 1.0)
+    d512 = torch.zeros(1, 8, 1, 512, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float16 at head_dim 512 is not ported"):
+        port.flash_fwd(d512, d512, d512, 1.0)
     with pytest.raises(ValueError, match="device"):
         port.flash_fwd(ok, ok.cpu(), ok, 1.0)
     counts = dict(port.LAUNCHES)
@@ -283,17 +300,19 @@ def _rel_err(got, want):
 @pytest.mark.parametrize("d,sq,skv", [(64, 512, 1024), (128, 512, 1024),
                                       (128, 333, 1000), (128, 1000, 334),
                                       (128, 65, 130)])
-def test_stats_entry_points_match_plain_versions_on_card(cuda_device, d, sq, skv):
+@pytest.mark.parametrize("dtype", DTYPES[:2], ids=DTYPE_IDS[:2])
+def test_stats_entry_points_match_plain_versions_on_card(cuda_device, dtype, d, sq, skv):
     """flash_fwd_stats on the second of two KV shards; flash_bwd_stats on
-    it with the global (out, lse). One counted call each."""
+    it with the global (out, lse). One counted call each, launching the
+    kernels of ``dtype``."""
     g = torch.Generator(device=cuda_device).manual_seed(d + sq + skv)
-    q, do = (torch.randn(1, sq, 2, d, device=cuda_device, dtype=torch.bfloat16,
+    q, do = (torch.randn(1, sq, 2, d, device=cuda_device, dtype=dtype,
                          generator=g) for _ in range(2))
-    k, v = (torch.randn(1, skv, 2, d, device=cuda_device, dtype=torch.bfloat16,
+    k, v = (torch.randn(1, skv, 2, d, device=cuda_device, dtype=dtype,
                         generator=g) for _ in range(2))
     ks, vs = k[:, skv // 2:].contiguous(), v[:, skv // 2:].contiguous()
     scale = d ** -0.5
-    counts = dict(port.STATS_LAUNCHES)
+    counts, launches = dict(port.STATS_LAUNCHES), dict(port.LAUNCHES)
     out, lse = port.flash_fwd_stats(q, ks, vs)
     ref_out, ref_lse = port.flash_fwd_stats_reference(q, ks, vs, scale)
     assert lse.shape == (1, sq, 2) and lse.dtype == torch.float32
@@ -306,17 +325,20 @@ def test_stats_entry_points_match_plain_versions_on_card(cuda_device, d, sq, skv
         assert _rel_err(a, b) <= 2e-2, name
     assert port.STATS_LAUNCHES == {"flash_fwd_stats": counts["flash_fwd_stats"] + 1,
                                    "flash_bwd_stats": counts["flash_bwd_stats"] + 1}
+    assert {n: port.LAUNCHES[n] - c for n, c in launches.items() if port.LAUNCHES[n] != c} == {
+        name: 1 for name, _ in port.ROUTES[d, dtype]}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [2, 4])
-def test_ring_on_one_card_matches_full_attention(cuda_device, n):
-    """The ring's hop schedule over n KV shards (head_dim 128, bf16)
-    against full attention: output and dq/dk/dv; n * n calls of each entry
-    point."""
+@pytest.mark.parametrize("dtype", DTYPES[:2], ids=DTYPE_IDS[:2])
+def test_ring_on_one_card_matches_full_attention(cuda_device, dtype, n):
+    """The ring's hop schedule over n KV shards (head_dim 128, bf16 or fp16:
+    the SP ranks' path under MIXED_PRECISION float16) against full
+    attention: output and dq/dk/dv; n * n calls of each entry point."""
     g = torch.Generator(device=cuda_device).manual_seed(n)
     q, k, v, do = (torch.randn(1, 1024, 2, 128, device=cuda_device,
-                               dtype=torch.bfloat16, generator=g) for _ in range(4))
+                               dtype=dtype, generator=g) for _ in range(4))
     scale = 128 ** -0.5
     counts = dict(port.STATS_LAUNCHES)
     out, lse, dq, dk, dv = ring.ring_on_one_device(q, k, v, do, n)
@@ -333,11 +355,14 @@ def test_ring_on_one_card_matches_full_attention(cuda_device, n):
 # K6: fused GroupNorm + SiLU
 # --------------------------------------------------------------------------
 
+K6_DTYPES = [(torch.bfloat16, 2e-2), (torch.float16, 5e-3), (torch.float32, 1e-4)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,groups", [
     ((1, 32, 32, 320), 32), ((2, 37, 53, 640), 32), ((1, 8, 8, 320), 32),
     ((1, 16, 16, 36), 12), ((1, 64, 64, 1280), 32), ((1, 5, 3, 2560), 32)])
-@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("dtype,tol", K6_DTYPES, ids=DTYPE_IDS)
 def test_group_norm_silu_kernel_matches_plain_version_on_card(cuda_device, shape,
                                                               groups, dtype, tol):
     g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
@@ -366,7 +391,7 @@ def test_group_norm_silu_kernel_keeps_the_variance_at_a_large_mean(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("dtype,tol", K6_DTYPES, ids=DTYPE_IDS)
 def test_group_norm_silu_op_gradients_on_card(cuda_device, dtype, tol):
     """The op with use_pallas=True (kernel forward, plain backward) against
     the plain composition under autograd: output and the gradients of x,
@@ -392,7 +417,7 @@ def test_group_norm_silu_wrapper_raises_on_what_the_kernel_does_not_take(cuda_de
     s = torch.ones(32, device=cuda_device)
     counts = dict(gn.LAUNCHES)
     with pytest.raises(TypeError, match="dtype"):
-        gn.group_norm_silu_forward(x.half(), s, s, 8)
+        gn.group_norm_silu_forward(x.double(), s, s, 8)
     with pytest.raises(ValueError, match="contiguous"):
         gn.group_norm_silu_forward(x.permute(0, 2, 1, 3), s, s, 8)
     with pytest.raises(ValueError, match="scale"):
@@ -415,7 +440,7 @@ def _gn_inputs(device, shape, dtype, seed, mean=0.5):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,groups", K6_SHAPES)
-@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("dtype,tol", K6_DTYPES, ids=DTYPE_IDS)
 def test_group_norm_silu_nchw_kernel_matches_plain_version_on_card(cuda_device, shape,
                                                                    groups, dtype, tol):
     x, scale, bias = _gn_inputs(cuda_device, shape, dtype, sum(shape))
@@ -463,7 +488,7 @@ def test_group_norm_silu_launches_its_kernels_once_a_call(cuda_device, layout, k
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["nhwc", "nchw"])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 def test_group_norm_silu_kernels_are_deterministic_on_card(cuda_device, layout, dtype):
     x, scale, bias = _gn_inputs(cuda_device, (1, 128, 128, 960), dtype, 9)
     fn = gn.group_norm_silu_forward
@@ -478,7 +503,7 @@ def test_group_norm_silu_nchw_wrapper_raises_on_what_the_kernel_does_not_take(cu
     s = torch.ones(32, device=cuda_device)
     counts = dict(gn.LAUNCHES)
     with pytest.raises(TypeError, match="dtype"):
-        gn.group_norm_silu_nchw_forward(x.half(), s, s, 8)
+        gn.group_norm_silu_nchw_forward(x.double(), s, s, 8)
     with pytest.raises(ValueError, match="contiguous"):
         gn.group_norm_silu_nchw_forward(x.to(memory_format=torch.channels_last), s, s, 8)
     with pytest.raises(ValueError, match="groups"):
@@ -596,7 +621,7 @@ def test_train_state_round_trip_on_card(cuda_device, tmp_path, momentum):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 def test_dispatcher_ops_launch_the_kernels_and_match_plain_versions(cuda_device, d, dtype):
     """``aozora::flash_fwd`` and ``aozora::flash_bwd`` on the card launch
     one kernel per role (never the plain version) and agree with the plain
@@ -615,11 +640,11 @@ def test_dispatcher_ops_launch_the_kernels_and_match_plain_versions(cuda_device,
                                ref_lse.cpu(), do.cpu(), scale)
     launched = {n: port.LAUNCHES[n] - before[n] for n in port.LAUNCHES}
     assert launched == {n: int(n in (fwd, dq, dkv)) for n in port.LAUNCHES}
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4 * float(ref_out.abs().max())
+    tol = 2e-2 if dtype != torch.float32 else 1e-4 * float(ref_out.abs().max())
     torch.testing.assert_close(out.float(), ref_out.float(), rtol=0, atol=tol)
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
     for got, want in zip(grads, ref_grads):
-        bar = 5 * tol if dtype == torch.bfloat16 else 1e-4 * float(want.abs().max())
+        bar = 5 * tol if dtype != torch.float32 else 1e-4 * float(want.abs().max())
         torch.testing.assert_close(got.float().cpu(), want.float(), rtol=0, atol=bar)
     qt, kt, vt = (t.clone().requires_grad_(True) for t in (q, k, v))
     port.flash_attention(qt, kt, vt).backward(do)
@@ -628,10 +653,11 @@ def test_dispatcher_ops_launch_the_kernels_and_match_plain_versions(cuda_device,
 
 
 @pytest.mark.cuda
-def test_conservative_remat_skips_the_flash_forward_on_card(cuda_device, monkeypatch):
-    """A small bf16 DiT at head_dim 128 on the card: Conservative launches
-    the forward kernel once a block, Full twice, and both give the Off
-    gradients (the recompute repeats the same kernels: bit for bit)."""
+@pytest.mark.parametrize("dtype", DTYPES[:2], ids=DTYPE_IDS[:2])
+def test_conservative_remat_skips_the_flash_forward_on_card(cuda_device, monkeypatch, dtype):
+    """A small bf16 or fp16 DiT at head_dim 128 on the card: Conservative
+    launches the forward kernel once a block, Full twice, and both give the
+    Off gradients (the recompute repeats the same kernels: bit for bit)."""
     from dataclasses import replace
     from aozora_sdxl_training_tpu_torch.models.anima import dit
     cfg = replace(dit.TINY_ANIMA, model_channels=256, num_heads=2, num_blocks=2)
@@ -648,15 +674,98 @@ def test_conservative_remat_skips_the_flash_forward_on_card(cuda_device, monkeyp
             p.requires_grad_(True).grad = None
         port.reset_launch_counts()
         out = dit.dit_forward(params, lat, t, ctx, cfg=cfg, t5_ids=ids, attn_impl="flash",
-                              compute_dtype=torch.bfloat16, remat=remat)
+                              compute_dtype=dtype, remat=remat)
         out.float().square().mean().backward()
-        fwd[remat] = port.LAUNCHES["flash_fwd_d128"]
+        fwd[remat] = port.LAUNCHES[port.route(128, dtype, "forward")[0]]
         grads[remat] = {n: p.grad.clone() for n, p in params.items()}
     assert fwd == {False: cfg.num_blocks, True: 2 * cfg.num_blocks,
                    "conservative": cfg.num_blocks}
     for remat in (True, "conservative"):
         for n in params:
             assert torch.equal(grads[remat][n], grads[False][n]), (remat, n)
+
+
+def _cosine(a, b):
+    a, b = (torch.cat([t.double().flatten() for t in ts]) for ts in (a, b))
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["unet", "dit"])
+def test_fp16_micro_step_through_the_kernels_matches_the_einsum_route(cuda_device,
+                                                                     monkeypatch, model):
+    """One MIXED_PRECISION float16 micro step (fp32 masters, fp16 compute)
+    of a small UNet (head_dim 64: K1-K3 in fp16) and of a small DiT
+    (head_dim 128: K4a/K4b in fp16, Full remat) through the flash kernels
+    against the same step through the einsum route in fp16: the loss within
+    1e-3 relative, the gradient of every trainable tensor, as one vector, at
+    a cosine of at least 0.999 (the DiT) or 0.997 (the UNet); the flash run
+    launches the fp16 kernels only.
+
+    The kernels round dS = P (dP - delta) scale to fp16 before dQ += dS K
+    and dK += dS^T Q, as the JAX package's Pallas kernels do (and as the
+    bf16 kernels round it to bf16); the einsum route's autograd keeps the
+    logits' gradient in fp32. The UNet's mean loss over 32,768 elements
+    starts the backward near fp16's subnormal range, so dS falls below it
+    in places: the UNet's cosine measured 0.9984 on the card, and 0.99863
+    on the CPU with the plain version rounding dS to fp16 the same way
+    (0.99999 without that rounding). The DiT's stays at 1.00000."""
+    from dataclasses import replace
+    monkeypatch.setenv("AOZORA_FLASH_MIN_KV", "256")
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    f16 = torch.float16
+    if model == "unet":
+        from aozora_sdxl_training_tpu_torch.models.sdxl.arch import UNetConfig
+        from aozora_sdxl_training_tpu_torch.models.sdxl.unet import init_params
+        from aozora_sdxl_training_tpu_torch.train import train_step as ts
+        cfg = UNetConfig(block_out_channels=(64, 128, 128), transformer_layers=(0, 1, 1),
+                         num_heads=(1, 2, 2), mid_transformer_layers=1,
+                         cross_attention_dim=64, norm_num_groups=8,
+                         addition_time_embed_dim=16, pooled_projection_dim=40)
+        params = init_params(cfg, g)
+        batch = (0.2 * torch.randn(2, 64, 64, 4, device=cuda_device, generator=g),
+                 torch.randn(2, 77, 64, device=cuda_device, generator=g),
+                 torch.randn(2, 40, device=cuda_device, generator=g),
+                 torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]] * 2, device=cuda_device),
+                 torch.tensor([10, 700], device=cuda_device),
+                 torch.ones(2, device=cuda_device), torch.ones(1000, device=cuda_device))
+        noise = torch.randn(2, 64, 64, 4, device=cuda_device, generator=g)
+
+        def step(impl):
+            return ts.make_micro_step(ts.TrainStepConfig(
+                unet=cfg, attn_impl=impl, compute_dtype=f16))
+
+        kernels = ("flash_fwd_f16", "flash_bwd_dq_f16", "flash_bwd_dkv_f16")
+    else:
+        from aozora_sdxl_training_tpu_torch.models.anima import dit
+        from aozora_sdxl_training_tpu_torch.train import anima_trainer as at
+        cfg = replace(dit.TINY_ANIMA, model_channels=256, num_heads=2, num_blocks=2)
+        params = dit.init_params(cfg, g)
+        batch = (0.5 * torch.randn(1, 32, 32, cfg.in_channels, device=cuda_device, generator=g),
+                 torch.randn(1, 12, cfg.adapter_source_dim, device=cuda_device, generator=g),
+                 torch.randint(1, cfg.adapter_vocab, (1, 12), device=cuda_device, generator=g),
+                 torch.tensor([400], device=cuda_device), torch.ones(1, device=cuda_device),
+                 torch.ones(1000, device=cuda_device))
+        noise = torch.randn(1, 32, 32, cfg.in_channels, device=cuda_device, generator=g)
+
+        def step(impl):
+            return at.make_anima_micro_step(at.AnimaStepConfig(
+                dit=cfg, attn_impl=impl, compute_dtype=f16, remat=True))
+
+        kernels = ("flash_fwd_f16_d128", "flash_bwd_dq_f16_d128", "flash_bwd_dkv_f16_d128")
+    losses, grads = {}, {}
+    for impl in ("xla", "flash"):
+        for p in params.values():
+            p.requires_grad_(True).grad = None
+        port.reset_launch_counts()
+        loss, _ = step(impl)(params, {}, *batch, 0, 1, 0.0, noise=noise)
+        losses[impl] = float(loss)
+        grads[impl] = [p.grad for p in params.values()]
+        launched = {n for n, c in port.LAUNCHES.items() if c}
+        assert launched == (set(kernels) if impl == "flash" else set()), launched
+        assert all(bool(torch.isfinite(gr).all()) for gr in grads[impl])
+    assert abs(losses["flash"] - losses["xla"]) <= 1e-3 * abs(losses["xla"]), losses
+    assert _cosine(grads["flash"], grads["xla"]) >= (0.997 if model == "unet" else 0.999)
 
 
 def _qat_weight(shape, seed):

@@ -4,7 +4,9 @@
 role (forward, dQ, dK/dV) which kernel a wrapper launches on CUDA tensors,
 and which CUDA source's library exports it. bf16 goes to the tensor-core
 kernels (``csrc/flash_attention_sm90.cu``: every role at head_dim 64 and
-128 and the head_dim-512 forward, on wgmma), fp32 to the fp32 kernels
+128 and the head_dim-512 forward, on wgmma), fp16 to the same templates
+built for fp16 (every role at 64 and 128; float16 at head_dim 512 is not
+ported and raises), fp32 to the fp32 kernels
 (``csrc/flash_attention_fp32.cu``: every role at 64 and 128 and the
 forward at 512, all in 3xTF32 on mma.sync), so that no fp32 operand is
 rounded to bf16. The backward at head_dim 512 has no kernel in either
@@ -21,13 +23,16 @@ import torch
 from aozora_sdxl_training_tpu_torch.ops import cuda_build
 from aozora_sdxl_training_tpu_torch.ops import flash_attention as port
 
-BF16, F32 = torch.bfloat16, torch.float32
+BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
 SM90, FP32 = "flash_attention_sm90", "flash_attention_fp32"
 ROUTE_TABLE = {
     (64, BF16): (("flash_fwd", SM90), ("flash_bwd_dq", SM90), ("flash_bwd_dkv", SM90)),
     (128, BF16): (("flash_fwd_d128", SM90), ("flash_bwd_dq_d128", SM90),
                   ("flash_bwd_dkv_d128", SM90)),
     (512, BF16): (("flash_fwd_d512", SM90), None, None),
+    (64, F16): (("flash_fwd_f16", SM90), ("flash_bwd_dq_f16", SM90), ("flash_bwd_dkv_f16", SM90)),
+    (128, F16): (("flash_fwd_f16_d128", SM90), ("flash_bwd_dq_f16_d128", SM90),
+                 ("flash_bwd_dkv_f16_d128", SM90)),
     (64, F32): (("flash_fwd_f32_d64", FP32), ("flash_bwd_dq_f32_d64", FP32),
                 ("flash_bwd_dkv_f32_d64", FP32)),
     (128, F32): (("flash_fwd_f32_d128", FP32), ("flash_bwd_dq_f32_d128", FP32),
@@ -37,9 +42,13 @@ ROUTE_TABLE = {
 
 
 @pytest.mark.parametrize("role", ["forward", "dq", "dkv"])
-@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("dtype", [BF16, F16, F32], ids=["bf16", "fp16", "fp32"])
 @pytest.mark.parametrize("head_dim", [64, 128, 512])
 def test_route_by_head_dim_dtype_and_role(head_dim, dtype, role):
+    if (head_dim, dtype) not in ROUTE_TABLE:       # float16 at head_dim 512
+        with pytest.raises(TypeError, match="float16 at head_dim 512 is not ported"):
+            port.route(head_dim, dtype, role)
+        return
     want = ROUTE_TABLE[head_dim, dtype][("forward", "dq", "dkv").index(role)]
     if want is None:
         with pytest.raises(NotImplementedError, match="head_dim 512"):
@@ -52,8 +61,10 @@ def test_route_by_head_dim_dtype_and_role(head_dim, dtype, role):
 def test_other_head_dims_and_dtypes_have_no_kernel():
     with pytest.raises(ValueError, match="head_dim 96"):
         port.route(96, BF16, "forward")
-    with pytest.raises(TypeError, match="bfloat16 or float32"):
-        port.route(64, torch.float16, "forward")
+    with pytest.raises(TypeError, match="bfloat16, float16 or float32"):
+        port.route(64, torch.float64, "forward")
+    with pytest.raises(TypeError, match="float16 at head_dim 512 is not ported"):
+        port.route(512, F16, "forward")
     assert set(port.LAUNCHES) == {name for row in ROUTE_TABLE.values()
                                   for entry in row if entry for name in entry[:1]}
 
@@ -81,10 +92,27 @@ def test_the_head_dim_64_forward_is_the_wgmma_kernel():
     for path in cuda_build.CSRC.glob("*.cu*"):
         assert "nvcuda::wmma" not in path.read_text() and "<mma.h>" not in path.read_text(), path
     sm90 = (cuda_build.CSRC / f"{SM90}.cu").read_text()
-    assert re.search(r"^int aozora_flash_fwd\([^)]*\)\s*\{\s*return fwd<64>", sm90, re.M)
+    assert re.search(r"^int aozora_flash_fwd\([^)]*\)\s*\{\s*return fwd<bf16, 64>", sm90, re.M)
     assert re.search(r"^int aozora_flash_fwd_d512\([^)]*\)\s*\{\s*return fwd_d512\(", sm90,
                      re.M)
     assert re.search(r"^flash_fwd_d512_sm90_kernel\(", sm90, re.M)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F16], ids=["bf16", "fp16"])
+def test_each_16_bit_entry_point_launches_the_wgmma_template_of_its_dtype(dtype):
+    """Each bf16 and fp16 entry point at head_dim 64 and 128 calls the
+    launcher of its role with the element type of its route (bf16 or f16)
+    and its head dim: the same template kernel, built for both types; no
+    entry point converts fp16 to bf16."""
+    sm90 = (cuda_build.CSRC / f"{SM90}.cu").read_text()
+    elem = {BF16: "bf16", F16: "f16"}[dtype]
+    for d in (64, 128):
+        for (name, _), launcher in zip(ROUTE_TABLE[d, dtype], ("fwd", "bwd_dq", "bwd_dkv")):
+            assert re.search(rf"^int aozora_{name}\([^)]*\)\s*\{{\s*return "
+                             rf"{launcher}<{elem}, {d}>\(", sm90, re.M), name
+    assert "__float2bfloat16" not in sm90 and "__half2float" not in sm90
+    header = (cuda_build.CSRC / "sm90_wgmma.cuh").read_text()
+    assert 'AOZORA_MMA_SS("f16")' in header and 'AOZORA_MMA_RS128("f16")' in header
 
 
 def _functions(text):

@@ -141,7 +141,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take_before_any_launch():
     with pytest.raises(ValueError, match="groups"):
         port_gn._check_cuda_inputs(x, s, s, 5)
     with pytest.raises(TypeError, match="dtype"):
-        port_gn._check_cuda_inputs(x.half(), s, s, 8)
+        port_gn._check_cuda_inputs(x.double(), s, s, 8)
     with pytest.raises(ValueError, match="contiguous"):
         port_gn._check_cuda_inputs(x.permute(0, 2, 1, 3), s, s, 8)
     with pytest.raises(ValueError, match="scale"):
@@ -247,7 +247,7 @@ def test_nchw_wrapper_rejects_what_the_kernel_does_not_take_before_any_launch():
     with pytest.raises(ValueError, match="groups"):
         port_gn._check_cuda_inputs(x, s, s, 5, layout="nchw")
     with pytest.raises(TypeError, match="dtype"):
-        port_gn._check_cuda_inputs(x.half(), s, s, 8, layout="nchw")
+        port_gn._check_cuda_inputs(x.double(), s, s, 8, layout="nchw")
     with pytest.raises(ValueError, match="contiguous"):
         port_gn._check_cuda_inputs(x.to(memory_format=torch.channels_last), s, s, 8,
                                    layout="nchw")
