@@ -17,6 +17,12 @@ moments to int8 blockwise saves codes and scales, and resumes from them
 under the same plan (``opt.adamw.restored_state`` checks each moment's
 storage against the optimizer's).
 
+Under FSDP (``parallel/sharding.FSDP``) the state is sharded: every rank
+gathers each sharded moment when its turn comes and global rank 0 writes
+the same file as one process; on resume every rank reads the file and
+keeps its shards (``FSDP.shard_state``), so a state resumes on any number
+of ranks.
+
 Filenames mirror the reference:
 ``{stem}_step_{N}.safetensors`` + ``{stem}_training_state_step_{N}.safetensors``.
 """
@@ -33,8 +39,9 @@ from pathlib import Path
 import ml_dtypes
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..opt.adamw import SAME_LAYOUT, AdamWState, Layout
+from ..opt.adamw import INT8_BLOCK, SAME_LAYOUT, AdamWState, Layout
 from .safetensors_io import read_metadata, write_streaming
 
 _TORCH_OF_ST = {"F32": torch.float32, "BF16": torch.bfloat16, "F16": torch.float16,
@@ -76,23 +83,47 @@ def _host_array(t: torch.Tensor) -> np.ndarray:
 def save_train_state(path, *, global_step: int, micro_step: int,
                      opt_state: AdamWState, sampler_seed: int,
                      sampler_epoch: int, timestep_sampler_state: dict | None,
-                     extra: dict | None = None) -> None:
+                     extra: dict | None = None, fsdp=None) -> None:
     """Streams the moments to ``path`` one tensor at a time (each copied to
     the host when its turn comes), in the JAX package's layout. Host
     moments (the ``moments_host`` rung) are written from their pinned
-    tensors, once the last step's copies into them are done."""
+    tensors, once the last step's copies into them are done.
+
+    ``fsdp`` (``parallel.sharding.FSDP``): the moments of its sharded
+    tensors are this rank's shards; each is gathered whole when its turn
+    comes, so every rank of the world calls this, and global rank 0
+    alone writes the file (the same file as from one process)."""
     if opt_state.host is not None:
         opt_state.host.synchronize()
     to_jax = opt_state.layout.to_jax
+    specs = fsdp.specs if fsdp is not None else {}
     tensors = {"opt.step": np.asarray(opt_state.step, np.int32)}
 
     def lazy(t):
         return (tuple(t.shape), _NUMPY_OF_TORCH[t.dtype], lambda: _host_array(t))
 
+    def gathered(name, value):
+        spec = specs[name]
+        return (spec.jax_shape, _NUMPY_OF_TORCH[value.dtype],
+                lambda: _host_array(fsdp.gather_flat(name, value).view(spec.jax_shape)))
+
+    def gathered_int8(name, codes, scales):
+        spec, whole = specs[name], {}
+
+        def codes_whole():
+            c, whole["scales"] = fsdp.gather_int8(name, codes, scales)
+            return _host_array(c)
+        return ((spec.jax_shape, np.dtype(np.int8), codes_whole),
+                ((-(-spec.numel // INT8_BLOCK),), np.dtype(np.float32),
+                 lambda: _host_array(whole.pop("scales"))))
+
     def put(prefix, name, value):
         if isinstance(value, tuple):  # int8_blockwise (codes, scales)
-            tensors[f"{prefix}.{name}"] = lazy(value[0])
-            tensors[f"{prefix}.{name}@scales"] = lazy(value[1])
+            tensors[f"{prefix}.{name}"], tensors[f"{prefix}.{name}@scales"] = (
+                gathered_int8(name, *value) if name in specs
+                else (lazy(value[0]), lazy(value[1])))
+        elif name in specs:
+            tensors[f"{prefix}.{name}"] = gathered(name, value)
         else:
             tensors[f"{prefix}.{name}"] = lazy(to_jax(name, value))
 
@@ -108,6 +139,12 @@ def save_train_state(path, *, global_step: int, micro_step: int,
         "timestep_sampler_state": timestep_sampler_state,
         **(extra or {}),
     }
+    if fsdp is not None and dist.get_rank() != 0:
+        # the same gathers, in the file's order, without the file
+        for value in tensors.values():
+            if isinstance(value, tuple):
+                value[2]()
+        return
     write_streaming(Path(path), tensors, metadata={"json": json.dumps(meta)})
 
 

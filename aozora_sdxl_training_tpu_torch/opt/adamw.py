@@ -55,9 +55,15 @@ INT8_BLOCK = 256  # elements per quantization block for int8 moment storage
 class Layout(NamedTuple):
     """How the JAX package lays out each parameter: ``to_jax(name, t)``
     views a tensor of the port's layout in the JAX package's, ``from_jax``
-    is its inverse."""
+    is its inverse. ``numel(name, t)`` is the element count of the whole
+    parameter that ``t`` holds (under FSDP a shard holds part of one:
+    ``parallel/sharding.FSDP.opt_layout``); None: ``t``'s own."""
     to_jax: Callable[[str, torch.Tensor], torch.Tensor]
     from_jax: Callable[[str, torch.Tensor], torch.Tensor]
+    numel: Callable[[str, torch.Tensor], int] | None = None
+
+    def elements(self, name: str, t: torch.Tensor) -> int:
+        return t.numel() if self.numel is None else self.numel(name, t)
 
 
 def _same(name: str, t: torch.Tensor) -> torch.Tensor:
@@ -292,7 +298,7 @@ def _moment_storage(name: str, p: torch.Tensor, cfg: AdamWConfig,
                     layout: Layout):
     """(shape, dtype) of one moment of ``p``: int8 codes in the JAX
     layout's shape, or the parameter's shape in the moment dtype."""
-    if cfg.int8_for(p.numel()):
+    if cfg.int8_for(layout.elements(name, p)):
         return tuple(layout.to_jax(name, p).shape), torch.int8
     return tuple(p.shape), (torch.float32 if cfg.int8_state else cfg.momentum_dtype)
 
@@ -411,7 +417,7 @@ def update_tensor(name: str, p: torch.Tensor, grad: torch.Tensor, m, v,
     step_size, sqrt_bc2, wd_factor = scalars
     g32 = grad.float()
     del grad
-    int8_here = cfg.int8_for(p.numel())
+    int8_here = isinstance(m, tuple)
     if int8_here:
         m32 = layout.from_jax(name, dequantize_moment_int8(*m))
         v32 = layout.from_jax(name, dequantize_second_moment_int8(*v))
@@ -513,10 +519,12 @@ def clip_tensor_(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: dict, max_norm: float):
+def clip_by_global_norm(grads: dict, max_norm: float, norm: torch.Tensor | None = None):
     """Scales ``grads`` in place; returns (grads, raw_norm as a 0-d tensor).
-    max_norm <= 0 disables clipping."""
-    norm = global_grad_norm(grads)
+    max_norm <= 0 disables clipping. ``norm``: the global norm where
+    ``grads`` hold part of it (under FSDP, ``FSDP.grad_norm``); by
+    default theirs."""
+    norm = global_grad_norm(grads) if norm is None else norm
     if max_norm is None or max_norm <= 0:
         return grads, norm
     scale = clip_scale(norm, max_norm)

@@ -1,33 +1,47 @@
-"""Process groups and the dp x sp layout of a multi-process training run.
+"""Process groups, the dp x sp layout and FSDP of a multi-process run.
 
-Counterpart of the part of ``aozora_sdxl_training_tpu/parallel/sharding.py``
-that the Anima trainer's sequence-parallel path needs. The JAX package
-lays a ``jax.sharding.Mesh`` over the devices of one process; here the
-devices are the ranks of a ``torchrun`` world (``WORLD_SIZE``, ``RANK``,
-``LOCAL_RANK``; one GPU each, or one CPU process each under
-``AOZORA_PLATFORM=cpu`` with the ``gloo`` backend):
+Counterpart of ``aozora_sdxl_training_tpu/parallel/sharding.py`` for both
+trainers. The JAX package lays a ``jax.sharding.Mesh`` over the devices of
+one process; here the devices are the ranks of a ``torchrun`` world
+(``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``; one GPU each, or one CPU process
+each under ``AOZORA_PLATFORM=cpu`` with the ``gloo`` backend):
 
 * ``resolve_mesh_layout`` takes the JAX function's decisions, fallbacks and
   messages word for word, over ranks instead of devices;
 * ``make_mesh`` builds the dp and sp process groups of a dp x sp layout
   (rank = dp_index * sp + sp_index, the JAX mesh's row-major order);
 * ``init_distributed`` / ``destroy_distributed`` start and end the
-  process group of a run.
+  process group of a run;
+* ``FSDP`` shards the tensors that the JAX package's
+  ``param_partition_spec`` shards over dp (``shards_over_dp``: 2^16
+  elements or more and an axis that dp divides) and holds the collectives
+  of a training step over them: the gather of each compute copy, the
+  bucketed reduce-scatter of gradients into the sharded accumulators, the
+  bucketed all-reduce of the replicated tensors' gradients and the global
+  gradient norm.
 
-Parameters stay replicated on every rank (the JAX default is FSDP, which
-gives the same numbers with less memory); FSDP, tensor and pipeline
-parallelism are not ported yet.
+The shard layout is the port's own: a sharded tensor's elements, in the
+JAX package's layout (``to_jax_layout``), are cut into dp contiguous
+shards of equal size, a multiple of the int8 moments' 256-element block,
+the last one padded with zeros. Whichever axis holds the shards, the
+step computes the same numbers; this layout keeps every int8 block whole
+on one rank, so a sharded int8 moment holds the whole tensor's codes, and
+a gathered moment is already in the training-state file's layout.
+Tensor and pipeline parallelism are not ported yet.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 from datetime import timedelta
 from typing import Any, NamedTuple
 
 import torch
 import torch.distributed as dist
+
+from ..opt.adamw import INT8_BLOCK, AdamWState, Layout
 
 # where the ranks meet: torchrun's MASTER_ADDR/MASTER_PORT by default; the
 # tests point it at a file:// store
@@ -160,6 +174,23 @@ def make_mesh(devices=None, *, dp: int | None = None, tp: int = 1,
     return Mesh(dp, sp, dp_rank, sp_rank, dp_group, sp_group)
 
 
+def mesh_for(layout: MeshLayout) -> Mesh | None:
+    """The dp x sp process groups of ``layout``, or None on one device."""
+    ranks = world_size()
+    if ranks != len(layout.devices):
+        raise RuntimeError(
+            f"WORLD_SIZE={ranks}, but the layout uses {len(layout.devices)} "
+            "rank(s) (AOZORA_DEVICES caps it): launch that many processes")
+    if not layout.use_mesh:
+        return None
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"WORLD_SIZE={ranks}: the process group is not started; run "
+            "through the CLI, which starts it, or call "
+            "parallel.sharding.init_distributed() first")
+    return make_mesh(layout.devices, dp=layout.dp, tp=layout.tp, sp=layout.sp)
+
+
 def init_distributed() -> torch.device | None:
     """Starts the process group of a torchrun world and returns this rank's
     device; None (and nothing started) where ``WORLD_SIZE`` is unset or 1.
@@ -195,17 +226,347 @@ def destroy_distributed() -> None:
         dist.destroy_process_group()
 
 
-@torch.no_grad()
-def all_reduce_grads(params: dict, sp: int) -> None:
-    """Sums the ``.grad`` of ``params`` over every rank and divides by
-    ``sp``: the dp shards' gradients add (each rank's loss is its share of
-    the global batch's), and the sp replicas, which computed the same
-    gradient, are averaged, which also keeps them equal where atomics
-    summed in another order. A missing gradient counts as zeros, so every
-    rank reduces the same tensors in the same order."""
-    for p in params.values():
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-        dist.all_reduce(p.grad)
-        if sp > 1:
-            p.grad.div_(sp)
+
+
+# the JAX package's FSDP threshold (``param_partition_spec``'s
+# ``min_shard_elements``): smaller tensors stay replicated, their gather
+# would cost more in latency than it saves in memory
+MIN_SHARD_ELEMENTS = 2 ** 16
+# input bytes of one bucketed collective
+BUCKET_BYTES = 128 * 2 ** 20
+
+
+def shards_over_dp(shape, dp: int, min_elements: int = MIN_SHARD_ELEMENTS) -> bool:
+    """Whether ``param_partition_spec(shape, dp, "fsdp", min_elements)`` of
+    the JAX package shards a tensor of ``shape`` (a spec other than
+    ``P()``): dp > 1, at least ``min_elements`` elements, and an axis that
+    dp divides. The axis it picks does not matter to the port, which
+    shards the flat elements; the condition does not depend on the order
+    of the axes, so the port's layout and the JAX package's give the same
+    answer."""
+    if dp <= 1 or math.prod(shape) < min_elements:
+        return False
+    return any(int(d) % dp == 0 for d in shape)
+
+
+class ShardSpec(NamedTuple):
+    """One sharded tensor: its shape in the port's layout and in the JAX
+    package's, its element count and the elements of each rank's shard."""
+    shape: tuple
+    jax_shape: tuple
+    numel: int
+    size: int
+
+
+class FSDP:
+    """The sharded training state of one rank of a dp x sp mesh, and the
+    collectives of a step over it.
+
+    ``shapes`` names every tensor of the model (trainable and frozen) with
+    its shape in the port's layout; those that ``shards_over_dp`` picks
+    are kept as this rank's flat shard (``shard``), the rest whole on
+    every rank. ``layout`` is the model's (``to_jax_layout`` /
+    ``from_jax_layout``). The dp ranks of one sp index share the shards;
+    the sp ranks of one dp index hold the same ones.
+
+    A step: ``compute_copies`` gathers each sharded tensor once (in the
+    compute dtype where it has two or more dimensions, in its own dtype
+    otherwise: the JAX package's ``precast_params``) and hands the
+    replicated tensors through; after the backward, ``reduce_scatter``
+    sums the compute copies' gradients over dp into the shards' ``.grad``
+    (the accumulators, in the masters' dtype) and frees them; before the
+    update, ``sync`` averages the shards' gradients over sp and sums the
+    replicated tensors' gradients over the world, divided by sp (each
+    dp rank's loss is its share of the global batch's; the sp ranks
+    computed the same gradient); ``grad_norm`` is the global norm with
+    each replicated tensor counted once.
+
+    Every collective runs on every rank in the same order: callers gather
+    on all ranks (a save or a preview too) and decide on rank 0's word.
+    ``stats`` counts the bytes this rank put into each kind of collective,
+    by what called it: the step's ("step"), a save's or a preview's."""
+
+    def __init__(self, mesh: Mesh, shapes: dict, layout: Layout, compute_dtype, *,
+                 min_elements: int | None = None, bucket_bytes: int = BUCKET_BYTES):
+        self.dp, self.rank, self.group = mesh.dp, mesh.dp_rank, mesh.dp_group
+        self.sp, self.sp_group = mesh.sp, mesh.sp_group
+        self.layout, self.compute_dtype = layout, compute_dtype
+        self.bucket_bytes = int(bucket_bytes)
+        min_elements = MIN_SHARD_ELEMENTS if min_elements is None else int(min_elements)
+        block = self.dp * INT8_BLOCK
+        self.specs = {}
+        for name, shape in shapes.items():
+            shape = tuple(int(d) for d in shape)
+            if shards_over_dp(shape, self.dp, min_elements):
+                n = math.prod(shape)
+                jax_shape = tuple(layout.to_jax(name, torch.empty(shape, device="meta")).shape)
+                self.specs[name] = ShardSpec(shape, jax_shape, n, -(-n // block) * INT8_BLOCK)
+        # the layout alone (shard, opt_layout) needs no process group
+        self.backend = dist.get_backend(self.group) if dist.is_initialized() else None
+        self.stats: dict = {}
+        self.micro_steps = self.optimizer_steps = 0
+
+    def _count(self, what: str, t: torch.Tensor) -> None:
+        self.stats[what] = self.stats.get(what, 0) + t.numel() * t.element_size()
+
+    # ---- layout ----
+
+    def opt_layout(self) -> Layout:
+        """The optimizer's layout: a sharded tensor's moments are already
+        in the JAX package's (flat) order, and its int8 decision is made on
+        the whole tensor's element count."""
+        base, specs = self.layout, self.specs
+        return Layout(
+            lambda name, t: t if name in specs else base.to_jax(name, t),
+            lambda name, t: t if name in specs else base.from_jax(name, t),
+            lambda name, t: specs[name].numel if name in specs else t.numel())
+
+    def shard(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of ``full`` (the port's layout), a new flat
+        tensor on ``full``'s device and in its dtype."""
+        spec = self.specs[name]
+        flat = self.layout.to_jax(name, full).reshape(-1)
+        start = min(self.rank * spec.size, spec.numel)
+        piece = flat[start:min(start + spec.size, spec.numel)]
+        out = torch.zeros(spec.size, dtype=full.dtype, device=full.device)
+        out[:piece.numel()] = piece
+        return out
+
+    def shard_int8(self, name: str, codes: torch.Tensor, scales: torch.Tensor):
+        """This rank's (codes, scales) of an int8 moment held whole (codes
+        in the JAX layout): the blocks of its shard, whole."""
+        spec = self.specs[name]
+        flat = codes.reshape(-1)
+        start = min(self.rank * spec.size, spec.numel)
+        piece = flat[start:min(start + spec.size, spec.numel)]
+        out = torch.zeros(spec.size, dtype=codes.dtype, device=codes.device)
+        out[:piece.numel()] = piece
+        nb, b0 = spec.size // INT8_BLOCK, start // INT8_BLOCK
+        s_piece = scales[b0:min(b0 + nb, scales.numel())]
+        s_out = torch.full((nb,), 1e-30, dtype=scales.dtype, device=scales.device)
+        s_out[:s_piece.numel()] = s_piece
+        return out, s_out
+
+    def shard_params(self, params: dict) -> dict:
+        """``params`` with each sharded tensor replaced by this rank's shard
+        (the whole tensor dropped at once), keeping ``requires_grad``."""
+        for name in list(params):
+            if name in self.specs:
+                full = params.pop(name)
+                params[name] = self.shard(name, full.detach()).requires_grad_(full.requires_grad)
+                del full
+        return params
+
+    def shard_state(self, state: AdamWState) -> AdamWState:
+        """A training state read whole (``ckpt.train_state.load_train_state``:
+        host tensors, float moments in the port's layout, int8 codes in the
+        JAX package's) with each sharded tensor's moments cut to this
+        rank's shard, in ``opt_layout``."""
+        def cut(moments):
+            out = {}
+            for name, value in moments.items():
+                if name not in self.specs:
+                    out[name] = value
+                elif isinstance(value, tuple):
+                    out[name] = self.shard_int8(name, *value)
+                else:
+                    out[name] = self.shard(name, value)
+            return out
+        return AdamWState(step=state.step, exp_avg=cut(state.exp_avg),
+                          exp_avg_sq=cut(state.exp_avg_sq), layout=self.opt_layout())
+
+    @torch.no_grad()
+    def held(self, params: dict, opt_state: AdamWState) -> list:
+        """Each rank's (sharded tensors' elements, all parameter elements,
+        moment bytes, device bytes allocated) as it holds them now, from
+        every rank of the world (a collective)."""
+        moment_bytes = sum(t.numel() * t.element_size()
+                           for moments in (opt_state.exp_avg, opt_state.exp_avg_sq)
+                           for value in moments.values()
+                           for t in (value if isinstance(value, tuple) else (value,)))
+        device = next(iter(params.values())).device
+        allocated = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+        mine = torch.tensor(
+            [float(sum(p.numel() for n, p in params.items() if n in self.specs)),
+             float(sum(p.numel() for p in params.values())), float(moment_bytes),
+             float(allocated)], dtype=torch.float64, device=device)
+        out = torch.empty(dist.get_world_size() * 4, dtype=torch.float64, device=device)
+        dist.all_gather_into_tensor(out, mine)
+        return [tuple(int(x) for x in row) for row in out.view(-1, 4).tolist()]
+
+    def report(self, trainable: dict, frozen: dict, opt_state: AdamWState) -> None:
+        """Prints what is sharded and what each rank holds after setup (a
+        collective: every rank calls it; the CLI shows rank 0's lines)."""
+        params = {**trainable, **frozen}
+        held = self.held(params, opt_state)
+        sharded = sum(spec.numel for name, spec in self.specs.items() if name in params)
+        print(self.describe(trainable, frozen))
+        print(f"INFO: FSDP held per rank: sharded elements {[h[0] for h in held]} of "
+              f"{sharded:,} ({', '.join(f'{h[0] / max(sharded, 1):.4f}' for h in held)}); "
+              f"all parameter elements {[h[1] for h in held]}; moment bytes "
+              f"{[h[2] for h in held]}; device bytes allocated {[h[3] for h in held]}")
+
+    # ---- collectives ----
+
+    def gather_flat(self, name: str, shard: torch.Tensor, kind: str = "save") -> torch.Tensor:
+        """The whole tensor's elements in the JAX layout's flat order, from
+        every dp rank's shard (a flat tensor of its element count)."""
+        spec = self.specs[name]
+        out = torch.empty(self.dp * spec.size, dtype=shard.dtype, device=shard.device)
+        dist.all_gather_into_tensor(out, shard.contiguous(), group=self.group)
+        self._count(f"{kind}.all_gather_into_tensor", shard)
+        return out[:spec.numel]
+
+    def gather(self, name: str, shard: torch.Tensor, dtype=None,
+               kind: str = "save") -> torch.Tensor:
+        """The whole tensor in the port's layout (contiguous), in ``dtype``
+        (the shard's by default): the shard is cast before it moves."""
+        spec = self.specs[name]
+        flat = self.gather_flat(name, shard if dtype is None else shard.to(dtype), kind)
+        return self.layout.from_jax(name, flat.view(spec.jax_shape)).contiguous()
+
+    def gather_int8(self, name: str, codes: torch.Tensor, scales: torch.Tensor):
+        """(codes in the JAX layout, scales) of a sharded int8 moment,
+        whole."""
+        spec = self.specs[name]
+        whole = self.gather_flat(name, codes).view(spec.jax_shape)
+        out = torch.empty(self.dp * scales.numel(), dtype=scales.dtype, device=scales.device)
+        dist.all_gather_into_tensor(out, scales.contiguous(), group=self.group)
+        self._count("save.all_gather_into_tensor", scales)
+        return whole, out[:-(-spec.numel // INT8_BLOCK)]
+
+    def compute_copies(self, params: dict, dtype=None, kind: str = "step") -> dict:
+        """Every tensor of ``params`` whole: a sharded one gathered, in
+        ``dtype`` or, by default, the compute dtype where it has two or
+        more dimensions (for the step: a leaf that requires a gradient
+        where its shard does); a replicated one as it is."""
+        out = {}
+        for name, p in params.items():
+            spec = self.specs.get(name)
+            if spec is None:
+                out[name] = p
+                continue
+            want = dtype or (self.compute_dtype if len(spec.shape) >= 2 else p.dtype)
+            with torch.no_grad():
+                full = self.gather(name, p.detach(), want, kind)
+            out[name] = full.requires_grad_(p.requires_grad and kind == "step")
+        return out
+
+    def _buckets(self, items):
+        """(dtype, [(name, tensor, elements)]) groups of consecutive items
+        of one dtype, each of at most ``bucket_bytes`` (an item larger
+        than that alone)."""
+        bucket, dtype, nbytes = [], None, 0
+        for name, t, n in items:
+            size = n * t.element_size()
+            if bucket and (t.dtype != dtype or nbytes + size > self.bucket_bytes):
+                yield dtype, bucket
+                bucket, nbytes = [], 0
+            bucket.append((name, t, n))
+            dtype, nbytes = t.dtype, nbytes + size
+        if bucket:
+            yield dtype, bucket
+
+    @torch.no_grad()
+    def reduce_scatter(self, copies: dict, params: dict) -> None:
+        """Sums the gradients of the sharded tensors' compute copies over
+        dp into the shards' ``.grad`` (set, or added to what the window
+        accumulated so far), by buckets, in the masters' dtype; each copy's
+        gradient is freed once it is in a bucket. A copy without a gradient
+        counts as zeros, so every rank reduces the same buckets."""
+        self.micro_steps += 1
+        items = [(name, copies[name], self.dp * self.specs[name].size)
+                 for name, p in params.items() if name in self.specs and p.requires_grad]
+        for dtype, bucket in self._buckets(items):
+            sizes = [self.specs[name].size for name, _, _ in bucket]
+            rows = torch.zeros((self.dp, sum(sizes)), dtype=dtype, device=bucket[0][1].device)
+            off = 0
+            for (name, copy, _), size in zip(bucket, sizes):
+                if copy.grad is not None:
+                    spec = self.specs[name]
+                    flat = torch.zeros(self.dp * size, dtype=dtype, device=rows.device)
+                    flat[:spec.numel].view(spec.jax_shape).copy_(
+                        self.layout.to_jax(name, copy.grad))
+                    copy.grad = None
+                    rows[:, off:off + size].copy_(flat.view(self.dp, size))
+                off += size
+            out = torch.empty(rows.shape[1], dtype=dtype, device=rows.device)
+            dist.reduce_scatter_tensor(out, rows.view(-1), group=self.group)
+            self._count("step.reduce_scatter_tensor", rows)
+            off = 0
+            for (name, _, _), size in zip(bucket, sizes):
+                p, piece = params[name], out[off:off + size]
+                if p.grad is None:
+                    p.grad = piece.to(p.dtype, copy=True)
+                else:
+                    p.grad.add_(piece)
+                off += size
+
+    def _all_reduce(self, tensors: list, group) -> None:
+        """Sums ``tensors`` in place over ``group``, by buckets."""
+        items = [(None, t, t.numel()) for t in tensors]
+        for dtype, bucket in self._buckets(items):
+            flat = torch.cat([t.reshape(-1) for _, t, _ in bucket])
+            dist.all_reduce(flat, group=group)
+            self._count("apply.all_reduce", flat)
+            off = 0
+            for _, t, n in bucket:
+                t.copy_(flat[off:off + n].view_as(t))
+                off += n
+
+    @torch.no_grad()
+    def sync(self, params: dict) -> None:
+        """Before the update: the replicated tensors' ``.grad`` summed over
+        every rank of the world and the shards' over the sp group, both
+        divided by sp. A missing gradient counts as zeros."""
+        self.optimizer_steps += 1
+        for p in params.values():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        replicated = [p.grad for name, p in params.items() if name not in self.specs]
+        self._all_reduce(replicated, None)
+        sharded = [p.grad for name, p in params.items() if name in self.specs]
+        if self.sp > 1:
+            self._all_reduce(sharded, self.sp_group)
+        if self.sp > 1:
+            for g in replicated + sharded:
+                g.div_(self.sp)
+
+    @torch.no_grad()
+    def grad_norm(self, grads: dict) -> torch.Tensor:
+        """The global L2 norm of ``grads`` (shards and replicated tensors,
+        keyed like the parameters): the shards' squares summed over dp, each
+        replicated tensor once."""
+        device = next(iter(grads.values())).device
+        sharded = torch.zeros((), dtype=torch.float32, device=device)
+        replicated = torch.zeros((), dtype=torch.float32, device=device)
+        for name, g in grads.items():
+            (sharded if name in self.specs else replicated).add_((g.float() ** 2).sum())
+        sharded = sharded.reshape(1)
+        dist.all_reduce(sharded, group=self.group)
+        return torch.sqrt(sharded[0] + replicated)
+
+    def describe(self, trainable: dict, frozen: dict) -> str:
+        """One line: what is sharded, over which group and backend, and the
+        collectives a step takes."""
+        def count(params):
+            names = [n for n in params if n in self.specs]
+            return len(names), sum(self.specs[n].numel for n in names)
+        t_n, t_e = count(trainable)
+        f_n, f_e = count(frozen)
+        return (f"INFO: FSDP over dp={self.dp} ({self.backend}): {t_n} trainable tensor(s) "
+                f"({t_e:,} elements) and {f_n} frozen ({f_e:,}) sharded, the rest "
+                f"replicated; a micro step all-gathers each sharded tensor's compute "
+                f"copy ({str(self.compute_dtype).replace('torch.', '')} where 2-D or "
+                f"more) and reduce-scatters its gradient (reduce_scatter_tensor, "
+                f"buckets of {self.bucket_bytes >> 20} MB); the optimizer step "
+                f"all-reduces the replicated gradients in buckets")
+
+
+def rank0_says(flags: list, device) -> list:
+    """Global rank 0's ``flags`` (bools) on every rank: the decisions that
+    rank 0 alone can make (the GUI's force-save flag, a preview it alone
+    renders) but that start collectives every rank must join."""
+    t = torch.tensor([1.0 if f else 0.0 for f in flags], device=device)
+    dist.broadcast(t, 0)
+    return [bool(x) for x in t.tolist()]

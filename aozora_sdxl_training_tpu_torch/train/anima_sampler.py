@@ -141,9 +141,13 @@ class AnimaPreviewRenderer:
             shape = (1,) + shape
         self._cond = (shape, prompt_emb[:1].clone(), t5_ids[:1].clone())
 
+    def due(self, optimizer_step: int) -> bool:
+        """Whether ``maybe_render`` renders after ``optimizer_step``."""
+        return (self.enabled and self._cond is not None
+                and optimizer_step % self.every == 0)
+
     def maybe_render(self, optimizer_step: int, params, output_dir) -> None:
-        if (not self.enabled or self._cond is None
-                or optimizer_step % self.every != 0):
+        if not self.due(optimizer_step):
             return
         try:
             shape, prompt_emb, t5_ids = self._cond

@@ -41,14 +41,20 @@ ranks form the JAX package's dp x sp layout (``parallel/sharding.py``):
 every rank draws the same tickets and global batches, each dp rank trains
 rows [r*B, (r+1)*B) of each global batch, and with
 ``SEQUENCE_PARALLEL_SIZE`` > 1 the DiT self-attention runs as ring
-attention over the sp ranks (``ops/ring_attention.py``). Parameters are
-replicated; the gradients are reduced once per optimizer step, before the
-global-norm clip, so every rank applies the same update. The loss printed
-is the global batch's, and only global rank 0 prints and saves (the model
-and the training state); on resume every rank reads the state, whose
-moments every rank holds whole. Under Full remat the ring's P2P runs
-again in each block's recompute; every rank recomputes the same blocks in
-the same order, which keeps that safe.
+attention over the sp ranks (``ops/ring_attention.py``). Over dp the state
+is sharded as the JAX package's FSDP shards it (``parallel/sharding.FSDP``,
+as in the SDXL trainer): each tensor of 2^16 elements or more whose shape
+dp divides, with its accumulator and moments, is held in shards over the
+dp ranks, gathered once a micro step (bf16 where it has two or more
+dimensions) and its gradient reduce-scattered; the replicated tensors'
+gradients are summed over the ranks once per optimizer step, before the
+global-norm clip, and every rank updates its shards and the replicated
+tensors. The loss printed is the global batch's, and only global rank 0
+prints and saves (the model and the training state; every rank gathers
+for a save or a preview, on rank 0's word); on resume every rank reads the
+state and keeps its shards. Under Full remat the ring's P2P runs again in
+each block's recompute; every rank recomputes the same blocks in the same
+order, which keeps that safe.
 
 When the cache check fails, the trainer first builds the cache on its
 device (``data/anima_cache.py``: the Qwen3 text encoder and the Wan VAE),
@@ -66,7 +72,9 @@ controlled weights onto their quantized grid after every optimizer step,
 with error-feedback residuals on the device.
 
 Not ported yet, and refused with an error when the config asks for them:
-pipeline/tensor parallelism and video mode under sequence parallelism.
+pipeline/tensor parallelism, video mode under sequence parallelism and
+FSDP's per-use gathers (a plan whose ``gather_once`` is False); the QAT
+repair CLI refuses more than one rank.
 ``AOZORA_PROFILE_DIR`` traces micro steps 3-8 (``train/profiling.py``).
 """
 
@@ -101,10 +109,11 @@ from . import anima_objectives, curves, memory_policy, objectives
 from .anima_sampler import AnimaPreviewRenderer, load_decoder_for_preview
 from .profiling import StepProfiler
 from .reporter import MetricsReporter, optimizer_block
-from .train_step import make_apply_step, make_two_pass_step, split_trainable
+from .train_step import (accumulate_gradients, make_apply_step, make_two_pass_step,
+                         split_trainable)
 from .trainer import (HOST_MOMENT_WINDOW, attention_impl, consume_force_save_flag,
-                      force_save_flag_path, make_optimizer_config,
-                      print_optimizer_summary)
+                      force_save_flag_path, gathered, make_optimizer_config,
+                      print_optimizer_summary, refuse_per_use_gathers)
 
 
 @dataclass(frozen=True)
@@ -150,9 +159,11 @@ def make_anima_loss_fn(cfg: AnimaStepConfig):
     return loss_fn
 
 
-def make_anima_micro_step(cfg: AnimaStepConfig):
+def make_anima_micro_step(cfg: AnimaStepConfig, fsdp=None):
     """micro_step(trainable, frozen, batch..., keep) -> (loss, sigma0),
-    accumulating d(loss)/d(trainable) into ``.grad``."""
+    accumulating d(loss)/d(trainable) into ``.grad``
+    (``train_step.accumulate_gradients``; ``fsdp``: the run's
+    ``parallel.sharding.FSDP``, or None)."""
     loss_fn = make_anima_loss_fn(cfg)
 
     def micro_step(trainable, frozen, latents, prompt_emb, t5_ids, tickets,
@@ -161,15 +172,10 @@ def make_anima_micro_step(cfg: AnimaStepConfig):
                    spatial_mask=None):
         """``loss_scale`` turns a dp rank's loss into its share of the global
         batch's (1 on one device)."""
-        if keep == 0.0:
-            for p in trainable.values():
-                p.grad = None
-        loss, sigma = loss_fn(trainable, frozen, latents, prompt_emb, t5_ids,
-                              tickets, sample_mask, loss_weights, seed,
-                              micro_step_idx, noise, spatial_mask)
-        loss = loss * loss_scale
-        loss.backward()
-        return loss.detach(), sigma
+        return accumulate_gradients(
+            loss_fn, trainable, frozen,
+            (latents, prompt_emb, t5_ids, tickets, sample_mask, loss_weights, seed,
+             micro_step_idx, noise, spatial_mask), keep, loss_scale, fsdp)
 
     return micro_step
 
@@ -228,23 +234,6 @@ def _refuse_unported(config) -> None:
         if asked:
             raise NotImplementedError(
                 f"{what} is not ported to the PyTorch package yet")
-
-
-def _mesh_for(layout):
-    """The dp x sp process groups of ``layout``, or None on one device."""
-    ranks = shard.world_size()
-    if ranks != len(layout.devices):
-        raise RuntimeError(
-            f"WORLD_SIZE={ranks}, but the layout uses {len(layout.devices)} "
-            "rank(s) (AOZORA_DEVICES caps it): launch that many processes")
-    if not layout.use_mesh:
-        return None
-    if not dist.is_initialized():
-        raise RuntimeError(
-            f"WORLD_SIZE={ranks}: the process group is not started; run "
-            "through the CLI, which starts it, or call "
-            "parallel.sharding.init_distributed() first")
-    return shard.make_mesh(layout.devices, dp=layout.dp, tp=layout.tp, sp=layout.sp)
 
 
 def run_anima_training(config, *, device: torch.device | None = None,
@@ -331,7 +320,7 @@ def run_anima_training(config, *, device: torch.device | None = None,
     global_batch = layout.global_batch
     if resume_meta is not None:
         check_resume_global_batch(resume_meta, global_batch)
-    mesh = _mesh_for(layout)
+    mesh = shard.mesh_for(layout)
     # this rank's rows of each global batch
     rows = (slice(mesh.dp_rank * int(config.BATCH_SIZE),
                   (mesh.dp_rank + 1) * int(config.BATCH_SIZE))
@@ -360,8 +349,7 @@ def run_anima_training(config, *, device: torch.device | None = None,
     print(f"INFO: Device {device}; attention {attn_impl}")
 
     # ---- memory plan: sized from the checkpoint's shapes before any
-    # tensor reaches the device. Every rank holds the whole state (no FSDP
-    # in the port), so the plan is for one device's worth ----
+    # tensor reaches the device; one rank's share under FSDP ----
     t_sizes, f_sizes = split_trainable(
         {k: int(np.prod(np.shape(v))) for k, v in state.items()}, exclude)
     ps = max(int(dit_cfg.patch_spatial), 1)
@@ -374,6 +362,7 @@ def run_anima_training(config, *, device: torch.device | None = None,
         trainable_elems=sum(t_sizes.values()), frozen_elems=sum(f_sizes.values()),
         batch_per_device=int(config.BATCH_SIZE), tokens=int(max_tokens),
         ga_steps=int(config.GRADIENT_ACCUMULATION_STEPS), remat=remat,
+        dp_shard=(layout.dp if layout.use_mesh else 1),
         requested_moment_dtype=opt_cfg.momentum_dtype,
         budget_bytes=memory_policy.device_budget_bytes(device),
         master_override=str(getattr(config, "MASTER_DTYPE", "auto")))
@@ -414,6 +403,14 @@ def run_anima_training(config, *, device: torch.device | None = None,
     n_f = sum(p.numel() for p in frozen.values())
     print(f"INFO: DiT Parameters: total={n_t + n_f:,} trainable={n_t:,} "
           f"frozen={n_f:,}")
+    fsdp = None
+    if mesh is not None:
+        fsdp = shard.FSDP(mesh, {n: tuple(p.shape) for n, p in {**trainable, **frozen}.items()},
+                          dit_layout, config.compute_dtype)
+        refuse_per_use_gathers(plan, fsdp)
+        fsdp.shard_params(trainable)
+        fsdp.shard_params(frozen)
+    opt_layout = fsdp.opt_layout() if fsdp is not None else dit_layout
     lineart = bool(getattr(config, "ANIMA_REPAIR_LINEART_LOSS_ENABLED", False))
     lineart_strength = max(0.0, float(getattr(
         config, "ANIMA_REPAIR_LINEART_LOSS_STRENGTH", 0.5)))
@@ -426,8 +423,8 @@ def run_anima_training(config, *, device: torch.device | None = None,
         clip_grad_norm=float(config.CLIP_GRAD_NORM), attn_impl=attn_impl,
         compute_dtype=config.compute_dtype, remat=remat,
         spatial_strength=lineart_strength if lineart else 0.0)
-    micro_fn = make_anima_micro_step(step_cfg)
-    apply_fn = make_apply_step(step_cfg, opt_cfg)
+    micro_fn = make_anima_micro_step(step_cfg, fsdp)
+    apply_fn = make_apply_step(step_cfg, opt_cfg, fsdp)
     # the two-pass rung: one step in place of the micro and apply steps
     two_pass_fn = (make_two_pass_step(make_anima_loss_fn(step_cfg), opt_cfg,
                                       step_cfg.clip_grad_norm)
@@ -436,6 +433,8 @@ def run_anima_training(config, *, device: torch.device | None = None,
     # the restored moments are host tensors: they reach the device (or
     # pinned host memory) once, and no zero state is made beside them
     if resume_opt_state is not None and set(trainable) <= set(resume_opt_state.exp_avg):
+        if fsdp is not None:
+            resume_opt_state = fsdp.shard_state(resume_opt_state)
         opt_state = adamw.restored_state(resume_opt_state, trainable, opt_cfg,
                                          host_window=host_window)
         print("INFO: Restored optimizer state from resume checkpoint.")
@@ -443,7 +442,7 @@ def run_anima_training(config, *, device: torch.device | None = None,
         if resume_opt_state is not None:
             print("WARNING: resumed optimizer state keys do not match the "
                   "trainable set; starting with fresh moments.")
-        opt_state = adamw.init_state(trainable, opt_cfg, dit_layout,
+        opt_state = adamw.init_state(trainable, opt_cfg, opt_layout,
                                      host_window=host_window)
     del resume_opt_state
     qat_residuals, project = None, None
@@ -454,7 +453,11 @@ def run_anima_training(config, *, device: torch.device | None = None,
               "tensor(s) (residuals on the device, no host round trip)")
     seed = int(config.SEED or 42)
     print_optimizer_summary(config, opt_cfg, trainable, lr_curve.initial_lr,
-                            device, moments_host=moments_host)
+                            device, moments_host=moments_host,
+                            n_devices=len(layout.devices) if fsdp and fsdp.specs else 1,
+                            layout=opt_layout)
+    if fsdp is not None and fsdp.specs:
+        fsdp.report(trainable, frozen, opt_state)
 
     # previews take the single-device attention (not the SP ring); global
     # rank 0 alone renders them
@@ -523,20 +526,23 @@ def run_anima_training(config, *, device: torch.device | None = None,
                           elapsed=time.time() - start_time, optim_block=block)
 
     def save_model(path):
-        save_dit_model(path, {**frozen, **trainable}, prefix=save_prefix,
-                       dtype=config.compute_dtype)
+        # every rank gathers; global rank 0 writes
+        full = gathered(fsdp, {**frozen, **trainable}, config.compute_dtype)
+        if is_main:
+            save_dit_model(path, full, prefix=save_prefix, dtype=config.compute_dtype)
 
     def save_checkpoint(step):
         stem = output_model_stem(config, config.DIT_PATH)
         save_model(output_dir / f"{stem}_step_{step}.safetensors")
-        save_train_state(
-            output_dir / f"{stem}_training_state_step_{step}.safetensors",
-            global_step=step, micro_step=micro_step, opt_state=opt_state,
-            sampler_seed=initial_sampler_seed, sampler_epoch=0,
-            timestep_sampler_state=ts_sampler.state_dict(),
-            extra={"schedule_global_batch": global_batch})
+        if is_main or fsdp is not None:
+            save_train_state(
+                output_dir / f"{stem}_training_state_step_{step}.safetensors",
+                global_step=step, micro_step=micro_step, opt_state=opt_state,
+                sampler_seed=initial_sampler_seed, sampler_epoch=0,
+                timestep_sampler_state=ts_sampler.state_dict(),
+                extra={"schedule_global_batch": global_batch}, fsdp=fsdp)
 
-    profiler = StepProfiler.from_env("anima") if is_main else StepProfiler(None)
+    profiler = StepProfiler.from_env("anima", trace=is_main)
     for batch in prefetcher:
         if micro_step >= config.MAX_TRAIN_STEPS:
             break
@@ -578,8 +584,6 @@ def run_anima_training(config, *, device: torch.device | None = None,
         diag = None
         if micro_step % ga == 0:
             lr = lr_curve.lr_at(micro_step)
-            if mesh is not None:
-                shard.all_reduce_grads(trainable, layout.sp)
             if two_pass_fn is None:
                 raw_norm, update_norm = apply_fn(trainable, opt_state, lr)
             optimizer_step += 1
@@ -594,14 +598,22 @@ def run_anima_training(config, *, device: torch.device | None = None,
             scheduled = (config.SAVE_EVERY_N_STEPS > 0
                          and optimizer_step % config.SAVE_EVERY_N_STEPS == 0)
             forced = is_main and consume_force_save_flag(flag_path)
-            if is_main and (scheduled or forced):
+            render = is_main and preview.due(optimizer_step)
+            if mesh is not None:
+                # the flag file and the preview are rank 0's; the gathers
+                # behind a save or a preview are every rank's
+                forced, render = shard.rank0_says([forced, render], device)
+            if scheduled or forced:
                 reason = ("Emergency checkpoint requested"
                           if forced and not scheduled else "Saving checkpoint")
                 reporter.log_message(
                     f"\n--- {reason} at optimizer step {optimizer_step} ---")
                 save_checkpoint(optimizer_step)
-            if is_main:
-                preview.maybe_render(optimizer_step, {**frozen, **trainable}, output_dir)
+            if render:
+                full = gathered(fsdp, {**frozen, **trainable}, kind="preview")
+                if is_main:
+                    preview.maybe_render(optimizer_step, full, output_dir)
+                del full
 
         message = profiler.after_step(micro_step)
         if message:
@@ -619,7 +631,6 @@ def run_anima_training(config, *, device: torch.device | None = None,
         emit(pending, step_times[-1] if step_times else 0.0)
     reporter.log_message("\nTraining complete.")
     reporter.shutdown()
-    if is_main:
-        save_model(output_dir / f"{output_model_stem(config, config.DIT_PATH)}.safetensors")
+    save_model(output_dir / f"{output_model_stem(config, config.DIT_PATH)}.safetensors")
     print("All tasks complete. Final model saved.")
     return {"trainable": trainable, "qat_residuals": qat_residuals}

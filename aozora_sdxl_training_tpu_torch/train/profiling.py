@@ -42,8 +42,10 @@ class StepProfiler:
         self._t0 = 0.0
 
     @classmethod
-    def from_env(cls, trainer: str) -> "StepProfiler":
-        root = os.environ.get("AOZORA_PROFILE_DIR")
+    def from_env(cls, trainer: str, trace: bool = True) -> "StepProfiler":
+        """``trace`` False: the step log only (the ranks of a torchrun world
+        but global rank 0, each with its own ``AOZORA_STEP_LOG``)."""
+        root = os.environ.get("AOZORA_PROFILE_DIR") if trace else None
         return cls(Path(root) / trainer if root else None,
                    os.environ.get("AOZORA_STEP_LOG") or None)
 

@@ -157,9 +157,13 @@ class PreviewRenderer:
         self._cond = (tuple(latents.shape[1:]), embeds[:1].clone(),
                       pooled[:1].clone(), time_ids[:1].clone())
 
+    def due(self, optimizer_step: int) -> bool:
+        """Whether ``maybe_render`` renders after ``optimizer_step``."""
+        return (self.enabled and self._cond is not None
+                and optimizer_step % self.every == 0)
+
     def maybe_render(self, optimizer_step: int, trainable, frozen, output_dir) -> None:
-        if (not self.enabled or self._cond is None
-                or optimizer_step % self.every != 0):
+        if not self.due(optimizer_step):
             return
         try:
             shape, embeds, pooled, time_ids = self._cond

@@ -1,8 +1,8 @@
 """SDXL train step: loss, micro step (fwd + bwd + accumulation) and apply
 step.
 
-Counterpart of ``aozora_sdxl_training_tpu/train/train_step.py`` for one
-device, run eagerly:
+Counterpart of ``aozora_sdxl_training_tpu/train/train_step.py``, run
+eagerly:
 
 * ``micro_step`` — fwd + bwd of one micro-batch. Gradients accumulate in
   each trainable tensor's ``.grad``, in the master weights' dtype: the
@@ -12,6 +12,11 @@ device, run eagerly:
 * ``apply_step`` — scales the accumulated gradients by 1/GA, clips them by
   their global norm and runs the Raven AdamW update in place, freeing each
   gradient once its tensor is updated.
+
+On the ranks of a torchrun world both steps take the run's FSDP
+(``parallel/sharding.FSDP``): the micro step gathers every sharded tensor
+once and reduce-scatters its gradient into the shard's accumulator, the
+apply step sums the rest over the ranks and updates the shards.
 
 At GA 1 (the plan's ``fused_apply``) a micro step then an apply step is the
 JAX package's ``make_fused_step``: fwd + bwd, the clip, then the update of
@@ -91,42 +96,77 @@ def make_loss_fn(cfg: TrainStepConfig):
     return loss_fn
 
 
-def make_micro_step(cfg: TrainStepConfig):
+def accumulate_gradients(loss_fn, trainable, frozen, inputs: tuple, keep: float,
+                         loss_scale: float = 1.0, fsdp=None):
+    """One micro step's forward and backward of ``loss_fn(trainable,
+    frozen, *inputs) -> (loss, aux)`` times ``loss_scale``, its
+    gradients added into the trainable tensors' ``.grad`` (cleared first
+    when ``keep`` is 0). Returns (loss, aux), detached.
+
+    Under FSDP (``parallel/sharding.FSDP``) the micro step runs on compute
+    copies: every sharded tensor gathered once at the start (the JAX
+    package's gather-once ``precast_params``), the forward and backward on
+    them, then their gradients reduce-scattered into the shards' ``.grad``
+    (the sharded accumulators: the JAX package's ``grad_accum`` carries
+    its parameter's sharding), and the copies freed on return."""
+    if keep == 0.0:
+        for p in trainable.values():
+            p.grad = None
+    run_t, run_f = ((fsdp.compute_copies(trainable), fsdp.compute_copies(frozen))
+                    if fsdp is not None else (trainable, frozen))
+    loss, aux = loss_fn(run_t, run_f, *inputs)
+    loss = loss * loss_scale
+    loss.backward()
+    if fsdp is not None:
+        fsdp.reduce_scatter(run_t, trainable)
+    return loss.detach(), aux.detach()
+
+
+def make_micro_step(cfg: TrainStepConfig, fsdp=None):
     """micro_step(trainable, frozen, batch..., keep) -> (loss, sigma0),
-    accumulating d(loss)/d(trainable) into ``.grad``."""
+    accumulating d(loss)/d(trainable) into ``.grad``. ``loss_scale`` turns
+    a dp rank's loss into its share of the global batch's (1 on one
+    device); ``fsdp``: the run's ``parallel.sharding.FSDP``, or None."""
     loss_fn = make_loss_fn(cfg)
 
     def micro_step(trainable, frozen, latents, embeds, pooled, time_ids,
                    timesteps, sample_mask, loss_weights, seed, micro_step_idx,
-                   keep: float, noise=None, rf_jitter=None):
-        if keep == 0.0:
-            for p in trainable.values():
-                p.grad = None
-        loss, sigma = loss_fn(trainable, frozen, latents, embeds, pooled,
-                              time_ids, timesteps, sample_mask, loss_weights,
-                              seed, micro_step_idx, noise, rf_jitter)
-        loss.backward()
-        return loss.detach(), sigma[0]
+                   keep: float, noise=None, rf_jitter=None, loss_scale: float = 1.0):
+        loss, sigma = accumulate_gradients(
+            loss_fn, trainable, frozen,
+            (latents, embeds, pooled, time_ids, timesteps, sample_mask, loss_weights,
+             seed, micro_step_idx, noise, rf_jitter), keep, loss_scale, fsdp)
+        return loss, sigma[0]
 
     return micro_step
 
 
-def make_apply_step(cfg: TrainStepConfig, opt_cfg: adamw.AdamWConfig):
+def make_apply_step(cfg: TrainStepConfig, opt_cfg: adamw.AdamWConfig, fsdp=None):
     """apply_step(trainable, opt_state, lr) -> (raw_grad_norm, update_norm),
     updating ``trainable`` and ``opt_state`` in place, whatever its moments'
     storage (bf16, fp32, or int8 codes and scales in the JAX layout). The
     accumulated gradients are taken out of ``.grad`` times 1/GA and clipped
-    by their global norm; each is freed once its tensor is updated."""
+    by their global norm; each is freed once its tensor is updated.
+
+    With ``fsdp`` the gradients are first summed over the ranks
+    (``FSDP.sync``), the norm is the global one (``FSDP.grad_norm``), and
+    each rank updates its shards and the replicated tensors."""
     inv_ga = 1.0 / float(cfg.grad_accum_steps)
 
     @torch.no_grad()
     def apply_step(trainable, opt_state, lr):
+        if fsdp is not None:
+            fsdp.sync(trainable)
         grads = {}
         for name, p in trainable.items():
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             p.grad = None
             grads[name] = g.mul_(inv_ga) if inv_ga != 1.0 else g
-        grads, raw_norm = adamw.clip_by_global_norm(grads, cfg.clip_grad_norm)
+        if fsdp is None:
+            grads, raw_norm = adamw.clip_by_global_norm(grads, cfg.clip_grad_norm)
+        else:
+            grads, raw_norm = adamw.clip_by_global_norm(grads, cfg.clip_grad_norm,
+                                                        norm=fsdp.grad_norm(grads))
         _, _, update_sq = adamw.apply_updates(trainable, grads, opt_state,
                                               opt_cfg, lr=lr, release=True)
         return raw_norm, torch.sqrt(update_sq)

@@ -1,4 +1,5 @@
-"""SDXL training loop for one CUDA device.
+"""SDXL training loop on one CUDA device, or on the dp ranks of a torchrun
+world.
 
 Counterpart of ``aozora_sdxl_training_tpu/train/trainer.py::
 run_sdxl_training`` with the same phases and the same output: resume
@@ -25,9 +26,26 @@ streamed through a 0.5 GB window on the card (``opt/adamw.HostMoments``).
 ``AOZORA_LOWMEM_RUNG`` forces either at GA 1; on an H100 at 1024px and
 batch 1 no plan reaches them on its own.
 
+Under torchrun (``WORLD_SIZE`` > 1; the CLI starts the process group) the
+ranks form the JAX trainer's data-parallel mesh (``parallel/sharding.py``):
+``BATCH_SIZE`` is per rank, every rank draws the same global batch
+(padded to ``BATCH_SIZE`` x dp), the same tickets and the same
+step-keyed noise, and trains its own rows of them; the loss printed is the
+global batch's. The state is sharded as the JAX package's FSDP shards it
+(``parallel/sharding.FSDP``): every tensor of 2^16 elements or more whose
+shape dp divides, trainable and frozen, with its gradient accumulator and
+moments; a micro step gathers each such tensor's compute copy once (bf16
+where it has two or more dimensions), reduce-scatters its gradient and
+frees the copy, and the apply step updates each rank's shards. The memory
+plan is one rank's (``dp_shard``). Only global rank 0 prints, saves and
+renders previews; a save or a preview gathers on every rank, on rank 0's
+word. The low-memory rungs run on one device only: the ranks take the
+fused step, as the JAX trainer's do.
+
 Not ported yet, and refused with an error when the config asks for them:
-tensor-parallel meshes and more than one process. ``AOZORA_PROFILE_DIR``
-traces micro steps 3-8 (``train/profiling.py``).
+tensor-parallel meshes and, under FSDP, per-use gathers (a plan whose
+``gather_once`` is False). ``AOZORA_PROFILE_DIR`` traces micro steps 3-8
+(``train/profiling.py``).
 """
 
 from __future__ import annotations
@@ -40,6 +58,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ckpt.sd_checkpoint import (detect_unet_io_channels, load_sd_tensors,
                                   save_merged_checkpoint)
@@ -55,7 +74,8 @@ from ..models.sdxl import vae as vae_mod
 from ..models.sdxl.conversion import (from_jax_layout, params_from_sd_state,
                                       to_jax_layout)
 from ..opt import adamw
-from . import curves, memory_policy
+from ..parallel import sharding as shard
+from . import curves, memory_policy, objectives
 from .profiling import StepProfiler
 from .reporter import MetricsReporter, optimizer_block
 from .sampler import PreviewRenderer
@@ -125,12 +145,16 @@ def make_optimizer_config(config) -> adamw.AdamWConfig:
 
 
 def print_optimizer_summary(config, opt_cfg: adamw.AdamWConfig, trainable,
-                            initial_lr: float, device, moments_host: bool = False) -> None:
+                            initial_lr: float, device, moments_host: bool = False,
+                            n_devices: int = 1, layout: adamw.Layout = adamw.SAME_LAYOUT) -> None:
+    """``n_devices`` > 1: the moments are sharded over the world's ranks
+    (FSDP); ``layout.elements`` counts a shard's whole tensor."""
     names = {"raven": "RavenAdamW", "titan": "TitanAdamW",
              "paged_adamw_8bit": "PagedAdamW8bit"}
     key = str(config.OPTIMIZER_TYPE).lower()
     n_tensors = len(trainable)
-    n_elements = sum(p.numel() for p in trainable.values())
+    sizes = {n: layout.elements(n, p) for n, p in trainable.items()}
+    n_elements = sum(sizes.values())
     dtype_name = str(opt_cfg.momentum_dtype).replace("torch.", "")
     print("\n" + "=" * 58)
     print("INFO: Optimizer Configuration")
@@ -145,10 +169,10 @@ def print_optimizer_summary(config, opt_cfg: adamw.AdamWConfig, trainable,
     print(f"  - Debias strength:     {opt_cfg.debias_strength:.8g}")
     where = ((("pinned " if device.type == "cuda" else "") + "host memory")
              if moments_host else device.type)
-    print(f"  - Momentum state:      {where} {dtype_name}")
+    sharded = f", sharded over {n_devices} device(s) (ZeRO)" if n_devices > 1 else ""
+    print(f"  - Momentum state:      {where} {dtype_name}{sharded}")
     if opt_cfg.int8_state:
-        n_exempt = sum(1 for p in trainable.values()
-                       if p.numel() < opt_cfg.min_8bit_size)
+        n_exempt = sum(1 for n in sizes.values() if n < opt_cfg.min_8bit_size)
         print(f"  - Min 8-bit size:      {opt_cfg.min_8bit_size} "
               f"({n_exempt} small tensor(s) keep fp32 state)")
     print("  - Update math:         FP32, in place, per tensor")
@@ -222,19 +246,35 @@ def attention_impl(config, device: torch.device) -> str:
 def _refuse_unported(config) -> None:
     if int(getattr(config, "TENSOR_PARALLEL_SIZE", 1) or 1) > 1:
         raise NotImplementedError(
-            "TENSOR_PARALLEL_SIZE > 1: meshes are not ported yet")
-    if int(os.environ.get("WORLD_SIZE", "1") or 1) > 1:
+            "TENSOR_PARALLEL_SIZE > 1: tensor parallelism is not ported to the "
+            "PyTorch package yet")
+
+
+def refuse_per_use_gathers(plan, fsdp) -> None:
+    """The JAX package's per-use gathers (a plan with ``gather_once``
+    False: no resident compute copies) are not ported: refused by name."""
+    if fsdp is not None and fsdp.specs and not plan.gather_once:
         raise NotImplementedError(
-            "WORLD_SIZE > 1: the SDXL trainer on more than one device (data "
-            "parallelism, FSDP) is not ported yet; run one process")
+            "the memory plan asks for per-use FSDP gathers (gather_once False): "
+            "not ported to the PyTorch package yet; lower BATCH_SIZE or the "
+            "bucket resolution so that gather-once fits")
+
+
+def gathered(fsdp, params: dict, dtype=None, kind: str = "save") -> dict:
+    """Every tensor of ``params`` whole: the sharded ones gathered (in
+    ``dtype``; by default the compute copies' dtypes) on every rank, for a
+    save or a preview that global rank 0 alone then makes."""
+    return params if fsdp is None else fsdp.compute_copies(params, dtype, kind)
 
 
 def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
                       device: torch.device | None = None) -> None:
     """``unet_cfg`` overrides checkpoint-shape detection (tiny test models);
-    ``device`` defaults to ``core.platform.resolve_device()``."""
+    ``device`` defaults to ``core.platform.resolve_device()``. Under
+    torchrun the CLI silences the stdout of every rank but global rank 0."""
     device = resolve_device() if device is None else torch.device(device)
     _refuse_unported(config)
+    is_main = shard.global_rank() == 0
     output_dir = Path(config.OUTPUT_DIR)
     output_dir.mkdir(parents=True, exist_ok=True)
     flag_path = force_save_flag_path()
@@ -267,6 +307,11 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
 
     # ---- caching ----
     if check_if_caching_needed(config):
+        if shard.world_size() > 1:
+            raise RuntimeError(
+                "The SDXL cache must be current before a multi-rank run; build it "
+                "first: python -m aozora_sdxl_training_tpu_torch.cli.cache_datasets "
+                "--config <preset.json>")
         precompute_and_cache(config, device=device)
 
     # ---- model config ----
@@ -276,9 +321,17 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
             model_to_load, sidecar_fallback=config.SINGLE_FILE_CHECKPOINT_PATH)
     print(f"INFO: Detected UNet configuration - in_channels: "
           f"{unet_cfg.in_channels}, out_channels: {unet_cfg.out_channels}")
-    global_batch = int(config.BATCH_SIZE)     # x dp, which is 1 here
+
+    # ---- layout (decides the global batch the schedules use) ----
+    mesh_layout = shard.resolve_mesh_layout(config)
+    global_batch = mesh_layout.global_batch
     if resume_meta is not None:
         check_resume_global_batch(resume_meta, global_batch)
+    mesh = shard.mesh_for(mesh_layout)
+    # this rank's rows of each global batch
+    rows = (slice(mesh.dp_rank * int(config.BATCH_SIZE),
+                  (mesh.dp_rank + 1) * int(config.BATCH_SIZE))
+            if mesh is not None else slice(None))
 
     # ---- schedules ----
     print("\n--- Initializing Dataset ---")
@@ -311,6 +364,7 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
         batch_per_device=int(config.BATCH_SIZE),
         max_latent_pixels=int(max_latpix),
         ga_steps=int(config.GRADIENT_ACCUMULATION_STEPS),
+        dp_shard=(mesh_layout.dp if mesh_layout.use_mesh else 1),
         attn_pref=attention_impl(config, device),
         requested_moment_dtype=opt_cfg.momentum_dtype,
         budget_bytes=memory_policy.device_budget_bytes(device),
@@ -318,6 +372,13 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
         master_override=str(getattr(config, "MASTER_DTYPE", "auto")))
     print(f"INFO: Device {device}")
     print(memory_policy.describe_plan(plan))
+    # the low-memory rungs run on one device only, as in JAX: the ranks of
+    # a torchrun world take the fused step with the moments on the card
+    two_pass = plan.two_pass and mesh is None
+    moments_host = plan.moments_host and mesh is None
+    if mesh is not None and (plan.two_pass or plan.moments_host):
+        print("INFO: the low-memory rung runs on one device only; the "
+              f"{shard.world_size()} ranks take the fused step")
     # the port reads AOZORA_FLASH_MIN_KV of the three knobs (a user's pin wins)
     memory_policy.apply_fast_backward_knobs(plan)
     if plan.moment_dtype != opt_cfg.momentum_dtype:
@@ -330,9 +391,10 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
     params = params_from_sd_state(sd_tensors, unet_cfg, dtype=plan.master_dtype,
                                   device=device)
     # preview sampling: keep the VAE decoder half when
-    # PREVIEW_EVERY_N_STEPS > 0 (train/sampler.py)
+    # PREVIEW_EVERY_N_STEPS > 0 (train/sampler.py); global rank 0 alone
+    # renders
     vae_decoder_params = None
-    if int(getattr(config, "PREVIEW_EVERY_N_STEPS", 0) or 0) > 0:
+    if is_main and int(getattr(config, "PREVIEW_EVERY_N_STEPS", 0) or 0) > 0:
         try:
             vae_decoder_params = vae_mod.params_from_sd_state(
                 sd_tensors, dtype=torch.float32, include_decoder=True,
@@ -345,6 +407,14 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
     for p in trainable.values():
         p.requires_grad_(True)
     print_param_stats(trainable, frozen)
+    fsdp = None
+    if mesh is not None:
+        fsdp = shard.FSDP(mesh, {n: tuple(p.shape) for n, p in {**trainable, **frozen}.items()},
+                          layout, config.compute_dtype)
+        refuse_per_use_gathers(plan, fsdp)
+        fsdp.shard_params(trainable)
+        fsdp.shard_params(frozen)
+    opt_layout = fsdp.opt_layout() if fsdp is not None else layout
 
     # ---- optimizer / steps ----
     lr_curve = curves.LRCurve(config.LR_CUSTOM_CURVE, config.MAX_TRAIN_STEPS,
@@ -370,13 +440,13 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
     # fused_apply) a micro step then the apply step is the JAX fused step:
     # .grad is the only gradient tree, and each is freed once its tensor is
     # updated
-    micro_fn = make_micro_step(step_cfg)
-    apply_fn = make_apply_step(step_cfg, opt_cfg)
+    micro_fn = make_micro_step(step_cfg, fsdp)
+    apply_fn = make_apply_step(step_cfg, opt_cfg, fsdp)
     # the two-pass rung: one step in place of the micro and apply steps
     two_pass_fn = (make_two_pass_step(make_loss_fn(step_cfg), opt_cfg,
                                       step_cfg.clip_grad_norm)
-                   if plan.two_pass else None)
-    host_window = HOST_MOMENT_WINDOW if plan.moments_host else None
+                   if two_pass else None)
+    host_window = HOST_MOMENT_WINDOW if moments_host else None
     # restore or start fresh before any moment is on the device: the
     # restored moments are host tensors, and a zero state made first would
     # sit beside them
@@ -384,6 +454,8 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
     if resume_opt_state is not None:
         # moments of tensors that are not trainable now are left out
         if set(trainable) <= set(resume_opt_state.exp_avg):
+            if fsdp is not None:
+                resume_opt_state = fsdp.shard_state(resume_opt_state)
             opt_state = adamw.restored_state(resume_opt_state, trainable, opt_cfg,
                                              host_window=host_window)
             print("INFO: Restored optimizer state from resume checkpoint.")
@@ -391,20 +463,29 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
             print("WARNING: Resume optimizer state does not match trainable set; "
                   "starting moments fresh.")
     if opt_state is None:
-        opt_state = adamw.init_state(trainable, opt_cfg, layout, host_window=host_window)
+        opt_state = adamw.init_state(trainable, opt_cfg, opt_layout, host_window=host_window)
     del resume_opt_state
     seed = int(config.SEED or 42)
     print_optimizer_summary(config, opt_cfg, trainable, lr_curve.initial_lr,
-                            device, moments_host=plan.moments_host)
+                            device, moments_host=moments_host,
+                            n_devices=len(mesh_layout.devices) if fsdp and fsdp.specs else 1,
+                            layout=opt_layout)
+    if fsdp is not None and fsdp.specs:
+        fsdp.report(trainable, frozen, opt_state)
 
     # ---- loop ----
     reporter = MetricsReporter(total_steps=config.MAX_TRAIN_STEPS)
 
     def upload(batch):
-        # H2D copies happen in the prefetch thread, overlapping device compute
-        out = pad_batch_arrays(batch, 0)
+        # H2D copies happen in the prefetch thread, overlapping device
+        # compute; a dp rank pads the global batch, then takes its rows
+        out = pad_batch_arrays(batch, global_batch if mesh is not None else 0)
+        # this rank's loss is (its masked sum) / (the global batch's mask
+        # count): its mean over its rows times this
+        out["loss_scale"] = (max(float(np.sum(out["sample_mask"][rows])), 1.0)
+                             / max(float(np.sum(out["sample_mask"])), 1.0))
         for key in ("latents", "embeds", "pooled", "time_ids", "sample_mask"):
-            out[key] = torch.as_tensor(out[key], device=device)
+            out[key] = torch.as_tensor(out[key][rows], device=device)
         return out
 
     prefetcher = BatchPrefetcher(dataset, packed_schedule,
@@ -442,20 +523,25 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
             s_per_step=s_per_step, eta=eta,
             elapsed=time.time() - start_time, optim_block=block)
 
+    def save_model(path):
+        # every rank gathers; global rank 0 writes
+        full = gathered(fsdp, {**frozen, **trainable}, config.compute_dtype)
+        if is_main:
+            save_merged_checkpoint(path, full, config.SINGLE_FILE_CHECKPOINT_PATH,
+                                   config.compute_dtype)
+
     def save_checkpoint(step):
         stem = output_model_stem(config, config.SINGLE_FILE_CHECKPOINT_PATH)
-        save_merged_checkpoint(output_dir / f"{stem}_step_{step}.safetensors",
-                               {**frozen, **trainable},
-                               config.SINGLE_FILE_CHECKPOINT_PATH,
-                               config.compute_dtype)
-        save_train_state(
-            output_dir / f"{stem}_training_state_step_{step}.safetensors",
-            global_step=step, micro_step=micro_step, opt_state=opt_state,
-            sampler_seed=initial_sampler_seed, sampler_epoch=0,
-            timestep_sampler_state=ts_sampler.state_dict(),
-            extra={"schedule_global_batch": global_batch})
+        save_model(output_dir / f"{stem}_step_{step}.safetensors")
+        if is_main or fsdp is not None:
+            save_train_state(
+                output_dir / f"{stem}_training_state_step_{step}.safetensors",
+                global_step=step, micro_step=micro_step, opt_state=opt_state,
+                sampler_seed=initial_sampler_seed, sampler_epoch=0,
+                timestep_sampler_state=ts_sampler.state_dict(),
+                extra={"schedule_global_batch": global_batch}, fsdp=fsdp)
 
-    profiler = StepProfiler.from_env("sdxl")
+    profiler = StepProfiler.from_env("sdxl", trace=is_main)
     for batch in prefetcher:
         if micro_step >= config.MAX_TRAIN_STEPS:
             break
@@ -466,19 +552,36 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
         real_n = int(batch.get("real_n", batch["latents"].shape[0]))
         preview.capture_conditioning(batch["latents"], batch["embeds"],
                                      batch["pooled"], batch["time_ids"])
-        tickets = ts_sampler.sample(real_n)
+        tickets = np.asarray(ts_sampler.sample(real_n))
         ticket0 = int(tickets[0])
+        noise = rf_jitter = None
+        if mesh is not None:
+            # the padded global batch's tickets and step-keyed noise (and
+            # rectified flow's jitter), then this rank's rows of each
+            tickets = tickets[np.arange(global_batch) % real_n]
+            shape = (global_batch, *batch["latents"].shape[1:])
+            noise = objectives.noise_for_step(seed, micro_step, shape, device)[rows]
+            if config.is_rectified_flow:
+                rf_jitter = objectives.rf_jitter_for_step(
+                    seed, micro_step, global_batch, device)[rows]
         keep = 0.0 if (micro_step - 1) % ga == 0 else 1.0
         step_inputs = (batch["latents"], batch["embeds"], batch["pooled"],
                        batch["time_ids"],
-                       torch.as_tensor(np.asarray(tickets), device=device),
+                       torch.as_tensor(tickets[rows], device=device),
                        batch["sample_mask"], loss_weights, seed, micro_step)
         if two_pass_fn is not None:
             lr = lr_curve.lr_at(micro_step)
             loss_dev, sigma_dev, raw_norm, update_norm = two_pass_fn(
                 trainable, frozen, opt_state, *step_inputs, lr=lr)
         else:
-            loss_dev, sigma_dev = micro_fn(trainable, frozen, *step_inputs, keep)
+            loss_dev, sigma_dev = micro_fn(trainable, frozen, *step_inputs, keep,
+                                           noise=noise, rf_jitter=rf_jitter,
+                                           loss_scale=batch["loss_scale"])
+        if mesh is not None:
+            # the global batch's loss: the dp ranks' shares summed
+            loss_dev = loss_dev.reshape(1)
+            dist.all_reduce(loss_dev, group=mesh.dp_group)
+            loss_dev = loss_dev[0]
 
         diag = None
         if micro_step % ga == 0:
@@ -494,14 +597,23 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
                     "optim_step_time": optim_dt}
             scheduled = (config.SAVE_EVERY_N_STEPS > 0
                          and optimizer_step % config.SAVE_EVERY_N_STEPS == 0)
-            forced = consume_force_save_flag(flag_path)
+            forced = is_main and consume_force_save_flag(flag_path)
+            render = is_main and preview.due(optimizer_step)
+            if mesh is not None:
+                # the flag file and the preview are rank 0's; the gathers
+                # behind a save or a preview are every rank's
+                forced, render = shard.rank0_says([forced, render], device)
             if scheduled or forced:
                 reason = ("Emergency checkpoint requested"
                           if forced and not scheduled else "Saving checkpoint")
                 reporter.log_message(
                     f"\n--- {reason} at optimizer step {optimizer_step} ---")
                 save_checkpoint(optimizer_step)
-            preview.maybe_render(optimizer_step, trainable, frozen, output_dir)
+            if render:
+                full = gathered(fsdp, {**frozen, **trainable}, kind="preview")
+                if is_main:
+                    preview.maybe_render(optimizer_step, full, {}, output_dir)
+                del full
 
         message = profiler.after_step(micro_step)
         if message:
@@ -521,7 +633,5 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
     reporter.shutdown()
 
     stem = output_model_stem(config, config.SINGLE_FILE_CHECKPOINT_PATH)
-    save_merged_checkpoint(
-        output_dir / f"{stem}.safetensors", {**frozen, **trainable},
-        config.SINGLE_FILE_CHECKPOINT_PATH, config.compute_dtype)
+    save_model(output_dir / f"{stem}.safetensors")
     print("All tasks complete. Final model saved.")

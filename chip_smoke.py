@@ -199,6 +199,26 @@ that save:
    a bfloat16 run of the same preset just before it (the control; its
    bf16 kernels' launches checked the same way).
 
+17. dp (after anima_sp): both training CLIs on 2 ranks, data parallel with
+   FSDP (parallel/sharding.FSDP): with one card both ranks on it over gloo
+   (each rank starts the gloo group, then the CLI takes it), with 2+ cards
+   torchrun over NCCL. Random weights of SDXL_BASE's and ANIMA_BASE's
+   widths at cut depth (DP_SDXL_LAYERS transformer layers a block,
+   DP_ANIMA_BLOCKS blocks: gloo on one card moves ~0.6 GB/s), synthetic
+   caches of 2 images at 1024px. SDXL at the default preset (BATCH_SIZE 1
+   a rank, GA 4, raven, bf16, flash), 4 micro steps, held against one
+   process at BATCH_SIZE 2 (this process) over the same steps: losses
+   (rtol 2e-2) and the saved UNet (max relative difference < 0.05, the JAX
+   end-to-end test's bar); then the DiT under Full remat, 4 micro steps,
+   finite losses. For each rank: its exact flash launches (K1-K3 a
+   self-attention layer a micro step, K4a 2 and K4b 1 a block), the
+   backend and the bytes each collective took (all_gather_into_tensor and
+   reduce_scatter_tensor a micro step, the apply step's all_reduce), half
+   the sharded elements held, memory allocated after setup (and the
+   one-process run's), the peak beside the plan's estimate at dp_shard=2
+   (both ranks' peaks must fit the one card together), s a micro step and
+   an optimizer step from its AOZORA_STEP_LOG. Rank 1 prints nothing.
+
 13. plan: the memory planner on the card's budget (its total memory),
    without the cache encoders (synthetic caches): each trainer's default
    plan printed; ANIMA_BASE (random, 1024px, batch 1, GA 4) under Full
@@ -220,7 +240,7 @@ phases alone (on a machine with several cards); `--only anima` runs the
 anima_cache and anima phases; `--only anima_video` the video phase;
 `--only resume` runs the trainer and anima phases with their resume parts;
 `--only plan` the plan phase; `--only repair` the repair phase; `--only
-fp16` the fp16 phase.
+fp16` the fp16 phase; `--only dp` the dp phase.
 
 The second-to-last lines are the kernels JSON and the card's name and power
 limit; the last line is {"ok": true, "device": {...}}.
@@ -2127,26 +2147,34 @@ def anima_forward_flops(cfg, tokens: int) -> int:
 
 
 def anima_env(torch, work_dir: Path, steps: int, synthetic_cache: bool = True,
-              **preset_overrides):
-    """A random ANIMA_BASE checkpoint (seed 4321), the default preset pointed
-    at it and at ``work_dir``/data, and there (with ``synthetic_cache``) a
-    synthetic cache of 2 images at 1024px. Returns (cfg, preset path,
-    config)."""
+              blocks: int | None = None, **preset_overrides):
+    """A random ANIMA_BASE checkpoint (seed 4321; with ``blocks``, a random
+    DiT of its widths and ``blocks`` blocks, written into ``work_dir``), the default preset
+    pointed at it and at ``work_dir``/data, and there (with
+    ``synthetic_cache``) a synthetic cache of 2 images at 1024px. Returns
+    (cfg, preset path, config)."""
+    from dataclasses import replace
     from aozora_sdxl_training_tpu_torch.config import schema
     from aozora_sdxl_training_tpu_torch.config.runtime import RuntimeConfig
     from aozora_sdxl_training_tpu_torch.data.synthetic import (
         write_random_dit_checkpoint, write_synthetic_anima_dataset)
     from aozora_sdxl_training_tpu_torch.models.anima.dit import ANIMA_BASE, param_shapes
 
-    cfg = ANIMA_BASE
-    ckpt, n_params, secs = shared_weights(torch, "anima_random.safetensors", lambda path: (
-        write_random_dit_checkpoint(path, cfg, seed=4321, device="cuda")))
+    cfg = ANIMA_BASE if blocks is None else replace(ANIMA_BASE, num_blocks=blocks)
     n_want = sum(math.prod(s) for s in param_shapes(cfg).values())
+    if blocks is None:
+        ckpt, n_params, secs = shared_weights(torch, "anima_random.safetensors", lambda path: (
+            write_random_dit_checkpoint(path, cfg, seed=4321, device="cuda")))
+        check(2.08e9 < n_params < 2.10e9, f"ANIMA_BASE has {n_params} parameters")
+    else:
+        t0 = time.perf_counter()
+        ckpt = work_dir / f"anima_random_{blocks}_blocks.safetensors"
+        n_params = write_random_dit_checkpoint(ckpt, cfg, seed=4321, device="cuda")
+        secs = time.perf_counter() - t0
     print(f"  {ckpt.name}: {n_params:,} DiT parameters ({ckpt.stat().st_size / 1e9:.2f} GB, "
           f"bf16, pipe.dit.), "
           f"{f'written in {secs:.1f} s' if secs > 0.1 else 'written by an earlier phase'}")
-    check(n_params == n_want and 2.08e9 < n_params < 2.10e9,
-          f"ANIMA_BASE has {n_params} parameters")
+    check(n_params == n_want, f"the DiT has {n_params} parameters, not {n_want}")
 
     preset = json.loads((REPO / "configs" / "default_config.json").read_text())
     preset["active_mode"] = "anima"
@@ -3933,11 +3961,392 @@ def anima_sp_rank(preset: str, out_dir: str) -> int:
 
 
 # --------------------------------------------------------------------------
+# 17: data parallelism with FSDP (both trainers on two ranks)
+# --------------------------------------------------------------------------
+
+DP = 2
+DP_TIMEOUT_S = 900
+# the dp phase's models: the widths of SDXL_BASE and ANIMA_BASE, their depth
+# cut (gloo between two ranks on one card moves about 0.6 GB/s, and a
+# full-depth micro step moves 7.1 GB a rank: 12-15 s; PERF.md section 5): the
+# UNet's 640- and 1280-wide levels keep 1 of their 2 and 10 transformer
+# layers (0.69e9 of 2.57e9 parameters), the DiT 4 of its 28 blocks (0.43e9
+# of 2.09e9)
+DP_SDXL_LAYERS = 1
+DP_ANIMA_BLOCKS = 4
+# the JAX end-to-end test's bar for a dp run against one process at the
+# global batch (tests/test_end_to_end.py): max |a - b| / max(|b|, 1e-3)
+DP_MODEL_BAR = 0.05
+# the bf16 losses of the two runs: their sums run in other orders
+DP_LOSS_RTOL = 2e-2
+
+
+def dp_launch(torch, work_dir: Path, cli: str, preset_path: Path, label: str):
+    """Runs ``dp_rank`` (the ``cli`` training CLI, "sdxl" or "anima") on
+    DP ranks: with one card, DP processes on it over gloo (each rank starts
+    the gloo group before the CLI, which takes it as it is); with DP cards
+    or more, torchrun over NCCL, one rank a card. Returns (global rank 0's
+    stdout, each rank's record, wall s, one_card)."""
+    import signal
+    one_card = torch.cuda.device_count() < DP
+    out_dir = work_dir / f"{label}_ranks"
+    out_dir.mkdir()
+    env = {**os.environ, "PYTHONPATH": str(REPO), "NCCL_SOCKET_IFNAME": "lo",
+           "GLOO_SOCKET_IFNAME": "lo"}
+    env.pop("AOZORA_DIST_INIT", None)
+    rank_cmd = [str(REPO / "chip_smoke.py"), "--dp-rank", cli, str(preset_path), str(out_dir)]
+    if one_card:
+        store = f"file://{out_dir / 'store'}"
+        cmds = [[sys.executable, *rank_cmd] for _ in range(DP)]
+        envs = [{**env, "WORLD_SIZE": str(DP), "RANK": str(r), "LOCAL_RANK": "0",
+                 "CHIP_SMOKE_DP_STORE": store} for r in range(DP)]
+    else:
+        cmds = [[sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node", str(DP), *rank_cmd]]
+        envs = [env]
+    print(f"  {label}: {'2 ranks on cuda:0 over gloo' if one_card else 'torchrun, NCCL'}: "
+          f"{' '.join(rank_cmd[1:])}", flush=True)
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()          # the ranks share the card with this process
+    t0 = time.perf_counter()
+    logs = [open(out_dir / f"stdout_{i}.log", "w+") for i in range(len(cmds))]
+    errs = [open(out_dir / f"stderr_{i}.log", "w+") for i in range(len(cmds))]
+    procs = [subprocess.Popen(c, cwd=work_dir, env=e, stdout=f, stderr=g,
+                              text=True, start_new_session=True)
+             for c, e, f, g in zip(cmds, envs, logs, errs)]
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(1.0, DP_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        raise PhaseError(f"{label}: the ranks did not end in {DP_TIMEOUT_S} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        raws, stderr = [], []
+        for f, g in zip(logs, errs):
+            for handle, into in ((f, raws), (g, stderr)):
+                handle.seek(0)
+                into.append(handle.read())
+                handle.close()
+    wall = time.perf_counter() - t0
+    LOG_DIR.mkdir(parents=True, exist_ok=True)
+    for i, (raw, err) in enumerate(zip(raws, stderr)):
+        (LOG_DIR / f"chip_smoke_{label}_{i}.log").write_text(raw + "\n--- stderr ---\n" + err)
+    for proc, raw, err in zip(procs, raws, stderr):
+        check(proc.returncode == 0,
+              f"{label}: a rank exited {proc.returncode}:\n{raw[-3000:]}\n{err[-3000:]}")
+    ranks = []
+    for r in range(DP):
+        path = out_dir / f"rank{r}.json"
+        check(path.exists(), f"{label}: rank {r} wrote no record")
+        ranks.append(json.loads(path.read_text()))
+    if one_card:
+        check(raws[1].strip() == "", f"{label}: rank 1 printed:\n{raws[1][-2000:]}")
+    return raws[0], ranks, wall, one_card
+
+
+def dp_rank(cli: str, preset: str, out_dir: str) -> int:
+    """One rank of the dp phase: under CHIP_SMOKE_DP_STORE (one card) it
+    starts the gloo group on cuda:0 first; then the ``cli`` training CLI
+    with its step log (``AOZORA_STEP_LOG``), the launches counted from 0
+    just before; then this rank's record: launches, wall time, peak
+    memory, what FSDP holds after setup (elements, device bytes
+    allocated) and the bytes each collective moved. The Anima run skips
+    its final model save (nothing reads it) on every rank alike."""
+    sys.path.insert(0, str(REPO))
+    import torch
+    import torch.distributed as dist
+    from aozora_sdxl_training_tpu_torch.ops import flash_attention as fa
+    from aozora_sdxl_training_tpu_torch.parallel import sharding
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    store = os.environ.get("CHIP_SMOKE_DP_STORE")
+    if store:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=store, rank=rank,
+                                world_size=int(os.environ["WORLD_SIZE"]))
+    os.environ["AOZORA_STEP_LOG"] = str(Path(out_dir, f"steps{rank}.jsonl"))
+    if cli == "sdxl":
+        from aozora_sdxl_training_tpu_torch.cli import train_sdxl as cli_module
+    else:
+        from aozora_sdxl_training_tpu_torch.cli import train_anima as cli_module
+        from aozora_sdxl_training_tpu_torch.train import anima_trainer
+        skip_final_save(anima_trainer)
+    made, setup = [], {}
+    init, report = sharding.FSDP.__init__, sharding.FSDP.report
+
+    def kept(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    def reported(self, trainable, frozen, opt_state):
+        torch.cuda.synchronize()
+        setup["allocated_bytes"] = torch.cuda.memory_allocated()
+        setup["held"] = self.held({**trainable, **frozen}, opt_state)
+        setup["sharded_elements"] = sum(s.numel for n, s in self.specs.items()
+                                        if n in trainable or n in frozen)
+        return report(self, trainable, frozen, opt_state)
+
+    sharding.FSDP.__init__, sharding.FSDP.report = kept, reported
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli_module.main(["--config", preset])
+    fsdp = made[-1]
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps({
+        "launches": {k: v for k, v in fa.LAUNCHES.items() if v},
+        "wall_s": time.perf_counter() - t0,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "device": str(torch.cuda.current_device()), "backend": fsdp.backend,
+        "micro_steps": fsdp.micro_steps, "optimizer_steps": fsdp.optimizer_steps,
+        "collective_bytes": fsdp.stats, "setup": setup,
+        "steps": [json.loads(line) for line in
+                  Path(out_dir, f"steps{rank}.jsonl").read_text().splitlines()]}))
+    return 0
+
+
+def dp_rank_summary(label: str, ranks: list, raw: str, smi: str) -> dict:
+    """Per rank: the collectives and their GB a micro step (an optimizer
+    step for the apply step's), the share of the sharded elements held,
+    memory allocated after setup, the peak beside the plan's estimate (its
+    dp_shard=2 plan, from rank 0's lines) and s a micro and an optimizer
+    step (synced step log; micro steps 2-3 and micro step 4 with the apply
+    step). The two ranks' peaks must fit the card together."""
+    import numpy as np
+    from aozora_sdxl_training_tpu_torch.train.memory_policy import GB
+    est = re.search(r"Memory plan \(budget [^,]*, est peak ([\d.]+) GB\)", raw)
+    check(est is not None, f"{label}: no memory plan line")
+    est_gib = float(est.group(1))
+    total_bytes = None
+    rows = []
+    for r, rec in enumerate(ranks):
+        setup = rec["setup"]
+        held = setup["held"][r]
+        share = held[0] / max(setup["sharded_elements"], 1)
+        check(abs(share - 1 / DP) < 0.01, f"{label} rank {r}: holds {share:.4f} of the "
+              "sharded elements, not 1/2")
+        t = [s["t"] for s in rec["steps"]]
+        check(len(t) == TRAIN_STEPS, f"{label} rank {r}: {len(t)} step-log lines")
+        micro = [t[i] - t[i - 1] for i in range(1, TRAIN_STEPS - 1)]
+        last = t[-1] - t[-2]                      # micro step 4 and the apply step
+        per_micro = {k: v / max(rec["micro_steps"], 1) / 1e9
+                     for k, v in rec["collective_bytes"].items() if k.startswith("step.")}
+        per_optim = {k: v / max(rec["optimizer_steps"], 1) / 1e9
+                     for k, v in rec["collective_bytes"].items() if k.startswith("apply.")}
+        peak = rec["max_memory_allocated_bytes"]
+        rows.append({"rank": r, "backend": rec["backend"], "share_of_sharded": share,
+                     "held_elements": held[0], "moment_bytes": held[2],
+                     "allocated_after_setup_gib": setup["allocated_bytes"] / GB,
+                     "peak_gib": peak / GB, "plan_est_gib": est_gib,
+                     "s_micro_steps_2_3": micro, "s_micro_step_4_with_apply": last,
+                     "s_per_optimizer_step_ga4": float(np.median(micro)) * (GA - 1) + last,
+                     "gb_per_micro_step": per_micro, "gb_per_optimizer_step": per_optim,
+                     "launches": rec["launches"], "wall_s": rec["wall_s"]})
+        print(f"  [{smi}] {label} rank {r} ({rec['backend']}): holds {share:.4f} of the "
+              f"{setup['sharded_elements']:,} sharded elements, moments {held[2] / GB:.2f} GiB; "
+              f"allocated after setup {setup['allocated_bytes'] / GB:.2f} GiB; peak "
+              f"{peak / GB:.2f} GiB against the plan's {est_gib:.2f} GiB at dp_shard=2; "
+              f"micro steps 2-3 {[round(x, 4) for x in micro]} s, micro step 4 with the "
+              f"apply step {last:.4f} s, {rows[-1]['s_per_optimizer_step_ga4']:.4f} s an "
+              f"optimizer step at GA {GA}; GB a micro step "
+              f"{ {k: round(v, 4) for k, v in per_micro.items()} }, an optimizer step "
+              f"{ {k: round(v, 4) for k, v in per_optim.items()} }")
+    if len(set(r["device"] for r in ranks)) == 1:
+        total_bytes = torch_total_memory()
+        both = sum(r["max_memory_allocated_bytes"] for r in ranks)
+        print(f"  {label}: both ranks' peaks {both / GB:.2f} GiB on the one card of "
+              f"{total_bytes / GB:.2f} GiB")
+        check(both < total_bytes, f"{label}: the ranks' peaks exceed the card")
+    return {"ranks": rows}
+
+
+def torch_total_memory() -> int:
+    import torch
+    return int(torch.cuda.get_device_properties(0).total_memory)
+
+
+def unet_max_rel_diff(torch, got: Path, want: Path) -> tuple:
+    """max |a - b| / max(|b|, 1e-3) over the UNet tensors of two saved
+    checkpoints (each file's header read once, the tensors compared on the
+    card), and the number of tensors."""
+    import struct
+
+    def index(path):
+        f = open(path, "rb")
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        header.pop("__metadata__", None)
+        return f, 8 + n, header
+
+    def read(f, base, spec):
+        start, end = spec["data_offsets"]
+        f.seek(base + start)
+        raw = bytearray(f.read(end - start))
+        dtype = {"BF16": torch.bfloat16, "F32": torch.float32, "F16": torch.float16}[spec["dtype"]]
+        return torch.frombuffer(raw, dtype=dtype).to("cuda", torch.float32)
+
+    (fa_, ba, ha), (fb, bb, hb) = index(got), index(want)
+    worst, n = 0.0, 0
+    try:
+        keys = [k for k in hb if k.startswith("model.diffusion_model.")]
+        check(keys and set(keys) == {k for k in ha if k.startswith("model.diffusion_model.")},
+              "the two checkpoints hold other UNet tensors")
+        for k in keys:
+            a, b = read(fa_, ba, ha[k]), read(fb, bb, hb[k])
+            worst = max(worst, float(((a - b).abs() / b.abs().clamp(min=1e-3)).max()))
+            n += 1
+    finally:
+        fa_.close()
+        fb.close()
+    return worst, n
+
+
+def dp_phase(torch, work_dir: Path, smi: str):
+    """Both trainers under data parallelism with FSDP on DP ranks
+    (``dp_launch``), on random weights of the full widths and cut depth
+    (DP_SDXL_LAYERS, DP_ANIMA_BLOCKS): the SDXL UNet at the default preset
+    (1024px, BATCH_SIZE 1 a rank, GA 4, raven, bf16, flash), TRAIN_STEPS
+    micro steps, held against one process at BATCH_SIZE 2 over the same
+    steps (losses; the saved UNet within the JAX end-to-end test's bar),
+    then the DiT (Full remat), TRAIN_STEPS micro steps: finite losses. Each
+    rank's flash launches exact, the state half on each rank, and
+    ``dp_rank_summary``'s numbers. Returns the summary."""
+    phase("dp")
+    import numpy as np
+    from aozora_sdxl_training_tpu_torch.cli import train_sdxl
+    from aozora_sdxl_training_tpu_torch.config import schema
+    from aozora_sdxl_training_tpu_torch.config.runtime import RuntimeConfig
+    from dataclasses import replace
+    from aozora_sdxl_training_tpu_torch.data.synthetic import (
+        write_random_sd_checkpoint, write_synthetic_dataset)
+    from aozora_sdxl_training_tpu_torch.models.sdxl.arch import SDXL_BASE, hf_param_names
+    from aozora_sdxl_training_tpu_torch.models.sdxl.clip import ClipTextConfig
+    from aozora_sdxl_training_tpu_torch.train import trainer as trainer_module
+    from aozora_sdxl_training_tpu_torch.train.memory_policy import GB
+    out = {}
+
+    sdxl_dir = work_dir / "sdxl"
+    sdxl_dir.mkdir()
+    layers = DP_SDXL_LAYERS
+    unet_cfg = replace(SDXL_BASE, transformer_layers=(0, layers, layers),
+                       mid_transformer_layers=layers)
+    ckpt = sdxl_dir / "sdxl_cut.safetensors"
+    t0 = time.perf_counter()
+    # the text encoders and the VAE pass through the saves only: small ones
+    counts = write_random_sd_checkpoint(
+        ckpt, seed=1234, unet_cfg=unet_cfg, device="cuda",
+        clip_l=ClipTextConfig(width=16, num_layers=1, num_heads=1),
+        clip_g=ClipTextConfig(width=32, num_layers=1, num_heads=1, activation="gelu",
+                              projection_dim=40), vae_channels=(8, 8, 16, 16))
+    print(f"  {ckpt.name}: UNet of SDXL_BASE's widths with {layers} transformer layer(s) a "
+          f"block at 640 and 1280: {counts['unet']:,} parameters, written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    preset = json.loads((REPO / "configs" / "default_config.json").read_text())
+    preset["sdxl"].update({
+        "sdxl_base_model_path": str(ckpt), "sdxl_output_dir": str(sdxl_dir / "out_dp"),
+        "sdxl_output_name": "dp", "sdxl_max_train_steps": TRAIN_STEPS,
+        "sdxl_instance_datasets": [{"path": str(sdxl_dir / "data"), "repeats": 1}]})
+    config = RuntimeConfig(schema.flatten_preset(preset))
+    check(config.BATCH_SIZE == 1 and config.GRADIENT_ACCUMULATION_STEPS == GA
+          and config.MIXED_PRECISION == "bfloat16", "the default SDXL preset changed")
+    write_synthetic_dataset(sdxl_dir / "data", config, n_images=2, image_size=(1024, 1024),
+                            seq_len=77, embed_dim=SDXL_BASE.cross_attention_dim,
+                            pooled_dim=SDXL_BASE.pooled_projection_dim, seed=7)
+    dp_preset = sdxl_dir / "dp.json"
+    dp_preset.write_text(json.dumps(preset, indent=1))
+    raw, ranks, wall, one_card = dp_launch(torch, sdxl_dir, "sdxl", dp_preset, "dp_sdxl")
+    losses = check_progress(raw, SDXL_PROGRESS, TRAIN_STEPS)
+    check(f"INFO: FSDP over dp={DP} ({'gloo' if one_card else 'nccl'})" in raw,
+          "dp_sdxl: no FSDP line")
+    check(f"sharded over {DP} device(s) (ZeRO)" in raw, "dp_sdxl: the optimizer summary "
+          "does not say the moments are sharded")
+    remat = re.search(r"INFO:   attention: (\S+), remat: (\S+)", raw)
+    check(remat is not None and remat.group(1) == "flash"
+          and remat.group(2) in ("True", "False"), f"dp_sdxl: plan {remat and remat.group(0)}")
+    # self-attention a micro step: 2 down and 3 up attention blocks at each
+    # of the two transformer levels, and the mid block
+    calls = 5 * sum(unet_cfg.transformer_layers) + unet_cfg.mid_transformer_layers
+    fwd = calls * (2 if remat.group(2) == "True" else 1) * TRAIN_STEPS
+    want = {"flash_fwd": fwd, "flash_bwd_dq": calls * TRAIN_STEPS,
+            "flash_bwd_dkv": calls * TRAIN_STEPS}
+    for r, rec in enumerate(ranks):
+        check(rec["launches"] == want, f"dp_sdxl rank {r}: launches {rec['launches']}, "
+              f"expected {want}")
+    out["sdxl"] = {"one_card_gloo": one_card, "losses": losses, "wall_s": wall,
+                   "launches_per_rank": want, **dp_rank_summary("dp_sdxl", ranks, raw, smi)}
+
+    # the control: one process at the global batch
+    preset["sdxl"].update({"sdxl_output_dir": str(sdxl_dir / "out_one"),
+                           "sdxl_batch_size": DP})
+    one_preset = sdxl_dir / "one.json"
+    one_preset.write_text(json.dumps(preset, indent=1))
+    allocated = {}
+    summary_fn = trainer_module.print_optimizer_summary
+
+    def setup_allocated(*args, **kwargs):
+        torch.cuda.synchronize()
+        allocated["bytes"] = torch.cuda.memory_allocated()
+        return summary_fn(*args, **kwargs)
+
+    trainer_module.print_optimizer_summary = setup_allocated
+    try:
+        raw_one, marks, _, peak_one, wall_one = run_trainer_cli(
+            torch, train_sdxl.main, one_preset, sdxl_dir, trainer_module,
+            ("make_micro_step", "make_apply_step"), "chip_smoke_dp_sdxl_one.log")
+    finally:
+        trainer_module.print_optimizer_summary = summary_fn
+    check(RuntimeConfig(schema.flatten_preset(preset)).BATCH_SIZE == DP, "batch 2 not set")
+    losses_one = check_progress(raw_one, SDXL_PROGRESS, TRAIN_STEPS)
+    check(np.allclose(losses, losses_one, rtol=DP_LOSS_RTOL, atol=2e-4),
+          f"dp_sdxl: losses {losses} against one process at batch {DP} {losses_one}")
+    diff, n = unet_max_rel_diff(torch, sdxl_dir / "out_dp" / "dp.safetensors",
+                                sdxl_dir / "out_one" / "dp.safetensors")
+    check(n == len(hf_param_names(unet_cfg)), f"{n} UNet tensors compared")
+    check(diff < DP_MODEL_BAR, f"dp_sdxl: the saved UNet is {diff:.4f} (max relative) off "
+          f"the one-process run's (bar {DP_MODEL_BAR})")
+    micro_one, apply_one = step_times(marks, skip=1)
+    print(f"  [{smi}] dp_sdxl: losses {losses}, one process at batch {DP} {losses_one}; saved "
+          f"UNet max relative difference {diff:.5f} over {n} tensors (bar {DP_MODEL_BAR}); "
+          f"one process: allocated after setup {allocated['bytes'] / GB:.2f} GiB, peak "
+          f"{peak_one:.2f} GB, micro steps 2-4 {[round(x, 4) for x in micro_one]} s, apply "
+          f"{[round(x, 4) for x in apply_one]} s; the ranks' run {wall:.1f} s, one "
+          f"process {wall_one:.1f} s (load and save included)")
+    out["sdxl"].update(one_process={"losses": losses_one, "peak_gb": peak_one,
+                                    "allocated_after_setup_gib": allocated["bytes"] / GB,
+                                    "s_micro_steps": micro_one, "s_apply": apply_one,
+                                    "wall_s": wall_one},
+                       saved_unet_max_rel_diff=diff)
+    shutil_rmtree(sdxl_dir)
+
+    anima_dir = work_dir / "anima"
+    anima_dir.mkdir()
+    cfg, preset_path, _ = anima_env(torch, anima_dir, TRAIN_STEPS, blocks=DP_ANIMA_BLOCKS)
+    raw, ranks, wall, one_card = dp_launch(torch, anima_dir, "anima", preset_path, "dp_anima")
+    losses = check_progress(raw, ANIMA_PROGRESS, TRAIN_STEPS)
+    check(f"INFO: FSDP over dp={DP}" in raw, "dp_anima: no FSDP line")
+    calls = cfg.num_blocks
+    want = {"flash_fwd_d128": 2 * calls * TRAIN_STEPS, "flash_bwd_dq_d128": calls * TRAIN_STEPS,
+            "flash_bwd_dkv_d128": calls * TRAIN_STEPS}
+    for r, rec in enumerate(ranks):
+        check(rec["launches"] == want, f"dp_anima rank {r}: launches {rec['launches']}, "
+              f"expected {want}")
+    out["anima"] = {"one_card_gloo": one_card, "losses": losses, "wall_s": wall,
+                    "launches_per_rank": want, **dp_rank_summary("dp_anima", ranks, raw, smi)}
+    print(f"  [{smi}] dp_anima: losses {losses}; the ranks' run {wall:.1f} s (load included)")
+    shutil_rmtree(anima_dir)
+    return out
+
+
+# --------------------------------------------------------------------------
 
 PHASES = ("kernels", "k5", "k6", "unet", "dit", "vae", "trainer", "anima", "anima_video",
-          "repair", "fp16", "anima_sp", "resume", "plan")
+          "repair", "fp16", "anima_sp", "dp", "resume", "plan")
 USAGE = ("usage: chip_smoke.py [--only PHASE[,PHASE...]]   phases: " + ", ".join(PHASES)
-         + "\n       chip_smoke.py --anima-sp-rank PRESET OUT_DIR   (one torchrun rank)")
+         + "\n       chip_smoke.py --anima-sp-rank PRESET OUT_DIR   (one torchrun rank)"
+         + "\n       chip_smoke.py --dp-rank sdxl|anima PRESET OUT_DIR   (one rank of dp)")
 
 
 def kernels_json(timings, max_err, launches, k5, k6, sm90):
@@ -4004,6 +4413,8 @@ def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else list(argv)
     if args[:1] == ["--anima-sp-rank"] and len(args) == 3:
         return anima_sp_rank(args[1], args[2])
+    if args[:1] == ["--dp-rank"] and len(args) == 4 and args[1] in ("sdxl", "anima"):
+        return dp_rank(args[1], args[2], args[3])
     only = set(PHASES)
     if args[:1] == ["--only"] and len(args) == 2 and set(args[1].split(",")) <= only:
         only = set(args[1].split(","))
@@ -4066,6 +4477,9 @@ def main(argv=None) -> int:
         if "anima_sp" in only:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_anima_sp_") as tmp:
                 summary["anima_sp"] = anima_sp_phase(torch, Path(tmp), TRAIN_STEPS)
+        if "dp" in only:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+                summary["dp"] = dp_phase(torch, Path(tmp), smi)
         if "plan" in only:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_plan_") as tmp:
                 summary["plan"] = plan_phase(

@@ -9,7 +9,11 @@
   A fifth run, two SP ranks with ``AOZORA_LOWMEM_RUNG=two_pass`` at GA 1,
   takes the fused step, as the JAX trainer does under a mesh.
   The SP run reproduces the one-process run at batch 1 and the dp run the
-  one-process run at batch 2: per-step losses and the saved DiT. Only
+  one-process run at batch 2: per-step losses and the saved DiT. The dp
+  run shards its state (FSDP, ``parallel/sharding.FSDP``; the threshold
+  lowered to ``FSDP_MIN`` elements through ``tests/test_torch_port_ranks``'s
+  ``anima_cli``, since TINY's tensors all lie below the JAX package's
+  2^16), and each rank holds half of the sharded elements. Only
   global rank 0 prints the GUI lines and saves; the dp run saves at each
   optimizer step, the DiT and the training state (``schedule_global_batch``
   2), and a trainer whose global rank is not 0 writes no file at all.
@@ -76,6 +80,8 @@ RUNS = {"one_b1": (1, 1, 1), "one_b2": (1, 2, 1), "sp2": (2, 1, 2), "dp2": (2, 1
         "sp2_rung": (2, 1, 2)}
 SAVING = "dp2"      # the run that saves at each optimizer step
 RUNG = "sp2_rung"   # the run with AOZORA_LOWMEM_RUNG=two_pass at GA 1
+SHARDED = "dp2"     # the run whose state FSDP shards
+FSDP_MIN = 4096     # its FSDP threshold (elements)
 
 
 def _flat(root: Path, name: str, batch: int, sp: int) -> dict:
@@ -84,6 +90,10 @@ def _flat(root: Path, name: str, batch: int, sp: int) -> dict:
             "SEQUENCE_PARALLEL_SIZE": sp,
             "GRADIENT_ACCUMULATION_STEPS": 1 if name == RUNG else GA,
             "SAVE_EVERY_N_STEPS": 1 if name == SAVING else 0,
+            # a 2-step preview after each optimizer step (latent-RGB: no VAE
+            # file), which the sharded run gathers on both ranks for rank 0
+            "ANIMA_PREVIEW_EVERY_N_STEPS": 1 if name == SHARDED else 0,
+            "ANIMA_PREVIEW_SAMPLE_STEPS": 2,
             "INSTANCE_DATASETS": [{"path": str(root / "data"), "repeats": 1}]}
 
 
@@ -113,8 +123,10 @@ def runs(tmp_path_factory):
         preset = root / f"{name}.json"
         preset.write_text(json.dumps(schema.nest_flat_config(
             _flat(root, name, batch, sp), "anima")))
-        cmd = [sys.executable, "-m", "aozora_sdxl_training_tpu_torch.cli.train_anima",
-               "--config", str(preset)]
+        cmd = ([sys.executable, "-m", "tests.test_torch_port_ranks", "anima_cli",
+                str(FSDP_MIN), str(preset)] if name == SHARDED else
+               [sys.executable, "-m", "aozora_sdxl_training_tpu_torch.cli.train_anima",
+                "--config", str(preset)])
         rank_envs = world_env(ranks, root / f"{name}_store") if ranks > 1 else [{}]
         for env in rank_envs:
             if name == RUNG:
@@ -256,11 +268,36 @@ def test_make_mesh_groups_on_four_ranks(tmp_path):
 
 
 def test_sdxl_trainer_refuses_more_than_one_process(monkeypatch):
+    """On more than one process the SDXL trainer takes data parallelism
+    (``tests/test_torch_port_sdxl_dp.py``) and refuses tensor parallelism
+    by name."""
     from aozora_sdxl_training_tpu_torch.train import trainer
     monkeypatch.setenv("WORLD_SIZE", "2")
     config = RuntimeConfig({**FLAT, "TRAINING_MODE": "SDXL"}, validate_resume_paths=False)
-    with pytest.raises(NotImplementedError, match="WORLD_SIZE > 1"):
+    trainer._refuse_unported(config)
+    config = RuntimeConfig({**FLAT, "TRAINING_MODE": "SDXL", "TENSOR_PARALLEL_SIZE": 2},
+                           validate_resume_paths=False)
+    with pytest.raises(NotImplementedError, match="TENSOR_PARALLEL_SIZE > 1"):
         trainer._refuse_unported(config)
+
+
+def test_dp_run_shards_half_the_state_on_each_rank(runs):
+    """The dp run's FSDP line (rank 0 prints every rank's count): the
+    tensors of at least ``FSDP_MIN`` elements with an even axis are
+    sharded, and each of the two ranks holds half of their elements (its
+    shards padded to whole 256-element blocks); its previews, gathered on
+    both ranks, are rank 0's PNGs."""
+    root, out = runs
+    text = out[SHARDED][0]
+    assert "INFO: FSDP over dp=2 (gloo)" in text
+    held = re.search(r"FSDP held per rank: sharded elements \[(\d+), (\d+)\] of ([\d,]+)", text)
+    assert held, text
+    a, b, total = int(held.group(1)), int(held.group(2)), int(held.group(3).replace(",", ""))
+    assert a == b and total > 0
+    assert 0.5 <= a / total < 0.5 + 256 * 60 / total
+    assert "sharded over 2 device(s) (ZeRO)" in text
+    previews = sorted(p.name for p in (root / SHARDED / "previews").iterdir())
+    assert previews == [f"step_{n}_latent.png" for n in range(1, STEPS // GA + 1)]
 
 
 def test_a_rank_other_than_0_writes_no_file(runs, monkeypatch):

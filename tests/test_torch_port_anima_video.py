@@ -356,7 +356,7 @@ def test_video_plan_matches_jax(tmp_path, monkeypatch):
                                             device="cpu")
     ((jax_kw, jax_plan),), ((port_kw, port_plan),) = jax_plans, port_plans
     assert jax_kw["tokens"] == port_kw["tokens"] == 3 * (64 // 8 // 2) ** 2
-    assert {k: v for k, v in jax_kw.items() if k not in ("dp_shard", "requested_moment_dtype",
+    assert {k: v for k, v in jax_kw.items() if k not in ("requested_moment_dtype",
                                                          "budget_bytes")} == \
         {k: v for k, v in port_kw.items() if k not in ("requested_moment_dtype",
                                                        "budget_bytes")}

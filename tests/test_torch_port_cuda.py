@@ -25,7 +25,9 @@ the widest SDXL_BASE site (whose fp32 slices outgrow shared memory) and at
 a large mean; two calls must agree bitwise, and the TINY UNet's fused_gn
 route must agree with its unfused one. An optimizer state with bf16 and
 with int8 blockwise moments, updated on the card, goes through the
-training-state file and back onto the card bit for bit. The QAT repair
+training-state file and back onto the card bit for bit. FSDP's
+collectives run over gloo on CUDA tensors (two ranks on the card): the
+gathers exact, the reduce-scatter and sync the plain sums. The QAT repair
 trainer's device projection (train/qat_project.py, plain torch on the
 card) equals the numpy quantizers' round trip bit for bit in all five
 formats, and its error feedback equals the CPU's. The host-moment apply
@@ -576,6 +578,40 @@ def test_anima_cache_encoders_match_the_cpu_on_card(cuda_device):
                     tile_stride=(3, 3)))))
     for want, got in zip(*outs):
         assert _rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_fsdp_collectives_over_gloo_on_cuda_tensors(cuda_device, tmp_path):
+    """Two gloo ranks on the one card (``tests/test_torch_port_ranks.py``,
+    task ``fsdp``): gloo takes all_gather_into_tensor, reduce_scatter_tensor
+    and all_reduce on CUDA tensors (the probe: the task runs each), the
+    gradients stay on the card, each sharded tensor gathers back bit for
+    bit, and the reduce-scatter and sync give the plain sums of the ranks'
+    gradients (fp32, rtol 1e-6), buckets small and large."""
+    import numpy as np
+    from tests.test_torch_port_ranks import run_task
+    rng = np.random.default_rng(0)
+    shapes = {"down.conv.weight": (8, 6, 3, 3), "ff.proj.weight": (40, 12),
+              "norm.bias": (40,), "odd.weight": (7, 9)}
+    for bucket in (64, 1 << 20):
+        arrays = {"dp": 2, "sp": 1, "min": 64, "bucket": bucket, "device": "cuda"}
+        for name, shape in shapes.items():
+            arrays[f"full.{name}"] = rng.normal(size=shape).astype(np.float32)
+            arrays[f"grad.{name}"] = rng.normal(size=(2, *shape)).astype(np.float32)
+        work = tmp_path / str(bucket)
+        work.mkdir()
+        np.savez(work / "inputs.npz", **arrays)
+        for got in run_task("fsdp", 2, work / "inputs.npz", work, timeout=180):
+            assert str(got["backend"]) == "gloo"
+            assert set(got["sharded"]) == {"down.conv.weight", "ff.proj.weight"}
+            for name in shapes:
+                assert str(got[f"device.{name}"]).startswith("cuda")
+                if name in set(got["sharded"]):
+                    np.testing.assert_array_equal(got[f"gathered.{name}"],
+                                                  arrays[f"full.{name}"])
+                np.testing.assert_allclose(got[f"reduced.{name}"],
+                                           arrays[f"grad.{name}"].sum(axis=0),
+                                           rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.cuda

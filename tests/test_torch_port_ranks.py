@@ -11,9 +11,21 @@ Run as a module, a rank runs one task of the tests:
     python -m tests.test_torch_port_ranks ring inputs.npz out_prefix
     python -m tests.test_torch_port_ranks dit  inputs.npz out_prefix
     python -m tests.test_torch_port_ranks mesh inputs.npz out_prefix
+    python -m tests.test_torch_port_ranks fsdp inputs.npz out_prefix
 
-and writes ``<out_prefix>_<rank>.npz``. This module imports no JAX; its
-own tests check the launcher.
+and writes ``<out_prefix>_<rank>.npz``. Or it runs the port's SDXL CLI on
+a preset (the CLI starts the process group), with the trainer's noise
+taken from a table and the optimizer state it restores on resume written
+back out through ``save_train_state`` (every rank joins the gathers):
+
+    python -m tests.test_torch_port_ranks sdxl_cli noise.npy preset.json restored.safetensors
+
+or the port's Anima CLI with FSDP's threshold lowered to ``min_elements``
+(TINY models have no tensor of the JAX package's 2^16 elements):
+
+    python -m tests.test_torch_port_ranks anima_cli min_elements preset.json
+
+This module imports no JAX; its own tests check the launcher.
 """
 
 from __future__ import annotations
@@ -35,14 +47,26 @@ def launch(commands, work_dir: Path, *, timeout: float = 240.0, env=None):
     ``env[i]`` on top of the base environment. If they have not all ended
     within ``timeout`` seconds, every one still running is killed and
     ``subprocess.TimeoutExpired`` is raised."""
+    return finish(start(commands, work_dir, env=env), timeout=timeout)
+
+
+def start(commands, work_dir: Path, *, env=None) -> list:
+    """``launch``'s first half: the processes, started (the caller may work
+    meanwhile); ``finish`` waits for them."""
     base = {k: v for k, v in os.environ.items()
             if not k.startswith(("XLA_", "JAX_", "WORLD_SIZE", "RANK",
                                  "LOCAL_RANK", "AOZORA_DIST_INIT"))}
     base.update({"AOZORA_PLATFORM": "cpu", "OMP_NUM_THREADS": "1",
                  "PYTHONPATH": str(REPO), "GLOO_SOCKET_IFNAME": "lo"})
-    procs = [subprocess.Popen(cmd, cwd=work_dir, env={**base, **(env[i] if env else {})},
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for i, cmd in enumerate(commands)]
+    return [subprocess.Popen(cmd, cwd=work_dir, env={**base, **(env[i] if env else {})},
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for i, cmd in enumerate(commands)]
+
+
+def finish(procs: list, *, timeout: float = 240.0):
+    """``launch``'s second half: [(returncode, stdout, stderr)] of the
+    started processes, all killed if they have not ended in ``timeout``
+    seconds (``subprocess.TimeoutExpired``)."""
     deadline = time.monotonic() + timeout
     results = []
     try:
@@ -144,14 +168,114 @@ def _mesh(inputs, group, n):
             "dp_sum": sums[0].item(), "sp_sum": sums[1].item()}
 
 
+def _fsdp(inputs, group, n):
+    """FSDP over the ``dp`` x ``sp`` mesh (fp32 compute copies, the SDXL
+    layout, every tensor of ``min`` elements or more with a dp-divisible
+    axis sharded) on the tensors ``full.<name>``, on ``device`` (the CPU by
+    default; "cuda": gloo on CUDA tensors): each sharded tensor gathered
+    from its shards; then each rank's gradient ``grad.<name>[rank]`` put on
+    the compute copies, reduce-scattered and synced as a step does, the
+    result gathered whole, and the global norm."""
+    import torch
+    from aozora_sdxl_training_tpu_torch.models.sdxl.conversion import (
+        from_jax_layout, to_jax_layout)
+    from aozora_sdxl_training_tpu_torch.opt.adamw import Layout
+    from aozora_sdxl_training_tpu_torch.parallel import sharding
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    device = torch.device(str(inputs["device"]) if "device" in inputs else "cpu")
+    mesh = sharding.make_mesh(dp=int(inputs["dp"]), sp=int(inputs["sp"]))
+    full = {k[5:]: torch.from_numpy(inputs[k]).to(device)
+            for k in inputs if k.startswith("full.")}
+    fsdp = sharding.FSDP(mesh, {k: tuple(v.shape) for k, v in full.items()},
+                         Layout(to_jax_layout, from_jax_layout), torch.float32,
+                         min_elements=int(inputs["min"]), bucket_bytes=int(inputs["bucket"]))
+    params = {k: v.clone().requires_grad_(True) for k, v in full.items()}
+    fsdp.shard_params(params)
+    out = {f"gathered.{k}": fsdp.gather(k, p.detach()).cpu().numpy()
+           for k, p in params.items() if k in fsdp.specs}
+    out["backend"] = fsdp.backend
+    out["sharded"] = np.array(sorted(fsdp.specs))
+    out["held"] = np.array([p.numel() for k, p in params.items() if k in fsdp.specs])
+    copies = fsdp.compute_copies(params)
+    for k, c in copies.items():
+        c.grad = torch.from_numpy(inputs[f"grad.{k}"][rank]).to(device)
+    fsdp.reduce_scatter(copies, params)
+    fsdp.sync(params)
+    for k, p in params.items():
+        out[f"reduced.{k}"] = (fsdp.gather(k, p.grad) if k in fsdp.specs
+                               else p.grad).cpu().numpy()
+        out[f"device.{k}"] = str(p.grad.device)
+    out["norm"] = float(fsdp.grad_norm({k: p.grad for k, p in params.items()}))
+    return out
+
+
+def sdxl_cli(noise: str, preset: str, restored: str) -> int:
+    """The port's SDXL CLI on ``preset`` (one process, or a rank of the
+    world in this process's environment) over a synthetic cache (no source
+    images: the cache check is skipped), computing in fp32 (the presets'
+    ``MIXED_PRECISION`` has no fp32 value), its noise table[micro_step]
+    from ``noise``; a restored optimizer state is written to ``restored``
+    as the trainer holds it (gathered under FSDP)."""
+    import torch
+    from aozora_sdxl_training_tpu_torch.ckpt import train_state
+    from aozora_sdxl_training_tpu_torch.cli import train_sdxl
+    from aozora_sdxl_training_tpu_torch.config.runtime import RuntimeConfig
+    from aozora_sdxl_training_tpu_torch.opt import adamw
+    from aozora_sdxl_training_tpu_torch.parallel import sharding
+    from aozora_sdxl_training_tpu_torch.train import objectives, trainer
+    table = np.load(noise)
+    objectives.noise_for_step = (
+        lambda seed, ms, shape, device: torch.from_numpy(table[ms]).to(device))
+    trainer.check_if_caching_needed = lambda config: False
+    parse = RuntimeConfig.from_argv
+
+    def fp32(argv):
+        config = parse(argv)
+        config.compute_dtype = torch.float32
+        return config
+
+    RuntimeConfig.from_argv = staticmethod(fp32)
+    made, init, restore = [], sharding.FSDP.__init__, adamw.restored_state
+
+    def kept(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+
+    def restored_state(*a, **kw):
+        state = restore(*a, **kw)
+        train_state.save_train_state(
+            restored, global_step=0, micro_step=0, opt_state=state, sampler_seed=0,
+            sampler_epoch=0, timestep_sampler_state=None,
+            fsdp=made[-1] if made else None)
+        return state
+
+    sharding.FSDP.__init__ = kept
+    adamw.restored_state = restored_state
+    train_sdxl.main(["--config", preset])
+    return 0
+
+
+def anima_cli(min_elements: str, preset: str) -> int:
+    from aozora_sdxl_training_tpu_torch.cli import train_anima
+    from aozora_sdxl_training_tpu_torch.parallel import sharding
+    sharding.MIN_SHARD_ELEMENTS = int(min_elements)
+    train_anima.main(["--config", preset])
+    return 0
+
+
 def main(argv) -> int:
     import torch.distributed as dist
     from aozora_sdxl_training_tpu_torch.parallel import sharding
+    if argv[:1] == ["sdxl_cli"]:
+        return sdxl_cli(*argv[1:])
+    if argv[:1] == ["anima_cli"]:
+        return anima_cli(*argv[1:])
     task, inputs, prefix = argv
     sharding.init_distributed()
     try:
         n, rank = dist.get_world_size(), dist.get_rank()
-        result = {"ring": _ring, "dit": _dit, "mesh": _mesh}[task](
+        result = {"ring": _ring, "dit": _dit, "mesh": _mesh, "fsdp": _fsdp}[task](
             dict(np.load(inputs)), dist.group.WORLD, n)
         np.savez(f"{prefix}_{rank}.npz", **result)
     finally:
