@@ -21,7 +21,11 @@ Under FSDP (``parallel/sharding.FSDP``) the state is sharded: every rank
 gathers each sharded moment when its turn comes and global rank 0 writes
 the same file as one process; on resume every rank reads the file and
 keeps its shards (``FSDP.shard_state``), so a state resumes on any number
-of ranks.
+of ranks. Under pipeline parallelism the moments of a stage-stacked block
+leaf are keyed ``__stack__.<suffix>`` and shaped ``[num_blocks, ...]`` in
+the JAX layout, as the JAX package's pipeline run saves them: every stage
+gathers its slices to the whole leaf when its turn comes (int8 codes over
+the whole leaf's blocks, as the JAX package blocks them).
 
 Filenames mirror the reference:
 ``{stem}_step_{N}.safetensors`` + ``{stem}_training_state_step_{N}.safetensors``.
@@ -97,6 +101,7 @@ def save_train_state(path, *, global_step: int, micro_step: int,
         opt_state.host.synchronize()
     to_jax = opt_state.layout.to_jax
     specs = fsdp.specs if fsdp is not None else {}
+    stages = fsdp.stages if fsdp is not None else {}
     tensors = {"opt.step": np.asarray(opt_state.step, np.int32)}
 
     def lazy(t):
@@ -117,11 +122,29 @@ def save_train_state(path, *, global_step: int, micro_step: int,
                 ((-(-spec.numel // INT8_BLOCK),), np.dtype(np.float32),
                  lambda: _host_array(whole.pop("scales"))))
 
+    def staged(name, value):
+        spec = stages[name]
+        return (spec.jax_shape, _NUMPY_OF_TORCH[value.dtype],
+                lambda: _host_array(fsdp.gather_stages(name, to_jax(name, value))))
+
+    def staged_int8(name, codes, scales):
+        spec, whole = stages[name], {}
+
+        def codes_whole():
+            c, whole["scales"] = fsdp.gather_stages_int8(name, codes, scales)
+            return _host_array(c)
+        return ((spec.jax_shape, np.dtype(np.int8), codes_whole),
+                ((-(-spec.numel // INT8_BLOCK),), np.dtype(np.float32),
+                 lambda: _host_array(whole.pop("scales"))))
+
     def put(prefix, name, value):
         if isinstance(value, tuple):  # int8_blockwise (codes, scales)
             tensors[f"{prefix}.{name}"], tensors[f"{prefix}.{name}@scales"] = (
                 gathered_int8(name, *value) if name in specs
+                else staged_int8(name, *value) if name in stages
                 else (lazy(value[0]), lazy(value[1])))
+        elif name in stages:
+            tensors[f"{prefix}.{name}"] = staged(name, value)
         elif name in specs:
             tensors[f"{prefix}.{name}"] = gathered(name, value)
         else:

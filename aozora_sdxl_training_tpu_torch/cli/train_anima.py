@@ -4,8 +4,8 @@ trainer CLI (same JSON schema, same stdout grammar). Runs on CUDA; set
 ``AOZORA_PLATFORM=cpu`` to run on the CPU.
 
 Under torchrun it trains on every rank of the world, with the preset's
-``SEQUENCE_PARALLEL_SIZE`` (ring attention) and data parallelism over the
-rest:
+``SEQUENCE_PARALLEL_SIZE`` (ring attention) or ``PIPELINE_PARALLEL_SIZE``
+(GPipe stages of the DiT blocks) and data parallelism over the rest:
 
     torchrun --nproc_per_node 2 -m aozora_sdxl_training_tpu_torch.cli.train_anima \\
         --config preset.json

@@ -112,20 +112,25 @@ def write_synthetic_anima_dataset(root, config, *, n_images: int,
                                   seed: int = 0) -> Path:
     """Anima: images under ``root`` and their cache: latents (H/8, W/8,
     ``latent_channels``) bf16, ``prompt_emb`` (512, ``source_dim``) fp32 and
-    ``t5xxl_ids`` (512,) int32 from 1 to ``vocab`` - 1. Returns the cache
+    ``t5xxl_ids`` (512,) int32 from 1 to ``vocab`` - 1. In video mode
+    (``ANIMA_VIDEO_FRAMES`` > 1) each latent is a clip's (T', H/8, W/8,
+    ``latent_channels``), T' = 1 + (frames - 1) // 4. Returns the cache
     dir."""
     from .anima_cache import (ANIMA_CACHE_VERSION, CONTEXT_TOKENS,
-                              anima_cache_dir_name, anima_cache_options)
+                              anima_cache_dir_name, anima_cache_options,
+                              clip_frames_for_config)
     root = Path(root)
     options = anima_cache_options(config)
     cache_dir = root / anima_cache_dir_name(config)
+    frames = clip_frames_for_config(config)
+    lead = (1 + (frames - 1) // 4,) if frames > 1 else ()
 
     def payloads(rng, tw, th):
         return ({"prompt_emb": rng.normal(size=(CONTEXT_TOKENS, source_dim)
                                           ).astype(np.float32),
                  "t5xxl_ids": rng.integers(1, vocab, size=(CONTEXT_TOKENS,)
                                            ).astype(np.int32)},
-                {"latents": (rng.normal(size=(th // 8, tw // 8, latent_channels))
+                {"latents": (rng.normal(size=(*lead, th // 8, tw // 8, latent_channels))
                              * 0.5).astype(_BF16)})
 
     files = _write_items(root, config, options, cache_dir, n_images, image_size,

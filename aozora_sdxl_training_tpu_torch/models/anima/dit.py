@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from ...ops.attention import attention
 from ...ops.ring_attention import SPRingConfig, sp_ring_attention
 from ...ops.remat import linear_kept, remat as remat_region
+from ...parallel.pipeline import STACK_PREFIX
 
 Params = dict[str, torch.Tensor]
 
@@ -397,6 +398,21 @@ def block_remat_mode(mode):
                      "or 'conservative'")
 
 
+def make_block_fn(cfg: AnimaDiTConfig, attn_impl, remat):
+    """The per-block callable ``block_fn(params, prefix, x, emb, context,
+    rope, lora)``: ``dit_block`` under the remat that ``block_remat_mode``
+    chooses (the JAX package's ``make_block_fn``). The sequential forward
+    and each GPipe stage (``parallel/pipeline.py``) run their blocks
+    through it."""
+    mode = block_remat_mode(remat)
+
+    def block_fn(params, prefix, x, emb, context, rope, lora):
+        return remat_region(dit_block, mode, params, prefix, x, emb, context, rope,
+                            lora, cfg, attn_impl)
+
+    return block_fn
+
+
 def dit_epilogue(params: Params, x, emb, lora, orig, *, cfg: AnimaDiTConfig,
                  compute_dtype=torch.bfloat16):
     """Final 2-chunk AdaLN + linear + unpatchify + crop."""
@@ -420,10 +436,9 @@ def dit_forward(params: Params, latents, timesteps, context, *,
     x, emb, context, rope, lora, orig = dit_prologue(
         params, latents, timesteps, context, cfg=cfg, t5_ids=t5_ids,
         attn_impl=attn_impl, compute_dtype=compute_dtype)
-    mode = block_remat_mode(remat)
+    block_fn = make_block_fn(cfg, attn_impl, remat)
     for i in range(cfg.num_blocks):
-        x = remat_region(dit_block, mode, params, f"blocks.{i}", x, emb, context,
-                         rope, lora, cfg, attn_impl)
+        x = block_fn(params, f"blocks.{i}", x, emb, context, rope, lora)
     return dit_epilogue(params, x, emb, lora, orig, cfg=cfg,
                         compute_dtype=compute_dtype)
 
@@ -554,7 +569,10 @@ def params_to_torch_state(params: Params) -> dict:
 def from_jax_layout(name: str, t: torch.Tensor) -> torch.Tensor:
     """One DiT tensor of the JAX package's layout in the port's, as a view:
     linear weights (in, out) -> (out, in); embeddings and the rest as they
-    are."""
+    are. A stacked block leaf (``__stack__.<suffix>``, [blocks, ...]; the
+    blocks hold no embedding) transposes each block's linear weight."""
+    if name.startswith(STACK_PREFIX):
+        return t.transpose(-1, -2) if t.dim() == 3 else t
     return t.t() if _is_linear(name, t.shape) else t
 
 

@@ -3,8 +3,9 @@ the ranks of a ``torch.distributed`` group (sequence parallelism).
 
 Counterpart of ``aozora_sdxl_training_tpu/ops/ring_attention.py``. Each
 rank holds its Q/K/V token shard; the K/V shards travel the ring, one
-``dist.batch_isend_irecv`` per hop (send to group rank r+1, receive from
-r-1), and each hop's partial attention, from the K5 entry points
+``parallel.p2p.exchange`` per hop (send to group rank r+1, receive from
+r-1; staged through pinned host memory where a gloo group carries CUDA
+tensors), and each hop's partial attention, from the K5 entry points
 (``flash_fwd_stats``), merges exactly through its log-sum-exp. The backward
 is the JAX package's hand-built ring: with the GLOBAL (out, lse) saved from
 the forward, ``flash_bwd_stats`` gives each (q shard, kv shard) pair's exact
@@ -29,6 +30,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.distributed as dist
 
+from ..parallel.p2p import exchange
 from .flash_attention import flash_bwd_stats, flash_fwd_stats
 
 
@@ -61,20 +63,15 @@ def _merge(o_acc, l_acc, o_new, l_new):
 
 def _hop(tensors, group):
     """Every rank sends ``tensors`` to group rank r+1 and receives the same
-    shapes from r-1, in one ``batch_isend_irecv``."""
+    shapes from r-1, in one ``parallel.p2p.exchange``."""
     n = dist.get_world_size(group)
     if n == 1:
         return list(tensors)
     r = dist.get_rank(group)
     perm = _ring_perm(n)
-    dst = dist.get_global_rank(group, dict(perm)[r])
-    src = dist.get_global_rank(group, {j: i for i, j in perm}[r])
-    received = [torch.empty_like(t) for t in tensors]
-    ops = ([dist.P2POp(dist.isend, t.contiguous(), dst, group) for t in tensors]
-           + [dist.P2POp(dist.irecv, t, src, group) for t in received])
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return received
+    dst, src = dict(perm)[r], {j: i for i, j in perm}[r]
+    return exchange([(t, dst) for t in tensors], [(t, src) for t in tensors], group,
+                    kind="ring")
 
 
 def _ring_forward(q, k, v, group, axis_size, scale):

@@ -57,13 +57,26 @@ class Layout(NamedTuple):
     views a tensor of the port's layout in the JAX package's, ``from_jax``
     is its inverse. ``numel(name, t)`` is the element count of the whole
     parameter that ``t`` holds (under FSDP a shard holds part of one:
-    ``parallel/sharding.FSDP.opt_layout``); None: ``t``'s own."""
+    ``parallel/sharding.FSDP.opt_layout``); None: ``t``'s own.
+    ``part(name)`` -> (lead, merge) where ``t`` is a part of its parameter
+    that may start inside an int8 block (a pipeline stage's slice of a
+    stacked leaf): ``lead`` elements of its first block lie before it, and
+    ``merge`` takes the part's block maxima to the whole blocks' (a
+    collective; None where every part starts on a block); None: (0, None)."""
     to_jax: Callable[[str, torch.Tensor], torch.Tensor]
     from_jax: Callable[[str, torch.Tensor], torch.Tensor]
     numel: Callable[[str, torch.Tensor], int] | None = None
+    part: Callable[[str], tuple] | None = None
 
     def elements(self, name: str, t: torch.Tensor) -> int:
         return t.numel() if self.numel is None else self.numel(name, t)
+
+    def int8_part(self, name: str) -> tuple:
+        return (0, None) if self.part is None else self.part(name)
+
+    def scale_blocks(self, name: str, t: torch.Tensor) -> int:
+        """The int8 scales that ``t``'s codes take."""
+        return _int8_blocks(self.int8_part(name)[0] + t.numel())
 
 
 def _same(name: str, t: torch.Tensor) -> torch.Tensor:
@@ -114,36 +127,48 @@ def _int8_blocks(n: int) -> int:
     return -(-n // INT8_BLOCK)
 
 
-def quantize_moment_int8(m32: torch.Tensor):
+def quantize_moment_int8(m32: torch.Tensor, lead: int = 0, merge=None):
     """fp32 tensor -> (int8 codes [same shape], fp32 scales [n_blocks]):
     256-element blocks over the flat order, each block's absmax (over its
-    zero padding too) / 127 as its scale, codes rounded half to even."""
+    zero padding too) / 127 as its scale, codes rounded half to even.
+    ``lead``/``merge``: ``m32`` is a part of a tensor that starts ``lead``
+    elements into its first block, and ``merge`` gives the whole blocks'
+    absmax from the part's (``Layout.part``)."""
     flat = m32.reshape(-1)
     n = flat.numel()
-    nb = _int8_blocks(n)
-    blocks = F.pad(flat, (0, nb * INT8_BLOCK - n)).view(nb, INT8_BLOCK)
-    scales = torch.clamp(blocks.abs().amax(dim=1), min=1e-30) / 127.0
+    nb = _int8_blocks(lead + n)
+    blocks = F.pad(flat, (lead, nb * INT8_BLOCK - n - lead)).view(nb, INT8_BLOCK)
+    amax = blocks.abs().amax(dim=1)
+    if merge is not None:
+        amax = merge(amax)
+    scales = torch.clamp(amax, min=1e-30) / 127.0
     codes = torch.clamp(torch.round(blocks / scales[:, None]), -127, 127)
-    return (codes.view(-1)[:n].reshape(m32.shape).to(torch.int8),
+    return (codes.view(-1)[lead:lead + n].reshape(m32.shape).to(torch.int8),
             scales.float())
 
 
-def dequantize_moment_int8(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+def dequantize_moment_int8(codes: torch.Tensor, scales: torch.Tensor,
+                           lead: int = 0) -> torch.Tensor:
     flat = codes.reshape(-1).float()
-    nb = scales.shape[0]
-    out = F.pad(flat, (0, nb * INT8_BLOCK - flat.numel())).view(nb, INT8_BLOCK)
+    n, nb = flat.numel(), scales.shape[0]
+    out = F.pad(flat, (lead, nb * INT8_BLOCK - n - lead)).view(nb, INT8_BLOCK)
     out = out * scales[:, None]
-    return out.view(-1)[: flat.numel()].reshape(codes.shape)
+    return out.view(-1)[lead:lead + n].reshape(codes.shape)
 
 
-def quantize_second_moment_int8(v32: torch.Tensor):
+def quantize_second_moment_int8(v32: torch.Tensor, lead: int = 0, merge=None):
     """Second moments quantize in the sqrt domain: v spans ~6 orders of
-    magnitude within a block, sqrt(v) only ~3."""
-    return quantize_moment_int8(torch.sqrt(torch.clamp(v32, min=0.0)))
+    magnitude within a block, sqrt(v) only ~3. The root is taken in float64
+    and rounded once to fp32, the correctly rounded root that XLA gives:
+    torch's vectorized CPU sqrt (0.5001 ulp) misses it now and then, which
+    moves a block's scale by an ulp."""
+    root = torch.sqrt(torch.clamp(v32, min=0.0).double()).float()
+    return quantize_moment_int8(root, lead, merge)
 
 
-def dequantize_second_moment_int8(codes: torch.Tensor, scales: torch.Tensor):
-    root = dequantize_moment_int8(codes, scales)
+def dequantize_second_moment_int8(codes: torch.Tensor, scales: torch.Tensor,
+                                  lead: int = 0):
+    root = dequantize_moment_int8(codes, scales, lead)
     return root * root
 
 
@@ -309,7 +334,7 @@ def _host_state(params: dict, cfg: AdamWConfig, layout: Layout, host_window: int
     def specs(name, p):
         shape, dtype = _moment_storage(name, p, cfg, layout)
         if dtype == torch.int8:
-            return [(shape, dtype), ((_int8_blocks(p.numel()),), torch.float32)]
+            return [(shape, dtype), ((layout.scale_blocks(name, p),), torch.float32)]
         return [(shape, dtype)]
 
     device = next(iter(params.values())).device if params else torch.device("cpu")
@@ -342,7 +367,7 @@ def init_state(params: dict, cfg: AdamWConfig, layout: Layout = SAME_LAYOUT, *,
             out[name] = torch.zeros(shape, dtype=dtype, device=p.device)
             if dtype == torch.int8:
                 out[name] = (out[name], torch.full(
-                    (_int8_blocks(p.numel()),), 1e-30, dtype=torch.float32,
+                    (layout.scale_blocks(name, p),), 1e-30, dtype=torch.float32,
                     device=p.device))
         return out
     return AdamWState(step=0, exp_avg=zeros(), exp_avg_sq=zeros(), layout=layout)
@@ -419,8 +444,9 @@ def update_tensor(name: str, p: torch.Tensor, grad: torch.Tensor, m, v,
     del grad
     int8_here = isinstance(m, tuple)
     if int8_here:
-        m32 = layout.from_jax(name, dequantize_moment_int8(*m))
-        v32 = layout.from_jax(name, dequantize_second_moment_int8(*v))
+        lead, merge = layout.int8_part(name)
+        m32 = layout.from_jax(name, dequantize_moment_int8(*m, lead))
+        v32 = layout.from_jax(name, dequantize_second_moment_int8(*v, lead))
     else:
         m32, v32 = m.float(), v.float()
     m32 = m32 * beta1 + g32 * (1.0 - beta1)
@@ -432,8 +458,8 @@ def update_tensor(name: str, p: torch.Tensor, grad: torch.Tensor, m, v,
     p.copy_(p32)
     if int8_here:
         for held, new in zip((*m, *v), (
-                *quantize_moment_int8(layout.to_jax(name, m32)),
-                *quantize_second_moment_int8(layout.to_jax(name, v32)))):
+                *quantize_moment_int8(layout.to_jax(name, m32), lead, merge),
+                *quantize_second_moment_int8(layout.to_jax(name, v32), lead, merge))):
             held.copy_(new)
     else:
         m.copy_(m32)

@@ -8,8 +8,9 @@ each under ``AOZORA_PLATFORM=cpu`` with the ``gloo`` backend):
 
 * ``resolve_mesh_layout`` takes the JAX function's decisions, fallbacks and
   messages word for word, over ranks instead of devices;
-* ``make_mesh`` builds the dp and sp process groups of a dp x sp layout
-  (rank = dp_index * sp + sp_index, the JAX mesh's row-major order);
+* ``make_mesh`` builds the process groups of a dp x sp or a dp x pp
+  layout (rank = dp_index * sp + sp_index, or dp_index * pp + pp_index:
+  the JAX mesh's row-major order);
 * ``init_distributed`` / ``destroy_distributed`` start and end the
   process group of a run;
 * ``FSDP`` shards the tensors that the JAX package's
@@ -18,7 +19,11 @@ each under ``AOZORA_PLATFORM=cpu`` with the ``gloo`` backend):
   of a training step over them: the gather of each compute copy, the
   bucketed reduce-scatter of gradients into the sharded accumulators, the
   bucketed all-reduce of the replicated tensors' gradients and the global
-  gradient norm.
+  gradient norm. Under pipeline parallelism (``parallel/pipeline.py``) it
+  also keeps each stage-stacked block leaf (``__stack__.<suffix>``) as this
+  rank's stage slice, never sharded over dp (the JAX package gives them
+  ``P("pp")``), gathers the slices over the pp group for a save or a
+  preview, and counts them in the norm once each.
 
 The shard layout is the port's own: a sharded tensor's elements, in the
 JAX package's layout (``to_jax_layout``), are cut into dp contiguous
@@ -27,7 +32,7 @@ the last one padded with zeros. Whichever axis holds the shards, the
 step computes the same numbers; this layout keeps every int8 block whole
 on one rank, so a sharded int8 moment holds the whole tensor's codes, and
 a gathered moment is already in the training-state file's layout.
-Tensor and pipeline parallelism are not ported yet.
+Tensor parallelism is not ported yet.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ import torch
 import torch.distributed as dist
 
 from ..opt.adamw import INT8_BLOCK, AdamWState, Layout
+from .pipeline import STACK_PREFIX
 
 # where the ranks meet: torchrun's MASTER_ADDR/MASTER_PORT by default; the
 # tests point it at a file:// store
@@ -62,14 +68,18 @@ class MeshLayout(NamedTuple):
 
 
 class Mesh(NamedTuple):
-    """The process groups of a dp x sp layout, seen from this rank."""
+    """The process groups of a dp x sp or dp x pp layout, seen from this
+    rank."""
 
     dp: int
     sp: int
     dp_rank: int
     sp_rank: int
-    dp_group: Any    # the dp ranks that share this rank's sp index
+    dp_group: Any    # the dp ranks that share this rank's sp (or pp) index
     sp_group: Any    # the sp ranks that share this rank's dp index
+    pp: int = 1
+    pp_rank: int = 0
+    pp_group: Any = None   # the pp stages that share this rank's dp index
 
 
 def world_size() -> int:
@@ -146,21 +156,39 @@ def resolve_mesh_layout(config) -> MeshLayout:
 
 def make_mesh(devices=None, *, dp: int | None = None, tp: int = 1,
               sp: int = 1, pp: int = 1) -> Mesh:
-    """The dp and sp process groups over ``devices`` (global ranks; the
-    whole world by default). Every rank of the world must call it, in the
-    same order, as ``dist.new_group`` requires."""
+    """The dp and sp (or pp) process groups over ``devices`` (global ranks;
+    the whole world by default). Every rank of the world must call it, in
+    the same order, as ``dist.new_group`` requires. sp and pp never
+    combine (``resolve_mesh_layout`` sees to it)."""
     devices = list(devices if devices is not None else range(dist.get_world_size()))
     tp, sp, pp = max(1, int(tp)), max(1, int(sp)), max(1, int(pp))
-    if tp > 1 or pp > 1:
+    if tp > 1:
         raise NotImplementedError(
-            "TENSOR/PIPELINE_PARALLEL_SIZE > 1 is not ported to the PyTorch "
-            "package yet (only dp x sp)")
-    dp = dp or len(devices) // sp
-    if dp * sp > len(devices) or len(devices) % (dp * sp):
+            "TENSOR_PARALLEL_SIZE > 1 is not ported to the PyTorch package yet "
+            "(only dp x sp and dp x pp)")
+    dp = dp or len(devices) // (sp * pp)
+    if dp * sp * pp > len(devices) or len(devices) % (dp * sp * pp):
         raise ValueError(f"{len(devices)} devices not divisible by "
                          f"dp={dp} x tp={tp} x sp={sp} x pp={pp}")
     rank = dist.get_rank()
     index = devices.index(rank)
+    if pp > 1:
+        # GPipe stages: block params stage-stack over pp, everything else
+        # replicates over it (parallel/pipeline.py)
+        dp_rank, pp_rank = divmod(index, pp)
+        dp_group = pp_group = None
+        for i in range(pp):                  # the dp groups, one per stage
+            group = dist.new_group([devices[j * pp + i] for j in range(dp)])
+            if i == pp_rank:
+                dp_group = group
+        for j in range(dp):                  # the pp groups, one per dp index
+            group = dist.new_group([devices[j * pp + i] for i in range(pp)])
+            if j == dp_rank:
+                pp_group = group
+        # a first collective on the stage group before its point-to-point
+        # hops, which NCCL asks of a group's first use
+        dist.barrier(group=pp_group)
+        return Mesh(dp, 1, dp_rank, 0, dp_group, None, pp, pp_rank, pp_group)
     dp_rank, sp_rank = divmod(index, sp)
     dp_group = sp_group = None
     for i in range(sp):                      # the dp groups, one per sp index
@@ -175,7 +203,7 @@ def make_mesh(devices=None, *, dp: int | None = None, tp: int = 1,
 
 
 def mesh_for(layout: MeshLayout) -> Mesh | None:
-    """The dp x sp process groups of ``layout``, or None on one device."""
+    """The process groups of ``layout``, or None on one device."""
     ranks = world_size()
     if ranks != len(layout.devices):
         raise RuntimeError(
@@ -188,7 +216,8 @@ def mesh_for(layout: MeshLayout) -> Mesh | None:
             f"WORLD_SIZE={ranks}: the process group is not started; run "
             "through the CLI, which starts it, or call "
             "parallel.sharding.init_distributed() first")
-    return make_mesh(layout.devices, dp=layout.dp, tp=layout.tp, sp=layout.sp)
+    return make_mesh(layout.devices, dp=layout.dp, tp=layout.tp, sp=layout.sp,
+                     pp=layout.pp)
 
 
 def init_distributed() -> torch.device | None:
@@ -249,6 +278,28 @@ def shards_over_dp(shape, dp: int, min_elements: int = MIN_SHARD_ELEMENTS) -> bo
     return any(int(d) % dp == 0 for d in shape)
 
 
+def _touched_blocks(start: int, size: int) -> tuple:
+    """(first block, block count) of the int8 blocks that ``size``
+    elements from flat element ``start`` touch."""
+    return start // INT8_BLOCK, -(-(start % INT8_BLOCK + size) // INT8_BLOCK)
+
+
+class StageSpec(NamedTuple):
+    """One stage-stacked block leaf under pipeline parallelism: the whole
+    leaf's shape ([num_blocks, ...]) in the port's layout and in the JAX
+    package's, its element count, and this stage's slice: its first block,
+    its blocks, and its first element and element count in the whole
+    leaf's flat order (the same in both layouts: they differ within a
+    block only)."""
+    shape: tuple
+    jax_shape: tuple
+    numel: int
+    first: int
+    blocks: int
+    offset: int
+    size: int
+
+
 class ShardSpec(NamedTuple):
     """One sharded tensor: its shape in the port's layout and in the JAX
     package's, its element count and the elements of each rank's shard."""
@@ -290,14 +341,25 @@ class FSDP:
                  min_elements: int | None = None, bucket_bytes: int = BUCKET_BYTES):
         self.dp, self.rank, self.group = mesh.dp, mesh.dp_rank, mesh.dp_group
         self.sp, self.sp_group = mesh.sp, mesh.sp_group
+        self.pp, self.pp_rank, self.pp_group = mesh.pp, mesh.pp_rank, mesh.pp_group
         self.layout, self.compute_dtype = layout, compute_dtype
         self.bucket_bytes = int(bucket_bytes)
         min_elements = MIN_SHARD_ELEMENTS if min_elements is None else int(min_elements)
         block = self.dp * INT8_BLOCK
-        self.specs = {}
+        self.specs, self.stages = {}, {}
         for name, shape in shapes.items():
             shape = tuple(int(d) for d in shape)
-            if shards_over_dp(shape, self.dp, min_elements):
+            if name.startswith(STACK_PREFIX):
+                # a stacked block leaf never shards over dp; under pp each
+                # rank keeps its stage's blocks
+                if self.pp > 1:
+                    blocks = shape[0] // self.pp
+                    n, per = math.prod(shape), math.prod(shape[1:])
+                    jax_shape = tuple(layout.to_jax(name, torch.empty(shape, device="meta")).shape)
+                    self.stages[name] = StageSpec(
+                        shape, jax_shape, n, self.pp_rank * blocks, blocks,
+                        self.pp_rank * blocks * per, blocks * per)
+            elif shards_over_dp(shape, self.dp, min_elements):
                 n = math.prod(shape)
                 jax_shape = tuple(layout.to_jax(name, torch.empty(shape, device="meta")).shape)
                 self.specs[name] = ShardSpec(shape, jax_shape, n, -(-n // block) * INT8_BLOCK)
@@ -314,12 +376,90 @@ class FSDP:
     def opt_layout(self) -> Layout:
         """The optimizer's layout: a sharded tensor's moments are already
         in the JAX package's (flat) order, and its int8 decision is made on
-        the whole tensor's element count."""
-        base, specs = self.layout, self.specs
+        the whole tensor's element count. A stage slice's int8 decision is
+        made on the whole stacked leaf's count too, and its blocks are the
+        whole leaf's (``Layout.part``): a slice that starts inside a block
+        shares that block's scale with the stage before it."""
+        base, specs, stages = self.layout, self.specs, self.stages
+
+        def numel(name, t):
+            spec = specs.get(name) or stages.get(name)
+            return spec.numel if spec is not None else t.numel()
+
+        def part(name):
+            spec = stages.get(name)
+            if spec is None:
+                return 0, None
+            aligned = spec.size % INT8_BLOCK == 0
+            return spec.offset % INT8_BLOCK, (None if aligned else
+                                              lambda amax: self._merge_amax(spec, amax))
         return Layout(
             lambda name, t: t if name in specs else base.to_jax(name, t),
             lambda name, t: t if name in specs else base.from_jax(name, t),
-            lambda name, t: specs[name].numel if name in specs else t.numel())
+            numel, part)
+
+    def _merge_amax(self, spec: StageSpec, amax: torch.Tensor) -> torch.Tensor:
+        """The whole blocks' maxima from this stage's part (``amax``, one
+        a block it touches): its first and last block take the maxima of
+        every stage that touches them (an all-gather over the pp group)."""
+        ends = torch.stack([amax[0], amax[-1]]).float()
+        every = torch.empty(2 * self.pp, dtype=ends.dtype, device=ends.device)
+        dist.all_gather_into_tensor(every, ends, group=self.pp_group)
+        every = every.view(self.pp, 2)
+        spans = []
+        for j in range(self.pp):
+            first, count = _touched_blocks(j * spec.size, spec.size)
+            spans.append((first, first + count - 1))
+        mine = spans[self.pp_rank]
+        out = amax.clone()
+        for at, block in ((0, mine[0]), (-1, mine[1])):
+            for j, (first, last) in enumerate(spans):
+                for end, b in ((0, first), (1, last)):
+                    if b == block:
+                        out[at] = torch.maximum(out[at], every[j, end].to(out.dtype))
+        return out
+
+    # ---- pipeline stages ----
+
+    def stage_slice(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """This stage's blocks of a whole stacked leaf (either layout: the
+        leading axis is the blocks'), a new tensor."""
+        spec = self.stages[name]
+        return whole[spec.first:spec.first + spec.blocks].clone()
+
+    def stage_int8(self, name: str, codes: torch.Tensor, scales: torch.Tensor):
+        """This stage's (codes, scales) of an int8 moment held whole: its
+        blocks' codes and the scales of the int8 blocks they touch."""
+        b0, nb = _touched_blocks(self.stages[name].offset, self.stages[name].size)
+        return self.stage_slice(name, codes), scales[b0:b0 + nb].clone()
+
+    def gather_stages(self, name: str, part: torch.Tensor, kind: str = "save") -> torch.Tensor:
+        """The whole stacked leaf from every stage's slice (in the slice's
+        layout and dtype), over the pp group."""
+        spec = self.stages[name]
+        part = part.contiguous()
+        out = torch.empty((self.pp * part.shape[0], *part.shape[1:]), dtype=part.dtype,
+                          device=part.device)
+        dist.all_gather_into_tensor(out, part, group=self.pp_group)
+        self._count(f"{kind}.stage_all_gather", part)
+        return out.view(spec.shape[0], *part.shape[1:])
+
+    def gather_stages_int8(self, name: str, codes: torch.Tensor, scales: torch.Tensor):
+        """(codes in the JAX layout, scales) of a stacked int8 moment, whole."""
+        spec = self.stages[name]
+        whole = self.gather_stages(name, codes)
+        width = -(-(INT8_BLOCK - 1 + spec.size) // INT8_BLOCK)   # the most a stage touches
+        mine = torch.zeros(width, dtype=scales.dtype, device=scales.device)
+        mine[:scales.numel()] = scales
+        every = torch.empty(self.pp * width, dtype=scales.dtype, device=scales.device)
+        dist.all_gather_into_tensor(every, mine, group=self.pp_group)
+        self._count("save.stage_all_gather", mine)
+        out = torch.empty(-(-spec.numel // INT8_BLOCK), dtype=scales.dtype,
+                          device=scales.device)
+        for j, row in enumerate(every.view(self.pp, width)):
+            b0, nb = _touched_blocks(j * spec.size, spec.size)
+            out[b0:b0 + nb] = row[:nb]
+        return whole, out
 
     def shard(self, name: str, full: torch.Tensor) -> torch.Tensor:
         """This rank's shard of ``full`` (the port's layout), a new flat
@@ -351,9 +491,11 @@ class FSDP:
         """``params`` with each sharded tensor replaced by this rank's shard
         (the whole tensor dropped at once), keeping ``requires_grad``."""
         for name in list(params):
-            if name in self.specs:
+            if name in self.specs or name in self.stages:
                 full = params.pop(name)
-                params[name] = self.shard(name, full.detach()).requires_grad_(full.requires_grad)
+                cut = (self.shard(name, full.detach()) if name in self.specs
+                       else self.stage_slice(name, full.detach()))
+                params[name] = cut.requires_grad_(full.requires_grad)
                 del full
         return params
 
@@ -365,7 +507,10 @@ class FSDP:
         def cut(moments):
             out = {}
             for name, value in moments.items():
-                if name not in self.specs:
+                if name in self.stages:
+                    out[name] = (self.stage_int8(name, *value) if isinstance(value, tuple)
+                                 else self.stage_slice(name, value))
+                elif name not in self.specs:
                     out[name] = value
                 elif isinstance(value, tuple):
                     out[name] = self.shard_int8(name, *value)
@@ -378,8 +523,8 @@ class FSDP:
     @torch.no_grad()
     def held(self, params: dict, opt_state: AdamWState) -> list:
         """Each rank's (sharded tensors' elements, all parameter elements,
-        moment bytes, device bytes allocated) as it holds them now, from
-        every rank of the world (a collective)."""
+        moment bytes, device bytes allocated, stage-stacked elements) as it
+        holds them now, from every rank of the world (a collective)."""
         moment_bytes = sum(t.numel() * t.element_size()
                            for moments in (opt_state.exp_avg, opt_state.exp_avg_sq)
                            for value in moments.values()
@@ -389,10 +534,12 @@ class FSDP:
         mine = torch.tensor(
             [float(sum(p.numel() for n, p in params.items() if n in self.specs)),
              float(sum(p.numel() for p in params.values())), float(moment_bytes),
-             float(allocated)], dtype=torch.float64, device=device)
-        out = torch.empty(dist.get_world_size() * 4, dtype=torch.float64, device=device)
+             float(allocated),
+             float(sum(p.numel() for n, p in params.items() if n in self.stages))],
+            dtype=torch.float64, device=device)
+        out = torch.empty(dist.get_world_size() * 5, dtype=torch.float64, device=device)
         dist.all_gather_into_tensor(out, mine)
-        return [tuple(int(x) for x in row) for row in out.view(-1, 4).tolist()]
+        return [tuple(int(x) for x in row) for row in out.view(-1, 5).tolist()]
 
     def report(self, trainable: dict, frozen: dict, opt_state: AdamWState) -> None:
         """Prints what is sharded and what each rank holds after setup (a
@@ -400,11 +547,16 @@ class FSDP:
         params = {**trainable, **frozen}
         held = self.held(params, opt_state)
         sharded = sum(spec.numel for name, spec in self.specs.items() if name in params)
+        stacked = sum(spec.numel for name, spec in self.stages.items() if name in params)
         print(self.describe(trainable, frozen))
         print(f"INFO: FSDP held per rank: sharded elements {[h[0] for h in held]} of "
               f"{sharded:,} ({', '.join(f'{h[0] / max(sharded, 1):.4f}' for h in held)}); "
               f"all parameter elements {[h[1] for h in held]}; moment bytes "
               f"{[h[2] for h in held]}; device bytes allocated {[h[3] for h in held]}")
+        if self.stages:
+            print(f"INFO: Pipeline stages held per rank: stacked block elements "
+                  f"{[h[4] for h in held]} of {stacked:,} "
+                  f"({', '.join(f'{h[4] / max(stacked, 1):.4f}' for h in held)})")
 
     # ---- collectives ----
 
@@ -439,9 +591,17 @@ class FSDP:
         """Every tensor of ``params`` whole: a sharded one gathered, in
         ``dtype`` or, by default, the compute dtype where it has two or
         more dimensions (for the step: a leaf that requires a gradient
-        where its shard does); a replicated one as it is."""
+        where its shard does); a replicated one as it is. A stage slice
+        stays this stage's for the step, and is gathered over the pp group
+        for a save or a preview (the dtype chosen by a block's dimensions)."""
         out = {}
         for name, p in params.items():
+            stage = self.stages.get(name)
+            if stage is not None and kind != "step":
+                want = dtype or (self.compute_dtype if len(stage.shape) >= 3 else p.dtype)
+                with torch.no_grad():
+                    out[name] = self.gather_stages(name, p.detach().to(want), kind)
+                continue
             spec = self.specs.get(name)
             if spec is None:
                 out[name] = p
@@ -518,12 +678,19 @@ class FSDP:
     def sync(self, params: dict) -> None:
         """Before the update: the replicated tensors' ``.grad`` summed over
         every rank of the world and the shards' over the sp group, both
-        divided by sp. A missing gradient counts as zeros."""
+        divided by sp. Under pp the replicated tensors' (the stage slices
+        among them) are summed over the dp group alone: the stages hold
+        other blocks, and the tensors around the stack take the same
+        gradient on every stage. A missing gradient counts as zeros."""
         self.optimizer_steps += 1
         for p in params.values():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         replicated = [p.grad for name, p in params.items() if name not in self.specs]
+        if self.pp > 1:
+            if self.dp > 1:
+                self._all_reduce(replicated, self.group)
+            return
         self._all_reduce(replicated, None)
         sharded = [p.grad for name, p in params.items() if name in self.specs]
         if self.sp > 1:
@@ -534,17 +701,24 @@ class FSDP:
 
     @torch.no_grad()
     def grad_norm(self, grads: dict) -> torch.Tensor:
-        """The global L2 norm of ``grads`` (shards and replicated tensors,
-        keyed like the parameters): the shards' squares summed over dp, each
-        replicated tensor once."""
+        """The global L2 norm of ``grads`` (shards, stage slices and
+        replicated tensors, keyed like the parameters): the shards' squares
+        summed over dp, the stage slices' over pp, each replicated tensor
+        once."""
         device = next(iter(grads.values())).device
         sharded = torch.zeros((), dtype=torch.float32, device=device)
+        staged = torch.zeros((), dtype=torch.float32, device=device)
         replicated = torch.zeros((), dtype=torch.float32, device=device)
         for name, g in grads.items():
-            (sharded if name in self.specs else replicated).add_((g.float() ** 2).sum())
+            (sharded if name in self.specs else staged if name in self.stages
+             else replicated).add_((g.float() ** 2).sum())
         sharded = sharded.reshape(1)
         dist.all_reduce(sharded, group=self.group)
-        return torch.sqrt(sharded[0] + replicated)
+        if self.stages:
+            staged = staged.reshape(1)
+            dist.all_reduce(staged, group=self.pp_group)
+            staged = staged[0]
+        return torch.sqrt(sharded[0] + staged + replicated)
 
     def describe(self, trainable: dict, frozen: dict) -> str:
         """One line: what is sharded, over which group and backend, and the
@@ -554,7 +728,13 @@ class FSDP:
             return len(names), sum(self.specs[n].numel for n in names)
         t_n, t_e = count(trainable)
         f_n, f_e = count(frozen)
-        return (f"INFO: FSDP over dp={self.dp} ({self.backend}): {t_n} trainable tensor(s) "
+        stages = ""
+        if self.stages:
+            spec = next(iter(self.stages.values()))
+            stages = (f"; {len(self.stages)} stage-stacked block leaves over pp={self.pp}, this "
+                      f"rank holding blocks [{spec.first}, {spec.first + spec.blocks}) of "
+                      f"{spec.shape[0]}, never sharded over dp")
+        return (f"INFO: FSDP over dp={self.dp} ({self.backend}){stages}: {t_n} trainable tensor(s) "
                 f"({t_e:,} elements) and {f_n} frozen ({f_e:,}) sharded, the rest "
                 f"replicated; a micro step all-gathers each sharded tensor's compute "
                 f"copy ({str(self.compute_dtype).replace('torch.', '')} where 2-D or "

@@ -1,5 +1,5 @@
 """Anima DiT training loop (flow matching) on one CUDA device, or on the
-dp x sp ranks of a torchrun world.
+dp x sp or dp x pp ranks of a torchrun world.
 
 Counterpart of ``aozora_sdxl_training_tpu/train/anima_trainer.py::
 run_anima_training`` with the same phases and the same output as the port's
@@ -54,7 +54,24 @@ prints and saves (the model and the training state; every rank gathers
 for a save or a preview, on rank 0's word); on resume every rank reads the
 state and keeps its shards. Under Full remat the ring's P2P runs again in
 each block's recompute; every rank recomputes the same blocks in the same
-order, which keeps that safe.
+order, which keeps that safe. Video mode runs under sequence parallelism
+too: a clip's (T', H, W) latent tokens flatten in the JAX package's order
+and shard over sp like an image's.
+
+With ``PIPELINE_PARALLEL_SIZE`` > 1 the ranks form the JAX package's dp x
+pp layout instead: the DiT blocks stack into ``__stack__.<suffix>`` leaves
+(``parallel/pipeline.py``), each pp rank holding its stage's blocks (and
+their accumulators and moments; the int8 decision and blocks taken over
+the whole stacked leaf, as JAX takes them), and each dp rank's batch
+splits into ``ANIMA_PIPELINE_MICROBATCHES`` (default ``BATCH_SIZE``)
+microbatches that stream GPipe-style through the stages; the prologue and
+epilogue of the DiT run replicated on every stage. As in JAX there is no
+fused step under pp (the micro and apply steps at any GA). Saves and
+previews gather the stages and write the reference's flat names; the
+training-state file holds the moments under JAX's ``__stack__.`` keys. A
+resumed non-pp state is restacked (int8 moments cannot be, and start
+afresh, as in JAX), and a state whose keys do not match starts with
+fresh moments.
 
 When the cache check fails, the trainer first builds the cache on its
 device (``data/anima_cache.py``: the Qwen3 text encoder and the Wan VAE),
@@ -72,9 +89,8 @@ controlled weights onto their quantized grid after every optimizer step,
 with error-feedback residuals on the device.
 
 Not ported yet, and refused with an error when the config asks for them:
-pipeline/tensor parallelism, video mode under sequence parallelism and
-FSDP's per-use gathers (a plan whose ``gather_once`` is False); the QAT
-repair CLI refuses more than one rank.
+tensor parallelism and FSDP's per-use gathers (a plan whose
+``gather_once`` is False); the QAT repair CLI refuses more than one rank.
 ``AOZORA_PROFILE_DIR`` traces micro steps 3-8 (``train/profiling.py``).
 """
 
@@ -104,6 +120,7 @@ from ..data.schedule import TimestepTicketSampler, build_image_batch_schedule
 from ..models.anima import dit as dit_mod
 from ..ops.ring_attention import SPRingConfig
 from ..opt import adamw
+from ..parallel import pipeline as pl_mod
 from ..parallel import sharding as shard
 from . import anima_objectives, curves, memory_policy, objectives
 from .anima_sampler import AnimaPreviewRenderer, load_decoder_for_preview
@@ -125,6 +142,7 @@ class AnimaStepConfig:
     compute_dtype: Any = torch.bfloat16
     remat: Any = True                      # False | True | "conservative"
     spatial_strength: float = 0.0          # > 0: the line-art-masked loss
+    pp: Any = None                         # parallel.pipeline.PPConfig, or None
 
 
 def make_anima_loss_fn(cfg: AnimaStepConfig):
@@ -145,10 +163,22 @@ def make_anima_loss_fn(cfg: AnimaStepConfig):
         # image mode: (B, H, W, C) -> (B, T=1, H, W, C); a clip goes straight
         # through
         video = noisy.dim() == 5
-        pred = dit_mod.dit_forward(
-            {**frozen, **trainable}, (noisy if video else noisy[:, None]).to(cd),
-            timesteps / 1000.0, prompt_emb.to(cd), cfg=cfg.dit, t5_ids=t5_ids,
-            attn_impl=cfg.attn_impl, compute_dtype=cd, remat=cfg.remat)
+        x_in = (noisy if video else noisy[:, None]).to(cd)
+        if cfg.pp is not None:
+            # pipeline parallelism: the params carry this stage's stacked
+            # __stack__.* block leaves; the block stack streams GPipe-style
+            # over the pp group
+            stacked, rest = pl_mod.split_stacked({**frozen, **trainable})
+            pred = pl_mod.pp_dit_forward(
+                stacked, rest, x_in, timesteps / 1000.0, prompt_emb.to(cd),
+                cfg=cfg.dit, mesh=cfg.pp.mesh, microbatches=cfg.pp.microbatches,
+                t5_ids=t5_ids, attn_impl=cfg.attn_impl, compute_dtype=cd,
+                remat=cfg.remat)
+        else:
+            pred = dit_mod.dit_forward(
+                {**frozen, **trainable}, x_in, timesteps / 1000.0, prompt_emb.to(cd),
+                cfg=cfg.dit, t5_ids=t5_ids, attn_impl=cfg.attn_impl, compute_dtype=cd,
+                remat=cfg.remat)
         pred = pred if video else pred[:, 0]
         weights = loss_weights[torch.clamp(tickets.long(), 0, loss_weights.shape[0] - 1)]
         loss = anima_objectives.weighted_flowmatch_mse(
@@ -221,19 +251,18 @@ def anima_remat_mode(config):
 
 
 def _refuse_unported(config) -> None:
-    refused = (
-        (any(int(getattr(config, key, 1) or 1) > 1 for key in (
-            "PIPELINE_PARALLEL_SIZE", "TENSOR_PARALLEL_SIZE")),
-         "PIPELINE/TENSOR_PARALLEL_SIZE > 1: pipeline and tensor parallelism"),
-        (int(getattr(config, "ANIMA_VIDEO_FRAMES", 1) or 1) > 1
-         and int(getattr(config, "SEQUENCE_PARALLEL_SIZE", 1) or 1) > 1,
-         "ANIMA_VIDEO_FRAMES > 1 with SEQUENCE_PARALLEL_SIZE > 1: video mode under "
-         "sequence parallelism"),
-    )
-    for asked, what in refused:
-        if asked:
-            raise NotImplementedError(
-                f"{what} is not ported to the PyTorch package yet")
+    if int(getattr(config, "TENSOR_PARALLEL_SIZE", 1) or 1) > 1:
+        raise NotImplementedError(
+            "TENSOR_PARALLEL_SIZE > 1: tensor parallelism is not ported to the "
+            "PyTorch package yet")
+
+
+def _restacked(moments: dict, num_blocks: int) -> dict:
+    """A flat state's moments with the blocks' stacked (``stackify_params``);
+    int8 (codes, scales) pairs do not stack: ValueError."""
+    if any(isinstance(v, tuple) for k, v in moments.items() if pl_mod.BLOCK_RE.match(k)):
+        raise ValueError("int8 (codes, scales) moments cannot be stacked")
+    return pl_mod.stackify_params(moments, num_blocks)
 
 
 def run_anima_training(config, *, device: torch.device | None = None,
@@ -389,14 +418,39 @@ def run_anima_training(config, *, device: torch.device | None = None,
         print(f"INFO: Sequence parallelism: DiT self-attention tokens shard "
               f"over sp={layout.sp} (ring flash attention, KV hops the ring "
               f"over torch.distributed).")
+    # pipeline parallelism (PIPELINE_PARALLEL_SIZE > 1): the block params
+    # stage-stack into __stack__ leaves, each rank holding its stage's;
+    # microbatches stream GPipe-style (parallel/pipeline.py)
+    pp_cfg = None
+    if mesh is not None and layout.pp > 1:
+        if dit_cfg.num_blocks % layout.pp:
+            raise SystemExit(
+                f"PIPELINE_PARALLEL_SIZE={layout.pp} does not divide "
+                f"num_blocks={dit_cfg.num_blocks}")
+        micro_m = int(getattr(config, "ANIMA_PIPELINE_MICROBATCHES", 0)
+                      or 0) or int(config.BATCH_SIZE)
+        if int(config.BATCH_SIZE) % micro_m:
+            raise SystemExit(
+                f"ANIMA_PIPELINE_MICROBATCHES={micro_m} does not divide "
+                f"BATCH_SIZE={config.BATCH_SIZE}")
+        pp_cfg = pl_mod.PPConfig(mesh, micro_m)
 
     # ---- weights ----
-    params = dit_mod.params_from_torch_state(state, dit_cfg, dtype=plan.master_dtype,
-                                             device=device)
+    # under pp the blocks stack on the host, and only this stage's slices
+    # reach the device
+    params = dit_mod.params_from_torch_state(
+        state, dit_cfg, dtype=plan.master_dtype,
+        device="cpu" if pp_cfg is not None else device)
     del state
     # the reference's freeze rule (the JAX package's split_trainable_dit)
     trainable, frozen = split_trainable(params, exclude)
     del params
+    if pp_cfg is not None:
+        trainable = pl_mod.stackify_params(trainable, dit_cfg.num_blocks)
+        frozen = pl_mod.stackify_params(frozen, dit_cfg.num_blocks)
+        print(f"INFO: Pipeline parallelism: {dit_cfg.num_blocks} DiT blocks "
+              f"in {layout.pp} GPipe stages x {pp_cfg.microbatches} microbatch(es) "
+              f"per dp shard (dp={layout.dp}).")
     for p in trainable.values():
         p.requires_grad_(True)
     n_t = sum(p.numel() for p in trainable.values())
@@ -410,6 +464,10 @@ def run_anima_training(config, *, device: torch.device | None = None,
         refuse_per_use_gathers(plan, fsdp)
         fsdp.shard_params(trainable)
         fsdp.shard_params(frozen)
+    if pp_cfg is not None:
+        for group in (trainable, frozen):
+            for name, p in group.items():
+                group[name] = p.detach().to(device).requires_grad_(p.requires_grad)
     opt_layout = fsdp.opt_layout() if fsdp is not None else dit_layout
     lineart = bool(getattr(config, "ANIMA_REPAIR_LINEART_LOSS_ENABLED", False))
     lineart_strength = max(0.0, float(getattr(
@@ -422,7 +480,7 @@ def run_anima_training(config, *, device: torch.device | None = None,
         dit=dit_cfg, grad_accum_steps=config.GRADIENT_ACCUMULATION_STEPS,
         clip_grad_norm=float(config.CLIP_GRAD_NORM), attn_impl=attn_impl,
         compute_dtype=config.compute_dtype, remat=remat,
-        spatial_strength=lineart_strength if lineart else 0.0)
+        spatial_strength=lineart_strength if lineart else 0.0, pp=pp_cfg)
     micro_fn = make_anima_micro_step(step_cfg, fsdp)
     apply_fn = make_apply_step(step_cfg, opt_cfg, fsdp)
     # the two-pass rung: one step in place of the micro and apply steps
@@ -430,6 +488,21 @@ def run_anima_training(config, *, device: torch.device | None = None,
                                       step_cfg.clip_grad_norm)
                    if two_pass else None)
     host_window = HOST_MOMENT_WINDOW if moments_host else None
+    if resume_opt_state is not None and pp_cfg is not None \
+            and set(resume_opt_state.exp_avg) != set(trainable):
+        # resume state saved by a run without pipeline parallelism: restack
+        # its moments into the __stack__ namespace (float moments only: the
+        # int8 (codes, scales) pairs do not stack)
+        try:
+            resume_opt_state = adamw.AdamWState(
+                step=resume_opt_state.step, layout=resume_opt_state.layout,
+                exp_avg=_restacked(resume_opt_state.exp_avg, dit_cfg.num_blocks),
+                exp_avg_sq=_restacked(resume_opt_state.exp_avg_sq, dit_cfg.num_blocks))
+            print("INFO: Restacked resumed optimizer state for pipeline "
+                  "parallelism.")
+        except ValueError as e:
+            print(f"WARNING: could not restack resumed optimizer state for "
+                  f"pipeline parallelism ({e}); starting with fresh moments.")
     # the restored moments are host tensors: they reach the device (or
     # pinned host memory) once, and no zero state is made beside them
     if resume_opt_state is not None and set(trainable) <= set(resume_opt_state.exp_avg):
@@ -454,10 +527,17 @@ def run_anima_training(config, *, device: torch.device | None = None,
     seed = int(config.SEED or 42)
     print_optimizer_summary(config, opt_cfg, trainable, lr_curve.initial_lr,
                             device, moments_host=moments_host,
-                            n_devices=len(layout.devices) if fsdp and fsdp.specs else 1,
+                            n_devices=(len(layout.devices)
+                                       if fsdp and (fsdp.specs or fsdp.stages) else 1),
                             layout=opt_layout)
-    if fsdp is not None and fsdp.specs:
+    if fsdp is not None and (fsdp.specs or fsdp.stages):
         fsdp.report(trainable, frozen, opt_state)
+
+    def flat_view(params):
+        """Saves and previews: stacked block leaves back to the reference's
+        flat names (as they are without pipeline parallelism)."""
+        return (pl_mod.unstackify_params(params, dit_cfg.num_blocks)
+                if pp_cfg is not None else params)
 
     # previews take the single-device attention (not the SP ring); global
     # rank 0 alone renders them
@@ -527,7 +607,7 @@ def run_anima_training(config, *, device: torch.device | None = None,
 
     def save_model(path):
         # every rank gathers; global rank 0 writes
-        full = gathered(fsdp, {**frozen, **trainable}, config.compute_dtype)
+        full = flat_view(gathered(fsdp, {**frozen, **trainable}, config.compute_dtype))
         if is_main:
             save_dit_model(path, full, prefix=save_prefix, dtype=config.compute_dtype)
 
@@ -610,7 +690,7 @@ def run_anima_training(config, *, device: torch.device | None = None,
                     f"\n--- {reason} at optimizer step {optimizer_step} ---")
                 save_checkpoint(optimizer_step)
             if render:
-                full = gathered(fsdp, {**frozen, **trainable}, kind="preview")
+                full = flat_view(gathered(fsdp, {**frozen, **trainable}, kind="preview"))
                 if is_main:
                     preview.maybe_render(optimizer_step, full, output_dir)
                 del full

@@ -327,6 +327,12 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
     global_batch = mesh_layout.global_batch
     if resume_meta is not None:
         check_resume_global_batch(resume_meta, global_batch)
+    if mesh_layout.pp > 1:
+        # GPipe stages the Anima DiT's blocks (parallel/pipeline.py); the
+        # UNet has no stage stack
+        raise NotImplementedError(
+            "PIPELINE_PARALLEL_SIZE > 1: pipeline parallelism is the Anima DiT "
+            "trainer's; the SDXL trainer takes dp ranks")
     mesh = shard.mesh_for(mesh_layout)
     # this rank's rows of each global batch
     rows = (slice(mesh.dp_rank * int(config.BATCH_SIZE),

@@ -104,7 +104,9 @@ that save:
    global (out, lse)) against full attention at 4096 tokens, forward and
    gradients, its launches counted; the entry points and
    scaled_dot_product_attention at the hop shapes by device time
-   (torch.profiler), the schedule beside K4a/K4b at 4096 with CUDA events.
+   (torch.profiler), the schedule beside K4a/K4b at 4096 with CUDA events;
+   last, the video ring's hop (6144 tokens a shard: a 3-latent-frame clip
+   at sp 2), held against the plain versions and timed the same way.
 10. k6: the fused GroupNorm+SiLU kernel in both layouts (NHWC, the op's,
    two launches; NCHW, the UNet's fused_gn route, one launch) against its
    plain version at every distinct resnet shape of SDXL_BASE at 1024px,
@@ -124,7 +126,16 @@ that save:
    2 ranks with SEQUENCE_PARALLEL_SIZE 2 (ring attention over NCCL) at
    ANIMA_BASE, 1024px, Full remat, 4 micro steps; checks rank 0's GUI
    lines (one set), finite losses, each rank's launch counts and the saved
-   DiT. With one device it prints "anima_sp: skipped, 1 CUDA device".
+   DiT. Then, on any number of devices, video mode under SP 2: random
+   weights of ANIMA_BASE's widths with SP_VIDEO_BLOCKS blocks, synthetic
+   clips of VIDEO_FRAMES frames at 1024px (3 latent frames, 12288 tokens,
+   6144 a rank), Full remat, 4 micro steps, on 2 ranks (one card: both on
+   it over gloo, the ring's hops staged through pinned host buffers; 2+
+   cards: torchrun, NCCL), held against one process at the same depth
+   (losses rtol 2e-2, the saved DiT < 0.05); per rank the exact launches
+   of K5's entry points and K4a/K4b, the hops' bytes a micro step, the
+   peak and the step times. (The image run at full depth is not run on one
+   card: two replicas of ANIMA_BASE's state on it.)
 
 12. resume: the trainer phase's run takes the GUI's emergency save
    (force_save.flag) at optimizer step 1, its last, the merged model and
@@ -160,18 +171,19 @@ that save:
    training peak, s per micro and optimizer step, s per preview and the
    model TFLOP/s at 12288 tokens.
 
-15. repair (after anima_video): the QAT repair flow at ANIMA_BASE. First
+15. repair (after anima_video): the QAT repair flow at ANIMA_BASE's widths,
+   the DiT's depth cut to CUT_BLOCKS (8) of 28 blocks. First
    the device projection (train/qat_project.py) of a random full-width
    blocks.0.mlp.layer1.weight (8192 x 2048) in e4m3, e5m2, int8, nvfp4 and
    ternary against the numpy quantizer's round trip, bit for bit, each
-   timed on the card and on the host. Then the random ANIMA_BASE (seed
-   4321) quantized by the port's convert_quants CLI (e4m3, target preset);
+   timed on the card and on the host. Then the random DiT (seed 4321)
+   quantized by the port's convert_quants CLI (e4m3, target preset);
    the anima phase's random Qwen3-0.6B and Wan VAE files and 2 captioned
    1024px images, cached by the cache CLI with line-art masks (lineart_mask
    (128, 128) float32 in [0, 1] in each latent payload); then the repair
    CLI (cli/train_anima_repair.py) on them, 1024px, batch 1, GA 4, Full
    remat, 4 micro steps: the "QAT repair: N quantized tensors" line, the
-   line-art loss on, finite losses, the launches (K4a 56, K4b 28 + 28 a
+   line-art loss on, finite losses, the launches (K4a 16, K4b 8 + 8 a
    micro step), the projection's ms an optimizer step (synced, left out
    of the steps) and its fp16 residuals' GB, the host's s to dequantize at
    load and to pack at save, s per micro and optimizer step, the peak
@@ -181,18 +193,19 @@ that save:
    card's projection of the trained (final + residual) bit for bit and lie
    within half an e4m3 step of it, and the share of codes that changed
    from the input is printed. Last, tools/profile_quants --mode dynamic on
-   the random ANIMA_BASE (int8 trials of 8 layers, synthetic calibration at
-   --latent-hw 64, 1024 tokens): 9 fp32 forwards, each timed, 28
-   flash_fwd_f32_d128 launches each.
+   the random DiT (int8 trials of 8 layers, synthetic calibration at
+   --latent-hw 64, 1024 tokens): 9 fp32 forwards, each timed, one
+   flash_fwd_f32_d128 launch a block each.
 
 16. fp16 (after repair): MIXED_PRECISION float16 on the flash route
    through both training CLIs, each on seeded random weights and a
    synthetic cache of 2 images at 1024px: SDXL_BASE (GA 4, 4 micro steps,
-   then a preview of 2 DDIM steps, the decoder in fp32), then ANIMA_BASE
-   under Full remat (4 micro steps, a latent-RGB preview of 2 Euler steps:
-   no VAE file); each checks finite losses, the fp16 kernels' launches (a
-   micro step 70 of each of K1-K3 for SDXL, 56 K4a and 28 + 28 K4b for
-   Anima; 70 K1 a DDIM step, 28 K4a an Euler step; the SDXL preview's fp32
+   then a preview of 2 DDIM steps, the decoder in fp32), then ANIMA_BASE's
+   widths with CUT_BLOCKS (8) blocks under Full remat (4 micro steps, a
+   latent-RGB preview of 2 Euler steps: no VAE file); each checks finite
+   losses, the fp16 kernels' launches (a micro step 70 of each of K1-K3
+   for SDXL, 16 K4a and 8 + 8 K4b for the DiT; 70 K1 a DDIM step, 8 K4a an
+   Euler step; the SDXL preview's fp32
    head_dim-512 decode once) and no bf16 flash launch, a preview that did
    not disable itself and a saved model whose float tensors are all F16,
    and prints s per micro and optimizer step and the peak beside those of
@@ -219,6 +232,19 @@ that save:
    (both ranks' peaks must fit the one card together), s a micro step and
    an optimizer step from its AOZORA_STEP_LOG. Rank 1 prints nothing.
 
+18. pp (after dp): pipeline parallelism (GPipe) of the Anima DiT: the CLI
+   with PIPELINE_PARALLEL_SIZE 2 on 2 ranks (one card: gloo on cuda:0, the
+   stage hops staged through pinned host buffers; 2+ cards: torchrun,
+   NCCL) at ANIMA_BASE's widths with PP_BLOCKS blocks (2 a stage), 1024px
+   images, BATCH_SIZE 2 in 2 microbatches, Full remat, 4 micro steps, held
+   against one process at the same depth and batch (losses rtol 2e-2, the
+   saved DiT < 0.05). Per rank: the exact K4a/K4b launches (2 blocks x 2
+   x 2 microbatches K4a and 2 x 2 of each K4b a micro step), the hops'
+   path, count and bytes a micro step, half the stacked block elements
+   held, memory allocated after setup beside the one-process run's, the
+   peak, and s a micro and an optimizer step from its step log; the
+   phase's seconds.
+
 13. plan: the memory planner on the card's budget (its total memory),
    without the cache encoders (synthetic caches): each trainer's default
    plan printed; ANIMA_BASE (random, 1024px, batch 1, GA 4) under Full
@@ -236,11 +262,12 @@ that save:
    run is not a timing run).
 
 `python3 chip_smoke.py --only anima_sp` runs the device, build and anima_sp
-phases alone (on a machine with several cards); `--only anima` runs the
+phases alone; `--only anima` runs the
 anima_cache and anima phases; `--only anima_video` the video phase;
 `--only resume` runs the trainer and anima phases with their resume parts;
 `--only plan` the plan phase; `--only repair` the repair phase; `--only
-fp16` the fp16 phase; `--only dp` the dp phase.
+fp16` the fp16 phase; `--only dp` the dp phase; `--only pp` the pp phase
+(`--only pp,anima_sp` both multi-rank Anima phases, on one card).
 
 The second-to-last lines are the kernels JSON and the card's name and power
 limit; the last line is {"ok": true, "device": {...}}.
@@ -254,6 +281,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -319,6 +347,14 @@ TRAIN_STEPS = 4               # one optimizer step at the presets' GA 4
 RESUME_TO = 2 * TRAIN_STEPS   # a resumed run goes on to micro step 8: optimizer step 2
 SHORT_STEPS = 4               # one: the anima_video and repair phases
 GA = 4
+# the DiT of the repair and fp16 phases: ANIMA_BASE's widths, its depth cut
+# to 8 of 28 blocks for the script's time (the whole script took 1044.7 s
+# of its 1200 s with them at full depth on an NVIDIA H100 80GB HBM3 at
+# 700.00 W; the repair phase's host passes and tools scale with the
+# depth). The plan phase keeps ANIMA_BASE whole: at 8 blocks its host
+# moments move in 12 chunks, and the trace of a host apply step, which can
+# lose a step's first few H2D copies, then holds too few to measure
+CUT_BLOCKS = 8
 # one SDXL_BASE forward at 128x128 latents, batch 1, as bench.py counts it;
 # a training micro step does three times this work (forward + backward)
 SDXL_FWD_FLOPS_1024 = 6.779495251968e12
@@ -1209,9 +1245,25 @@ def k5_phase(torch):
     torch.cuda.empty_cache()
 
     timings = {"flash_fwd_stats": [], "flash_bwd_stats": []}
-    for n in (2, 4):
-        sh = s_full // n
-        qs, ks, vs, dos = (t[:, :sh].contiguous() for t in (q, k, v, do))
+    # the image ring's hops at sp 2 and 4, then the video ring's at sp 2: a
+    # 3-latent-frame clip's 12288 tokens, 6144 a rank (the anima_sp phase)
+    for n, sh, what in ((2, s_full // 2, "sp 2 hop"), (4, s_full // 4, "sp 4 hop"),
+                        (SP, VIDEO_TOKENS // SP, "video sp 2 hop")):
+        if sh <= s_full:
+            qs, ks, vs, dos = (t[:, :sh].contiguous() for t in (q, k, v, do))
+        else:
+            qs, ks, vs, dos = (torch.randn(b, sh, h, d, device="cuda", dtype=bf16,
+                                           generator=g) for _ in range(4))
+            label = f"video hop S={sh} B*H={b * h} D={d}"
+            out, lse = fa.flash_fwd_stats(qs, ks, vs)
+            want_out, want_lse = fa.flash_fwd_stats_reference(qs, ks, vs, scale)
+            held(label, "out", out, want_out)
+            held(label, "lse", lse, want_lse, 1e-3)
+            got = fa.flash_bwd_stats(qs, ks, vs, want_out, want_lse, dos)
+            want = fa.flash_bwd_stats_reference(qs, ks, vs, want_out, want_lse, dos, scale)
+            for name, a, w in zip(("dq", "dk", "dv"), got, want):
+                held(label, name, a, w)
+            del want_out, want_lse, got, want
         out, lse = fa.flash_fwd_stats(qs, ks, vs)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (qs, ks, vs))
         ref = F.scaled_dot_product_attention(qt, kt, vt)
@@ -1234,7 +1286,7 @@ def k5_phase(torch):
         for kname, (ms, plain, lib, flops, nbytes) in rows.items():
             bms, bound_by = bound(flops, nbytes)
             timings[kname].append({
-                "shape": f"B*H={b * h} Sq=Skv={sh} D={d} bf16 (sp {n} hop)",
+                "shape": f"B*H={b * h} Sq=Skv={sh} D={d} bf16 ({what})",
                 # ANIMA_BASE's 28 blocks, n hops each, Full remat: the
                 # forward runs again in the recompute
                 "calls_per_micro_step_per_rank": (2 if kname == "flash_fwd_stats" else 1)
@@ -2184,13 +2236,15 @@ def anima_env(torch, work_dir: Path, steps: int, synthetic_cache: bool = True,
                   "anima_output_name": "smoke_anima",
                   "anima_instance_datasets": [{"path": str(work_dir / "data"),
                                                "repeats": 1}],
-                  "anima_max_train_steps": steps, **preset_overrides})
-    preset_path = work_dir / "preset.json"
-    preset_path.write_text(json.dumps(preset, indent=1))
+                  "anima_max_train_steps": steps})
     config = RuntimeConfig(schema.flatten_preset(preset))
     check(config.GRADIENT_ACCUMULATION_STEPS == GA and config.BATCH_SIZE == 1
           and config.ANIMA_GRADIENT_CHECKPOINTING_MODE == "Full",
           "the default Anima preset is not batch 1, GA 4, Full checkpointing")
+    anima.update(preset_overrides)
+    preset_path = work_dir / "preset.json"
+    preset_path.write_text(json.dumps(preset, indent=1))
+    config = RuntimeConfig(schema.flatten_preset(preset))
     if not synthetic_cache:
         return cfg, preset_path, config
     # with no VAE path in the preset, the cache options name the VAE source
@@ -2732,16 +2786,16 @@ def precision_run(torch, cli_main, module, micro_name: str, renderer, preset: di
 
 
 def precision_pair(torch, cli_main, module, micro_name, renderer, preset, mode, work_dir,
-                   pattern, d: int, fwd, fwd_flops, final: Path, smi: str) -> dict:
+                   pattern, d: int, calls: int, fwd, fwd_flops, final: Path,
+                   smi: str) -> dict:
     """A bfloat16 run of ``preset`` (the control, its final save skipped),
     then the float16 run (``precision_run``), back to back on the same
     weights and cache. Each launches the head_dim-``d`` kernels of its
     dtype: the forward's (and any other kernel's) counts from ``fwd(the
     forward kernel's name)``, each backward kernel's FP16_STEPS times the
-    self-attention calls. Returns the float16 run's summary with the
-    control's under "bf16_control"."""
+    model's ``calls`` self-attention calls. Returns the float16 run's
+    summary with the control's under "bf16_control"."""
     from aozora_sdxl_training_tpu_torch.ops import flash_attention as fa
-    calls = SELF_ATTN_CALLS[d]
     runs = {}
     for precision, dtype in (("bfloat16", torch.bfloat16), ("float16", torch.float16)):
         kf, kdq, kdkv = kernel_names(fa, d, dtype)
@@ -2764,8 +2818,9 @@ def fp16_phase(torch, work_dir: Path, smi: str):
     """MIXED_PRECISION float16 on the flash route through both training
     CLIs, each on seeded random weights and a synthetic cache of 2 images at
     1024px: SDXL_BASE (GA 4, FP16_STEPS micro steps, a DDIM preview of
-    FP16_PREVIEW_STEPS steps, the decoder in fp32), then ANIMA_BASE under
-    Full remat (the same, an Euler preview; latent-RGB, no VAE file); each
+    FP16_PREVIEW_STEPS steps, the decoder in fp32), then ANIMA_BASE's
+    widths with CUT_BLOCKS blocks under Full remat (the same, an Euler
+    preview; latent-RGB, no VAE file); each
     after a bfloat16 run of the same preset as its control
     (``precision_pair``). Returns the summaries and the float16 runs'
     launches."""
@@ -2798,7 +2853,7 @@ def fp16_phase(torch, work_dir: Path, smi: str):
     per_step = calls * (2 if trainer_module.sdxl_remat_mode() else 1)
     out["sdxl"] = precision_pair(
         torch, train_sdxl.main, trainer_module, "make_micro_step",
-        sampler_module.PreviewRenderer, preset, "sdxl", sdxl_dir, SDXL_PROGRESS, 64,
+        sampler_module.PreviewRenderer, preset, "sdxl", sdxl_dir, SDXL_PROGRESS, 64, calls,
         lambda kf: {kf: per_step * FP16_STEPS + calls * FP16_PREVIEW_STEPS,
                     "flash_fwd_f32_d512": FP16_STEPS // GA},
         SDXL_FWD_FLOPS_1024, sdxl_dir / "out" / "fp16.safetensors", smi)
@@ -2807,13 +2862,13 @@ def fp16_phase(torch, work_dir: Path, smi: str):
 
     anima_dir = work_dir / "anima"
     anima_dir.mkdir()
-    cfg, preset_path, _ = anima_env(torch, anima_dir, FP16_STEPS)
-    calls = SELF_ATTN_CALLS[128]
+    cfg, preset_path, _ = anima_env(torch, anima_dir, FP16_STEPS, blocks=CUT_BLOCKS)
+    calls = cfg.num_blocks
     tokens = (1024 // 8 // cfg.patch_spatial) ** 2
     out["anima"] = precision_pair(
         torch, train_anima.main, anima_trainer, "make_anima_micro_step",
         anima_sampler.AnimaPreviewRenderer, json.loads(preset_path.read_text()), "anima",
-        anima_dir, ANIMA_PROGRESS, 128,
+        anima_dir, ANIMA_PROGRESS, 128, calls,
         lambda kf: {kf: 2 * calls * FP16_STEPS + calls * FP16_PREVIEW_STEPS},
         anima_forward_flops(cfg, tokens), anima_dir / "out" / "smoke_anima.safetensors", smi)
     check_saved_dit(anima_dir / "out" / "smoke_anima.safetensors", cfg, "F16")
@@ -2996,12 +3051,14 @@ def check_repaired(work_dir: Path, quant_ckpt: Path, record: dict, smi: str) -> 
             "codes": total, "max_err_in_steps": worst, "bits_differing_from_card": differ}
 
 
-def profile_quants_on_card(torch, ckpt: Path, work_dir: Path, smi: str) -> tuple[dict, dict]:
-    """``tools/profile_quants --mode dynamic`` on ANIMA_BASE at the card:
-    int8 trials of PROFILE_LAYERS layers at --latent-hw PROFILE_LATENT_HW
-    (synthetic calibration), its forwards (fp32, no remat) timed and its
-    flash launches counted (flash_fwd_f32_d128, one a block a forward).
-    Returns (summary, launches)."""
+def profile_quants_on_card(torch, ckpt: Path, work_dir: Path, smi: str,
+                           blocks: int) -> tuple[dict, dict]:
+    """``tools/profile_quants --mode dynamic`` on the DiT ``ckpt`` (of
+    ``blocks`` blocks) at the card: int8 trials of PROFILE_LAYERS layers
+    at --latent-hw PROFILE_LATENT_HW (synthetic calibration), its forwards
+    (fp32, no remat) timed and its flash launches counted
+    (flash_fwd_f32_d128, one a block a forward). Returns (summary,
+    launches)."""
     from aozora_sdxl_training_tpu_torch.ops import flash_attention as fa
     from aozora_sdxl_training_tpu_torch.tools import profile_quants
     build, forwards = profile_quants.build_forward_fn, []
@@ -3035,7 +3092,7 @@ def profile_quants_on_card(torch, ckpt: Path, work_dir: Path, smi: str) -> tuple
     check(sum(report["assignment_counts"].values()) == PROFILE_LAYERS,
           f"profile_quants assigned {report['assignment_counts']}")
     check(len(forwards) == PROFILE_LAYERS + 1, f"{len(forwards)} forwards")
-    check_launches(launches, {"flash_fwd_f32_d128": SELF_ATTN_CALLS[128] * (PROFILE_LAYERS + 1)})
+    check_launches(launches, {"flash_fwd_f32_d128": blocks * (PROFILE_LAYERS + 1)})
     out_path.unlink()
     print(f"  profile_quants --mode dynamic [{smi}]: {len(forwards)} fp32 forwards at "
           f"{(PROFILE_LATENT_HW // 2) ** 2} tokens, {forwards[0]:.3f} s the first (the "
@@ -3046,8 +3103,9 @@ def profile_quants_on_card(torch, ckpt: Path, work_dir: Path, smi: str) -> tuple
 
 
 def repair_phase(torch, work_dir: Path, steps: int, smi: str):
-    """The QAT repair flow at ANIMA_BASE: the device projection against the
-    host in five formats; the random ANIMA_BASE quantized by the port's
+    """The QAT repair flow at ANIMA_BASE's widths (CUT_BLOCKS blocks):
+    the device projection against the host in five formats; the random DiT
+    quantized by the port's
     convert_quants CLI (e4m3, target preset); random Qwen3 and Wan VAE
     files and 2 captioned 1024px images cached with line-art masks; the
     repair CLI (1024px, batch 1, GA 4, Full remat, SHORT_STEPS micro steps) with its
@@ -3061,6 +3119,7 @@ def repair_phase(torch, work_dir: Path, steps: int, smi: str):
 
     inputs = anima_cache_inputs(torch, work_dir)
     cfg, preset_path, config = anima_env(torch, work_dir, steps, synthetic_cache=False,
+                                         blocks=CUT_BLOCKS,
                                          anima_repair_lineart_loss_enabled=True, **inputs)
     check(config.ANIMA_REPAIR_LINEART_LOSS_ENABLED, "the preset's line-art key did not "
           "reach the config")
@@ -3079,8 +3138,9 @@ def repair_phase(torch, work_dir: Path, steps: int, smi: str):
     preset_path.write_text(json.dumps(preset, indent=1))
     cache = anima_cache_phase(torch, preset_path, work_dir, config, smi, lineart=True)
 
-    record: dict = {"sample": [PROJECTED_KEY, "blocks.27.self_attn.q_proj.weight",
-                               "blocks.13.mlp.layer2.weight",
+    record: dict = {"sample": [PROJECTED_KEY,
+                               f"blocks.{cfg.num_blocks - 1}.self_attn.q_proj.weight",
+                               f"blocks.{cfg.num_blocks // 2 - 1}.mlp.layer2.weight",
                                "llm_adapter.blocks.5.cross_attn.k_proj.weight"]}
     marks: list = []
     restore = timed_repair(torch, record, marks)
@@ -3096,7 +3156,7 @@ def repair_phase(torch, work_dir: Path, steps: int, smi: str):
     check("INFO: Cached line-art loss: enabled=True" in raw, "the line-art loss is off")
     check("encoding" not in raw, "the trainer encoded the cache again")
     losses = check_progress(raw, ANIMA_PROGRESS, steps)
-    calls = SELF_ATTN_CALLS[128]
+    calls = cfg.num_blocks
     check_launches(launches, {"flash_fwd_d128": 2 * calls * steps,
                               "flash_bwd_dq_d128": calls * steps,
                               "flash_bwd_dkv_d128": calls * steps})
@@ -3120,7 +3180,8 @@ def repair_phase(torch, work_dir: Path, steps: int, smi: str):
     for path in (quant, work_dir / "out" / "smoke_anima.safetensors",
                  work_dir / "out" / "repaired_quantized.safetensors"):
         path.unlink()
-    profile, profile_launches = profile_quants_on_card(torch, base, work_dir, smi)
+    profile, profile_launches = profile_quants_on_card(torch, base, work_dir, smi,
+                                                       cfg.num_blocks)
     summary.update(projection=projection, convert_s=convert_s, convert_report=report,
                    project_ms=project_ms, residual_gb=record["residual_gb"],
                    dequantize_s=record["dequantize_s"], pack_s=record["pack_s"],
@@ -3525,7 +3586,7 @@ def plan_phase(torch, work_dir: Path, smi: str, fp32_peak_gb: float | None) -> d
     anima_dir.mkdir()
     cfg, preset_path, _ = anima_env(torch, anima_dir, PLAN_STEPS)
     preset = json.loads(preset_path.read_text())
-    calls = SELF_ATTN_CALLS[128]
+    calls = cfg.num_blocks
     steps = ("make_anima_micro_step", "make_apply_step")
     for mode, fwd in (("Full", 2), ("Conservative", 1)):
         preset["anima"]["anima_gradient_checkpointing_mode"] = mode
@@ -3868,22 +3929,177 @@ def anima_resume_phase(torch, work_dir: Path, preset: dict, unbroken_raw: str,
 
 
 # --------------------------------------------------------------------------
-# 11: the sequence-parallel Anima CLI on 2 cards
+# 11: the sequence-parallel Anima CLI: images on 2 cards, a clip on 2 ranks
 # --------------------------------------------------------------------------
 
 SP = 2
 SP_TIMEOUT_S = 900
+# the video run's DiT: ANIMA_BASE's widths, its depth cut to 4 blocks (each
+# block's ring moves ~0.45 GB a rank a micro step; gloo on one card, staged
+# through host memory, ~0.6 GB/s)
+SP_VIDEO_BLOCKS = 4
 
 
-def anima_sp_phase(torch, work_dir: Path, steps: int):
-    """torchrun runs ``anima_sp_rank`` (the Anima CLI's main with its launch
-    counts written out) on SP ranks, one card each. Returns the summary
-    (None where fewer than 2 cards are visible)."""
+def anima_sp_phase(torch, work_dir: Path, steps: int, smi: str):
+    """With SP cards or more, torchrun runs ``anima_sp_rank`` (the Anima
+    CLI's main with its launch counts written out) on SP ranks, one card
+    each, at ANIMA_BASE (the image run); then, on any card count, the
+    video run (``sp_video_run``). Returns (summary, rank 0's launches in
+    the video run)."""
     phase("anima_sp")
+    out = {}
     n_dev = torch.cuda.device_count()
-    if n_dev < SP:
-        print(f"anima_sp: skipped, {n_dev} CUDA device", flush=True)
-        return None
+    if n_dev >= SP:
+        image_dir = work_dir / "image"
+        image_dir.mkdir()
+        out["image"] = anima_sp_image(torch, image_dir, steps)
+    else:
+        print(f"anima_sp: the image run at full depth needs {SP} cards ({n_dev} CUDA "
+              "device); the video run takes 2 gloo ranks on cuda:0", flush=True)
+    video_dir = work_dir / "video"
+    video_dir.mkdir()
+    out["video"] = sp_video_run(torch, video_dir, steps, smi)
+    return out, {**out["video"]["launches_per_rank"], **out["video"]["stats_launches_per_rank"]}
+
+
+def sp_video_run(torch, work_dir: Path, steps: int, smi: str) -> dict:
+    """Video mode under sequence parallelism: random weights of
+    ANIMA_BASE's widths and SP_VIDEO_BLOCKS blocks, a synthetic cache of 2
+    clips of VIDEO_FRAMES frames at 1024px (3 latent frames: 12288 tokens,
+    6144 a rank), Full remat, batch 1, ``steps`` micro steps on SP ranks
+    (``dp_launch``: one card, gloo on cuda:0; more, torchrun and NCCL),
+    held against one process at the same depth (this process): losses
+    (rtol 2e-2) and the saved DiT (max relative difference < 0.05). Per
+    rank: the exact launches of K5's entry points and of K4a/K4b, the
+    hops' path and bytes a micro step, the peak and the step times."""
+    import numpy as np
+    from aozora_sdxl_training_tpu_torch.cli import train_anima
+    from aozora_sdxl_training_tpu_torch.train import anima_trainer
+    from aozora_sdxl_training_tpu_torch.train.memory_policy import GB
+    t_phase = time.perf_counter()
+    cfg, preset_path, config = anima_env(
+        torch, work_dir, steps, blocks=SP_VIDEO_BLOCKS, anima_video_frames=VIDEO_FRAMES,
+        anima_sequence_parallel_size=SP)
+    check(config.SEQUENCE_PARALLEL_SIZE == SP and config.ANIMA_VIDEO_FRAMES == VIDEO_FRAMES,
+          "the preset's SP size or video frames did not reach the config")
+    raw, ranks, wall, one_card = dp_launch(torch, work_dir, "anima_sp", preset_path,
+                                           "sp_video")
+    losses = check_progress(raw, ANIMA_PROGRESS, steps)
+    check("Sequence parallelism: DiT self-attention tokens shard over sp=2" in raw,
+          "sp_video: the trainer did not take the sequence-parallel path")
+    calls = cfg.num_blocks
+    want = {"flash_fwd_d128": 2 * SP * calls * steps, "flash_bwd_dq_d128": SP * calls * steps,
+            "flash_bwd_dkv_d128": SP * calls * steps}
+    want_stats = {"flash_fwd_stats": 2 * SP * calls * steps,
+                  "flash_bwd_stats": SP * calls * steps}
+    # a micro step's ring hops a rank, each block: the forward's K/V hop
+    # twice (Full remat), the backward's K/V + dK/dV (fp32) hop and their
+    # last dK/dV hop home
+    shard = VIDEO_TOKENS // SP * cfg.model_channels
+    want_bytes = calls * (2 * 2 * shard * 2 + (2 * shard * 2 + 2 * shard * 4)
+                          + 2 * shard * 4) * steps
+    rows = []
+    for r, rec in enumerate(ranks):
+        hops = rec["hops"].get("ring", {})
+        check(rec["launches"] == want and rec["stats_launches"] == want_stats,
+              f"sp_video rank {r}: launches {rec['launches']} {rec['stats_launches']}, "
+              f"expected {want} and {want_stats}")
+        check(hops.get("bytes_sent") == want_bytes and hops.get("staged") == one_card,
+              f"sp_video rank {r}: hops {hops}, expected {want_bytes} bytes")
+        t = [s["t"] for s in rec["steps"]]
+        micro = [t[i] - t[i - 1] for i in range(1, steps - 1)]
+        rows.append({"rank": r, "launches": rec["launches"],
+                     "stats_launches": rec["stats_launches"],
+                     "hop_path": "gloo, staged through pinned host buffers" if one_card
+                     else "nccl, direct",
+                     "hops_per_micro_step": hops["hops"] / steps,
+                     "hop_gb_per_micro_step": hops["bytes_sent"] / steps / 1e9,
+                     "peak_gib": rec["max_memory_allocated_bytes"] / GB,
+                     "s_micro_steps_2_3": micro, "s_micro_step_4_with_apply": t[-1] - t[-2],
+                     "s_per_optimizer_step_ga4": statistics.median(micro) * (GA - 1)
+                     + t[-1] - t[-2], "wall_s": rec["wall_s"]})
+        print(f"  [{smi}] sp_video rank {r} ({rows[-1]['hop_path']}): K5 "
+              f"{rec['stats_launches']}, kernels {rec['launches']}; ring hops "
+              f"{rows[-1]['hops_per_micro_step']:.0f} and "
+              f"{rows[-1]['hop_gb_per_micro_step']:.4f} GB sent a micro step; peak "
+              f"{rows[-1]['peak_gib']:.2f} GiB; micro steps 2-3 "
+              f"{[round(x, 4) for x in micro]} s, micro step 4 with the apply step "
+              f"{rows[-1]['s_micro_step_4_with_apply']:.4f} s, "
+              f"{rows[-1]['s_per_optimizer_step_ga4']:.4f} s an optimizer step at GA {GA}")
+    check_saved_dit(work_dir / "out" / "smoke_anima.safetensors", cfg)
+    one = one_process_control(torch, work_dir, preset_path, "sp_video", {
+        "anima_sequence_parallel_size": 1})
+    one_want = {"flash_fwd_d128": 2 * calls * steps, "flash_bwd_dq_d128": calls * steps,
+                "flash_bwd_dkv_d128": calls * steps}
+    check({k: v for k, v in one["launches"].items() if v} == one_want,
+          f"sp_video one process: launches {one['launches']}, expected {one_want}")
+    held_against_one(torch, "sp_video", losses, one, work_dir, smi)
+    secs = time.perf_counter() - t_phase
+    print(f"  [{smi}] sp_video: {secs:.1f} s (checkpoint, cache, the ranks' run "
+          f"{wall:.1f} s, one process {one['wall_s']:.1f} s)")
+    return {"one_card_gloo": one_card, "blocks": cfg.num_blocks, "tokens": VIDEO_TOKENS,
+            "tokens_per_rank": VIDEO_TOKENS // SP, "losses": losses, "ranks": rows,
+            "launches_per_rank": want, "stats_launches_per_rank": want_stats,
+            "one_process": one, "wall_s": wall, "s": secs}
+
+
+def one_process_control(torch, work_dir: Path, preset_path: Path, label: str,
+                        overrides: dict) -> dict:
+    """The Anima CLI in this process on ``preset_path`` with ``overrides``
+    (the layout's sizes back to 1), writing into ``work_dir``/out_one: its
+    stdout, launches, memory allocated after setup, peak, step times."""
+    from aozora_sdxl_training_tpu_torch.cli import train_anima
+    from aozora_sdxl_training_tpu_torch.train import anima_trainer
+    from aozora_sdxl_training_tpu_torch.train.memory_policy import GB
+    preset = json.loads(preset_path.read_text())
+    preset["anima"].update({"anima_output_dir": str(work_dir / "out_one"), **overrides})
+    one_preset = work_dir / "one.json"
+    one_preset.write_text(json.dumps(preset, indent=1))
+    allocated = {}
+    summary_fn = anima_trainer.print_optimizer_summary
+
+    def setup_allocated(*args, **kwargs):
+        torch.cuda.synchronize()
+        allocated["bytes"] = torch.cuda.memory_allocated()
+        return summary_fn(*args, **kwargs)
+
+    anima_trainer.print_optimizer_summary = setup_allocated
+    try:
+        raw, marks, launches, peak_gb, wall = run_trainer_cli(
+            torch, train_anima.main, one_preset, work_dir, anima_trainer,
+            ("make_anima_micro_step", "make_apply_step"), f"chip_smoke_{label}_one.log")
+    finally:
+        anima_trainer.print_optimizer_summary = summary_fn
+    micro, apply_ = step_times(marks, skip=1)
+    return {"raw": raw, "launches": {k: v for k, v in launches.items() if v},
+            "allocated_after_setup_gib": allocated["bytes"] / GB, "peak_gb": peak_gb,
+            "s_micro_steps": micro, "s_apply": apply_, "wall_s": wall}
+
+
+def held_against_one(torch, label: str, losses: list, one: dict, work_dir: Path, smi: str):
+    """The ranks' losses and saved DiT against the one-process run's:
+    losses rtol DP_LOSS_RTOL, the DiT's max relative difference under
+    DP_MODEL_BAR."""
+    import numpy as np
+    losses_one = check_progress(one["raw"], ANIMA_PROGRESS, len(losses))
+    check(np.allclose(losses, losses_one, rtol=DP_LOSS_RTOL, atol=2e-4),
+          f"{label}: losses {losses} against one process {losses_one}")
+    diff, n = unet_max_rel_diff(torch, work_dir / "out" / "smoke_anima.safetensors",
+                                work_dir / "out_one" / "smoke_anima.safetensors",
+                                prefix="pipe.dit.")
+    check(n > 0 and diff < DP_MODEL_BAR, f"{label}: the saved DiT is {diff:.4f} (max "
+          f"relative) off the one-process run's over {n} tensors (bar {DP_MODEL_BAR})")
+    one.pop("raw")
+    one.update(losses=losses_one, saved_dit_max_rel_diff=diff, tensors_compared=n)
+    print(f"  [{smi}] {label}: losses {losses}, one process {losses_one}; saved DiT max "
+          f"relative difference {diff:.5f} over {n} tensors (bar {DP_MODEL_BAR}); one "
+          f"process: allocated after setup {one['allocated_after_setup_gib']:.2f} GiB, "
+          f"peak {one['peak_gb']:.2f} GB, micro steps "
+          f"{[round(x, 4) for x in one['s_micro_steps']]} s")
+
+
+def anima_sp_image(torch, work_dir: Path, steps: int):
+    """The image run on SP cards (torchrun, NCCL) at ANIMA_BASE."""
     import signal
     cfg, preset_path, config = anima_env(torch, work_dir, steps,
                                          anima_sequence_parallel_size=SP)
@@ -3982,8 +4198,9 @@ DP_LOSS_RTOL = 2e-2
 
 
 def dp_launch(torch, work_dir: Path, cli: str, preset_path: Path, label: str):
-    """Runs ``dp_rank`` (the ``cli`` training CLI, "sdxl" or "anima") on
-    DP ranks: with one card, DP processes on it over gloo (each rank starts
+    """Runs ``dp_rank`` (the ``cli`` run: "sdxl" or "anima" for the dp
+    phase, "anima_pp" or "anima_sp" for the pp and anima_sp phases) on DP
+    ranks: with one card, DP processes on it over gloo (each rank starts
     the gloo group before the CLI, which takes it as it is); with DP cards
     or more, torchrun over NCCL, one rank a card. Returns (global rank 0's
     stdout, each rank's record, wall s, one_card)."""
@@ -4049,18 +4266,22 @@ def dp_launch(torch, work_dir: Path, cli: str, preset_path: Path, label: str):
 
 
 def dp_rank(cli: str, preset: str, out_dir: str) -> int:
-    """One rank of the dp phase: under CHIP_SMOKE_DP_STORE (one card) it
-    starts the gloo group on cuda:0 first; then the ``cli`` training CLI
-    with its step log (``AOZORA_STEP_LOG``), the launches counted from 0
-    just before; then this rank's record: launches, wall time, peak
-    memory, what FSDP holds after setup (elements, device bytes
-    allocated) and the bytes each collective moved. The Anima run skips
-    its final model save (nothing reads it) on every rank alike."""
+    """One rank of the dp, pp and anima_sp phases: under
+    CHIP_SMOKE_DP_STORE (one card) it starts the gloo group on cuda:0
+    first; then the training CLI (``cli``: "sdxl", or the Anima CLI for
+    "anima", "anima_pp" and "anima_sp") with its step log
+    (``AOZORA_STEP_LOG``), the launches and the point-to-point hops
+    counted from 0 just before; then this rank's record: launches (the
+    kernels' and the K5 entry points'), wall time, peak memory, what FSDP
+    holds after setup (elements, device bytes allocated), the bytes each
+    collective moved and the hops. The dp phase's Anima run skips its
+    final model save (nothing reads it) on every rank alike; the pp and
+    anima_sp runs keep it (it is held against one process)."""
     sys.path.insert(0, str(REPO))
     import torch
     import torch.distributed as dist
     from aozora_sdxl_training_tpu_torch.ops import flash_attention as fa
-    from aozora_sdxl_training_tpu_torch.parallel import sharding
+    from aozora_sdxl_training_tpu_torch.parallel import p2p, sharding
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rank = int(os.environ["RANK"])
@@ -4075,7 +4296,8 @@ def dp_rank(cli: str, preset: str, out_dir: str) -> int:
     else:
         from aozora_sdxl_training_tpu_torch.cli import train_anima as cli_module
         from aozora_sdxl_training_tpu_torch.train import anima_trainer
-        skip_final_save(anima_trainer)
+        if cli == "anima":
+            skip_final_save(anima_trainer)
     made, setup = [], {}
     init, report = sharding.FSDP.__init__, sharding.FSDP.report
 
@@ -4093,11 +4315,14 @@ def dp_rank(cli: str, preset: str, out_dir: str) -> int:
 
     sharding.FSDP.__init__, sharding.FSDP.report = kept, reported
     fa.reset_launch_counts()
+    p2p.reset_stats()
     t0 = time.perf_counter()
     cli_module.main(["--config", preset])
     fsdp = made[-1]
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps({
         "launches": {k: v for k, v in fa.LAUNCHES.items() if v},
+        "stats_launches": {k: v for k, v in fa.STATS_LAUNCHES.items() if v},
+        "hops": p2p.STATS, "stages": len(fsdp.stages),
         "wall_s": time.perf_counter() - t0,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "device": str(torch.cuda.current_device()), "backend": fsdp.backend,
@@ -4168,10 +4393,11 @@ def torch_total_memory() -> int:
     return int(torch.cuda.get_device_properties(0).total_memory)
 
 
-def unet_max_rel_diff(torch, got: Path, want: Path) -> tuple:
-    """max |a - b| / max(|b|, 1e-3) over the UNet tensors of two saved
-    checkpoints (each file's header read once, the tensors compared on the
-    card), and the number of tensors."""
+def unet_max_rel_diff(torch, got: Path, want: Path,
+                      prefix: str = "model.diffusion_model.") -> tuple:
+    """max |a - b| / max(|b|, 1e-3) over the tensors under ``prefix`` (the
+    UNet's by default) of two saved checkpoints (each file's header read
+    once, the tensors compared on the card), and the number of tensors."""
     import struct
 
     def index(path):
@@ -4191,9 +4417,9 @@ def unet_max_rel_diff(torch, got: Path, want: Path) -> tuple:
     (fa_, ba, ha), (fb, bb, hb) = index(got), index(want)
     worst, n = 0.0, 0
     try:
-        keys = [k for k in hb if k.startswith("model.diffusion_model.")]
-        check(keys and set(keys) == {k for k in ha if k.startswith("model.diffusion_model.")},
-              "the two checkpoints hold other UNet tensors")
+        keys = [k for k in hb if k.startswith(prefix)]
+        check(keys and set(keys) == {k for k in ha if k.startswith(prefix)},
+              f"the two checkpoints hold other {prefix} tensors")
         for k in keys:
             a, b = read(fa_, ba, ha[k]), read(fb, bb, hb[k])
             worst = max(worst, float(((a - b).abs() / b.abs().clamp(min=1e-3)).max()))
@@ -4341,12 +4567,117 @@ def dp_phase(torch, work_dir: Path, smi: str):
 
 
 # --------------------------------------------------------------------------
+# 18: pipeline parallelism (GPipe) of the Anima DiT on two ranks
+# --------------------------------------------------------------------------
+
+PP = 2
+# the pp run's DiT: ANIMA_BASE's widths, its depth cut to 4 blocks, 2 a
+# stage (as the dp phase cuts it); batch 2 in 2 microbatches of one sample
+PP_BLOCKS = 4
+PP_BATCH = PP_MICROBATCHES = 2
+
+
+def pp_phase(torch, work_dir: Path, smi: str):
+    """The Anima CLI with PIPELINE_PARALLEL_SIZE 2 on PP ranks
+    (``dp_launch``: one card, gloo on cuda:0; more, torchrun and NCCL) at
+    ANIMA_BASE's widths with PP_BLOCKS blocks, 1024px images, BATCH_SIZE 2
+    in 2 microbatches, Full remat, TRAIN_STEPS micro steps, held against
+    one process at the same depth and batch (this process): losses (rtol
+    2e-2) and the saved DiT (max relative difference < 0.05, flat
+    reference names). Per rank: the exact K4a/K4b launches (its stage's
+    blocks x 2 under Full remat x the microbatches, and the blocks x the
+    microbatches), the hops' path, count and bytes a micro step, half the
+    stacked block elements held, memory allocated after setup beside the
+    one-process run's, the peak, and s a micro and an optimizer step from
+    its step log. Returns (summary, rank 0's launches)."""
+    phase("pp")
+    from aozora_sdxl_training_tpu_torch.train.memory_policy import GB
+    t_phase = time.perf_counter()
+    steps = TRAIN_STEPS
+    cfg, preset_path, config = anima_env(
+        torch, work_dir, steps, blocks=PP_BLOCKS, anima_pipeline_parallel_size=PP,
+        anima_pipeline_microbatches=PP_MICROBATCHES, anima_batch_size=PP_BATCH)
+    check(config.PIPELINE_PARALLEL_SIZE == PP and config.BATCH_SIZE == PP_BATCH
+          and config.ANIMA_PIPELINE_MICROBATCHES == PP_MICROBATCHES,
+          "the preset's pipeline settings did not reach the config")
+    raw, ranks, wall, one_card = dp_launch(torch, work_dir, "anima_pp", preset_path, "pp")
+    losses = check_progress(raw, ANIMA_PROGRESS, steps)
+    check(f"INFO: Pipeline parallelism: {cfg.num_blocks} DiT blocks in {PP} GPipe stages x "
+          f"{PP_MICROBATCHES} microbatch(es)" in raw, "pp: no pipeline line")
+    check_saved_dit(work_dir / "out" / "smoke_anima.safetensors", cfg)
+    per_stage = cfg.num_blocks // PP
+    want = {"flash_fwd_d128": 2 * per_stage * PP_MICROBATCHES * steps,
+            "flash_bwd_dq_d128": per_stage * PP_MICROBATCHES * steps,
+            "flash_bwd_dkv_d128": per_stage * PP_MICROBATCHES * steps}
+    # a microbatch's activation between the stages: 64 x 64 patches of
+    # model_channels in bf16; a micro step sends M of them a rank (stage 0
+    # forward, stage 1 backward) and takes part in 2 M hops
+    act_bytes = (PP_BATCH // PP_MICROBATCHES) * 64 * 64 * cfg.model_channels * 2
+    rows = []
+    stacked_total = None
+    for r, rec in enumerate(ranks):
+        hops = rec["hops"].get("pipeline", {})
+        check(rec["launches"] == want, f"pp rank {r}: launches {rec['launches']}, "
+              f"expected {want}")
+        check(hops.get("hops") == 2 * PP_MICROBATCHES * steps
+              and hops.get("bytes_sent") == PP_MICROBATCHES * act_bytes * steps
+              and hops.get("staged") == one_card,
+              f"pp rank {r}: hops {hops}, expected {2 * PP_MICROBATCHES * steps} hops and "
+              f"{PP_MICROBATCHES * act_bytes * steps} bytes")
+        setup = rec["setup"]
+        held = setup["held"][r]
+        stacked_total = sum(h[4] for h in setup["held"])
+        check(rec["stages"] > 0 and 2 * held[4] == stacked_total,
+              f"pp rank {r}: holds {held[4]} of {stacked_total} stacked block elements")
+        t = [s["t"] for s in rec["steps"]]
+        check(len(t) == steps, f"pp rank {r}: {len(t)} step-log lines")
+        micro = [t[i] - t[i - 1] for i in range(1, steps - 1)]
+        rows.append({"rank": r, "backend": rec["backend"], "launches": rec["launches"],
+                     "hop_path": "gloo, staged through pinned host buffers" if one_card
+                     else "nccl, direct",
+                     "hops_per_micro_step": hops["hops"] / steps,
+                     "hop_gb_per_micro_step": hops["bytes_sent"] / steps / 1e9,
+                     "stacked_elements_held": held[4], "stacked_elements": stacked_total,
+                     "all_parameter_elements_held": held[1],
+                     "allocated_after_setup_gib": setup["allocated_bytes"] / GB,
+                     "peak_gib": rec["max_memory_allocated_bytes"] / GB,
+                     "s_micro_steps_2_3": micro, "s_micro_step_4_with_apply": t[-1] - t[-2],
+                     "s_per_optimizer_step_ga4": statistics.median(micro) * (GA - 1)
+                     + t[-1] - t[-2], "wall_s": rec["wall_s"]})
+        print(f"  [{smi}] pp rank {r} ({rows[-1]['hop_path']}): launches {rec['launches']}; "
+              f"hops {rows[-1]['hops_per_micro_step']:.0f} and "
+              f"{rows[-1]['hop_gb_per_micro_step']:.4f} GB sent a micro step; holds "
+              f"{held[4]:,} of {stacked_total:,} stacked block elements ({held[1]:,} "
+              f"parameter elements in all); allocated after setup "
+              f"{rows[-1]['allocated_after_setup_gib']:.2f} GiB, peak "
+              f"{rows[-1]['peak_gib']:.2f} GiB; micro steps 2-3 {[round(x, 4) for x in micro]} "
+              f"s, micro step 4 with the apply step {rows[-1]['s_micro_step_4_with_apply']:.4f} s, "
+              f"{rows[-1]['s_per_optimizer_step_ga4']:.4f} s an optimizer step at GA {GA}")
+    one = one_process_control(torch, work_dir, preset_path, "pp", {
+        "anima_pipeline_parallel_size": 1})
+    one_want = {"flash_fwd_d128": 2 * cfg.num_blocks * steps,
+                "flash_bwd_dq_d128": cfg.num_blocks * steps,
+                "flash_bwd_dkv_d128": cfg.num_blocks * steps}
+    check(one["launches"] == one_want,
+          f"pp one process: launches {one['launches']}, expected {one_want}")
+    held_against_one(torch, "pp", losses, one, work_dir, smi)
+    secs = time.perf_counter() - t_phase
+    print(f"  [{smi}] pp: {secs:.1f} s (checkpoint, cache, the ranks' run {wall:.1f} s, one "
+          f"process {one['wall_s']:.1f} s)")
+    return ({"one_card_gloo": one_card, "blocks": cfg.num_blocks, "pp": PP,
+             "microbatches": PP_MICROBATCHES, "batch": PP_BATCH, "losses": losses,
+             "ranks": rows, "launches_per_rank": want, "one_process": one, "wall_s": wall,
+             "s": secs}, want)
+
+
+# --------------------------------------------------------------------------
 
 PHASES = ("kernels", "k5", "k6", "unet", "dit", "vae", "trainer", "anima", "anima_video",
-          "repair", "fp16", "anima_sp", "dp", "resume", "plan")
+          "repair", "fp16", "anima_sp", "dp", "pp", "resume", "plan")
 USAGE = ("usage: chip_smoke.py [--only PHASE[,PHASE...]]   phases: " + ", ".join(PHASES)
          + "\n       chip_smoke.py --anima-sp-rank PRESET OUT_DIR   (one torchrun rank)"
-         + "\n       chip_smoke.py --dp-rank sdxl|anima PRESET OUT_DIR   (one rank of dp)")
+         + "\n       chip_smoke.py --dp-rank sdxl|anima|anima_pp|anima_sp PRESET OUT_DIR"
+         + "   (one rank of dp, pp or anima_sp)")
 
 
 def kernels_json(timings, max_err, launches, k5, k6, sm90):
@@ -4374,7 +4705,9 @@ def kernels_json(timings, max_err, launches, k5, k6, sm90):
             **({"max_err_against_float64": timings["fp16_against_float64"][kname]}
                if kname in timings["fp16_against_float64"] else {}),
             **({"launches_anima_video": launches["anima_video"].get(kname, 0),
-                "launches_repair": launches["repair"].get(kname, 0)}
+                "launches_repair": launches["repair"].get(kname, 0),
+                "launches_pp_per_rank": launches["pp"].get(kname, 0),
+                "launches_sp_video_per_rank": launches["anima_sp"].get(kname, 0)}
                if ph == "anima" else {}),
             **({"launches_profile_quants": launches["profile_quants"].get(kname, 0)}
                if kname == "flash_fwd_f32_d128" else {})})
@@ -4390,6 +4723,7 @@ def kernels_json(timings, max_err, launches, k5, k6, sm90):
             "replaces": f"{FA}:{line}",
             "phase": "k5 (the ring's hop schedule for sp 2 and 4 on one card)",
             "launches": k5_launches[kname], "max_abs_err": k5_err[kname],
+            "launches_sp_video_per_rank": launches["anima_sp"].get(kname, 0),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shapes": k5_timings[kname], "ring_one_card": ring_ms})
@@ -4413,7 +4747,8 @@ def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else list(argv)
     if args[:1] == ["--anima-sp-rank"] and len(args) == 3:
         return anima_sp_rank(args[1], args[2])
-    if args[:1] == ["--dp-rank"] and len(args) == 4 and args[1] in ("sdxl", "anima"):
+    if args[:1] == ["--dp-rank"] and len(args) == 4 and args[1] in (
+            "sdxl", "anima", "anima_pp", "anima_sp"):
         return dp_rank(args[1], args[2], args[3])
     only = set(PHASES)
     if args[:1] == ["--only"] and len(args) == 2 and set(args[1].split(",")) <= only:
@@ -4476,10 +4811,14 @@ def main(argv=None) -> int:
                 summary["fp16"], launches["fp16"] = fp16_phase(torch, Path(tmp), smi)
         if "anima_sp" in only:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_anima_sp_") as tmp:
-                summary["anima_sp"] = anima_sp_phase(torch, Path(tmp), TRAIN_STEPS)
+                summary["anima_sp"], launches["anima_sp"] = anima_sp_phase(
+                    torch, Path(tmp), TRAIN_STEPS, smi)
         if "dp" in only:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
                 summary["dp"] = dp_phase(torch, Path(tmp), smi)
+        if "pp" in only:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_pp_") as tmp:
+                summary["pp"], launches["pp"] = pp_phase(torch, Path(tmp), smi)
         if "plan" in only:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_plan_") as tmp:
                 summary["plan"] = plan_phase(

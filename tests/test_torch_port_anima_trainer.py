@@ -410,13 +410,9 @@ def test_cli_raises_without_cuda_unless_cpu_is_asked_for(monkeypatch):
 
 @pytest.mark.parametrize("overrides,match", [
     # sequence parallelism is ported; combined with TP it is refused by TP
-    ({"SEQUENCE_PARALLEL_SIZE": 2, "TENSOR_PARALLEL_SIZE": 2}, "PARALLEL"),
-    ({"PIPELINE_PARALLEL_SIZE": 2}, "PARALLEL"),
-    ({"TENSOR_PARALLEL_SIZE": 2}, "PARALLEL"),
-    # the line-art loss is ported; pipeline parallelism beside it is not
-    ({"ANIMA_REPAIR_LINEART_LOSS_ENABLED": True, "PIPELINE_PARALLEL_SIZE": 2}, "PARALLEL"),
-    # video mode is ported; under sequence parallelism it is not
-    ({"ANIMA_VIDEO_FRAMES": 5, "SEQUENCE_PARALLEL_SIZE": 2}, "video mode under sequence"),
+    pytest.param({"SEQUENCE_PARALLEL_SIZE": 2, "TENSOR_PARALLEL_SIZE": 2}, "PARALLEL",
+                 id="overrides0-PARALLEL"),
+    pytest.param({"TENSOR_PARALLEL_SIZE": 2}, "PARALLEL", id="overrides2-PARALLEL"),
 ])
 def test_unported_options_are_refused(tmp_path, overrides, match):
     _build_env(tmp_path)
@@ -425,6 +421,35 @@ def test_unported_options_are_refused(tmp_path, overrides, match):
     with pytest.raises(NotImplementedError, match=match):
         port_trainer.run_anima_training(config, device="cpu")
     assert not (tmp_path / "out" / "anima_run.safetensors").exists()
+
+
+@pytest.mark.parametrize("overrides", [
+    {"PIPELINE_PARALLEL_SIZE": 2},
+    {"PIPELINE_PARALLEL_SIZE": 2, "ANIMA_PIPELINE_MICROBATCHES": 3},
+    {"SEQUENCE_PARALLEL_SIZE": 2, "PIPELINE_PARALLEL_SIZE": 2},
+], ids=["pp2", "pp2_microbatches_3", "sp2_pp2"])
+def test_multi_rank_options_fall_back_on_one_process(tmp_path, monkeypatch, capsys,
+                                                      overrides):
+    """Pipeline and sequence parallelism are ported (on ranks:
+    ``tests/test_torch_port_anima_pp.py``); on one process the layout
+    falls back as the JAX package's does, with its WARNING lines (the
+    microbatch count is not checked once pp is 1), and the run trains."""
+    _build_env(tmp_path)
+    monkeypatch.setenv("AOZORA_DEVICES", "1")
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    from aozora_sdxl_training_tpu.parallel import sharding as jax_shard
+    jax_shard.resolve_mesh_layout(JaxConfig(_flat(tmp_path, "out", **overrides),
+                                            validate_resume_paths=False))
+    want = [line for line in capsys.readouterr().out.splitlines()
+            if line.startswith("WARNING")]
+    config = RuntimeConfig(_flat(tmp_path, "out", **overrides), validate_resume_paths=False)
+    with mock.patch("aozora_sdxl_training_tpu_torch.train.anima_trainer."
+                    "check_if_anima_caching_needed", return_value=False), one_thread():
+        port_trainer.run_anima_training(config, device="cpu")
+    got = [line for line in capsys.readouterr().out.splitlines()
+           if line.startswith("WARNING")]
+    assert want and got == want
+    assert (tmp_path / "out" / "anima_run.safetensors").exists()
 
 
 def test_rebuild_cache_builds_on_the_device_before_the_dit_loads(tmp_path):

@@ -27,7 +27,10 @@ route must agree with its unfused one. An optimizer state with bf16 and
 with int8 blockwise moments, updated on the card, goes through the
 training-state file and back onto the card bit for bit. FSDP's
 collectives run over gloo on CUDA tensors (two ranks on the card): the
-gathers exact, the reduce-scatter and sync the plain sums. The QAT repair
+gathers exact, the reduce-scatter and sync the plain sums; the
+point-to-point hop of the SP ring and of the GPipe stages
+(``parallel/p2p.exchange``) between two gloo ranks on the card, staged
+through pinned host buffers, delivers fp32 and bf16 byte for byte. The QAT repair
 trainer's device projection (train/qat_project.py, plain torch on the
 card) equals the numpy quantizers' round trip bit for bit in all five
 formats, and its error feedback equals the CPU's. The host-moment apply
@@ -612,6 +615,33 @@ def test_fsdp_collectives_over_gloo_on_cuda_tensors(cuda_device, tmp_path):
                 np.testing.assert_allclose(got[f"reduced.{name}"],
                                            arrays[f"grad.{name}"].sum(axis=0),
                                            rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_p2p_hop_over_gloo_on_cuda_tensors(cuda_device, tmp_path):
+    """``parallel.p2p.exchange`` between two gloo ranks on the one card
+    (``tests/test_torch_port_ranks.py``, task ``hop``): gloo's own
+    send/recv hand a CUDA tensor's device pointer to its TCP transport,
+    so a gloo group stages the hop through pinned host buffers; each rank
+    receives, on the card, what the other sent, byte for byte, in fp32
+    and bf16 (odd sizes too)."""
+    import numpy as np
+    import torch
+    from tests.test_torch_port_ranks import run_task
+    for shape in ((2, 3, 4096, 16), (2, 1001)):
+        x = np.random.default_rng(4).normal(size=shape).astype(np.float32)
+        work = tmp_path / "x".join(map(str, shape))
+        work.mkdir()
+        np.savez(work / "inputs.npz", x=x, device="cuda")
+        ranks = run_task("hop", 2, work / "inputs.npz", work, timeout=120)
+        for rank, got in enumerate(ranks):
+            assert bool(got["staged"])
+            src = torch.from_numpy(x[(rank - 1) % 2])
+            for name, dtype, bits in (("float32", torch.float32, torch.int32),
+                                      ("bfloat16", torch.bfloat16, torch.int16)):
+                assert str(got[f"{name}.device"]).startswith("cuda")
+                np.testing.assert_array_equal(got[f"{name}.bits"],
+                                              src.to(dtype).view(bits).numpy())
 
 
 @pytest.mark.cuda

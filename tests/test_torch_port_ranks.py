@@ -12,6 +12,8 @@ Run as a module, a rank runs one task of the tests:
     python -m tests.test_torch_port_ranks dit  inputs.npz out_prefix
     python -m tests.test_torch_port_ranks mesh inputs.npz out_prefix
     python -m tests.test_torch_port_ranks fsdp inputs.npz out_prefix
+    python -m tests.test_torch_port_ranks pipeline inputs.npz out_prefix
+    python -m tests.test_torch_port_ranks hop inputs.npz out_prefix
 
 and writes ``<out_prefix>_<rank>.npz``. Or it runs the port's SDXL CLI on
 a preset (the CLI starts the process group), with the trainer's noise
@@ -21,9 +23,10 @@ back out through ``save_train_state`` (every rank joins the gathers):
     python -m tests.test_torch_port_ranks sdxl_cli noise.npy preset.json restored.safetensors
 
 or the port's Anima CLI with FSDP's threshold lowered to ``min_elements``
-(TINY models have no tensor of the JAX package's 2^16 elements):
+(TINY models have no tensor of the JAX package's 2^16 elements), computing
+in fp32 where ``fp32`` is given:
 
-    python -m tests.test_torch_port_ranks anima_cli min_elements preset.json
+    python -m tests.test_torch_port_ranks anima_cli min_elements preset.json [fp32]
 
 This module imports no JAX; its own tests check the launcher.
 """
@@ -210,6 +213,96 @@ def _fsdp(inputs, group, n):
     return out
 
 
+def _hop(inputs, group, n):
+    """``parallel.p2p.exchange`` around the world's ring on ``device``: each
+    rank sends its row of ``x``, in fp32 and in bf16, to rank + 1 and
+    receives from rank - 1; the received bits, their device and whether
+    the hop was staged through host memory."""
+    import torch
+    import torch.distributed as dist
+    from aozora_sdxl_training_tpu_torch.parallel import p2p
+    rank, device = dist.get_rank(), torch.device(str(inputs["device"]))
+    out = {"staged": p2p.staged(group, device)}
+    for name, dtype, bits in (("float32", torch.float32, torch.int32),
+                              ("bfloat16", torch.bfloat16, torch.int16)):
+        sent = torch.from_numpy(inputs["x"][rank]).to(device=device, dtype=dtype)
+        (got,) = p2p.exchange([(sent, (rank + 1) % n)], [(sent, (rank - 1) % n)], group)
+        out[f"{name}.bits"] = got.view(bits).cpu().numpy()
+        out[f"{name}.device"] = str(got.device)
+    return out
+
+
+def _pipeline(inputs, group, n):
+    """For each case ``c`` of ``inputs["cases"]``: pp_dit_forward of a TINY
+    DiT (``c.cfg.*`` overrides, the JAX package's params ``p.*``) over a dp x
+    pp mesh (``dp``, ``pp``; fp32; ``c.remat``), with FSDP (threshold
+    ``min``) on the tensors around the stack, each dp rank taking its rows
+    of ``c.latents``/``c.t``/``c.ctx``/``c.ids`` in ``c.micro``
+    microbatches; the output rows, and the whole gradients of sum(out *
+    ``c.tangent``) over the dp ranks (flat names, the port's layout)
+    after the step's reduce-scatter and sync, their global norm, and the
+    stage's hops and elements. Then one int8 AdamW step
+    (``min8``) on this rank's tensors with those gradients, written by
+    ``save_train_state`` to ``c.state`` (rank 0)."""
+    import torch
+    import torch.distributed as dist
+    from dataclasses import replace
+    from aozora_sdxl_training_tpu_torch.ckpt.train_state import save_train_state
+    from aozora_sdxl_training_tpu_torch.models.anima import dit
+    from aozora_sdxl_training_tpu_torch.opt import adamw
+    from aozora_sdxl_training_tpu_torch.parallel import p2p, pipeline as pl, sharding
+    mesh = sharding.make_mesh(dp=int(inputs["dp"]), pp=int(inputs["pp"]))
+    out = {"dp_rank": mesh.dp_rank, "pp_rank": mesh.pp_rank}
+    for c in [str(x) for x in inputs["cases"]]:
+        get = {k[len(c) + 1:]: v for k, v in inputs.items() if k.startswith(c + ".")}
+        cfg = replace(dit.TINY_ANIMA, **{k[4:]: int(v) for k, v in get.items()
+                                         if k.startswith("cfg.")})
+        params = pl.stackify_params(
+            dit.params_from_jax({k[2:]: inputs[k] for k in inputs if k.startswith("p.")}),
+            cfg.num_blocks)
+        fsdp = sharding.FSDP(mesh, {k: tuple(v.shape) for k, v in params.items()},
+                             adamw.Layout(dit.to_jax_layout, dit.from_jax_layout),
+                             torch.float32, min_elements=int(inputs["min"]))
+        for p in params.values():
+            p.requires_grad_(True)
+        fsdp.shard_params(params)
+        b = get["latents"].shape[0] // mesh.dp
+        rows = slice(mesh.dp_rank * b, (mesh.dp_rank + 1) * b)
+        copies = fsdp.compute_copies(params)
+        stacked, rest = pl.split_stacked(copies)
+        p2p.reset_stats()
+        y = pl.pp_dit_forward(
+            stacked, rest, *(torch.from_numpy(get[x][rows]) for x in ("latents", "t", "ctx")),
+            cfg=cfg, mesh=mesh, microbatches=int(get["micro"]),
+            t5_ids=torch.from_numpy(get["ids"][rows]), attn_impl="xla",
+            compute_dtype=torch.float32, remat=str(get["remat"]))
+        (y * torch.from_numpy(get["tangent"][rows])).sum().backward()
+        fsdp.reduce_scatter(copies, params)
+        fsdp.sync(params)
+        grads = {k: (fsdp.gather(k, p.grad) if k in fsdp.specs else
+                     fsdp.gather_stages(k, p.grad) if k in fsdp.stages else p.grad)
+                 for k, p in params.items()}
+        out.update({f"{c}.out": y.detach().numpy(),
+                    f"{c}.norm": float(fsdp.grad_norm({k: p.grad for k, p in params.items()})),
+                    f"{c}.hops": p2p.STATS["pipeline"]["hops"],
+                    f"{c}.hop_bytes": p2p.STATS["pipeline"]["bytes_sent"],
+                    f"{c}.stage_elements": sum(p.numel() for k, p in params.items()
+                                               if k in fsdp.stages)})
+        out.update({f"{c}.g.{k}": v.numpy()
+                    for k, v in pl.unstackify_params(grads, cfg.num_blocks).items()})
+        opt_cfg = adamw.AdamWConfig(momentum_dtype="int8_blockwise",
+                                    min_8bit_size=int(inputs["min8"]))
+        state = adamw.init_state(params, opt_cfg, fsdp.opt_layout())
+        with torch.no_grad():
+            adamw.apply_updates(params, {k: p.grad for k, p in params.items()}, state,
+                                opt_cfg, lr=1e-3)
+        save_train_state(str(get["state"]), global_step=1, micro_step=1, opt_state=state,
+                         sampler_seed=0, sampler_epoch=0, timestep_sampler_state=None,
+                         fsdp=fsdp)
+    dist.barrier()
+    return out
+
+
 def sdxl_cli(noise: str, preset: str, restored: str) -> int:
     """The port's SDXL CLI on ``preset`` (one process, or a rank of the
     world in this process's environment) over a synthetic cache (no source
@@ -256,10 +349,21 @@ def sdxl_cli(noise: str, preset: str, restored: str) -> int:
     return 0
 
 
-def anima_cli(min_elements: str, preset: str) -> int:
+def anima_cli(min_elements: str, preset: str, fp32: str = "") -> int:
     from aozora_sdxl_training_tpu_torch.cli import train_anima
     from aozora_sdxl_training_tpu_torch.parallel import sharding
     sharding.MIN_SHARD_ELEMENTS = int(min_elements)
+    if fp32:
+        import torch
+        from aozora_sdxl_training_tpu_torch.config.runtime import RuntimeConfig
+        parse = RuntimeConfig.from_argv
+
+        def in_fp32(argv):
+            config = parse(argv)
+            config.compute_dtype = torch.float32
+            return config
+
+        RuntimeConfig.from_argv = staticmethod(in_fp32)
     train_anima.main(["--config", preset])
     return 0
 
@@ -275,7 +379,8 @@ def main(argv) -> int:
     sharding.init_distributed()
     try:
         n, rank = dist.get_world_size(), dist.get_rank()
-        result = {"ring": _ring, "dit": _dit, "mesh": _mesh, "fsdp": _fsdp}[task](
+        result = {"ring": _ring, "dit": _dit, "mesh": _mesh, "fsdp": _fsdp,
+                  "pipeline": _pipeline, "hop": _hop}[task](
             dict(np.load(inputs)), dist.group.WORLD, n)
         np.savez(f"{prefix}_{rank}.npz", **result)
     finally:

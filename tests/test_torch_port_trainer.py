@@ -430,7 +430,8 @@ def test_port_imports_no_jax():
         "             or m.split('.')[0] in ('aozora_sdxl_training_tpu', 'cv2', 'PyQt5',\n"
         "                                    'PyQt6'))\n"
         "new = {p.__name__ + '.' + n for n in ('ops.ring_attention', "
-        "'ops.groupnorm_silu', 'parallel', 'parallel.sharding', "
+        "'ops.groupnorm_silu', 'parallel', 'parallel.sharding', 'parallel.pipeline', "
+        "'parallel.p2p', 'tools.p2p_probe', "
         "'models.anima.qwen3', 'models.anima.wan_vae', 'models.anima.pipeline', "
         "'train.qat_project', 'train.qat_repair', 'cli.train_anima_repair', "
         "'tools.quantize', 'tools.semantic_maps', 'tools.profile_quants', "
