@@ -25,7 +25,12 @@ of ranks. Under pipeline parallelism the moments of a stage-stacked block
 leaf are keyed ``__stack__.<suffix>`` and shaped ``[num_blocks, ...]`` in
 the JAX layout, as the JAX package's pipeline run saves them: every stage
 gathers its slices to the whole leaf when its turn comes (int8 codes over
-the whole leaf's blocks, as the JAX package blocks them).
+the whole leaf's blocks, as the JAX package blocks them). Under tensor
+parallelism every tp rank gathers the slices of each split tensor's
+moments into the JAX layout when its turn comes (an int8 moment's codes;
+its scales, the whole tensor's blocks', each tp rank holds already), and a
+resume cuts the whole file into tp slices, so a state resumes on any dp x
+tp and on one process.
 
 Filenames mirror the reference:
 ``{stem}_step_{N}.safetensors`` + ``{stem}_training_state_step_{N}.safetensors``.
@@ -102,6 +107,7 @@ def save_train_state(path, *, global_step: int, micro_step: int,
     to_jax = opt_state.layout.to_jax
     specs = fsdp.specs if fsdp is not None else {}
     stages = fsdp.stages if fsdp is not None else {}
+    tps = fsdp.tps if fsdp is not None else {}
     tensors = {"opt.step": np.asarray(opt_state.step, np.int32)}
 
     def lazy(t):
@@ -137,12 +143,23 @@ def save_train_state(path, *, global_step: int, micro_step: int,
                 ((-(-spec.numel // INT8_BLOCK),), np.dtype(np.float32),
                  lambda: _host_array(whole.pop("scales"))))
 
+    def split(name, value):
+        return (tps[name].jax_shape, _NUMPY_OF_TORCH[value.dtype],
+                lambda: _host_array(to_jax(name, fsdp.gather_tp(name, value))))
+
+    def split_int8(name, codes, scales):
+        return ((tps[name].jax_shape, np.dtype(np.int8),
+                 lambda: _host_array(fsdp.gather_tp(name, codes, jax=True))), lazy(scales))
+
     def put(prefix, name, value):
         if isinstance(value, tuple):  # int8_blockwise (codes, scales)
             tensors[f"{prefix}.{name}"], tensors[f"{prefix}.{name}@scales"] = (
                 gathered_int8(name, *value) if name in specs
                 else staged_int8(name, *value) if name in stages
+                else split_int8(name, *value) if name in tps
                 else (lazy(value[0]), lazy(value[1])))
+        elif name in tps:
+            tensors[f"{prefix}.{name}"] = split(name, value)
         elif name in stages:
             tensors[f"{prefix}.{name}"] = staged(name, value)
         elif name in specs:

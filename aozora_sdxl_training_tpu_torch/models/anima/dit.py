@@ -30,6 +30,16 @@ padded to 512 tokens.
   selective policy of ``ops/remat.py``, so that the backward recomputes the
   rest of the block but neither the down-projection's GEMM nor the flash
   forward. Under sequence parallelism the ring names nothing, as in JAX.
+* ``tp`` (a ``parallel.tensor_parallel.TPConfig``, or None) runs the
+  blocks' and the adapter's attention and MLPs as Megatron column and row
+  splits over the tp ranks, on the tp slices that ``params`` then holds:
+  q/k/v, ``mlp.layer1`` and the adapter's ``mlp.0`` column-parallel,
+  ``output_proj``/``o_proj``, ``mlp.layer2`` and ``mlp.2`` row-parallel
+  (``mlp.2.bias`` added once after the reduce). A rank runs its own heads
+  (the per-head q/k RMSNorm scales then get partial gradients, which FSDP
+  sums over tp), or, where tp does not divide the heads, gathers q/k/v and
+  runs them all. The cross-attention context, which the trainable adapter
+  makes, enters the blocks once through ``tp.copy``.
 """
 
 from __future__ import annotations
@@ -173,14 +183,37 @@ def _base_impl(attn_impl) -> str:
     return attn_impl.base_impl if isinstance(attn_impl, SPRingConfig) else attn_impl
 
 
+def _tp_heads(tp, prefix: str, x, heads: int):
+    """(split, heads run here, x as the q/k/v projections' input): a
+    tp-split attention (``TPConfig.heads``) takes its input through
+    ``tp.copy``."""
+    if tp is None or not tp.splits(f"{prefix}.q_proj.weight"):
+        return False, heads, x
+    return True, tp.heads(heads), tp.copy(x)
+
+
+def _attention_out(tp, split: bool, heads: int, total: int, params: Params, name: str, o):
+    if not split:
+        return _linear(params, name, o)
+    return tp.attention_out(heads, total, o, params[f"{name}.weight"],
+                            params.get(f"{name}.bias"))
+
+
 def _dit_attention(params: Params, prefix: str, x, context, cfg: AnimaDiTConfig,
-                   rope=None, attn_impl="xla"):
+                   rope=None, attn_impl="xla", tp=None):
     b, l, _ = x.shape
-    heads, d = cfg.num_heads, cfg.head_dim
+    d = cfg.head_dim
+    # the cross-attention context came in through tp.copy (dit_prologue)
+    split, heads, x = _tp_heads(tp, prefix, x, cfg.num_heads)
     ctx = x if context is None else context
-    q = _linear(params, f"{prefix}.q_proj", x).reshape(b, l, heads, d)
-    k = _linear(params, f"{prefix}.k_proj", ctx).reshape(b, ctx.shape[1], heads, d)
-    v = _linear(params, f"{prefix}.v_proj", ctx).reshape(b, ctx.shape[1], heads, d)
+    q = _linear(params, f"{prefix}.q_proj", x)
+    k = _linear(params, f"{prefix}.k_proj", ctx)
+    v = _linear(params, f"{prefix}.v_proj", ctx)
+    if split:
+        q, k, v = tp.qkv(heads, cfg.num_heads, q, k, v)
+    q = q.reshape(b, l, heads, d)
+    k = k.reshape(b, ctx.shape[1], heads, d)
+    v = v.reshape(b, ctx.shape[1], heads, d)
     q = _rms_norm(params, f"{prefix}.q_norm", q)
     k = _rms_norm(params, f"{prefix}.k_norm", k)
     if rope is not None and context is None:   # rope only on self-attention
@@ -194,7 +227,8 @@ def _dit_attention(params: Params, prefix: str, x, context, cfg: AnimaDiTConfig,
         o = sp_ring_attention(q, k, v, attn_impl)
     else:
         o = attention(q, k, v, impl=_base_impl(attn_impl))
-    return _linear(params, f"{prefix}.output_proj", o.reshape(b, l, heads * d))
+    return _attention_out(tp, split, heads, cfg.num_heads, params, f"{prefix}.output_proj",
+                          o.reshape(b, l, heads * d))
 
 
 def _adaln_chunks(params: Params, prefix: str, emb, adaln_lora, n: int):
@@ -206,7 +240,7 @@ def _adaln_chunks(params: Params, prefix: str, emb, adaln_lora, n: int):
 
 
 def dit_block(params: Params, prefix: str, x, emb, context, rope, adaln_lora,
-              cfg: AnimaDiTConfig, attn_impl="xla"):
+              cfg: AnimaDiTConfig, attn_impl="xla", tp=None):
     """x: (B, T, H, W, D); emb: (B, T, D); context: (B, Lc, Dc)."""
     b, t, h, w, d = x.shape
     res_dtype = x.dtype
@@ -221,23 +255,27 @@ def dit_block(params: Params, prefix: str, x, emb, context, rope, adaln_lora,
     shift, scale, gate = mod("adaln_modulation_self_attn")
     normed = norm_mod(x, shift, scale).reshape(b, t * h * w, d)
     out = _dit_attention(params, f"{prefix}.self_attn", normed, None, cfg,
-                         rope=rope, attn_impl=attn_impl)
+                         rope=rope, attn_impl=attn_impl, tp=tp)
     x = x + gate.to(res_dtype) * out.reshape(b, t, h, w, d).to(res_dtype)
 
     shift, scale, gate = mod("adaln_modulation_cross_attn")
     normed = norm_mod(x, shift, scale).reshape(b, t * h * w, d)
     out = _dit_attention(params, f"{prefix}.cross_attn", normed, context, cfg,
-                         attn_impl=attn_impl)
+                         attn_impl=attn_impl, tp=tp)
     x = x + gate.to(res_dtype) * out.reshape(b, t, h, w, d).to(res_dtype)
 
     # MLP (GPT2FeedForward: linear -> exact GELU -> linear, no biases)
     shift, scale, gate = mod("adaln_modulation_mlp")
-    hmid = F.gelu(_linear(params, f"{prefix}.mlp.layer1", norm_mod(x, shift, scale)))
+    h_in = norm_mod(x, shift, scale)
+    mlp_tp = tp if tp is not None and tp.splits(f"{prefix}.mlp.layer1.weight") else None
+    if mlp_tp is not None:
+        h_in = mlp_tp.copy(h_in)
+    hmid = F.gelu(_linear(params, f"{prefix}.mlp.layer1", h_in))
     # named "mlp_down": the "conservative" policy keeps the wide->narrow
-    # down-projection (the reference's MUST_SAVE rule) and skips its GEMM
-    # in the recompute
+    # down-projection (the reference's MUST_SAVE rule; under tp after its
+    # reduce) and skips its GEMM in the recompute
     out = linear_kept(hmid, params[f"{prefix}.mlp.layer2.weight"].to(hmid.dtype),
-                      "mlp_down")
+                      "mlp_down", mlp_tp)
     return x + gate.to(res_dtype) * out.to(res_dtype)
 
 
@@ -307,20 +345,31 @@ def embedding_lookup(table, ids):
 
 
 def _adapter_attention(params: Params, prefix: str, x, context, heads: int,
-                       rope_q, rope_k, attn_impl: str = "xla"):
+                       rope_q, rope_k, attn_impl: str = "xla", tp=None):
     b, l, dq = x.shape
     d = dq // heads
-    q = _linear(params, f"{prefix}.q_proj", x).reshape(b, l, heads, d)
-    k = _linear(params, f"{prefix}.k_proj", context).reshape(b, context.shape[1], heads, d)
-    v = _linear(params, f"{prefix}.v_proj", context).reshape(b, context.shape[1], heads, d)
+    total = heads
+    self_attn = context is x
+    split, heads, x = _tp_heads(tp, prefix, x, heads)
+    if split:
+        # the self-attention's context is its input
+        context = x if self_attn else tp.copy(context)
+    q = _linear(params, f"{prefix}.q_proj", x)
+    k = _linear(params, f"{prefix}.k_proj", context)
+    v = _linear(params, f"{prefix}.v_proj", context)
+    if split:
+        q, k, v = tp.qkv(heads, total, q, k, v)
+    q = q.reshape(b, l, heads, d)
+    k = k.reshape(b, context.shape[1], heads, d)
+    v = v.reshape(b, context.shape[1], heads, d)
     q = _rotate(_rms_norm(params, f"{prefix}.q_norm", q), rope_q)
     k = _rotate(_rms_norm(params, f"{prefix}.k_norm", k), rope_k)
-    o = attention(q, k, v, impl=attn_impl).reshape(b, l, dq)
-    return _linear(params, f"{prefix}.o_proj", o)
+    o = attention(q, k, v, impl=attn_impl).reshape(b, l, heads * d)
+    return _attention_out(tp, split, heads, total, params, f"{prefix}.o_proj", o)
 
 
 def llm_adapter_forward(params: Params, source_hidden, target_ids,
-                        cfg: AnimaDiTConfig, attn_impl: str = "xla"):
+                        cfg: AnimaDiTConfig, attn_impl: str = "xla", tp=None):
     """Qwen3 hidden states + T5 token ids -> adapted context. Trainable;
     runs inside the DiT forward."""
     p = "llm_adapter"
@@ -333,23 +382,27 @@ def llm_adapter_forward(params: Params, source_hidden, target_ids,
         blk = f"{p}.blocks.{i}"
         h = _rms_norm(params, f"{blk}.norm_self_attn", x)
         x = x + _adapter_attention(params, f"{blk}.self_attn", h, h, heads,
-                                   rope_q, rope_q, attn_impl)
+                                   rope_q, rope_q, attn_impl, tp)
         h = _rms_norm(params, f"{blk}.norm_cross_attn", x)
         x = x + _adapter_attention(params, f"{blk}.cross_attn", h, source_hidden,
-                                   heads, rope_q, rope_k, attn_impl)
+                                   heads, rope_q, rope_k, attn_impl, tp)
         h = _rms_norm(params, f"{blk}.norm_mlp", x)
-        h = F.gelu(_linear(params, f"{blk}.mlp.0", h))
-        x = x + _linear(params, f"{blk}.mlp.2", h)
+        if tp is not None and tp.splits(f"{blk}.mlp.0.weight"):
+            h = F.gelu(_linear(params, f"{blk}.mlp.0", tp.copy(h)))
+            x = x + tp.row(h, params[f"{blk}.mlp.2.weight"], params.get(f"{blk}.mlp.2.bias"))
+        else:
+            h = F.gelu(_linear(params, f"{blk}.mlp.0", h))
+            x = x + _linear(params, f"{blk}.mlp.2", h)
     x = _linear(params, f"{p}.out_proj", x)
     return _rms_norm(params, f"{p}.norm", x)
 
 
 def preprocess_text_embeds(params: Params, text_embeds, t5_ids, cfg: AnimaDiTConfig,
-                           attn_impl: str = "xla"):
+                           attn_impl: str = "xla", tp=None):
     """Adapter + pad to ``cfg.context_tokens``."""
     if t5_ids is None:
         return text_embeds
-    out = llm_adapter_forward(params, text_embeds, t5_ids, cfg, attn_impl)
+    out = llm_adapter_forward(params, text_embeds, t5_ids, cfg, attn_impl, tp)
     if out.shape[1] < cfg.context_tokens:
         out = F.pad(out, (0, 0, 0, cfg.context_tokens - out.shape[1]))
     return out
@@ -361,7 +414,7 @@ def preprocess_text_embeds(params: Params, text_embeds, t5_ids, cfg: AnimaDiTCon
 
 def dit_prologue(params: Params, latents, timesteps, context, *,
                  cfg: AnimaDiTConfig, t5_ids=None, attn_impl="xla",
-                 compute_dtype=torch.bfloat16):
+                 compute_dtype=torch.bfloat16, tp=None):
     """Patchify + embedders + adapter: (x, emb, context, rope, lora, shape)."""
     pt, ps = cfg.patch_temporal, cfg.patch_spatial
     orig = latents.shape
@@ -381,7 +434,11 @@ def dit_prologue(params: Params, latents, timesteps, context, *,
                    F.silu(_linear(params, "t_embedder.1.linear_1", sin_emb)))
     emb = _rms_norm(params, "t_embedding_norm", sin_emb)
     context = preprocess_text_embeds(params, context.to(compute_dtype), t5_ids,
-                                     cfg, _base_impl(attn_impl))
+                                     cfg, _base_impl(attn_impl), tp)
+    if tp is not None and tp.splits("blocks.0.cross_attn.k_proj.weight"):
+        # every block's cross-attention k/v are column-parallel on it: one
+        # copy, so its gradient is summed over tp once, not once a block
+        context = tp.copy(context)
     return x, emb, context, rope, lora, orig
 
 
@@ -398,7 +455,7 @@ def block_remat_mode(mode):
                      "or 'conservative'")
 
 
-def make_block_fn(cfg: AnimaDiTConfig, attn_impl, remat):
+def make_block_fn(cfg: AnimaDiTConfig, attn_impl, remat, tp=None):
     """The per-block callable ``block_fn(params, prefix, x, emb, context,
     rope, lora)``: ``dit_block`` under the remat that ``block_remat_mode``
     chooses (the JAX package's ``make_block_fn``). The sequential forward
@@ -408,7 +465,7 @@ def make_block_fn(cfg: AnimaDiTConfig, attn_impl, remat):
 
     def block_fn(params, prefix, x, emb, context, rope, lora):
         return remat_region(dit_block, mode, params, prefix, x, emb, context, rope,
-                            lora, cfg, attn_impl)
+                            lora, cfg, attn_impl, tp)
 
     return block_fn
 
@@ -430,13 +487,13 @@ def dit_epilogue(params: Params, x, emb, lora, orig, *, cfg: AnimaDiTConfig,
 
 def dit_forward(params: Params, latents, timesteps, context, *,
                 cfg: AnimaDiTConfig, t5_ids=None, attn_impl="xla",
-                compute_dtype=torch.bfloat16, remat=True):
+                compute_dtype=torch.bfloat16, remat=True, tp=None):
     """latents: (B, T, H, W, C) channel-last; timesteps: (B,) or (B, T).
     Returns (B, T, H, W, C_out) cropped back to the input size."""
     x, emb, context, rope, lora, orig = dit_prologue(
         params, latents, timesteps, context, cfg=cfg, t5_ids=t5_ids,
-        attn_impl=attn_impl, compute_dtype=compute_dtype)
-    block_fn = make_block_fn(cfg, attn_impl, remat)
+        attn_impl=attn_impl, compute_dtype=compute_dtype, tp=tp)
+    block_fn = make_block_fn(cfg, attn_impl, remat, tp)
     for i in range(cfg.num_blocks):
         x = block_fn(params, f"blocks.{i}", x, emb, context, rope, lora)
     return dit_epilogue(params, x, emb, lora, orig, cfg=cfg,

@@ -23,7 +23,14 @@ same graph and the same numerics choices:
   resnets' norm1/norm2 + SiLU through ``ops.groupnorm_silu``'s NCHW entry
   (K6 on the card, its plain version on the CPU), SiLU in fp32 and one cast;
 * attention dispatches through ``ops.attention`` (einsum or the flash
-  kernels).
+  kernels);
+* ``tp`` (a ``parallel.tensor_parallel.TPConfig``, or None) runs the
+  transformer blocks' attention and GEGLU feed-forward as Megatron column
+  and row splits over the tp ranks, on the tp slices that ``params`` then
+  holds: q/k/v and the GEGLU projection column-parallel (a layer whose
+  heads tp does not divide gathers q/k/v and runs its heads whole),
+  ``to_out.0`` and ``ff.net.2`` row-parallel, their biases added once after
+  the reduce.
 """
 
 from __future__ import annotations
@@ -123,36 +130,55 @@ def resnet_block(params: Params, prefix: str, x, temb, *, groups: int,
 
 
 def _attention_layer(params: Params, prefix: str, x, context, num_heads: int,
-                     attn_impl: str):
+                     attn_impl: str, tp=None):
     b, s, c = x.shape
     d = c // num_heads
     sk = context.shape[1]
-    q = linear(params, f"{prefix}.to_q", x).reshape(b, s, num_heads, d)
-    k = linear(params, f"{prefix}.to_k", context).reshape(b, sk, num_heads, d)
-    v = linear(params, f"{prefix}.to_v", context).reshape(b, sk, num_heads, d)
-    o = attention(q, k, v, impl=attn_impl).reshape(b, s, c)
-    return linear(params, f"{prefix}.to_out.0", o)
+    split = tp is not None and tp.splits(f"{prefix}.to_q.weight")
+    heads = num_heads
+    if split:
+        # column-parallel q/k/v: this rank's heads (or columns)
+        x_in = tp.copy(x)
+        context = x_in if context is x else tp.copy(context)
+        x, heads = x_in, tp.heads(num_heads)
+    q = linear(params, f"{prefix}.to_q", x)
+    k = linear(params, f"{prefix}.to_k", context)
+    v = linear(params, f"{prefix}.to_v", context)
+    if split:
+        q, k, v = tp.qkv(heads, num_heads, q, k, v)
+    o = attention(q.reshape(b, s, heads, d), k.reshape(b, sk, heads, d),
+                  v.reshape(b, sk, heads, d), impl=attn_impl).reshape(b, s, heads * d)
+    if not split:
+        return linear(params, f"{prefix}.to_out.0", o)
+    return tp.attention_out(heads, num_heads, o, params[f"{prefix}.to_out.0.weight"],
+                            params.get(f"{prefix}.to_out.0.bias"))
 
 
-def _feed_forward(params: Params, prefix: str, x):
-    h, gate = linear(params, f"{prefix}.net.0.proj", x).chunk(2, dim=-1)
-    return linear(params, f"{prefix}.net.2", h * F.gelu(gate))
+def _feed_forward(params: Params, prefix: str, x, tp=None):
+    proj = f"{prefix}.net.0.proj"
+    if tp is None or not tp.splits(f"{proj}.weight"):
+        h, gate = linear(params, proj, x).chunk(2, dim=-1)
+        return linear(params, f"{prefix}.net.2", h * F.gelu(gate))
+    # this rank's slice holds h_i and gate_i (the halves cut by tp)
+    h, gate = linear(params, proj, tp.copy(x)).chunk(2, dim=-1)
+    return tp.row(h * F.gelu(gate), params[f"{prefix}.net.2.weight"],
+                  params.get(f"{prefix}.net.2.bias"))
 
 
 def transformer_block(params: Params, prefix: str, x, context, *,
-                      num_heads: int, attn_impl: str):
+                      num_heads: int, attn_impl: str, tp=None):
     h = layer_norm(params, f"{prefix}.norm1", x)
     x = x + _attention_layer(params, f"{prefix}.attn1", h, h, num_heads,
-                             attn_impl)
+                             attn_impl, tp)
     x = x + _attention_layer(params, f"{prefix}.attn2",
                              layer_norm(params, f"{prefix}.norm2", x),
-                             context, num_heads, attn_impl)
+                             context, num_heads, attn_impl, tp)
     return x + _feed_forward(params, f"{prefix}.ff",
-                             layer_norm(params, f"{prefix}.norm3", x))
+                             layer_norm(params, f"{prefix}.norm3", x), tp)
 
 
 def transformer2d(params: Params, prefix: str, x, context, *, depth: int,
-                  num_heads: int, groups: int, attn_impl: str):
+                  num_heads: int, groups: int, attn_impl: str, tp=None):
     b, c, h, w = x.shape
     residual = x
     # diffusers Transformer2DModel uses GroupNorm eps=1e-6 (resnets use 1e-5)
@@ -162,7 +188,7 @@ def transformer2d(params: Params, prefix: str, x, context, *, depth: int,
     for k in range(depth):
         hidden = transformer_block(
             params, f"{prefix}.transformer_blocks.{k}", hidden, context,
-            num_heads=num_heads, attn_impl=attn_impl)
+            num_heads=num_heads, attn_impl=attn_impl, tp=tp)
     hidden = linear(params, f"{prefix}.proj_out", hidden)
     return hidden.reshape(b, h, w, c).permute(0, 3, 1, 2) + residual
 
@@ -200,7 +226,7 @@ def unet_forward(params: Params, sample, timesteps, encoder_hidden_states,
                  pooled_text_embeds, time_ids, *, cfg: UNetConfig,
                  attn_impl: str = "xla", compute_dtype=torch.bfloat16,
                  remat=False, remat_thresholds: tuple | None = None,
-                 fused_gn: bool = False):
+                 fused_gn: bool = False, tp=None):
     """SDXL UNet forward.
 
     sample: (B, H, W, C_in) NHWC latents.
@@ -237,7 +263,7 @@ def unet_forward(params: Params, sample, timesteps, encoder_hidden_states,
     def tf2d_fn(prefix, h, depth, heads):
         return remat_region(transformer2d, mode_of(h), params, prefix, h, context,
                             depth=depth, num_heads=heads, groups=groups,
-                            attn_impl=attn_impl)
+                            attn_impl=attn_impl, tp=tp)
 
     # -- down path --
     x = conv2d(params, "conv_in", x)

@@ -28,6 +28,15 @@ its work itself. So:
   call twice (forward and recompute); on the host-bound eager step that
   cost more than the recompute it saves (``PERF.md``).
 
+Under tensor parallelism a region holds collectives: the forward ones
+(``aozora::tp_all_reduce`` after a row-parallel GEMM,
+``aozora::tp_all_gather`` of a head-cut layer's q/k/v;
+``parallel/tensor_parallel.py``) are dispatcher ops that every by-op
+policy keeps, so the recompute never runs them again and never replays a
+kept pre-reduce GEMM output without its reduce. A fully recomputed region
+runs them again, in the same order on every rank; the Conservative policy
+keeps "mlp_down" after its reduce (``linear_kept`` with ``tp``).
+
 ``remat(fn, mode, *args)`` runs ``fn(*args)`` as one region: everything
 recomputed (``True``/``"full"``), or what ``mode``'s policy keeps.
 """
@@ -116,11 +125,15 @@ def _big_square(op, args) -> bool:
     return shape[-1] == shape[-2] and shape[-1] * shape[-2] >= (1 << 20)
 
 
+# the forward collectives of tensor parallelism, kept by every by-op policy
+_TP_COLLECTIVES = frozenset(("aozora::tp_all_reduce", "aozora::tp_all_gather"))
+
+
 def _policy(save):
     """A torch selective-checkpoint policy from ``save(op, args) -> bool``."""
     def policy(ctx, op, *args, **kwargs):
-        return (CheckpointPolicy.MUST_SAVE if save(op, args)
-                else CheckpointPolicy.PREFER_RECOMPUTE)
+        keep = save(op, args) or (hasattr(op, "name") and op.name() in _TP_COLLECTIVES)
+        return CheckpointPolicy.MUST_SAVE if keep else CheckpointPolicy.PREFER_RECOMPUTE
     return policy
 
 
@@ -243,8 +256,15 @@ class _Linear(torch.autograd.Function):
         return grad @ w, gw, None
 
 
-def linear_kept(x: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
+def linear_kept(x: torch.Tensor, w: torch.Tensor, name: str, tp=None) -> torch.Tensor:
     """``F.linear(x, w)`` (no bias), named ``name``: a region whose policy
-    keeps the name keeps the output, and its recompute skips the GEMM."""
-    out = kept((name,), lambda cached: _Linear.apply(x, w, cached))
+    keeps the name keeps the output, and its recompute skips the GEMM.
+    ``tp`` (a ``TPConfig``): a row-parallel layer, whose output is kept
+    after its sum over tp, so the recompute skips the sum too (the sum's
+    backward is the identity: both graphs give x and w one gradient)."""
+    def make(cached):
+        y = _Linear.apply(x, w, cached)
+        return y if tp is None or cached is not None else tp.reduce(y)
+
+    out = kept((name,), make)
     return checkpoint_name(out, name)

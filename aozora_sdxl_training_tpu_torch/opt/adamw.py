@@ -62,11 +62,15 @@ class Layout(NamedTuple):
     that may start inside an int8 block (a pipeline stage's slice of a
     stacked leaf): ``lead`` elements of its first block lie before it, and
     ``merge`` takes the part's block maxima to the whole blocks' (a
-    collective; None where every part starts on a block); None: (0, None)."""
+    collective; None where every part starts on a block); None: (0, None).
+    ``spread(name)`` -> a ``Spread`` where ``t`` is a part whose elements
+    lie scattered over its parameter's blocks (a tensor-parallel column
+    slice), else None."""
     to_jax: Callable[[str, torch.Tensor], torch.Tensor]
     from_jax: Callable[[str, torch.Tensor], torch.Tensor]
     numel: Callable[[str, torch.Tensor], int] | None = None
     part: Callable[[str], tuple] | None = None
+    spread: Callable[[str], Any] | None = None
 
     def elements(self, name: str, t: torch.Tensor) -> int:
         return t.numel() if self.numel is None else self.numel(name, t)
@@ -74,9 +78,26 @@ class Layout(NamedTuple):
     def int8_part(self, name: str) -> tuple:
         return (0, None) if self.part is None else self.part(name)
 
+    def int8_spread(self, name: str):
+        return None if self.spread is None else self.spread(name)
+
     def scale_blocks(self, name: str, t: torch.Tensor) -> int:
         """The int8 scales that ``t``'s codes take."""
+        spread = self.int8_spread(name)
+        if spread is not None:
+            return spread.blocks
         return _int8_blocks(self.int8_part(name)[0] + t.numel())
+
+
+class Spread(NamedTuple):
+    """A part of a parameter whose elements lie scattered over the whole
+    parameter's int8 blocks: it holds the whole parameter's ``blocks``
+    scales; ``ids(device)`` is the block of each of its elements in its own
+    flat (JAX layout) order, and ``merge`` takes the part's block maxima to
+    the whole blocks' (a collective over the parts' ranks)."""
+    blocks: int
+    ids: Callable[[Any], torch.Tensor]
+    merge: Callable[[torch.Tensor], torch.Tensor]
 
 
 def _same(name: str, t: torch.Tensor) -> torch.Tensor:
@@ -127,13 +148,23 @@ def _int8_blocks(n: int) -> int:
     return -(-n // INT8_BLOCK)
 
 
-def quantize_moment_int8(m32: torch.Tensor, lead: int = 0, merge=None):
+def quantize_moment_int8(m32: torch.Tensor, lead: int = 0, merge=None, spread=None):
     """fp32 tensor -> (int8 codes [same shape], fp32 scales [n_blocks]):
     256-element blocks over the flat order, each block's absmax (over its
     zero padding too) / 127 as its scale, codes rounded half to even.
     ``lead``/``merge``: ``m32`` is a part of a tensor that starts ``lead``
     elements into its first block, and ``merge`` gives the whole blocks'
-    absmax from the part's (``Layout.part``)."""
+    absmax from the part's (``Layout.part``). ``spread``: (block ids, block
+    count, merge) of a part scattered over the blocks (``Spread``); the
+    codes and the whole blocks' scales are then the whole tensor's."""
+    if spread is not None:
+        ids, nb, merge = spread
+        flat = m32.reshape(-1)
+        amax = torch.zeros(nb, dtype=flat.dtype, device=flat.device).scatter_reduce_(
+            0, ids, flat.abs(), "amax")
+        scales = torch.clamp(merge(amax), min=1e-30) / 127.0
+        codes = torch.clamp(torch.round(flat / scales[ids]), -127, 127)
+        return codes.reshape(m32.shape).to(torch.int8), scales.float()
     flat = m32.reshape(-1)
     n = flat.numel()
     nb = _int8_blocks(lead + n)
@@ -148,7 +179,9 @@ def quantize_moment_int8(m32: torch.Tensor, lead: int = 0, merge=None):
 
 
 def dequantize_moment_int8(codes: torch.Tensor, scales: torch.Tensor,
-                           lead: int = 0) -> torch.Tensor:
+                           lead: int = 0, spread=None) -> torch.Tensor:
+    if spread is not None:
+        return (codes.reshape(-1).float() * scales[spread[0]]).reshape(codes.shape)
     flat = codes.reshape(-1).float()
     n, nb = flat.numel(), scales.shape[0]
     out = F.pad(flat, (lead, nb * INT8_BLOCK - n - lead)).view(nb, INT8_BLOCK)
@@ -156,19 +189,20 @@ def dequantize_moment_int8(codes: torch.Tensor, scales: torch.Tensor,
     return out.view(-1)[lead:lead + n].reshape(codes.shape)
 
 
-def quantize_second_moment_int8(v32: torch.Tensor, lead: int = 0, merge=None):
+def quantize_second_moment_int8(v32: torch.Tensor, lead: int = 0, merge=None,
+                                spread=None):
     """Second moments quantize in the sqrt domain: v spans ~6 orders of
     magnitude within a block, sqrt(v) only ~3. The root is taken in float64
     and rounded once to fp32, the correctly rounded root that XLA gives:
     torch's vectorized CPU sqrt (0.5001 ulp) misses it now and then, which
     moves a block's scale by an ulp."""
     root = torch.sqrt(torch.clamp(v32, min=0.0).double()).float()
-    return quantize_moment_int8(root, lead, merge)
+    return quantize_moment_int8(root, lead, merge, spread)
 
 
 def dequantize_second_moment_int8(codes: torch.Tensor, scales: torch.Tensor,
-                                  lead: int = 0):
-    root = dequantize_moment_int8(codes, scales, lead)
+                                  lead: int = 0, spread=None):
+    root = dequantize_moment_int8(codes, scales, lead, spread)
     return root * root
 
 
@@ -445,8 +479,11 @@ def update_tensor(name: str, p: torch.Tensor, grad: torch.Tensor, m, v,
     int8_here = isinstance(m, tuple)
     if int8_here:
         lead, merge = layout.int8_part(name)
-        m32 = layout.from_jax(name, dequantize_moment_int8(*m, lead))
-        v32 = layout.from_jax(name, dequantize_second_moment_int8(*v, lead))
+        spread = layout.int8_spread(name)
+        if spread is not None:
+            spread = (spread.ids(m[0].device), spread.blocks, spread.merge)
+        m32 = layout.from_jax(name, dequantize_moment_int8(*m, lead, spread))
+        v32 = layout.from_jax(name, dequantize_second_moment_int8(*v, lead, spread))
     else:
         m32, v32 = m.float(), v.float()
     m32 = m32 * beta1 + g32 * (1.0 - beta1)
@@ -458,8 +495,9 @@ def update_tensor(name: str, p: torch.Tensor, grad: torch.Tensor, m, v,
     p.copy_(p32)
     if int8_here:
         for held, new in zip((*m, *v), (
-                *quantize_moment_int8(layout.to_jax(name, m32), lead, merge),
-                *quantize_second_moment_int8(layout.to_jax(name, v32), lead, merge))):
+                *quantize_moment_int8(layout.to_jax(name, m32), lead, merge, spread),
+                *quantize_second_moment_int8(layout.to_jax(name, v32), lead, merge,
+                                             spread))):
             held.copy_(new)
     else:
         m.copy_(m32)

@@ -1,4 +1,4 @@
-"""Process groups, the dp x sp layout and FSDP of a multi-process run.
+"""Process groups, the dp x tp / sp / pp layouts and FSDP of a multi-process run.
 
 Counterpart of ``aozora_sdxl_training_tpu/parallel/sharding.py`` for both
 trainers. The JAX package lays a ``jax.sharding.Mesh`` over the devices of
@@ -8,9 +8,12 @@ each under ``AOZORA_PLATFORM=cpu`` with the ``gloo`` backend):
 
 * ``resolve_mesh_layout`` takes the JAX function's decisions, fallbacks and
   messages word for word, over ranks instead of devices;
-* ``make_mesh`` builds the process groups of a dp x sp or a dp x pp
-  layout (rank = dp_index * sp + sp_index, or dp_index * pp + pp_index:
+* ``make_mesh`` builds the process groups of a dp x tp, dp x sp or dp x
+  pp layout (rank = dp_index * tp + tp_index, and the same for sp and pp:
   the JAX mesh's row-major order);
+* ``tp_param_spec`` is the JAX package's Megatron rule word for word: the
+  tensors it splits over tp (on the JAX layout's shape) are held as this
+  rank's tp slice (``parallel/tensor_parallel.py``);
 * ``init_distributed`` / ``destroy_distributed`` start and end the
   process group of a run;
 * ``FSDP`` shards the tensors that the JAX package's
@@ -23,7 +26,11 @@ each under ``AOZORA_PLATFORM=cpu`` with the ``gloo`` backend):
   also keeps each stage-stacked block leaf (``__stack__.<suffix>``) as this
   rank's stage slice, never sharded over dp (the JAX package gives them
   ``P("pp")``), gathers the slices over the pp group for a save or a
-  preview, and counts them in the norm once each.
+  preview, and counts them in the norm once each. Under tensor
+  parallelism it keeps each tensor that ``tp_param_spec`` splits as this
+  rank's tp slice, never sharded over dp (the JAX package gives it a
+  tp-only spec), gathers the slices over the tp group for a save or a
+  preview, and sums their squares in the norm over tp.
 
 The shard layout is the port's own: a sharded tensor's elements, in the
 JAX package's layout (``to_jax_layout``), are cut into dp contiguous
@@ -32,7 +39,6 @@ the last one padded with zeros. Whichever axis holds the shards, the
 step computes the same numbers; this layout keeps every int8 block whole
 on one rank, so a sharded int8 moment holds the whole tensor's codes, and
 a gathered moment is already in the training-state file's layout.
-Tensor parallelism is not ported yet.
 """
 
 from __future__ import annotations
@@ -46,7 +52,8 @@ from typing import Any, NamedTuple
 import torch
 import torch.distributed as dist
 
-from ..opt.adamw import INT8_BLOCK, AdamWState, Layout
+from ..opt.adamw import INT8_BLOCK, AdamWState, Layout, Spread
+from . import tensor_parallel as tp_mod
 from .pipeline import STACK_PREFIX
 
 # where the ranks meet: torchrun's MASTER_ADDR/MASTER_PORT by default; the
@@ -68,18 +75,29 @@ class MeshLayout(NamedTuple):
 
 
 class Mesh(NamedTuple):
-    """The process groups of a dp x sp or dp x pp layout, seen from this
-    rank."""
+    """The process groups of a dp x tp, dp x sp or dp x pp layout, seen
+    from this rank."""
 
     dp: int
     sp: int
     dp_rank: int
     sp_rank: int
-    dp_group: Any    # the dp ranks that share this rank's sp (or pp) index
+    dp_group: Any    # the dp ranks that share this rank's tp (sp, pp) index
     sp_group: Any    # the sp ranks that share this rank's dp index
     pp: int = 1
     pp_rank: int = 0
     pp_group: Any = None   # the pp stages that share this rank's dp index
+    tp: int = 1
+    tp_rank: int = 0
+    tp_group: Any = None   # the tp ranks that share this rank's dp index
+
+
+class P(tuple):
+    """A partition spec: one mesh axis name (or None) per tensor axis, as
+    ``jax.sharding.PartitionSpec`` holds it."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
 
 
 def world_size() -> int:
@@ -154,51 +172,54 @@ def resolve_mesh_layout(config) -> MeshLayout:
                       global_batch, use_mesh, sp, pp)
 
 
+def _axis_groups(devices: list, dp: int, inner: int, index: int):
+    """(dp index, inner index, dp group, inner group) of the rank at
+    ``index`` of ``devices`` laid out (dp, inner) row-major: the dp groups
+    (one per inner index) and the inner groups (one per dp index), made
+    in the same order on every rank."""
+    dp_rank, inner_rank = divmod(index, inner)
+    dp_group = inner_group = None
+    for i in range(inner):                   # the dp groups, one per inner index
+        group = dist.new_group([devices[j * inner + i] for j in range(dp)])
+        if i == inner_rank:
+            dp_group = group
+    for j in range(dp):                      # the inner groups, one per dp index
+        group = dist.new_group([devices[j * inner + i] for i in range(inner)])
+        if j == dp_rank:
+            inner_group = group
+    return dp_rank, inner_rank, dp_group, inner_group
+
+
 def make_mesh(devices=None, *, dp: int | None = None, tp: int = 1,
               sp: int = 1, pp: int = 1) -> Mesh:
-    """The dp and sp (or pp) process groups over ``devices`` (global ranks;
-    the whole world by default). Every rank of the world must call it, in
-    the same order, as ``dist.new_group`` requires. sp and pp never
-    combine (``resolve_mesh_layout`` sees to it)."""
+    """The dp and tp (or sp, or pp) process groups over ``devices`` (global
+    ranks; the whole world by default). Every rank of the world must call
+    it, in the same order, as ``dist.new_group`` requires. tp, sp and pp
+    never combine (``resolve_mesh_layout`` sees to it)."""
     devices = list(devices if devices is not None else range(dist.get_world_size()))
     tp, sp, pp = max(1, int(tp)), max(1, int(sp)), max(1, int(pp))
-    if tp > 1:
-        raise NotImplementedError(
-            "TENSOR_PARALLEL_SIZE > 1 is not ported to the PyTorch package yet "
-            "(only dp x sp and dp x pp)")
-    dp = dp or len(devices) // (sp * pp)
-    if dp * sp * pp > len(devices) or len(devices) % (dp * sp * pp):
+    if (tp > 1) + (sp > 1) + (pp > 1) > 1:
+        raise ValueError(f"tp={tp}, sp={sp} and pp={pp} do not combine")
+    dp = dp or len(devices) // (tp * sp * pp)
+    if dp * tp * sp * pp > len(devices) or len(devices) % (dp * tp * sp * pp):
         raise ValueError(f"{len(devices)} devices not divisible by "
                          f"dp={dp} x tp={tp} x sp={sp} x pp={pp}")
-    rank = dist.get_rank()
-    index = devices.index(rank)
+    index = devices.index(dist.get_rank())
     if pp > 1:
         # GPipe stages: block params stage-stack over pp, everything else
         # replicates over it (parallel/pipeline.py)
-        dp_rank, pp_rank = divmod(index, pp)
-        dp_group = pp_group = None
-        for i in range(pp):                  # the dp groups, one per stage
-            group = dist.new_group([devices[j * pp + i] for j in range(dp)])
-            if i == pp_rank:
-                dp_group = group
-        for j in range(dp):                  # the pp groups, one per dp index
-            group = dist.new_group([devices[j * pp + i] for i in range(pp)])
-            if j == dp_rank:
-                pp_group = group
+        dp_rank, pp_rank, dp_group, pp_group = _axis_groups(devices, dp, pp, index)
         # a first collective on the stage group before its point-to-point
         # hops, which NCCL asks of a group's first use
         dist.barrier(group=pp_group)
         return Mesh(dp, 1, dp_rank, 0, dp_group, None, pp, pp_rank, pp_group)
-    dp_rank, sp_rank = divmod(index, sp)
-    dp_group = sp_group = None
-    for i in range(sp):                      # the dp groups, one per sp index
-        group = dist.new_group([devices[j * sp + i] for j in range(dp)])
-        if i == sp_rank:
-            dp_group = group
-    for j in range(dp):                      # the sp groups, one per dp index
-        group = dist.new_group([devices[j * sp + i] for i in range(sp)])
-        if j == dp_rank:
-            sp_group = group
+    if tp > 1:
+        # Megatron splits over tp (parallel/tensor_parallel.py); the batch
+        # rows and everything tp does not split replicate over it
+        dp_rank, tp_rank, dp_group, tp_group = _axis_groups(devices, dp, tp, index)
+        return Mesh(dp, 1, dp_rank, 0, dp_group, None, tp=tp, tp_rank=tp_rank,
+                    tp_group=tp_group)
+    dp_rank, sp_rank, dp_group, sp_group = _axis_groups(devices, dp, sp, index)
     return Mesh(dp, sp, dp_rank, sp_rank, dp_group, sp_group)
 
 
@@ -278,6 +299,42 @@ def shards_over_dp(shape, dp: int, min_elements: int = MIN_SHARD_ELEMENTS) -> bo
     return any(int(d) % dp == 0 for d in shape)
 
 
+# Megatron-style rules keyed on parameter-name suffixes: column-parallel
+# layers shard output features (attention heads / GEGLU columns),
+# row-parallel layers shard input features so GSPMD closes each pair with
+# one psum on the layer output.
+_TP_COLUMN_SUFFIXES = (
+    # SDXL UNet transformer blocks
+    ".to_q.weight", ".to_k.weight", ".to_v.weight", ".ff.net.0.proj.weight",
+    # Anima DiT blocks + LLM adapter ((in, out) layout throughout)
+    ".q_proj.weight", ".k_proj.weight", ".v_proj.weight",
+    ".mlp.layer1.weight", ".mlp.0.weight",
+)
+_TP_COLUMN_BIAS_SUFFIXES = (".to_q.bias", ".to_k.bias", ".to_v.bias",
+                            ".ff.net.0.proj.bias",
+                            ".q_proj.bias", ".k_proj.bias", ".v_proj.bias",
+                            ".mlp.0.bias")
+_TP_ROW_SUFFIXES = (".to_out.0.weight", ".ff.net.2.weight",
+                    ".output_proj.weight", ".o_proj.weight",
+                    ".mlp.layer2.weight", ".mlp.2.weight")
+
+
+def tp_param_spec(name: str, shape: tuple[int, ...], tp_size: int) -> P | None:
+    """TP spec for one named parameter, or None if the TP rules don't apply."""
+    if tp_size <= 1:
+        return None
+    if name.endswith(_TP_COLUMN_SUFFIXES) and len(shape) == 2 \
+            and shape[1] % tp_size == 0:
+        return P(None, "tp")
+    if name.endswith(_TP_COLUMN_BIAS_SUFFIXES) and len(shape) == 1 \
+            and shape[0] % tp_size == 0:
+        return P("tp")
+    if name.endswith(_TP_ROW_SUFFIXES) and len(shape) == 2 \
+            and shape[0] % tp_size == 0:
+        return P("tp", None)
+    return None
+
+
 def _touched_blocks(start: int, size: int) -> tuple:
     """(first block, block count) of the int8 blocks that ``size``
     elements from flat element ``start`` touch."""
@@ -332,6 +389,17 @@ class FSDP:
     computed the same gradient); ``grad_norm`` is the global norm with
     each replicated tensor counted once.
 
+    Under tensor parallelism (``mesh.tp`` > 1) the tensors that
+    ``tp_param_spec`` splits, on their JAX-layout shape, are held as this
+    rank's tp slice (``tps``; never also sharded over dp), with their
+    accumulators and moments; the rest follow the dp rule over the dp
+    group of this rank's tp index. A step computes on the slices as they
+    are (``tp_config``, the model functions' ``TPConfig``); ``sync`` sums the
+    slices' and the replicated tensors' gradients over the dp group, and
+    the per-head norm scales that see only this rank's heads
+    (``tp_partial``) over the whole world; ``grad_norm`` sums the slices'
+    squares over tp.
+
     Every collective runs on every rank in the same order: callers gather
     on all ranks (a save or a preview too) and decide on rank 0's word.
     ``stats`` counts the bytes this rank put into each kind of collective,
@@ -342,14 +410,22 @@ class FSDP:
         self.dp, self.rank, self.group = mesh.dp, mesh.dp_rank, mesh.dp_group
         self.sp, self.sp_group = mesh.sp, mesh.sp_group
         self.pp, self.pp_rank, self.pp_group = mesh.pp, mesh.pp_rank, mesh.pp_group
+        self.tp, self.tp_rank, self.tp_group = mesh.tp, mesh.tp_rank, mesh.tp_group
         self.layout, self.compute_dtype = layout, compute_dtype
         self.bucket_bytes = int(bucket_bytes)
         min_elements = MIN_SHARD_ELEMENTS if min_elements is None else int(min_elements)
         block = self.dp * INT8_BLOCK
-        self.specs, self.stages = {}, {}
+        self.specs, self.stages, self.tps = {}, {}, {}
         for name, shape in shapes.items():
             shape = tuple(int(d) for d in shape)
-            if name.startswith(STACK_PREFIX):
+            tp_spec = None
+            if self.tp > 1 and len(shape) <= 2:
+                jax_shape = tuple(layout.to_jax(name, torch.empty(shape, device="meta")).shape)
+                tp_spec = tp_param_spec(name, jax_shape, self.tp)
+            if tp_spec is not None:
+                self.tps[name] = tp_mod.spec_for(name, shape, jax_shape,
+                                                 tp_spec.index("tp"), self.tp)
+            elif name.startswith(STACK_PREFIX):
                 # a stacked block leaf never shards over dp; under pp each
                 # rank keeps its stage's blocks
                 if self.pp > 1:
@@ -363,8 +439,15 @@ class FSDP:
                 n = math.prod(shape)
                 jax_shape = tuple(layout.to_jax(name, torch.empty(shape, device="meta")).shape)
                 self.specs[name] = ShardSpec(shape, jax_shape, n, -(-n // block) * INT8_BLOCK)
+        self.tp_partial = frozenset(
+            name for name in shapes
+            if name not in self.tps and tp_mod.head_norm_partial(name, shapes, self.tps, self.tp))
+        # the model functions' view of the tp group (None without tp)
+        self.tp_config = (tp_mod.TPConfig(self.tp_group, self.tp, self.tp_rank, self.tps)
+                          if self.tp > 1 else None)
         # the layout alone (shard, opt_layout) needs no process group
-        self.backend = dist.get_backend(self.group) if dist.is_initialized() else None
+        self.backend = (dist.get_backend(self.tp_group if self.tp > 1 else self.group)
+                        if dist.is_initialized() else None)
         self.stats: dict = {}
         self.micro_steps = self.optimizer_steps = 0
 
@@ -380,11 +463,20 @@ class FSDP:
         made on the whole stacked leaf's count too, and its blocks are the
         whole leaf's (``Layout.part``): a slice that starts inside a block
         shares that block's scale with the stage before it."""
-        base, specs, stages = self.layout, self.specs, self.stages
+        base, specs, stages, tps = self.layout, self.specs, self.stages, self.tps
 
         def numel(name, t):
-            spec = specs.get(name) or stages.get(name)
+            spec = specs.get(name) or stages.get(name) or tps.get(name)
             return spec.numel if spec is not None else t.numel()
+
+        def spread(name):
+            spec = tps.get(name)
+            if spec is None:
+                return None
+            return Spread(-(-spec.numel // INT8_BLOCK),
+                          lambda device: tp_mod.block_ids(spec, self.tp, self.tp_rank,
+                                                          INT8_BLOCK, device),
+                          self._merge_tp_amax)
 
         def part(name):
             spec = stages.get(name)
@@ -396,7 +488,15 @@ class FSDP:
         return Layout(
             lambda name, t: t if name in specs else base.to_jax(name, t),
             lambda name, t: t if name in specs else base.from_jax(name, t),
-            numel, part)
+            numel, part, spread)
+
+    def _merge_tp_amax(self, amax: torch.Tensor) -> torch.Tensor:
+        """The whole blocks' maxima from every tp slice's (an all-gather
+        over the tp group, then the maximum)."""
+        every = torch.empty(self.tp * amax.numel(), dtype=amax.dtype, device=amax.device)
+        dist.all_gather_into_tensor(every, amax.contiguous(), group=self.tp_group)
+        self._count("apply.tp_int8_amax", amax)
+        return every.view(self.tp, -1).amax(dim=0)
 
     def _merge_amax(self, spec: StageSpec, amax: torch.Tensor) -> torch.Tensor:
         """The whole blocks' maxima from this stage's part (``amax``, one
@@ -461,6 +561,27 @@ class FSDP:
             out[b0:b0 + nb] = row[:nb]
         return whole, out
 
+    # ---- tensor-parallel slices ----
+
+    def tp_slice(self, name: str, whole: torch.Tensor, jax: bool = False) -> torch.Tensor:
+        """This rank's tp slice of a whole tensor (in the port's layout, or
+        the JAX package's with ``jax``), a new tensor."""
+        spec = self.tps[name]
+        return tp_mod.cut(whole, spec.jax_axis if jax else spec.axis, spec.parts,
+                          self.tp, self.tp_rank)
+
+    def gather_tp(self, name: str, part: torch.Tensor, kind: str = "save",
+                  jax: bool = False) -> torch.Tensor:
+        """The whole tensor from every tp rank's slice (both in the port's
+        layout, or the JAX package's with ``jax``), over the tp group."""
+        spec = self.tps[name]
+        part = part.contiguous()
+        every = torch.empty(self.tp * part.numel(), dtype=part.dtype, device=part.device)
+        dist.all_gather_into_tensor(every, part.view(-1), group=self.tp_group)
+        self._count(f"{kind}.tp_all_gather", part)
+        return tp_mod.join(list(every.view(self.tp, *part.shape).unbind(0)),
+                           spec.jax_axis if jax else spec.axis, spec.parts)
+
     def shard(self, name: str, full: torch.Tensor) -> torch.Tensor:
         """This rank's shard of ``full`` (the port's layout), a new flat
         tensor on ``full``'s device and in its dtype."""
@@ -491,9 +612,10 @@ class FSDP:
         """``params`` with each sharded tensor replaced by this rank's shard
         (the whole tensor dropped at once), keeping ``requires_grad``."""
         for name in list(params):
-            if name in self.specs or name in self.stages:
+            if name in self.specs or name in self.stages or name in self.tps:
                 full = params.pop(name)
                 cut = (self.shard(name, full.detach()) if name in self.specs
+                       else self.tp_slice(name, full.detach()) if name in self.tps
                        else self.stage_slice(name, full.detach()))
                 params[name] = cut.requires_grad_(full.requires_grad)
                 del full
@@ -507,7 +629,11 @@ class FSDP:
         def cut(moments):
             out = {}
             for name, value in moments.items():
-                if name in self.stages:
+                if name in self.tps:
+                    # int8 codes (JAX layout) cut, the whole blocks' scales kept
+                    out[name] = ((self.tp_slice(name, value[0], jax=True), value[1].clone())
+                                 if isinstance(value, tuple) else self.tp_slice(name, value))
+                elif name in self.stages:
                     out[name] = (self.stage_int8(name, *value) if isinstance(value, tuple)
                                  else self.stage_slice(name, value))
                 elif name not in self.specs:
@@ -523,8 +649,9 @@ class FSDP:
     @torch.no_grad()
     def held(self, params: dict, opt_state: AdamWState) -> list:
         """Each rank's (sharded tensors' elements, all parameter elements,
-        moment bytes, device bytes allocated, stage-stacked elements) as it
-        holds them now, from every rank of the world (a collective)."""
+        moment bytes, device bytes allocated, stage-stacked elements, tp
+        slice elements) as it holds them now, from every rank of the world
+        (a collective)."""
         moment_bytes = sum(t.numel() * t.element_size()
                            for moments in (opt_state.exp_avg, opt_state.exp_avg_sq)
                            for value in moments.values()
@@ -535,11 +662,12 @@ class FSDP:
             [float(sum(p.numel() for n, p in params.items() if n in self.specs)),
              float(sum(p.numel() for p in params.values())), float(moment_bytes),
              float(allocated),
-             float(sum(p.numel() for n, p in params.items() if n in self.stages))],
+             float(sum(p.numel() for n, p in params.items() if n in self.stages)),
+             float(sum(p.numel() for n, p in params.items() if n in self.tps))],
             dtype=torch.float64, device=device)
-        out = torch.empty(dist.get_world_size() * 5, dtype=torch.float64, device=device)
+        out = torch.empty(dist.get_world_size() * 6, dtype=torch.float64, device=device)
         dist.all_gather_into_tensor(out, mine)
-        return [tuple(int(x) for x in row) for row in out.view(-1, 5).tolist()]
+        return [tuple(int(x) for x in row) for row in out.view(-1, 6).tolist()]
 
     def report(self, trainable: dict, frozen: dict, opt_state: AdamWState) -> None:
         """Prints what is sharded and what each rank holds after setup (a
@@ -548,11 +676,19 @@ class FSDP:
         held = self.held(params, opt_state)
         sharded = sum(spec.numel for name, spec in self.specs.items() if name in params)
         stacked = sum(spec.numel for name, spec in self.stages.items() if name in params)
-        print(self.describe(trainable, frozen))
-        print(f"INFO: FSDP held per rank: sharded elements {[h[0] for h in held]} of "
-              f"{sharded:,} ({', '.join(f'{h[0] / max(sharded, 1):.4f}' for h in held)}); "
-              f"all parameter elements {[h[1] for h in held]}; moment bytes "
-              f"{[h[2] for h in held]}; device bytes allocated {[h[3] for h in held]}")
+        split = sum(spec.numel for name, spec in self.tps.items() if name in params)
+        if self.specs or self.stages:
+            print(self.describe(trainable, frozen))
+            print(f"INFO: FSDP held per rank: sharded elements {[h[0] for h in held]} of "
+                  f"{sharded:,} ({', '.join(f'{h[0] / max(sharded, 1):.4f}' for h in held)}); "
+                  f"all parameter elements {[h[1] for h in held]}; moment bytes "
+                  f"{[h[2] for h in held]}; device bytes allocated {[h[3] for h in held]}")
+        if self.tps:
+            print(self.describe_tp(trainable, frozen))
+            print(f"INFO: Tensor parallel held per rank: split elements {[h[5] for h in held]} "
+                  f"of {split:,} ({', '.join(f'{h[5] / max(split, 1):.4f}' for h in held)}); "
+                  f"all parameter elements {[h[1] for h in held]}; moment bytes "
+                  f"{[h[2] for h in held]}; device bytes allocated {[h[3] for h in held]}")
         if self.stages:
             print(f"INFO: Pipeline stages held per rank: stacked block elements "
                   f"{[h[4] for h in held]} of {stacked:,} "
@@ -596,6 +732,12 @@ class FSDP:
         for a save or a preview (the dtype chosen by a block's dimensions)."""
         out = {}
         for name, p in params.items():
+            split = self.tps.get(name)
+            if split is not None and kind != "step":
+                want = dtype or (self.compute_dtype if len(split.shape) >= 2 else p.dtype)
+                with torch.no_grad():
+                    out[name] = self.gather_tp(name, p.detach().to(want), kind)
+                continue
             stage = self.stages.get(name)
             if stage is not None and kind != "step":
                 want = dtype or (self.compute_dtype if len(stage.shape) >= 3 else p.dtype)
@@ -604,6 +746,7 @@ class FSDP:
                 continue
             spec = self.specs.get(name)
             if spec is None:
+                # a replicated tensor, or a tp slice for the step
                 out[name] = p
                 continue
             want = dtype or (self.compute_dtype if len(spec.shape) >= 2 else p.dtype)
@@ -681,12 +824,25 @@ class FSDP:
         divided by sp. Under pp the replicated tensors' (the stage slices
         among them) are summed over the dp group alone: the stages hold
         other blocks, and the tensors around the stack take the same
-        gradient on every stage. A missing gradient counts as zeros."""
+        gradient on every stage. Under tp the same holds for the tp slices
+        and the replicated tensors (the tp ranks of a dp index train on the
+        same rows, and "copy" already summed the gradients of a tp region's
+        input), while the partial gradients of ``tp_partial`` are summed
+        over the whole world. A missing gradient counts as zeros."""
         self.optimizer_steps += 1
         for p in params.values():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         replicated = [p.grad for name, p in params.items() if name not in self.specs]
+        if self.tp > 1:
+            partial = [p.grad for name, p in params.items() if name in self.tp_partial]
+            rest = [p.grad for name, p in params.items()
+                    if name not in self.specs and name not in self.tp_partial]
+            if self.dp > 1:
+                self._all_reduce(rest, self.group)
+            if partial:
+                self._all_reduce(partial, None)
+            return
         if self.pp > 1:
             if self.dp > 1:
                 self._all_reduce(replicated, self.group)
@@ -701,24 +857,29 @@ class FSDP:
 
     @torch.no_grad()
     def grad_norm(self, grads: dict) -> torch.Tensor:
-        """The global L2 norm of ``grads`` (shards, stage slices and
-        replicated tensors, keyed like the parameters): the shards' squares
-        summed over dp, the stage slices' over pp, each replicated tensor
-        once."""
+        """The global L2 norm of ``grads`` (shards, stage slices, tp slices
+        and replicated tensors, keyed like the parameters): the shards'
+        squares summed over dp, the stage slices' over pp, the tp slices'
+        over tp, each replicated tensor once."""
         device = next(iter(grads.values())).device
         sharded = torch.zeros((), dtype=torch.float32, device=device)
         staged = torch.zeros((), dtype=torch.float32, device=device)
+        split = torch.zeros((), dtype=torch.float32, device=device)
         replicated = torch.zeros((), dtype=torch.float32, device=device)
         for name, g in grads.items():
             (sharded if name in self.specs else staged if name in self.stages
-             else replicated).add_((g.float() ** 2).sum())
+             else split if name in self.tps else replicated).add_((g.float() ** 2).sum())
         sharded = sharded.reshape(1)
         dist.all_reduce(sharded, group=self.group)
         if self.stages:
             staged = staged.reshape(1)
             dist.all_reduce(staged, group=self.pp_group)
             staged = staged[0]
-        return torch.sqrt(sharded[0] + staged + replicated)
+        if self.tps:
+            split = split.reshape(1)
+            dist.all_reduce(split, group=self.tp_group)
+            split = split[0]
+        return torch.sqrt(sharded[0] + staged + split + replicated)
 
     def describe(self, trainable: dict, frozen: dict) -> str:
         """One line: what is sharded, over which group and backend, and the
@@ -741,6 +902,37 @@ class FSDP:
                 f"more) and reduce-scatters its gradient (reduce_scatter_tensor, "
                 f"buckets of {self.bucket_bytes >> 20} MB); the optimizer step "
                 f"all-reduces the replicated gradients in buckets")
+
+    def describe_tp_traffic(self) -> str:
+        """One line: the bytes this rank put into the tp collectives of the
+        steps, a micro step on average, by kind (a recomputed region's
+        collectives counted again)."""
+        stats = self.tp_config.stats if self.tp_config is not None else {}
+        n = max(self.micro_steps, 1)
+        kinds = ", ".join(f"{k} {v / n:,.0f}" for k, v in sorted(stats.items()))
+        return (f"INFO: Tensor parallel collectives a micro step on this rank: "
+                f"{sum(stats.values()) / n:,.0f} bytes ({kinds}) over {self.micro_steps} "
+                f"micro step(s)")
+
+    def describe_tp(self, trainable: dict, frozen: dict) -> str:
+        """One line: what is split over tp, over which group and backend,
+        and what each rank holds of it."""
+        def count(params, column):
+            names = [n for n in params if n in self.tps
+                     and (self.tps[n].axis == 0) == column]
+            return len(names), sum(self.tps[n].numel for n in names)
+        parts = []
+        for label, params in (("trainable", trainable), ("frozen", frozen)):
+            (c_n, c_e), (r_n, r_e) = count(params, True), count(params, False)
+            parts.append(f"{c_n} {label} column-parallel tensor(s) ({c_e:,} elements) and "
+                         f"{r_n} row-parallel ({r_e:,})")
+        held = sum(spec.numel // self.tp for spec in self.tps.values())
+        return (f"INFO: Tensor parallelism over tp={self.tp} ({self.backend}, dp={self.dp}): "
+                f"{'; '.join(parts)} split Megatron-style, each rank holding 1/{self.tp} "
+                f"({held:,} elements) of them, never sharded over dp; the rest follow "
+                f"the dp rule; {len(self.tp_partial)} per-head norm scale(s) summed over "
+                f"tp; a micro step all-reduces each row-parallel output and each "
+                f"column-parallel input's gradient over tp")
 
 
 def rank0_says(flags: list, device) -> list:

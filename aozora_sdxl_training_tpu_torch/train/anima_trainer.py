@@ -88,9 +88,19 @@ rank holds the whole token grid, so the mask goes whole as in JAX), and a
 controlled weights onto their quantized grid after every optimizer step,
 with error-feedback residuals on the device.
 
-Not ported yet, and refused with an error when the config asks for them:
-tensor parallelism and FSDP's per-use gathers (a plan whose
-``gather_once`` is False); the QAT repair CLI refuses more than one rank.
+With ``TENSOR_PARALLEL_SIZE`` > 1 the ranks form the JAX package's dp x tp
+mesh instead: the tp ranks of one dp index train on the same rows, each
+holding its tp slice of the tensors that ``tp_param_spec`` splits (the
+blocks' and the LLM adapter's attention and MLP weights, with their
+accumulators and moments), and the DiT runs them as Megatron column and
+row splits (``parallel/tensor_parallel.py``); the trainable adapter's
+output reaches the blocks' cross-attention through the tp "copy", and the
+per-head q/k norm scales' partial gradients are summed over tp. Saves and
+previews gather the slices into the JAX layout.
+
+Not ported yet, and refused with an error when the plan asks for them:
+FSDP's per-use gathers (a plan whose ``gather_once`` is False); the QAT
+repair CLI refuses more than one rank.
 ``AOZORA_PROFILE_DIR`` traces micro steps 3-8 (``train/profiling.py``).
 """
 
@@ -143,6 +153,7 @@ class AnimaStepConfig:
     remat: Any = True                      # False | True | "conservative"
     spatial_strength: float = 0.0          # > 0: the line-art-masked loss
     pp: Any = None                         # parallel.pipeline.PPConfig, or None
+    tp: Any = None                         # parallel.tensor_parallel.TPConfig, or None
 
 
 def make_anima_loss_fn(cfg: AnimaStepConfig):
@@ -178,7 +189,7 @@ def make_anima_loss_fn(cfg: AnimaStepConfig):
             pred = dit_mod.dit_forward(
                 {**frozen, **trainable}, x_in, timesteps / 1000.0, prompt_emb.to(cd),
                 cfg=cfg.dit, t5_ids=t5_ids, attn_impl=cfg.attn_impl, compute_dtype=cd,
-                remat=cfg.remat)
+                remat=cfg.remat, tp=cfg.tp)
         pred = pred if video else pred[:, 0]
         weights = loss_weights[torch.clamp(tickets.long(), 0, loss_weights.shape[0] - 1)]
         loss = anima_objectives.weighted_flowmatch_mse(
@@ -250,13 +261,6 @@ def anima_remat_mode(config):
             else "conservative" if mode == "Conservative" else True)
 
 
-def _refuse_unported(config) -> None:
-    if int(getattr(config, "TENSOR_PARALLEL_SIZE", 1) or 1) > 1:
-        raise NotImplementedError(
-            "TENSOR_PARALLEL_SIZE > 1: tensor parallelism is not ported to the "
-            "PyTorch package yet")
-
-
 def _restacked(moments: dict, num_blocks: int) -> dict:
     """A flat state's moments with the blocks' stacked (``stackify_params``);
     int8 (codes, scales) pairs do not stack: ValueError."""
@@ -291,7 +295,6 @@ def run_anima_training(config, *, device: torch.device | None = None,
         # the projector's format map is keyed by flat tensor names
         raise SystemExit("PIPELINE_PARALLEL_SIZE is not supported by the QAT repair "
                          "trainer (flat-name projector)")
-    _refuse_unported(config)
     is_main = shard.global_rank() == 0
     remat = anima_remat_mode(config)
     output_dir = Path(config.OUTPUT_DIR)
@@ -480,7 +483,8 @@ def run_anima_training(config, *, device: torch.device | None = None,
         dit=dit_cfg, grad_accum_steps=config.GRADIENT_ACCUMULATION_STEPS,
         clip_grad_norm=float(config.CLIP_GRAD_NORM), attn_impl=attn_impl,
         compute_dtype=config.compute_dtype, remat=remat,
-        spatial_strength=lineart_strength if lineart else 0.0, pp=pp_cfg)
+        spatial_strength=lineart_strength if lineart else 0.0, pp=pp_cfg,
+        tp=fsdp.tp_config if fsdp is not None else None)
     micro_fn = make_anima_micro_step(step_cfg, fsdp)
     apply_fn = make_apply_step(step_cfg, opt_cfg, fsdp)
     # the two-pass rung: one step in place of the micro and apply steps
@@ -528,9 +532,10 @@ def run_anima_training(config, *, device: torch.device | None = None,
     print_optimizer_summary(config, opt_cfg, trainable, lr_curve.initial_lr,
                             device, moments_host=moments_host,
                             n_devices=(len(layout.devices)
-                                       if fsdp and (fsdp.specs or fsdp.stages) else 1),
+                                       if fsdp and (fsdp.specs or fsdp.stages or fsdp.tps)
+                                       else 1),
                             layout=opt_layout)
-    if fsdp is not None and (fsdp.specs or fsdp.stages):
+    if fsdp is not None and (fsdp.specs or fsdp.stages or fsdp.tps):
         fsdp.report(trainable, frozen, opt_state)
 
     def flat_view(params):
@@ -711,6 +716,8 @@ def run_anima_training(config, *, device: torch.device | None = None,
         emit(pending, step_times[-1] if step_times else 0.0)
     reporter.log_message("\nTraining complete.")
     reporter.shutdown()
+    if fsdp is not None and fsdp.tps:
+        print(fsdp.describe_tp_traffic())
     save_model(output_dir / f"{output_model_stem(config, config.DIT_PATH)}.safetensors")
     print("All tasks complete. Final model saved.")
     return {"trainable": trainable, "qat_residuals": qat_residuals}

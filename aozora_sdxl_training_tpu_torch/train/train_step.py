@@ -16,7 +16,10 @@ eagerly:
 On the ranks of a torchrun world both steps take the run's FSDP
 (``parallel/sharding.FSDP``): the micro step gathers every sharded tensor
 once and reduce-scatters its gradient into the shard's accumulator, the
-apply step sums the rest over the ranks and updates the shards.
+apply step sums the rest over the ranks and updates the shards. Under
+tensor parallelism the step config's ``tp`` (``FSDP.tp_config``) runs the
+UNet's Megatron splits on the tp slices that FSDP holds; their gradients
+accumulate in the slices' ``.grad`` like a replicated tensor's.
 
 At GA 1 (the plan's ``fused_apply``) a micro step then an apply step is the
 JAX package's ``make_fused_step``: fwd + bwd, the clip, then the update of
@@ -68,6 +71,8 @@ class TrainStepConfig:
     remat: Any = False                     # False | True | mode string
     # (hires_tokens, full_tokens) for "*_hires" remat modes, from the plan
     remat_thresholds: tuple | None = None
+    # parallel.tensor_parallel.TPConfig under tensor parallelism, or None
+    tp: Any = None
 
 
 def make_loss_fn(cfg: TrainStepConfig):
@@ -88,7 +93,7 @@ def make_loss_fn(cfg: TrainStepConfig):
             {**frozen, **trainable}, noisy.to(cfg.compute_dtype), t_cond,
             embeds, pooled, time_ids, cfg=cfg.unet, attn_impl=cfg.attn_impl,
             compute_dtype=cfg.compute_dtype, remat=cfg.remat,
-            remat_thresholds=cfg.remat_thresholds)
+            remat_thresholds=cfg.remat_thresholds, tp=cfg.tp)
         loss = objectives.weighted_mse_loss(pred, target, timesteps,
                                             loss_weights, sample_mask)
         return loss, sigma

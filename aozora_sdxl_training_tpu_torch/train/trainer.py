@@ -37,15 +37,22 @@ shape dp divides, trainable and frozen, with its gradient accumulator and
 moments; a micro step gathers each such tensor's compute copy once (bf16
 where it has two or more dimensions), reduce-scatters its gradient and
 frees the copy, and the apply step updates each rank's shards. The memory
-plan is one rank's (``dp_shard``). Only global rank 0 prints, saves and
-renders previews; a save or a preview gathers on every rank, on rank 0's
-word. The low-memory rungs run on one device only: the ranks take the
-fused step, as the JAX trainer's do.
+plan is one rank's (``dp_shard``; tp does not enter it, as in JAX). Only
+global rank 0 prints, saves and renders previews; a save or a preview
+gathers on every rank, on rank 0's word. The low-memory rungs run on one
+device only: the ranks take the fused step, as the JAX trainer's do.
 
-Not ported yet, and refused with an error when the config asks for them:
-tensor-parallel meshes and, under FSDP, per-use gathers (a plan whose
-``gather_once`` is False). ``AOZORA_PROFILE_DIR`` traces micro steps 3-8
-(``train/profiling.py``).
+With ``TENSOR_PARALLEL_SIZE`` > 1 the ranks form the JAX trainer's dp x tp
+mesh: the tp ranks of one dp index train on the same rows, noise and
+timesteps, each holding its tp slice of the tensors the JAX package's
+``tp_param_spec`` splits (with their accumulators and moments), and the
+UNet's attention and GEGLU run as Megatron column and row splits
+(``parallel/tensor_parallel.py``); the printed loss is averaged over the
+dp group. Saves and previews gather the slices into the JAX layout.
+
+Not ported yet, and refused with an error when the plan asks for them:
+per-use gathers under FSDP (a plan whose ``gather_once`` is False).
+``AOZORA_PROFILE_DIR`` traces micro steps 3-8 (``train/profiling.py``).
 """
 
 from __future__ import annotations
@@ -243,13 +250,6 @@ def attention_impl(config, device: torch.device) -> str:
     return "flash"
 
 
-def _refuse_unported(config) -> None:
-    if int(getattr(config, "TENSOR_PARALLEL_SIZE", 1) or 1) > 1:
-        raise NotImplementedError(
-            "TENSOR_PARALLEL_SIZE > 1: tensor parallelism is not ported to the "
-            "PyTorch package yet")
-
-
 def refuse_per_use_gathers(plan, fsdp) -> None:
     """The JAX package's per-use gathers (a plan with ``gather_once``
     False: no resident compute copies) are not ported: refused by name."""
@@ -273,7 +273,6 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
     ``device`` defaults to ``core.platform.resolve_device()``. Under
     torchrun the CLI silences the stdout of every rank but global rank 0."""
     device = resolve_device() if device is None else torch.device(device)
-    _refuse_unported(config)
     is_main = shard.global_rank() == 0
     output_dir = Path(config.OUTPUT_DIR)
     output_dir.mkdir(parents=True, exist_ok=True)
@@ -433,7 +432,8 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
         attn_impl=plan.attn_impl,
         compute_dtype=config.compute_dtype,
         remat=plan.remat,
-        remat_thresholds=plan.remat_thresholds)
+        remat_thresholds=plan.remat_thresholds,
+        tp=fsdp.tp_config if fsdp is not None else None)
     preview = PreviewRenderer(config, unet_cfg, attn_impl=plan.attn_impl,
                               compute_dtype=step_cfg.compute_dtype,
                               decoder_params=vae_decoder_params)
@@ -474,9 +474,10 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
     seed = int(config.SEED or 42)
     print_optimizer_summary(config, opt_cfg, trainable, lr_curve.initial_lr,
                             device, moments_host=moments_host,
-                            n_devices=len(mesh_layout.devices) if fsdp and fsdp.specs else 1,
+                            n_devices=(len(mesh_layout.devices)
+                                       if fsdp and (fsdp.specs or fsdp.tps) else 1),
                             layout=opt_layout)
-    if fsdp is not None and fsdp.specs:
+    if fsdp is not None and (fsdp.specs or fsdp.tps):
         fsdp.report(trainable, frozen, opt_state)
 
     # ---- loop ----
@@ -637,6 +638,8 @@ def run_sdxl_training(config, *, unet_cfg: UNetConfig | None = None,
         emit(pending, step_times[-1] if step_times else 0.0)
     reporter.log_message("\nTraining complete.")
     reporter.shutdown()
+    if fsdp is not None and fsdp.tps:
+        print(fsdp.describe_tp_traffic())
 
     stem = output_model_stem(config, config.SINGLE_FILE_CHECKPOINT_PATH)
     save_model(output_dir / f"{stem}.safetensors")

@@ -245,6 +245,19 @@ that save:
    peak, and s a micro and an optimizer step from its step log; the
    phase's seconds.
 
+20. tp (after pp): tensor parallelism of both CLIs with
+   TENSOR_PARALLEL_SIZE 2 on 2 ranks (one card: gloo on cuda:0; 2+ cards:
+   torchrun, NCCL), dp 1, at the dp phase's cut depth: the SDXL UNet at
+   the default preset and the DiT under Full remat, 4 micro steps each,
+   each held against one process on the same preset (losses rtol 2e-2,
+   the saved model < 0.05). Per rank: the tp line (a run that fell back to
+   tp 1 fails), its exact flash launches at B·H = heads/2 (K1-K3 at 5 and
+   10, K4a/K4b at 8), half the tp-split elements held, memory allocated
+   after setup beside the one-process run's, the peak, the bytes it put
+   into tp collectives a micro step (reduce and copy; gather and scatter
+   where a layer's heads tp does not divide), s a micro step; the phase's
+   seconds.
+
 13. plan: the memory planner on the card's budget (its total memory),
    without the cache encoders (synthetic caches): each trainer's default
    plan printed; ANIMA_BASE (random, 1024px, batch 1, GA 4) under Full
@@ -255,8 +268,9 @@ that save:
    its default plan (GA 4), with MASTER_DTYPE bfloat16 at GA 1 (the plan
    must be bf16 masters with the fused step) and under
    AOZORA_SDXL_REMAT=dots_no_logits_hires, 4 micro steps each, with the
-   same numbers (70 K1 a micro step in each) and, when the trainer phase
-   ran, its fp32-master peak beside the bf16 run's. CHIP_SMOKE_TRACE=1
+   same numbers (11 K1 a micro step in each: these SDXL runs, and the
+   two-pass run the GUI launches, train the dp phase's cut UNet; the host
+   moments' run keeps SDXL_BASE, 70 K1 a micro step). CHIP_SMOKE_TRACE=1
    traces micro steps 3-8 of each run, CHIP_SMOKE_TRACE=label,label of the
    runs named (summary.json and kernels.txt under the log dir; a traced
    run is not a timing run).
@@ -267,7 +281,8 @@ anima_cache and anima phases; `--only anima_video` the video phase;
 `--only resume` runs the trainer and anima phases with their resume parts;
 `--only plan` the plan phase; `--only repair` the repair phase; `--only
 fp16` the fp16 phase; `--only dp` the dp phase; `--only pp` the pp phase
-(`--only pp,anima_sp` both multi-rank Anima phases, on one card).
+(`--only pp,anima_sp` both multi-rank Anima phases, on one card); `--only
+tp` the tp phase.
 
 The second-to-last lines are the kernels JSON and the card's name and power
 limit; the last line is {"ok": true, "device": {...}}.
@@ -3558,16 +3573,20 @@ def default_plans(torch) -> dict:
     return out
 
 
-def plan_phase(torch, work_dir: Path, smi: str, fp32_peak_gb: float | None) -> dict:
-    """ANIMA_BASE under Conservative against Full; SDXL_BASE with bf16
-    masters at GA 1 (the fused step) and under
-    AOZORA_SDXL_REMAT=dots_no_logits_hires (PLAN_STEPS micro steps each;
-    the default plan's run is the trainer phase's); each trainer's default
-    plan. Then the low-memory rungs, forced at GA 1
-    (RUNG_STEPS optimizer steps each): ANIMA_BASE (Full) under two_pass and
-    moments_host, SDXL_BASE under moments_host, and SDXL_BASE under
-    two_pass as the GUI launches it (``gui_launch_run``). CHIP_SMOKE_TRACE
-    traces micro steps 3-8 of all runs ("1") or of the runs it names."""
+def plan_phase(torch, work_dir: Path, smi: str) -> dict:
+    """ANIMA_BASE under Conservative against Full; SDXL with bf16 masters
+    at GA 1 (the fused step) and under AOZORA_SDXL_REMAT=
+    dots_no_logits_hires (PLAN_STEPS micro steps each; the default plan's
+    run is the trainer phase's); each trainer's default plan. Then the
+    low-memory rungs, forced at GA 1 (RUNG_STEPS optimizer steps each):
+    ANIMA_BASE (Full) under two_pass and moments_host, SDXL_BASE under
+    moments_host, and SDXL under two_pass as the GUI launches it
+    (``gui_launch_run``). The SDXL runs but the host moments' take the
+    dp phase's cut UNet (``cut_sdxl``: SDXL_BASE's widths, one transformer
+    layer a block) for the script's time; the host moments keep SDXL_BASE
+    whole, so that its traced apply step holds enough copies to measure.
+    CHIP_SMOKE_TRACE traces micro steps 3-8 of all runs ("1") or of the
+    runs it names."""
     phase("plan")
     import numpy as np
     from aozora_sdxl_training_tpu_torch.cli import train_anima, train_sdxl
@@ -3615,12 +3634,13 @@ def plan_phase(torch, work_dir: Path, smi: str, fp32_peak_gb: float | None) -> d
             out["anima_full"]["launches_per_micro_step"])
     shutil_rmtree(anima_dir)
 
-    # SDXL_BASE on a synthetic cache: bf16 masters at GA 1 (fused), then
+    # the cut SDXL on a synthetic cache: bf16 masters at GA 1 (fused), then
     # dots_no_logits_hires at GA 4
     sdxl_dir = work_dir / "sdxl"
     sdxl_dir.mkdir()
-    ckpt, _, _ = shared_weights(torch, "sdxl_random.safetensors", lambda path: (
+    full_ckpt, _, _ = shared_weights(torch, "sdxl_random.safetensors", lambda path: (
         write_random_sd_checkpoint(path, seed=1234, device="cuda")))
+    unet_cfg, ckpt, _ = cut_sdxl(torch)
     preset = json.loads((REPO / "configs" / "default_config.json").read_text())
     preset["sdxl"].update({
         "sdxl_base_model_path": str(ckpt), "sdxl_output_dir": str(sdxl_dir / "out"),
@@ -3631,9 +3651,11 @@ def plan_phase(torch, work_dir: Path, smi: str, fp32_peak_gb: float | None) -> d
                             image_size=(1024, 1024), seq_len=77,
                             embed_dim=SDXL_BASE.cross_attention_dim,
                             pooled_dim=SDXL_BASE.pooled_projection_dim, seed=7)
-    calls = SELF_ATTN_CALLS[64]
+    calls = sdxl_self_attn_calls(unet_cfg)
     steps = ("make_micro_step", "make_apply_step")
     once = {"flash_fwd": calls, "flash_bwd_dq": calls, "flash_bwd_dkv": calls}
+    calls = SELF_ATTN_CALLS[64]
+    once_full = {"flash_fwd": calls, "flash_bwd_dq": calls, "flash_bwd_dkv": calls}
     # the default preset's plan (fp32 masters, GA 4, no remat) is the
     # trainer phase's run; the plan phase runs the others
     bf16 = {**preset, "sdxl": {**preset["sdxl"], "sdxl_master_dtype": "bfloat16",
@@ -3651,32 +3673,29 @@ def plan_phase(torch, work_dir: Path, smi: str, fp32_peak_gb: float | None) -> d
     print(f"  sdxl_bf16_ga1: {run['median_s_per_step']:.4f} s/step (micro + apply, median)")
     check(run["launches_per_micro_step"] == once,
           f"SDXL bf16: launches {run['launches_per_micro_step']}")
-    if fp32_peak_gb is not None:
-        run["fp32_ga4_peak_gb"] = fp32_peak_gb
-        print(f"  sdxl_bf16_ga1: peak {run['max_memory_allocated_gb']:.2f} GB against "
-              f"the trainer phase's fp32-master GA-4 run's {fp32_peak_gb:.2f} GB")
     out["sdxl_bf16_ga1"] = run
     run = plan_run(torch, train_sdxl.main, trainer_module, steps, preset, "sdxl", sdxl_dir,
                    "sdxl_dots_no_logits_hires", SDXL_PROGRESS,
                    env={"AOZORA_SDXL_REMAT": "dots_no_logits_hires"})
     check("remat: dots_no_logits_hires" in "\n".join(run["plan"]),
           "SDXL: the pinned remat mode is not the plan's")
-    # every attention unit of SDXL_BASE at 1024px sits below the default
+    # every attention unit of SDXL at 1024px sits below the default
     # 4160-token tier: no flash forward runs again
     check(run["launches_per_micro_step"] == once,
           f"SDXL dots_no_logits_hires: launches {run['launches_per_micro_step']}")
     out["sdxl_dots_no_logits_hires"] = run
     # the low-memory rungs at GA 1: the host moments in this process, the
     # two-pass step through the GUI's launch of the CLI
-    out["sdxl_moments_host"] = rung_run(
-        torch, train_sdxl.main, trainer_module, "make_micro_step", "moments_host", bf16,
-        "sdxl", sdxl_dir, "sdxl_moments_host", SDXL_PROGRESS, once)
     out["sdxl_two_pass_gui"] = gui_launch_run(torch, bf16, sdxl_dir, once)
-    for rung in ("sdxl_moments_host", "sdxl_two_pass_gui"):
-        print(f"  {rung}: {out[rung]['median_s_per_optimizer_step']:.4f} s/optimizer step "
-              f"against the fused step's {out['sdxl_bf16_ga1']['median_s_per_step']:.4f} "
-              f"(sdxl_bf16_ga1); peak {out[rung]['max_memory_allocated_gb']:.2f} GB against "
-              f"its {out['sdxl_bf16_ga1']['max_memory_allocated_gb']:.2f} GB")
+    rung = "sdxl_two_pass_gui"
+    print(f"  {rung}: {out[rung]['median_s_per_optimizer_step']:.4f} s/optimizer step "
+          f"against the fused step's {out['sdxl_bf16_ga1']['median_s_per_step']:.4f} "
+          f"(sdxl_bf16_ga1); peak {out[rung]['max_memory_allocated_gb']:.2f} GB against "
+          f"its {out['sdxl_bf16_ga1']['max_memory_allocated_gb']:.2f} GB")
+    full = {**bf16, "sdxl": {**bf16["sdxl"], "sdxl_base_model_path": str(full_ckpt)}}
+    out["sdxl_moments_host"] = rung_run(
+        torch, train_sdxl.main, trainer_module, "make_micro_step", "moments_host", full,
+        "sdxl", sdxl_dir, "sdxl_moments_host", SDXL_PROGRESS, once_full)
     shutil_rmtree(sdxl_dir)
     return out
 
@@ -4044,54 +4063,63 @@ def sp_video_run(torch, work_dir: Path, steps: int, smi: str) -> dict:
 
 
 def one_process_control(torch, work_dir: Path, preset_path: Path, label: str,
-                        overrides: dict) -> dict:
-    """The Anima CLI in this process on ``preset_path`` with ``overrides``
-    (the layout's sizes back to 1), writing into ``work_dir``/out_one: its
+                        overrides: dict, mode: str = "anima") -> dict:
+    """The ``mode`` CLI ("anima" or "sdxl") in this process on
+    ``preset_path`` with ``overrides`` of its section (the layout's sizes
+    back to 1, or the batch), writing into ``work_dir``/out_one: its
     stdout, launches, memory allocated after setup, peak, step times."""
-    from aozora_sdxl_training_tpu_torch.cli import train_anima
+    from aozora_sdxl_training_tpu_torch.cli import train_anima, train_sdxl
     from aozora_sdxl_training_tpu_torch.train import anima_trainer
+    from aozora_sdxl_training_tpu_torch.train import trainer as sdxl_trainer
     from aozora_sdxl_training_tpu_torch.train.memory_policy import GB
+    cli_main, module, micro = ((train_anima.main, anima_trainer, "make_anima_micro_step")
+                               if mode == "anima" else
+                               (train_sdxl.main, sdxl_trainer, "make_micro_step"))
     preset = json.loads(preset_path.read_text())
-    preset["anima"].update({"anima_output_dir": str(work_dir / "out_one"), **overrides})
+    preset[mode].update({f"{mode}_output_dir": str(work_dir / "out_one"), **overrides})
     one_preset = work_dir / "one.json"
     one_preset.write_text(json.dumps(preset, indent=1))
     allocated = {}
-    summary_fn = anima_trainer.print_optimizer_summary
+    summary_fn = module.print_optimizer_summary
 
     def setup_allocated(*args, **kwargs):
         torch.cuda.synchronize()
         allocated["bytes"] = torch.cuda.memory_allocated()
         return summary_fn(*args, **kwargs)
 
-    anima_trainer.print_optimizer_summary = setup_allocated
+    module.print_optimizer_summary = setup_allocated
     try:
         raw, marks, launches, peak_gb, wall = run_trainer_cli(
-            torch, train_anima.main, one_preset, work_dir, anima_trainer,
-            ("make_anima_micro_step", "make_apply_step"), f"chip_smoke_{label}_one.log")
+            torch, cli_main, one_preset, work_dir, module, (micro, "make_apply_step"),
+            f"chip_smoke_{label}_one.log")
     finally:
-        anima_trainer.print_optimizer_summary = summary_fn
+        module.print_optimizer_summary = summary_fn
     micro, apply_ = step_times(marks, skip=1)
     return {"raw": raw, "launches": {k: v for k, v in launches.items() if v},
             "allocated_after_setup_gib": allocated["bytes"] / GB, "peak_gb": peak_gb,
             "s_micro_steps": micro, "s_apply": apply_, "wall_s": wall}
 
 
-def held_against_one(torch, label: str, losses: list, one: dict, work_dir: Path, smi: str):
-    """The ranks' losses and saved DiT against the one-process run's:
-    losses rtol DP_LOSS_RTOL, the DiT's max relative difference under
+def held_against_one(torch, label: str, losses: list, one: dict, work_dir: Path, smi: str,
+                     mode: str = "anima", stem: str = "smoke_anima"):
+    """The ranks' losses and saved model (``work_dir``/out/``stem``, the DiT
+    or, with ``mode`` "sdxl", the UNet) against the one-process run's:
+    losses rtol DP_LOSS_RTOL, the model's max relative difference under
     DP_MODEL_BAR."""
     import numpy as np
-    losses_one = check_progress(one["raw"], ANIMA_PROGRESS, len(losses))
+    pattern, prefix, model = ((ANIMA_PROGRESS, "pipe.dit.", "DiT") if mode == "anima" else
+                              (SDXL_PROGRESS, "model.diffusion_model.", "UNet"))
+    losses_one = check_progress(one["raw"], pattern, len(losses))
     check(np.allclose(losses, losses_one, rtol=DP_LOSS_RTOL, atol=2e-4),
           f"{label}: losses {losses} against one process {losses_one}")
-    diff, n = unet_max_rel_diff(torch, work_dir / "out" / "smoke_anima.safetensors",
-                                work_dir / "out_one" / "smoke_anima.safetensors",
-                                prefix="pipe.dit.")
-    check(n > 0 and diff < DP_MODEL_BAR, f"{label}: the saved DiT is {diff:.4f} (max "
+    diff, n = unet_max_rel_diff(torch, work_dir / "out" / f"{stem}.safetensors",
+                                work_dir / "out_one" / f"{stem}.safetensors", prefix=prefix)
+    check(n > 0 and diff < DP_MODEL_BAR, f"{label}: the saved {model} is {diff:.4f} (max "
           f"relative) off the one-process run's over {n} tensors (bar {DP_MODEL_BAR})")
     one.pop("raw")
-    one.update(losses=losses_one, saved_dit_max_rel_diff=diff, tensors_compared=n)
-    print(f"  [{smi}] {label}: losses {losses}, one process {losses_one}; saved DiT max "
+    one.update(losses=losses_one, tensors_compared=n,
+               **{f"saved_{model.lower()}_max_rel_diff": diff})
+    print(f"  [{smi}] {label}: losses {losses}, one process {losses_one}; saved {model} max "
           f"relative difference {diff:.5f} over {n} tensors (bar {DP_MODEL_BAR}); one "
           f"process: allocated after setup {one['allocated_after_setup_gib']:.2f} GiB, "
           f"peak {one['peak_gb']:.2f} GB, micro steps "
@@ -4199,7 +4227,8 @@ DP_LOSS_RTOL = 2e-2
 
 def dp_launch(torch, work_dir: Path, cli: str, preset_path: Path, label: str):
     """Runs ``dp_rank`` (the ``cli`` run: "sdxl" or "anima" for the dp
-    phase, "anima_pp" or "anima_sp" for the pp and anima_sp phases) on DP
+    phase, "anima_pp", "anima_sp" or "anima_tp" for the pp, anima_sp and
+    tp phases; the tp phase's SDXL run is "sdxl") on DP
     ranks: with one card, DP processes on it over gloo (each rank starts
     the gloo group before the CLI, which takes it as it is); with DP cards
     or more, torchrun over NCCL, one rank a card. Returns (global rank 0's
@@ -4266,17 +4295,18 @@ def dp_launch(torch, work_dir: Path, cli: str, preset_path: Path, label: str):
 
 
 def dp_rank(cli: str, preset: str, out_dir: str) -> int:
-    """One rank of the dp, pp and anima_sp phases: under
+    """One rank of the dp, pp, anima_sp and tp phases: under
     CHIP_SMOKE_DP_STORE (one card) it starts the gloo group on cuda:0
     first; then the training CLI (``cli``: "sdxl", or the Anima CLI for
-    "anima", "anima_pp" and "anima_sp") with its step log
+    "anima", "anima_pp", "anima_sp" and "anima_tp") with its step log
     (``AOZORA_STEP_LOG``), the launches and the point-to-point hops
     counted from 0 just before; then this rank's record: launches (the
-    kernels' and the K5 entry points'), wall time, peak memory, what FSDP
-    holds after setup (elements, device bytes allocated), the bytes each
-    collective moved and the hops. The dp phase's Anima run skips its
-    final model save (nothing reads it) on every rank alike; the pp and
-    anima_sp runs keep it (it is held against one process)."""
+    kernels' and the K5 entry points') and the B·H of each flash forward,
+    wall time, peak memory, what FSDP holds after setup (elements, tp-split
+    elements, device bytes allocated), the bytes each collective moved (the
+    tp collectives' too) and the hops. The dp phase's Anima run skips its
+    final model save (nothing reads it) on every rank alike; the pp,
+    anima_sp and tp runs keep it (it is held against one process)."""
     sys.path.insert(0, str(REPO))
     import torch
     import torch.distributed as dist
@@ -4298,8 +4328,16 @@ def dp_rank(cli: str, preset: str, out_dir: str) -> int:
         from aozora_sdxl_training_tpu_torch.train import anima_trainer
         if cli == "anima":
             skip_final_save(anima_trainer)
-    made, setup = [], {}
+    made, setup, heads = [], {}, set()
     init, report = sharding.FSDP.__init__, sharding.FSDP.report
+    flash_fwd = fa.flash_fwd
+
+    def counted_heads(q, k, v, scale):
+        # B·H of each flash forward launch (the heads each rank runs)
+        heads.add(int(q.shape[0]) * int(q.shape[2]))
+        return flash_fwd(q, k, v, scale)
+
+    fa.flash_fwd = counted_heads
 
     def kept(self, *args, **kwargs):
         init(self, *args, **kwargs)
@@ -4311,6 +4349,8 @@ def dp_rank(cli: str, preset: str, out_dir: str) -> int:
         setup["held"] = self.held({**trainable, **frozen}, opt_state)
         setup["sharded_elements"] = sum(s.numel for n, s in self.specs.items()
                                         if n in trainable or n in frozen)
+        setup["tp_elements"] = sum(s.numel for n, s in self.tps.items()
+                                   if n in trainable or n in frozen)
         return report(self, trainable, frozen, opt_state)
 
     sharding.FSDP.__init__, sharding.FSDP.report = kept, reported
@@ -4328,6 +4368,8 @@ def dp_rank(cli: str, preset: str, out_dir: str) -> int:
         "device": str(torch.cuda.current_device()), "backend": fsdp.backend,
         "micro_steps": fsdp.micro_steps, "optimizer_steps": fsdp.optimizer_steps,
         "collective_bytes": fsdp.stats, "setup": setup,
+        "tp_bytes": fsdp.tp_config.stats if fsdp.tp_config else {},
+        "flash_heads": sorted(heads),
         "steps": [json.loads(line) for line in
                   Path(out_dir, f"steps{rank}.jsonl").read_text().splitlines()]}))
     return 0
@@ -4442,34 +4484,15 @@ def dp_phase(torch, work_dir: Path, smi: str):
     ``dp_rank_summary``'s numbers. Returns the summary."""
     phase("dp")
     import numpy as np
-    from aozora_sdxl_training_tpu_torch.cli import train_sdxl
     from aozora_sdxl_training_tpu_torch.config import schema
     from aozora_sdxl_training_tpu_torch.config.runtime import RuntimeConfig
-    from dataclasses import replace
-    from aozora_sdxl_training_tpu_torch.data.synthetic import (
-        write_random_sd_checkpoint, write_synthetic_dataset)
+    from aozora_sdxl_training_tpu_torch.data.synthetic import write_synthetic_dataset
     from aozora_sdxl_training_tpu_torch.models.sdxl.arch import SDXL_BASE, hf_param_names
-    from aozora_sdxl_training_tpu_torch.models.sdxl.clip import ClipTextConfig
-    from aozora_sdxl_training_tpu_torch.train import trainer as trainer_module
-    from aozora_sdxl_training_tpu_torch.train.memory_policy import GB
     out = {}
 
     sdxl_dir = work_dir / "sdxl"
     sdxl_dir.mkdir()
-    layers = DP_SDXL_LAYERS
-    unet_cfg = replace(SDXL_BASE, transformer_layers=(0, layers, layers),
-                       mid_transformer_layers=layers)
-    ckpt = sdxl_dir / "sdxl_cut.safetensors"
-    t0 = time.perf_counter()
-    # the text encoders and the VAE pass through the saves only: small ones
-    counts = write_random_sd_checkpoint(
-        ckpt, seed=1234, unet_cfg=unet_cfg, device="cuda",
-        clip_l=ClipTextConfig(width=16, num_layers=1, num_heads=1),
-        clip_g=ClipTextConfig(width=32, num_layers=1, num_heads=1, activation="gelu",
-                              projection_dim=40), vae_channels=(8, 8, 16, 16))
-    print(f"  {ckpt.name}: UNet of SDXL_BASE's widths with {layers} transformer layer(s) a "
-          f"block at 640 and 1280: {counts['unet']:,} parameters, written in "
-          f"{time.perf_counter() - t0:.1f} s")
+    unet_cfg, ckpt, _ = cut_sdxl(torch)
     preset = json.loads((REPO / "configs" / "default_config.json").read_text())
     preset["sdxl"].update({
         "sdxl_base_model_path": str(ckpt), "sdxl_output_dir": str(sdxl_dir / "out_dp"),
@@ -4492,9 +4515,7 @@ def dp_phase(torch, work_dir: Path, smi: str):
     remat = re.search(r"INFO:   attention: (\S+), remat: (\S+)", raw)
     check(remat is not None and remat.group(1) == "flash"
           and remat.group(2) in ("True", "False"), f"dp_sdxl: plan {remat and remat.group(0)}")
-    # self-attention a micro step: 2 down and 3 up attention blocks at each
-    # of the two transformer levels, and the mid block
-    calls = 5 * sum(unet_cfg.transformer_layers) + unet_cfg.mid_transformer_layers
+    calls = sdxl_self_attn_calls(unet_cfg)
     fwd = calls * (2 if remat.group(2) == "True" else 1) * TRAIN_STEPS
     want = {"flash_fwd": fwd, "flash_bwd_dq": calls * TRAIN_STEPS,
             "flash_bwd_dkv": calls * TRAIN_STEPS}
@@ -4505,27 +4526,11 @@ def dp_phase(torch, work_dir: Path, smi: str):
                    "launches_per_rank": want, **dp_rank_summary("dp_sdxl", ranks, raw, smi)}
 
     # the control: one process at the global batch
-    preset["sdxl"].update({"sdxl_output_dir": str(sdxl_dir / "out_one"),
-                           "sdxl_batch_size": DP})
-    one_preset = sdxl_dir / "one.json"
-    one_preset.write_text(json.dumps(preset, indent=1))
-    allocated = {}
-    summary_fn = trainer_module.print_optimizer_summary
-
-    def setup_allocated(*args, **kwargs):
-        torch.cuda.synchronize()
-        allocated["bytes"] = torch.cuda.memory_allocated()
-        return summary_fn(*args, **kwargs)
-
-    trainer_module.print_optimizer_summary = setup_allocated
-    try:
-        raw_one, marks, _, peak_one, wall_one = run_trainer_cli(
-            torch, train_sdxl.main, one_preset, sdxl_dir, trainer_module,
-            ("make_micro_step", "make_apply_step"), "chip_smoke_dp_sdxl_one.log")
-    finally:
-        trainer_module.print_optimizer_summary = summary_fn
-    check(RuntimeConfig(schema.flatten_preset(preset)).BATCH_SIZE == DP, "batch 2 not set")
-    losses_one = check_progress(raw_one, SDXL_PROGRESS, TRAIN_STEPS)
+    one = one_process_control(torch, sdxl_dir, dp_preset, "dp_sdxl", {"sdxl_batch_size": DP},
+                              mode="sdxl")
+    check(RuntimeConfig(schema.flatten_preset(json.loads(
+        (sdxl_dir / "one.json").read_text()))).BATCH_SIZE == DP, "batch 2 not set")
+    losses_one = check_progress(one["raw"], SDXL_PROGRESS, TRAIN_STEPS)
     check(np.allclose(losses, losses_one, rtol=DP_LOSS_RTOL, atol=2e-4),
           f"dp_sdxl: losses {losses} against one process at batch {DP} {losses_one}")
     diff, n = unet_max_rel_diff(torch, sdxl_dir / "out_dp" / "dp.safetensors",
@@ -4533,17 +4538,15 @@ def dp_phase(torch, work_dir: Path, smi: str):
     check(n == len(hf_param_names(unet_cfg)), f"{n} UNet tensors compared")
     check(diff < DP_MODEL_BAR, f"dp_sdxl: the saved UNet is {diff:.4f} (max relative) off "
           f"the one-process run's (bar {DP_MODEL_BAR})")
-    micro_one, apply_one = step_times(marks, skip=1)
+    one.pop("raw")
     print(f"  [{smi}] dp_sdxl: losses {losses}, one process at batch {DP} {losses_one}; saved "
           f"UNet max relative difference {diff:.5f} over {n} tensors (bar {DP_MODEL_BAR}); "
-          f"one process: allocated after setup {allocated['bytes'] / GB:.2f} GiB, peak "
-          f"{peak_one:.2f} GB, micro steps 2-4 {[round(x, 4) for x in micro_one]} s, apply "
-          f"{[round(x, 4) for x in apply_one]} s; the ranks' run {wall:.1f} s, one "
-          f"process {wall_one:.1f} s (load and save included)")
-    out["sdxl"].update(one_process={"losses": losses_one, "peak_gb": peak_one,
-                                    "allocated_after_setup_gib": allocated["bytes"] / GB,
-                                    "s_micro_steps": micro_one, "s_apply": apply_one,
-                                    "wall_s": wall_one},
+          f"one process: allocated after setup {one['allocated_after_setup_gib']:.2f} GiB, "
+          f"peak {one['peak_gb']:.2f} GB, micro steps 2-4 "
+          f"{[round(x, 4) for x in one['s_micro_steps']]} s, apply "
+          f"{[round(x, 4) for x in one['s_apply']]} s; the ranks' run {wall:.1f} s, one "
+          f"process {one['wall_s']:.1f} s (load and save included)")
+    out["sdxl"].update(one_process={**one, "losses": losses_one},
                        saved_unet_max_rel_diff=diff)
     shutil_rmtree(sdxl_dir)
 
@@ -4671,13 +4674,187 @@ def pp_phase(torch, work_dir: Path, smi: str):
 
 
 # --------------------------------------------------------------------------
+# 20: tensor parallelism of both trainers on two ranks
+# --------------------------------------------------------------------------
+
+TP = 2
+
+
+def cut_sdxl(torch):
+    """The SDXL_BASE UNet at its widths with DP_SDXL_LAYERS transformer
+    layers a block at 640 and 1280 (and in the mid block): its config and
+    the seeded random checkpoint (tiny text encoders and VAE, which pass
+    through the saves only), written once a run (``shared_weights``) for
+    the dp, tp and plan phases. Returns (unet_cfg, path, UNet parameters)."""
+    from dataclasses import replace
+    from aozora_sdxl_training_tpu_torch.data.synthetic import write_random_sd_checkpoint
+    from aozora_sdxl_training_tpu_torch.models.sdxl.arch import SDXL_BASE
+    from aozora_sdxl_training_tpu_torch.models.sdxl.clip import ClipTextConfig
+    layers = DP_SDXL_LAYERS
+    unet_cfg = replace(SDXL_BASE, transformer_layers=(0, layers, layers),
+                       mid_transformer_layers=layers)
+    ckpt, counts, secs = shared_weights(torch, "sdxl_cut.safetensors", lambda path: (
+        write_random_sd_checkpoint(
+            path, seed=1234, unet_cfg=unet_cfg, device="cuda",
+            clip_l=ClipTextConfig(width=16, num_layers=1, num_heads=1),
+            clip_g=ClipTextConfig(width=32, num_layers=1, num_heads=1, activation="gelu",
+                                  projection_dim=40), vae_channels=(8, 8, 16, 16))))
+    print(f"  {ckpt.name}: UNet of SDXL_BASE's widths with {layers} transformer layer(s) a "
+          f"block at 640 and 1280: {counts['unet']:,} parameters, "
+          f"{f'written in {secs:.1f} s' if secs > 0.1 else 'written by an earlier phase'}")
+    return unet_cfg, ckpt, counts["unet"]
+
+
+def sdxl_self_attn_calls(unet_cfg) -> int:
+    """Self-attention calls of one SDXL forward: 2 down and 3 up attention
+    blocks at each transformer level, and the mid block's layers."""
+    return 5 * sum(unet_cfg.transformer_layers) + unet_cfg.mid_transformer_layers
+
+
+def tp_rank_summary(label: str, ranks: list, raw: str, one_card: bool, want: dict,
+                    heads: set, one: dict, smi: str) -> list:
+    """Per rank of a tp run: the exact flash launches, each at heads/TP
+    (B·H a launch, batch 1), the tp line, half the tp-split elements held,
+    memory allocated after setup beside one process's, the bytes put into
+    tp collectives a micro step, and s a micro step (synced step log)."""
+    from aozora_sdxl_training_tpu_torch.train.memory_policy import GB
+    check(f"INFO: Tensor parallelism over tp={TP} ({'gloo' if one_card else 'nccl'}, dp=1)"
+          in raw, f"{label}: no tp line (did the run fall back to tp 1?)")
+    rows = []
+    for r, rec in enumerate(ranks):
+        check(rec["launches"] == want, f"{label} rank {r}: launches {rec['launches']}, "
+              f"expected {want}")
+        check(set(rec["flash_heads"]) == heads, f"{label} rank {r}: the flash launches ran "
+              f"B·H {sorted(rec['flash_heads'])}, expected {sorted(heads)}")
+        setup = rec["setup"]
+        held = setup["held"][r]
+        total = setup["tp_elements"]
+        check(total > 0 and 2 * held[5] == total, f"{label} rank {r}: holds {held[5]} of "
+              f"{total} tp-split elements, not half")
+        t = [s["t"] for s in rec["steps"]]
+        check(len(t) == TRAIN_STEPS, f"{label} rank {r}: {len(t)} step-log lines")
+        micro = [t[i] - t[i - 1] for i in range(1, TRAIN_STEPS - 1)]
+        per_micro = {k: v / max(rec["micro_steps"], 1) / 1e9 for k, v in rec["tp_bytes"].items()}
+        check(per_micro.get("reduce", 0) > 0 and per_micro.get("copy", 0) > 0,
+              f"{label} rank {r}: no tp collective ran ({rec['tp_bytes']})")
+        rows.append({"rank": r, "backend": rec["backend"], "launches": rec["launches"],
+                     "flash_heads": rec["flash_heads"], "tp_elements_held": held[5],
+                     "tp_elements": total, "all_parameter_elements_held": held[1],
+                     "moment_bytes": held[2],
+                     "allocated_after_setup_gib": setup["allocated_bytes"] / GB,
+                     "one_process_allocated_after_setup_gib": one["allocated_after_setup_gib"],
+                     "peak_gib": rec["max_memory_allocated_bytes"] / GB,
+                     "tp_gb_per_micro_step": per_micro,
+                     "tp_gb_per_micro_step_total": sum(per_micro.values()),
+                     "s_micro_steps_2_3": micro, "s_micro_step_4_with_apply": t[-1] - t[-2],
+                     "s_per_optimizer_step_ga4": statistics.median(micro) * (GA - 1)
+                     + t[-1] - t[-2], "wall_s": rec["wall_s"]})
+        print(f"  [{smi}] {label} rank {r} ({rec['backend']}): launches {rec['launches']} at "
+              f"B·H {sorted(rec['flash_heads'])}; holds {held[5]:,} of {total:,} tp-split "
+              f"elements ({held[1]:,} parameter elements in all); allocated after setup "
+              f"{rows[-1]['allocated_after_setup_gib']:.2f} GiB (one process "
+              f"{one['allocated_after_setup_gib']:.2f}), peak {rows[-1]['peak_gib']:.2f} GiB; "
+              f"tp collectives {rows[-1]['tp_gb_per_micro_step_total']:.4f} GB a micro step "
+              f"{ {k: round(v, 4) for k, v in per_micro.items()} }; micro steps 2-3 "
+              f"{[round(x, 4) for x in micro]} s, micro step 4 with the apply step "
+              f"{rows[-1]['s_micro_step_4_with_apply']:.4f} s")
+    return rows
+
+
+def tp_phase(torch, work_dir: Path, smi: str):
+    """Both trainers with TENSOR_PARALLEL_SIZE TP on TP ranks (``dp_launch``:
+    one card, gloo on cuda:0; more, torchrun and NCCL), dp 1, at the full
+    widths and the dp phase's cut depth, TRAIN_STEPS micro steps each:
+    the SDXL UNet at the default preset (1024px, batch 1, GA 4, raven,
+    bf16, flash), then the DiT (Full remat); each held against one
+    process on the same preset (losses rtol DP_LOSS_RTOL, the saved model
+    within DP_MODEL_BAR), each rank with ``tp_rank_summary``'s checks and
+    numbers. Returns (summary, rank 0's launches of both runs)."""
+    phase("tp")
+    from aozora_sdxl_training_tpu_torch.config import schema
+    from aozora_sdxl_training_tpu_torch.config.runtime import RuntimeConfig
+    from aozora_sdxl_training_tpu_torch.data.synthetic import write_synthetic_dataset
+    from aozora_sdxl_training_tpu_torch.models.sdxl.arch import SDXL_BASE
+    t_phase = time.perf_counter()
+    out, launches = {}, {}
+
+    sdxl_dir = work_dir / "sdxl"
+    sdxl_dir.mkdir()
+    unet_cfg, ckpt, _ = cut_sdxl(torch)
+    preset = json.loads((REPO / "configs" / "default_config.json").read_text())
+    preset["sdxl"].update({
+        "sdxl_base_model_path": str(ckpt), "sdxl_output_dir": str(sdxl_dir / "out"),
+        "sdxl_output_name": "tp", "sdxl_max_train_steps": TRAIN_STEPS,
+        "sdxl_tensor_parallel_size": TP,
+        "sdxl_instance_datasets": [{"path": str(sdxl_dir / "data"), "repeats": 1}]})
+    config = RuntimeConfig(schema.flatten_preset(preset))
+    check(config.BATCH_SIZE == 1 and config.GRADIENT_ACCUMULATION_STEPS == GA
+          and config.MIXED_PRECISION == "bfloat16" and config.TENSOR_PARALLEL_SIZE == TP,
+          "the SDXL tp preset is not batch 1, GA 4, bf16, tp 2")
+    write_synthetic_dataset(sdxl_dir / "data", config, n_images=2, image_size=(1024, 1024),
+                            seq_len=77, embed_dim=SDXL_BASE.cross_attention_dim,
+                            pooled_dim=SDXL_BASE.pooled_projection_dim, seed=7)
+    tp_preset = sdxl_dir / "tp.json"
+    tp_preset.write_text(json.dumps(preset, indent=1))
+    raw, ranks, wall, one_card = dp_launch(torch, sdxl_dir, "sdxl", tp_preset, "tp_sdxl")
+    losses = check_progress(raw, SDXL_PROGRESS, TRAIN_STEPS)
+    remat = re.search(r"INFO:   attention: (\S+), remat: (\S+)", raw)
+    check(remat is not None and remat.group(1) == "flash"
+          and remat.group(2) in ("True", "False"), f"tp_sdxl: plan {remat and remat.group(0)}")
+    calls = sdxl_self_attn_calls(unet_cfg)
+    fwd = calls * (2 if remat.group(2) == "True" else 1) * TRAIN_STEPS
+    want = {"flash_fwd": fwd, "flash_bwd_dq": calls * TRAIN_STEPS,
+            "flash_bwd_dkv": calls * TRAIN_STEPS}
+    one = one_process_control(torch, sdxl_dir, tp_preset, "tp_sdxl",
+                              {"sdxl_tensor_parallel_size": 1}, mode="sdxl")
+    one_want = {**want, "flash_fwd": calls * TRAIN_STEPS * (
+        2 if "remat: True" in one["raw"] else 1)}
+    check(one["launches"] == one_want, f"tp_sdxl one process: launches {one['launches']}")
+    # the 640-wide level's 10 heads and the 1280-wide level's 20, halved
+    rows = tp_rank_summary("tp_sdxl", ranks, raw, one_card, want,
+                           {h // TP for h in unet_cfg.num_heads[1:]}, one, smi)
+    held_against_one(torch, "tp_sdxl", losses, one, sdxl_dir, smi, mode="sdxl", stem="tp")
+    out["sdxl"] = {"one_card_gloo": one_card, "losses": losses, "ranks": rows,
+                   "launches_per_rank": want, "one_process": one, "wall_s": wall}
+    launches.update(want)
+    shutil_rmtree(sdxl_dir)
+
+    anima_dir = work_dir / "anima"
+    anima_dir.mkdir()
+    cfg, preset_path, config = anima_env(torch, anima_dir, TRAIN_STEPS, blocks=DP_ANIMA_BLOCKS,
+                                         anima_tensor_parallel_size=TP)
+    check(config.TENSOR_PARALLEL_SIZE == TP, "the preset's tp size did not reach the config")
+    raw, ranks, wall, one_card = dp_launch(torch, anima_dir, "anima_tp", preset_path,
+                                           "tp_anima")
+    losses = check_progress(raw, ANIMA_PROGRESS, TRAIN_STEPS)
+    check_saved_dit(anima_dir / "out" / "smoke_anima.safetensors", cfg)
+    calls = cfg.num_blocks
+    want = {"flash_fwd_d128": 2 * calls * TRAIN_STEPS, "flash_bwd_dq_d128": calls * TRAIN_STEPS,
+            "flash_bwd_dkv_d128": calls * TRAIN_STEPS}
+    one = one_process_control(torch, anima_dir, preset_path, "tp_anima",
+                              {"anima_tensor_parallel_size": 1})
+    check(one["launches"] == want, f"tp_anima one process: launches {one['launches']}")
+    rows = tp_rank_summary("tp_anima", ranks, raw, one_card, want, {cfg.num_heads // TP},
+                           one, smi)
+    held_against_one(torch, "tp_anima", losses, one, anima_dir, smi)
+    out["anima"] = {"one_card_gloo": one_card, "losses": losses, "ranks": rows,
+                    "launches_per_rank": want, "one_process": one, "wall_s": wall}
+    launches.update(want)
+    shutil_rmtree(anima_dir)
+    out["s"] = time.perf_counter() - t_phase
+    print(f"  [{smi}] tp: {out['s']:.1f} s")
+    return out, launches
+
+
+# --------------------------------------------------------------------------
 
 PHASES = ("kernels", "k5", "k6", "unet", "dit", "vae", "trainer", "anima", "anima_video",
-          "repair", "fp16", "anima_sp", "dp", "pp", "resume", "plan")
+          "repair", "fp16", "anima_sp", "dp", "pp", "tp", "resume", "plan")
+DP_RANK_CLIS = ("sdxl", "anima", "anima_pp", "anima_sp", "anima_tp")
 USAGE = ("usage: chip_smoke.py [--only PHASE[,PHASE...]]   phases: " + ", ".join(PHASES)
          + "\n       chip_smoke.py --anima-sp-rank PRESET OUT_DIR   (one torchrun rank)"
-         + "\n       chip_smoke.py --dp-rank sdxl|anima|anima_pp|anima_sp PRESET OUT_DIR"
-         + "   (one rank of dp, pp or anima_sp)")
+         + "\n       chip_smoke.py --dp-rank " + "|".join(DP_RANK_CLIS) + " PRESET OUT_DIR"
+         + "   (one rank of dp, pp, anima_sp or tp)")
 
 
 def kernels_json(timings, max_err, launches, k5, k6, sm90):
@@ -4702,6 +4879,8 @@ def kernels_json(timings, max_err, launches, k5, k6, sm90):
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shapes": timings[kname], **build,
+            **({"launches_tp_per_rank": launches["tp"][kname]}
+               if kname in launches["tp"] else {}),
             **({"max_err_against_float64": timings["fp16_against_float64"][kname]}
                if kname in timings["fp16_against_float64"] else {}),
             **({"launches_anima_video": launches["anima_video"].get(kname, 0),
@@ -4747,8 +4926,7 @@ def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else list(argv)
     if args[:1] == ["--anima-sp-rank"] and len(args) == 3:
         return anima_sp_rank(args[1], args[2])
-    if args[:1] == ["--dp-rank"] and len(args) == 4 and args[1] in (
-            "sdxl", "anima", "anima_pp", "anima_sp"):
+    if args[:1] == ["--dp-rank"] and len(args) == 4 and args[1] in DP_RANK_CLIS:
         return dp_rank(args[1], args[2], args[3])
     only = set(PHASES)
     if args[:1] == ["--only"] and len(args) == 2 and set(args[1].split(",")) <= only:
@@ -4819,11 +4997,12 @@ def main(argv=None) -> int:
         if "pp" in only:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_pp_") as tmp:
                 summary["pp"], launches["pp"] = pp_phase(torch, Path(tmp), smi)
+        if "tp" in only:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+                summary["tp"], launches["tp"] = tp_phase(torch, Path(tmp), smi)
         if "plan" in only:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_plan_") as tmp:
-                summary["plan"] = plan_phase(
-                    torch, Path(tmp), smi,
-                    summary.get("trainer", {}).get("max_memory_allocated_gb"))
+                summary["plan"] = plan_phase(torch, Path(tmp), smi)
         end_phase()
         summary["phase_s"] = {name: t for name, _, t in _PHASES_RUN}
         LOG_DIR.mkdir(parents=True, exist_ok=True)

@@ -267,18 +267,22 @@ def test_make_mesh_groups_on_four_ranks(tmp_path):
         assert int(got["sp_sum"]) == 2 * dp_rank + (2 * dp_rank + 1)
 
 
-def test_sdxl_trainer_refuses_more_than_one_process(monkeypatch):
-    """On more than one process the SDXL trainer takes data parallelism
-    (``tests/test_torch_port_sdxl_dp.py``) and refuses tensor parallelism
-    by name."""
+def test_sdxl_trainer_refuses_more_than_one_process(monkeypatch, capsys):
+    """On two processes the SDXL trainer's config lays out data
+    parallelism (``tests/test_torch_port_sdxl_dp.py``), and with
+    ``TENSOR_PARALLEL_SIZE`` 2 a dp 1 x tp 2 mesh, which nothing refuses any
+    more (``tests/test_torch_port_tp_ranks.py`` trains on it)."""
     from aozora_sdxl_training_tpu_torch.train import trainer
     monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.delenv("AOZORA_DEVICES", raising=False)
     config = RuntimeConfig({**FLAT, "TRAINING_MODE": "SDXL"}, validate_resume_paths=False)
-    trainer._refuse_unported(config)
+    assert port_shard.resolve_mesh_layout(config)[1:3] == (2, 1)
     config = RuntimeConfig({**FLAT, "TRAINING_MODE": "SDXL", "TENSOR_PARALLEL_SIZE": 2},
                            validate_resume_paths=False)
-    with pytest.raises(NotImplementedError, match="TENSOR_PARALLEL_SIZE > 1"):
-        trainer._refuse_unported(config)
+    layout = port_shard.resolve_mesh_layout(config)
+    assert (layout.dp, layout.tp, layout.sp, layout.pp, layout.use_mesh) == (1, 2, 1, 1, True)
+    assert "WARNING" not in capsys.readouterr().out
+    assert not hasattr(trainer, "_refuse_unported")
 
 
 def test_dp_run_shards_half_the_state_on_each_rank(runs):

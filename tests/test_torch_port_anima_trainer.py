@@ -10,8 +10,8 @@
   packages' noise functions, and their losses and saved DiTs agree; the
   port saves at each optimizer step and, within the same patches, resumes
   from optimizer step 1's files with the unbroken run's losses;
-* the CLI refuses to run without CUDA unless asked for the CPU, every
-  option the port does not have yet is refused by name, and each forced
+* the CLI refuses to run without CUDA unless asked for the CPU, the
+  multi-rank options fall back on one process as in JAX, and each forced
   low-memory rung runs, saves and prints the JAX planner's lines.
 """
 
@@ -408,32 +408,21 @@ def test_cli_raises_without_cuda_unless_cpu_is_asked_for(monkeypatch):
         port_cli.main(["--config", "missing.json"])
 
 
-@pytest.mark.parametrize("overrides,match", [
-    # sequence parallelism is ported; combined with TP it is refused by TP
-    pytest.param({"SEQUENCE_PARALLEL_SIZE": 2, "TENSOR_PARALLEL_SIZE": 2}, "PARALLEL",
-                 id="overrides0-PARALLEL"),
-    pytest.param({"TENSOR_PARALLEL_SIZE": 2}, "PARALLEL", id="overrides2-PARALLEL"),
-])
-def test_unported_options_are_refused(tmp_path, overrides, match):
-    _build_env(tmp_path)
-    config = RuntimeConfig(_flat(tmp_path, "out", **overrides),
-                           validate_resume_paths=False)
-    with pytest.raises(NotImplementedError, match=match):
-        port_trainer.run_anima_training(config, device="cpu")
-    assert not (tmp_path / "out" / "anima_run.safetensors").exists()
-
-
 @pytest.mark.parametrize("overrides", [
     {"PIPELINE_PARALLEL_SIZE": 2},
     {"PIPELINE_PARALLEL_SIZE": 2, "ANIMA_PIPELINE_MICROBATCHES": 3},
     {"SEQUENCE_PARALLEL_SIZE": 2, "PIPELINE_PARALLEL_SIZE": 2},
-], ids=["pp2", "pp2_microbatches_3", "sp2_pp2"])
+    {"TENSOR_PARALLEL_SIZE": 2},
+    {"SEQUENCE_PARALLEL_SIZE": 2, "TENSOR_PARALLEL_SIZE": 2},
+], ids=["pp2", "pp2_microbatches_3", "sp2_pp2", "tp2", "sp2_tp2"])
 def test_multi_rank_options_fall_back_on_one_process(tmp_path, monkeypatch, capsys,
                                                       overrides):
-    """Pipeline and sequence parallelism are ported (on ranks:
-    ``tests/test_torch_port_anima_pp.py``); on one process the layout
-    falls back as the JAX package's does, with its WARNING lines (the
-    microbatch count is not checked once pp is 1), and the run trains."""
+    """Pipeline, sequence and tensor parallelism are ported (on ranks:
+    ``tests/test_torch_port_anima_pp.py``, ``test_torch_port_anima_sp.py``,
+    ``test_torch_port_tp_ranks.py``); on one process the layout falls back
+    as the JAX package's does, with its WARNING lines (tp alone: it does
+    not divide 1 device; sp with tp: they cannot combine; the microbatch
+    count is not checked once pp is 1), and the run trains."""
     _build_env(tmp_path)
     monkeypatch.setenv("AOZORA_DEVICES", "1")
     monkeypatch.delenv("WORLD_SIZE", raising=False)
@@ -518,7 +507,6 @@ def test_fp32_master_dtypes_pass_the_check(tmp_path, master):
     config = RuntimeConfig(_flat(tmp_path, "out", MASTER_DTYPE=master),
                            validate_resume_paths=False)
     assert config.MASTER_DTYPE == master
-    port_trainer._refuse_unported(config)
 
 
 def test_profiler_traces_micro_steps_3_to_8(tmp_path, monkeypatch):

@@ -618,6 +618,42 @@ def test_fsdp_collectives_over_gloo_on_cuda_tensors(cuda_device, tmp_path):
 
 
 @pytest.mark.cuda
+def test_tp_functions_over_gloo_on_cuda_tensors(cuda_device, tmp_path):
+    """Two gloo ranks on the one card (``tests/test_torch_port_ranks.py``,
+    task ``tp``), one tp group: "reduce" sums the ranks' inputs (its
+    gradient the rank's own upstream one), "copy" is the identity (its
+    gradient the sum of the ranks' upstream ones), "gather" concatenates
+    the ranks' columns (its gradient the rank's columns of the upstream
+    one), "scatter" keeps the rank's columns (its gradient gathered); on
+    the card, in fp32 (exact up to the sums' order) and bf16."""
+    import numpy as np
+    from tests.test_torch_port_ranks import run_task
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2, 3, 5, 8)).astype(np.float32)
+    arrays = {"x": x, "device": "cuda",
+              "g_reduce": rng.normal(size=(2, 3, 5, 8)).astype(np.float32),
+              "g_copy": rng.normal(size=(2, 3, 5, 8)).astype(np.float32),
+              "g_gather": rng.normal(size=(2, 3, 5, 16)).astype(np.float32),
+              "g_scatter": rng.normal(size=(2, 3, 5, 4)).astype(np.float32)}
+    np.savez(tmp_path / "inputs.npz", **arrays)
+    ranks = run_task("tp", 2, tmp_path / "inputs.npz", tmp_path, timeout=180)
+    for r, got in enumerate(ranks):
+        g = {k: arrays[f"g_{k}"] for k in ("reduce", "copy", "gather", "scatter")}
+        want = {"reduce": (x.sum(0), g["reduce"][r]),
+                "copy": (x[r], g["copy"].sum(0)),
+                "gather": (np.concatenate([x[0], x[1]], axis=-1),
+                           g["gather"][r][..., 8 * r:8 * (r + 1)]),
+                "scatter": (x[r][..., 4 * r:4 * (r + 1)],
+                            np.concatenate([g["scatter"][0], g["scatter"][1]], axis=-1))}
+        for tag, tol in (("float32", 1e-6), ("bfloat16", 2e-2)):
+            for kind, (out, grad) in want.items():
+                assert str(got[f"{tag}.{kind}.device"]).startswith("cuda")
+                np.testing.assert_allclose(got[f"{tag}.{kind}.out"], out, rtol=tol, atol=tol)
+                np.testing.assert_allclose(got[f"{tag}.{kind}.grad"], grad, rtol=tol, atol=tol)
+        assert all(int(got[f"bytes.{k}"]) > 0 for k in ("reduce", "copy", "gather", "scatter"))
+
+
+@pytest.mark.cuda
 def test_p2p_hop_over_gloo_on_cuda_tensors(cuda_device, tmp_path):
     """``parallel.p2p.exchange`` between two gloo ranks on the one card
     (``tests/test_torch_port_ranks.py``, task ``hop``): gloo's own

@@ -14,6 +14,7 @@ Run as a module, a rank runs one task of the tests:
     python -m tests.test_torch_port_ranks fsdp inputs.npz out_prefix
     python -m tests.test_torch_port_ranks pipeline inputs.npz out_prefix
     python -m tests.test_torch_port_ranks hop inputs.npz out_prefix
+    python -m tests.test_torch_port_ranks tp inputs.npz out_prefix
 
 and writes ``<out_prefix>_<rank>.npz``. Or it runs the port's SDXL CLI on
 a preset (the CLI starts the process group), with the trainer's noise
@@ -24,9 +25,11 @@ back out through ``save_train_state`` (every rank joins the gathers):
 
 or the port's Anima CLI with FSDP's threshold lowered to ``min_elements``
 (TINY models have no tensor of the JAX package's 2^16 elements), computing
-in fp32 where ``fp32`` is given:
+in fp32 where the comma list ``flags`` holds ``fp32``, taking the cache
+as current (a synthetic one without sources) where it holds ``nocache``,
+and its noise table[micro_step] from ``noise.npy`` where one is given:
 
-    python -m tests.test_torch_port_ranks anima_cli min_elements preset.json [fp32]
+    python -m tests.test_torch_port_ranks anima_cli min_elements preset.json [flags [noise.npy]]
 
 This module imports no JAX; its own tests check the launcher.
 """
@@ -158,17 +161,18 @@ def _dit(inputs, group, n):
 
 
 def _mesh(inputs, group, n):
-    """make_mesh's dp and sp groups: this rank's indices and the sums of the
-    global ranks in each of its two groups."""
+    """make_mesh's dp and sp (or, given ``tp``, tp) groups: this rank's
+    indices and the sums of the global ranks in each of its two groups."""
     import torch
     import torch.distributed as dist
     from aozora_sdxl_training_tpu_torch.parallel import sharding
-    mesh = sharding.make_mesh(dp=int(inputs["dp"]), sp=int(inputs["sp"]))
+    axis = "tp" if "tp" in inputs else "sp"
+    mesh = sharding.make_mesh(dp=int(inputs["dp"]), **{axis: int(inputs[axis])})
     sums = [torch.tensor([dist.get_rank()]) for _ in range(2)]
     dist.all_reduce(sums[0], group=mesh.dp_group)
-    dist.all_reduce(sums[1], group=mesh.sp_group)
-    return {"dp_rank": mesh.dp_rank, "sp_rank": mesh.sp_rank,
-            "dp_sum": sums[0].item(), "sp_sum": sums[1].item()}
+    dist.all_reduce(sums[1], group=getattr(mesh, f"{axis}_group"))
+    return {"dp_rank": mesh.dp_rank, f"{axis}_rank": getattr(mesh, f"{axis}_rank"),
+            "dp_sum": sums[0].item(), f"{axis}_sum": sums[1].item()}
 
 
 def _fsdp(inputs, group, n):
@@ -229,6 +233,32 @@ def _hop(inputs, group, n):
         (got,) = p2p.exchange([(sent, (rank + 1) % n)], [(sent, (rank - 1) % n)], group)
         out[f"{name}.bits"] = got.view(bits).cpu().numpy()
         out[f"{name}.device"] = str(got.device)
+    return out
+
+
+def _tp(inputs, group, n):
+    """The four functions of a tp region (``parallel/tensor_parallel.py``)
+    over the world as one tp group, on ``device``, in fp32 and bf16: each
+    rank's ``x[rank]`` through "reduce", "copy", "gather" and "scatter",
+    and the gradients of sum(out * ``g[rank]``) for each; the outputs and
+    gradients, and the bytes each function put into its collective."""
+    import torch
+    import torch.distributed as dist
+    from aozora_sdxl_training_tpu_torch.parallel.tensor_parallel import TPConfig
+    rank, device = dist.get_rank(), torch.device(str(inputs["device"]))
+    tp = TPConfig(group, n, rank)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        for kind in ("reduce", "copy", "gather", "scatter"):
+            x = torch.from_numpy(inputs["x"][rank]).to(device, dtype).requires_grad_(True)
+            y = getattr(tp, kind)(x)
+            g = torch.from_numpy(inputs[f"g_{kind}"][rank]).to(device, dtype)
+            (y * g).sum().backward()
+            out[f"{tag}.{kind}.out"] = y.detach().float().cpu().numpy()
+            out[f"{tag}.{kind}.grad"] = x.grad.float().cpu().numpy()
+            out[f"{tag}.{kind}.device"] = str(y.device)
+    out.update({f"bytes.{k}": v for k, v in tp.stats.items()})
     return out
 
 
@@ -349,11 +379,21 @@ def sdxl_cli(noise: str, preset: str, restored: str) -> int:
     return 0
 
 
-def anima_cli(min_elements: str, preset: str, fp32: str = "") -> int:
+def anima_cli(min_elements: str, preset: str, flags: str = "", noise: str = "") -> int:
     from aozora_sdxl_training_tpu_torch.cli import train_anima
     from aozora_sdxl_training_tpu_torch.parallel import sharding
     sharding.MIN_SHARD_ELEMENTS = int(min_elements)
-    if fp32:
+    if noise:
+        import torch
+        from aozora_sdxl_training_tpu_torch.train import objectives
+        table = np.load(noise)
+        objectives.noise_for_step = (
+            lambda seed, ms, shape, device: torch.from_numpy(table[ms]).to(device))
+    flags = flags.split(",")
+    if "nocache" in flags:
+        from aozora_sdxl_training_tpu_torch.train import anima_trainer
+        anima_trainer.check_if_anima_caching_needed = lambda config: False
+    if "fp32" in flags:
         import torch
         from aozora_sdxl_training_tpu_torch.config.runtime import RuntimeConfig
         parse = RuntimeConfig.from_argv
@@ -380,7 +420,7 @@ def main(argv) -> int:
     try:
         n, rank = dist.get_world_size(), dist.get_rank()
         result = {"ring": _ring, "dit": _dit, "mesh": _mesh, "fsdp": _fsdp,
-                  "pipeline": _pipeline, "hop": _hop}[task](
+                  "pipeline": _pipeline, "hop": _hop, "tp": _tp}[task](
             dict(np.load(inputs)), dist.group.WORLD, n)
         np.savez(f"{prefix}_{rank}.npz", **result)
     finally:
